@@ -1,0 +1,421 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one CUDA card and check what comes out.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run when it fails:
+
+1. Build the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+   print nvcc's ``-Xptxas -v`` report and the card.
+2. Hold every kernel of the main path against its plain PyTorch version on
+   the card, at the shapes the full-width TinyLlama-1.1B round gives it
+   (plus unaligned offsets and ragged shapes), forward values and autograd
+   gradients; time each beside its plain version, one library call for the
+   same function and its f32 bound on an H100.
+3. Run one round of the reduced model on the card and on the CPU (the plain
+   versions) from the same params, tokens and windows, and hold the two
+   against each other.
+4. The main path: the shared-window federated round on full-width
+   TinyLlama-1.1B (22 layers, f32, 4 clients x 2 local steps x 2 x 256
+   tokens), through ``api.fed_round`` and ``api.Trainer``, 3 rounds, with
+   every kernel's launch count read before and after; then one more round
+   under ``torch.profiler`` for the device time by kernel group.
+
+The last lines are the ``{"kernels": [...]}`` record, the card's name and
+power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  With no
+card, or without the repository beside it, the script fails and prints no
+result.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# One H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores, HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# kernel vs plain version: f32 both, different summation order; bounded
+# relative to the output's largest magnitude
+MM_RTOL = 1e-4
+ROUND_TOL = 1e-4          # reduced round, card vs CPU (losses and params)
+
+C, M, D = 4, 512, 2048    # clients, tokens per client (2 x 256), d_model
+SRC = "src/repro_torch/kernels/csrc/"
+TPU = "src/repro/kernels/"
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def err(a, b):
+    d = (a - b).abs().max().item()
+    return d, d / max(b.abs().max().item(), 1e-30)
+
+
+# -- phase 1 ------------------------------------------------------------------
+
+
+def phase_build(_build):
+    t0 = time.time()
+    path, log = _build.build()
+    _build.library()
+    print(f"[build] {path.name} in {time.time() - t0:.1f} s")
+    for line in log.splitlines():
+        if "ptxas info" in line or line.startswith("=="):
+            print(f"[build] {line.strip()}")
+
+
+def nvidia_smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# -- phase 2 ------------------------------------------------------------------
+
+
+# (kernel, TPU row, TPU function, T, N, win, offset, direction) at the main
+# path's shapes: the q projection (heads window 16 of 32 at offset 16, i.e.
+# 1024 of 2048 columns) and the gate/up pair (d_ff window 2816 of 5632)
+ROLLING = [
+    ("rolling_mm_fwd<1>", 5, "rolling_matmul_batched.py:60", 1, 2048, 1024,
+     1024, "fwd"),
+    ("rolling_mm_dx<1>", 6, "rolling_matmul_batched.py:110", 1, 2048, 1024,
+     1024, "dx"),
+    ("rolling_mm_fwd<2>", 7, "rolling_matmul_batched.py:164", 2, 5632, 2816,
+     2816, "fwd"),
+    ("rolling_mm_dx<2>", 8, "rolling_matmul_batched.py:219", 2, 5632, 2816,
+     2816, "dx"),
+]
+# further correctness cases (C, M, K, N, win, per-client offsets): the k/v
+# projections, unaligned and per-client offsets, ragged shapes
+EXTRA = [
+    (C, M, D, 256, 128, [128] * C),
+    (C, M, D, 256, 128, [0, 37, 128, 5]),
+    (3, 300, 1000, 777, 333, [0, 17, 444]),
+    (C, M, D, 5632, 2816, [1, 2815, 2816, 100]),
+]
+
+
+def phase_kernels(dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.masked_update import sgd_
+    from repro_torch.kernels.rolling_matmul import (make_offsets,
+                                                    rolling_matmul_batched,
+                                                    rolling_mm_dx,
+                                                    rolling_mm_fwd)
+    g = torch.Generator(dev).manual_seed(0)
+    rows = []
+
+    for (c, m, k, n, win, offs) in EXTRA:
+        for T in (1, 2):
+            x = torch.randn((c, m, k), device=dev, generator=g)
+            ws = [torch.randn((c, k, n), device=dev, generator=g)
+                  for _ in range(T)]
+            dys = [torch.randn((c, m, win), device=dev, generator=g)
+                   for _ in range(T)]
+            o = make_offsets(offs, dev)
+            for y, yr in zip(rolling_mm_fwd(x, ws, o, win),
+                             ref.rolling_matmul_batched_ref(x, ws, offs,
+                                                            win)):
+                check(err(y, yr)[1] <= MM_RTOL,
+                      f"fwd<{T}> {tuple(x.shape)} win {win} off {offs}: "
+                      f"{err(y, yr)}")
+            e = err(rolling_mm_dx(dys, ws, o, win),
+                    ref.rolling_matmul_batched_dx_ref(dys, ws, offs, win))
+            check(e[1] <= MM_RTOL, f"dx<{T}> {tuple(x.shape)} win {win} "
+                  f"off {offs}: {e}")
+    print(f"[kernels] {len(EXTRA) * 2 * 2} extra shape/offset checks "
+          f"within {MM_RTOL} of max|plain|")
+
+    for name, row, tpu_fn, T, N, win, off, kind in ROLLING:
+        x = torch.randn((C, M, D), device=dev, generator=g)
+        ws = [torch.randn((C, D, N), device=dev, generator=g)
+              for _ in range(T)]
+        dys = [torch.randn((C, M, win), device=dev, generator=g)
+               for _ in range(T)]
+        offs = [off] * C
+        o = make_offsets(offs, dev)
+        views = [w[:, :, off:off + win] for w in ws]
+        flops = 2 * C * T * M * D * win
+        if kind == "fwd":
+            kern = lambda: rolling_mm_fwd(x, ws, o, win)            # noqa
+            plain = lambda: ref.rolling_matmul_batched_ref(x, ws, offs,  # noqa
+                                                           win)
+            lib = lambda: [torch.bmm(x, v) for v in views]         # noqa
+            out, want = kern(), plain()
+            e = max((err(a, b) for a, b in zip(out, want)),
+                    key=lambda t: t[1])
+            nbytes = 4 * (C * M * D + T * C * D * win + T * C * M * win)
+            shape = {"x": [C, M, D], "W": [T, C, D, N], "win": win}
+        else:
+            kern = lambda: rolling_mm_dx(dys, ws, o, win)          # noqa
+            plain = lambda: ref.rolling_matmul_batched_dx_ref(  # noqa
+                dys, ws, offs, win)
+
+            def lib():
+                acc = torch.bmm(dys[0], views[0].mT)
+                for d, v in zip(dys[1:], views[1:]):
+                    acc = torch.baddbmm(acc, d, v.mT)
+                return acc
+            e = err(kern(), plain())
+            nbytes = 4 * (T * C * M * win + T * C * D * win + C * M * D)
+            shape = {"dy": [T, C, M, win], "W": [T, C, D, N], "win": win}
+        check(e[1] <= MM_RTOL, f"{name} at {shape}: {e}")
+        b_ms, b_by = bound(flops, nbytes)
+        k_ms = cuda_ms(kern)
+        rows.append(dict(
+            name=name, route="cuda", source=SRC + "rolling_mm.cu",
+            replaces=TPU + tpu_fn, tpu_row=row, shape=shape,
+            max_abs_err=e[0], max_rel_err=e[1], tolerance=MM_RTOL,
+            ms=k_ms, kernel_ms=k_ms, plain_ms=cuda_ms(plain),
+            library_ms=cuda_ms(lib), library_calls=T,
+            bound_ms=b_ms, bound_by=b_by))
+
+    # autograd through the Function at the gate/up shape against plain
+    # autograd on the window views
+    T, N, win, off = 2, 5632, 2816, 2816
+    x = torch.randn((C, M, D), device=dev, generator=g, requires_grad=True)
+    ws = [torch.randn((C, D, N), device=dev, generator=g,
+                      requires_grad=True) for _ in range(T)]
+    dys = [torch.randn((C, M, win), device=dev, generator=g)
+           for _ in range(T)]
+    ys = rolling_matmul_batched(x, ws, make_offsets([off] * C, dev), win)
+    got = torch.autograd.grad(ys, [x, *ws], dys)
+    ys_ref = ref.rolling_matmul_batched_ref(x, ws, [off] * C, win)
+    want = torch.autograd.grad(ys_ref, [x, *ws], dys)
+    for name, a, b in zip(("dx", "dW_gate", "dW_up"), got, want):
+        e = err(a, b)
+        check(e[1] <= MM_RTOL, f"autograd {name}: {e}")
+        print(f"[kernels] autograd {name} max abs err {e[0]:.3g} "
+              f"(rel {e[1]:.3g})")
+    del x, ws, dys, ys, got, ys_ref, want
+
+    # the SGD step on the largest leaf, and on a ragged misaligned one
+    n = C * D * 5632
+    w = torch.randn(n, device=dev, generator=g)
+    gr = torch.randn(n, device=dev, generator=g)
+    for lo, size in ((0, n), (1, 1_000_003)):
+        a = sgd_(w[lo:lo + size].clone(), gr[lo:lo + size], 0.1)
+        b = ref.sgd_ref(w[lo:lo + size].clone(), gr[lo:lo + size], 0.1)
+        check(torch.equal(a, b), f"sgd_inplace not bit-exact at {lo}+{size}")
+    b_ms, b_by = bound(2 * n, 12 * n)
+    k_ms = cuda_ms(lambda: sgd_(w, gr, 1e-6))
+    rows.append(dict(
+        name="sgd_inplace", route="cuda", source=SRC + "sgd.cu",
+        replaces=TPU + "masked_update.py:53", tpu_row=10,
+        shape={"w": [C, D, 5632]}, max_abs_err=0.0, max_rel_err=0.0,
+        tolerance=0.0, ms=k_ms, kernel_ms=k_ms,
+        plain_ms=cuda_ms(lambda: ref.sgd_ref(w, gr, 1e-6)),
+        library_ms=cuda_ms(lambda: w.add_(gr, alpha=-1e-6)),
+        library_calls=1, bound_ms=b_ms, bound_by=b_by))
+    for r in rows:
+        print(f"[kernels] {r['name']:18s} err {r['max_abs_err']:.3g} "
+              f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']})")
+    return rows
+
+
+# -- phase 3 ------------------------------------------------------------------
+
+
+def phase_small_agreement(dev):
+    """One reduced round on the card against the same round on the CPU."""
+    from repro_torch import api
+    from repro_torch.configs.base import SubmodelConfig, get_reduced_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    cfg = get_reduced_config("tinyllama_1_1b")
+    model = build_model(cfg)
+    scfg = SubmodelConfig(scheme="rolling", capacity=0.5, local_steps=2,
+                          clients_per_round=4, client_lr=0.1,
+                          axes=("d_ff", "heads", "kv_heads"))
+    p_cpu = model.init(0, device="cpu")
+    p_gpu = {k: v.to(dev, copy=True) for k, v in p_cpu.items()}
+    batches = lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0)
+    batch = next(batches)
+    outs = {}
+    for where, params in (("cpu", p_cpu), ("card", p_gpu)):
+        fed = api.fed_round(model, scfg, device=params["embed"].device)
+        trainer = api.Trainer(fed, params)
+        trainer.run(iter([batch, batch]), 2)
+        outs[where] = (trainer.history, trainer.params)
+    (h_c, p_c), (h_g, p_g) = outs["cpu"], outs["card"]
+    dl = max((a["client_loss"].cpu() - b["client_loss"]).abs().max().item()
+             for a, b in zip(h_g, h_c))
+    dp = max((p_g[k].cpu() - p_c[k]).abs().max().item() for k in p_c)
+    check(dl <= ROUND_TOL and dp <= ROUND_TOL,
+          f"reduced round on the card disagrees with the CPU: loss {dl}, "
+          f"params {dp}")
+    print(f"[agree] reduced 2-round card vs CPU: max |d loss| {dl:.3g}, "
+          f"max |d param| {dp:.3g} (tolerance {ROUND_TOL})")
+
+
+# -- phase 4 ------------------------------------------------------------------
+
+
+def phase_main_path(dev, _build):
+    from repro_torch import api
+    from repro_torch.configs.base import SubmodelConfig, get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    cfg = get_config("tinyllama_1_1b")
+    model = build_model(cfg)
+    scfg = SubmodelConfig(scheme="rolling", capacity=0.5, local_steps=2,
+                          clients_per_round=4, client_lr=0.1,
+                          axes=("d_ff", "heads", "kv_heads"))
+    batches = lm_batches(cfg.vocab, (2, 4, 2), seq=256)
+    rounds = 3
+    data = [next(batches) for _ in range(rounds)]
+    params = model.init(seed=0, device=dev)
+    fed = api.fed_round(model, scfg, device=dev)
+    trainer = api.Trainer(fed, params)
+    n_params = sum(v.numel() for v in params.values())
+    windows = {f"{k[0]}/{k[1]}": w for k, w in fed.scheme.sizes.items()}
+    print(f"[main] {cfg.name}: {cfg.n_layers} layers, {n_params:,} params, "
+          f"f32; windows {windows}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    secs = []
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        trainer.run(iter(data[r:r + 1]), 1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses = trainer.losses
+    client = [h["client_loss"].cpu().tolist() for h in trainer.history]
+    print(f"[main] round losses {losses}")
+    print(f"[main] client losses [K, C] per round {client}")
+    print(f"[main] seconds per round {secs}; after the first "
+          f"{float(np.mean(secs[1:])):.3f} s")
+    print(f"[main] peak memory allocated {peak / 2**30:.2f} GiB")
+    print(f"[main] kernel launches {launches}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(all(h["client_loss"].shape == (2, 4) for h in trainer.history),
+          "client_loss is not [K=2, C=4]")
+    bad = [k for k, v in trainer.params.items()
+           if not torch.isfinite(v).all()]
+    check(not bad, f"non-finite params {bad[:5]}")
+    return launches, trainer, data[0], float(np.mean(secs[1:]))
+
+
+def _kernel_group(name):
+    for key, group in (("rolling_mm_fwd", "rolling_mm_fwd (port)"),
+                       ("rolling_mm_dx", "rolling_mm_dx (port)"),
+                       ("sgd_inplace", "sgd_inplace (port)"),
+                       ("gemm", "cuBLAS gemm (bmm, addmm)"),
+                       ("elementwise", "elementwise"),
+                       ("reduce", "reductions"),
+                       ("Memcpy", "copies"), ("Memset", "fills")):
+        if key in name:
+            return group
+    return "other"
+
+
+def phase_profile(trainer, batch, round_s):
+    """One more round (after the counted ones) under torch.profiler:
+    device time by kernel group, and its share of an unprofiled round's
+    wall time ``round_s`` (the profiled round's own wall time carries the
+    profiler's host cost, so it is printed but not divided by)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.run(iter([batch]), 1)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    kern = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not kern:
+        print("[profile] the trace holds no device time: not measured")
+        return
+    total = sum(t for _, t, _ in kern)
+    groups = {}
+    for name, t, _ in kern:
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + t
+    print(f"[profile] one round: device kernels {total:.1f} ms = "
+          f"{100 * total / (1e3 * round_s):.1f}% of an unprofiled round "
+          f"({1e3 * round_s:.1f} ms); profiled wall {wall_ms:.1f} ms")
+    for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[profile] {g:26s} {t:9.2f} ms {100 * t / total:5.1f}%")
+    for name, t, n in sorted(kern, key=lambda r: -r[1])[:12]:
+        print(f"[profile]   {t:9.2f} ms x{n:<5d} {name[:100]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's check needs the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 everywhere
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    print(f"[card] {kind}; {smi}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}")
+
+    phase_build(_build)
+    rows = phase_kernels(dev)
+    phase_small_agreement(dev)
+    launches, trainer, batch, round_s = phase_main_path(dev, _build)
+    phase_profile(trainer, batch, round_s)
+    for r in rows:
+        r["launches"] = launches.get(r["name"], 0)
+    missing = [r["name"] for r in rows if r["launches"] == 0]
+    check(not missing, f"kernels never launched on the main path: {missing}")
+
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,114 @@
+"""Model and sub-model configuration, the port's own copy.
+
+Ports ``ModelConfig``, ``SubmodelConfig``, ``_shrink``, ``get_config`` and
+``get_reduced_config`` of ``repro/configs/base.py``.  Field names and
+defaults are the reference's, so one config means the same model in both
+packages.  The registry holds only the architectures the port can run; the
+family extensions (``moe``, ``ssm``, ``mla``, ...) keep their fields, and
+the model refuses them until they are ported.
+"""
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass, replace
+from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0              # derived if 0: d_model // n_heads
+    norm_eps: float = 1e-5
+    rope_theta: float = 10_000.0
+    pos_embed: str = "rope"        # rope | sinusoidal | none
+    qk_norm: bool = False
+    sliding_window: int = 0        # 0 = full attention
+    tie_embeddings: bool = False
+    act: str = "silu"
+    moe: Optional[Any] = None
+    n_dense_layers: int = 0
+    ssm: Optional[Any] = None
+    mla: Optional[Any] = None
+    hybrid: bool = False
+    mtp: bool = False
+    n_codebooks: int = 0
+    vision_stub: bool = False
+    vision_d: int = 1024
+    vision_patches: int = 256
+    source: str = ""               # citation
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+
+@dataclass(frozen=True)
+class SubmodelConfig:
+    """Configuration of distributed sub-model training (Alg. 1 / Alg. 2):
+    which semantic ``axes`` are windowed, the per-axis ``capacity``, the
+    selection ``scheme``, K ``local_steps``, C ``clients_per_round`` and
+    the client/server learning rates.  Same fields and defaults as
+    ``repro.configs.base.SubmodelConfig``."""
+
+    scheme: str = "rolling"        # rolling | random | static | full
+    capacity: float = 0.5          # beta: fraction of each maskable axis
+    axes: Tuple[str, ...] = ("d_ff", "heads", "kv_heads", "experts",
+                             "ssm_heads", "moe_d_ff")
+    local_steps: int = 2           # K
+    clients_per_round: int = 16    # C
+    client_lr: float = 0.05        # eta
+    server_lr: float = 1.0
+    proj_radius: float = 0.0       # W: l2 projection radius (0 = off)
+    seed: int = 0
+    wrap: bool = False
+    align: int = 1                 # round window sizes/offsets to multiples
+    stagger: bool = False          # rolling: rotate window per client
+    shared_window: Optional[bool] = None
+
+
+ARCHS = ["tinyllama_1_1b"]
+
+_ALIAS = {a.replace("_", "-"): a for a in ARCHS}
+
+
+def _module(arch: str):
+    arch = _ALIAS.get(arch, arch).replace("-", "_")
+    if arch not in ARCHS:
+        raise NotImplementedError(
+            f"architecture {arch!r} is not ported yet (ROADMAP.md queue A); "
+            f"the port runs {ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_reduced_config(arch: str) -> ModelConfig:
+    """CPU smoke-test variant: <=2 layers, d_model<=256."""
+    return _module(arch).reduced()
+
+
+def _shrink(cfg: ModelConfig, **over) -> ModelConfig:
+    """Generic reduction preserving the family structure (the reference's
+    rule for the dense family)."""
+    base = dict(
+        n_layers=2,
+        d_model=min(cfg.d_model, 256),
+        n_heads=min(cfg.n_heads, 8),
+        n_kv_heads=min(cfg.n_kv_heads, 4),
+        d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
+        vocab=min(cfg.vocab, 512),
+        head_dim=32,
+        vision_patches=min(cfg.vision_patches, 16),
+        vision_d=min(cfg.vision_d, 64),
+    )
+    base.update(over)
+    return replace(cfg, name=cfg.name + "-reduced", **base)

@@ -1,0 +1,67 @@
+"""Weights carried between the JAX package's layout and the port's.
+
+The reference keeps params as a nested dict whose ``layers`` subtree stacks
+every layer on a leading axis; the port keeps a flat ``{path: tensor}``
+dict with one leaf per layer (``layers/3/mlp/w_gate``), so that indexing a
+layer never makes autograd build a full-stack zero gradient.  Both
+directions copy values exactly.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+STACKED = "layers"
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        p = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _flatten(v, p)
+        else:
+            yield p, v
+
+
+def from_reference(params_np, device="cuda") -> Dict[str, torch.Tensor]:
+    """Nested dict of numpy arrays (reference layout) -> the port's flat
+    dict on ``device``, splitting the stacked ``layers`` axis."""
+    dev = resolve_device(device)
+    out = {}
+    for path, v in _flatten(params_np):
+        v = np.asarray(v)
+        head, _, rest = path.partition("/")
+        if head == STACKED:
+            for i in range(v.shape[0]):
+                out[f"{STACKED}/{i}/{rest}"] = torch.tensor(v[i], device=dev)
+        else:
+            out[path] = torch.tensor(v, device=dev)
+    return out
+
+
+def to_reference(params) -> dict:
+    """The port's flat dict -> nested dict of numpy arrays with the layers
+    re-stacked (the inverse of :func:`from_reference`)."""
+    stacks: Dict[str, Dict[int, np.ndarray]] = {}
+    tree: dict = {}
+    for path, v in params.items():
+        arr = v.detach().cpu().numpy()
+        parts = path.split("/")
+        if parts[0] == STACKED:
+            stacks.setdefault("/".join(parts[2:]), {})[int(parts[1])] = arr
+            continue
+        _insert(tree, parts, arr)
+    for rest, layers in stacks.items():
+        _insert(tree, [STACKED] + rest.split("/"),
+                np.stack([layers[i] for i in range(len(layers))]))
+    return tree
+
+
+def _insert(tree, parts, value):
+    for q in parts[:-1]:
+        tree = tree.setdefault(q, {})
+    tree[parts[-1]] = value

@@ -1,0 +1,156 @@
+"""Sub-model window schemes.
+
+Ports ``collect_axis_dims``, ``capacity_size``, ``WindowScheme`` (sizes,
+grids, GQA-derived axes, ``grid_multiple``, ``offsets``) and ``make_scheme``
+of ``repro/core/masking.py`` for the ``full``, ``static`` and ``rolling``
+schemes.  Offsets are host integers, one per client.
+
+The rolling permutation of epoch ``e`` comes from a ``torch.Generator``
+seeded by ``(cfg.seed, e)``; it is a different order from the reference's
+``jax.random.permutation`` (``masking.py:167``), so the round also accepts
+injected offsets, which is how the tests hold it against the reference.
+The grids, and so the set of windows an epoch visits, are the same.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import SubmodelConfig
+
+AxisKey = Tuple[str, int]  # (semantic name, full dim size)
+
+NEVER_WINDOWED = {"layers", "vocab", "classes", "head_dim", "ssm_head_dim",
+                  "ssm_state", "conv_w", "conv_kh", "conv_kw", "mla_q_rank",
+                  "mla_kv_rank", "rope_dim", "v_head_dim", "codebooks",
+                  "vision_d", "none"}
+
+
+def collect_axis_dims(shapes, axes) -> Dict[AxisKey, None]:
+    """Every (axis name, size) pair in the model; ``shapes`` and ``axes``
+    are flat ``{path: ...}`` dicts."""
+    dims: Dict[AxisKey, None] = {}
+    for path, shape in shapes.items():
+        for d, name in zip(shape, axes[path]):
+            if name not in NEVER_WINDOWED:
+                dims[(name, int(d))] = None
+    return dims
+
+
+def _align_down(x, a):
+    return (x // a) * a
+
+
+def capacity_size(capacity: float, n: int, align: int) -> int:
+    """Window length for an axis of size ``n`` at fraction ``capacity``,
+    aligned down to ``align`` (never below one aligned block, never above
+    ``n``)."""
+    a = min(align, n)
+    w = max(a, _align_down(int(round(capacity * n)), a))
+    return min(w, n)
+
+
+def _epoch_permutation(seed: int, epoch: int, n: int) -> List[int]:
+    gen = torch.Generator().manual_seed(
+        (int(seed) * 1_000_003 + int(epoch)) % (1 << 63))
+    return torch.randperm(n, generator=gen).tolist()
+
+
+@dataclass
+class WindowScheme:
+    """Resolved window plan for one (model, SubmodelConfig) pair."""
+
+    cfg: SubmodelConfig
+    sizes: Dict[AxisKey, int]                    # static window length
+    grids: Dict[AxisKey, List[int]]              # rolling offset grid [R]
+    derived: Dict[AxisKey, Tuple[AxisKey, int]]  # heads <- (kv_heads, group)
+    n_windows: int                               # R
+
+    def grid_multiple(self, key: AxisKey) -> int:
+        """The gcd of every offset the scheme can produce for ``key`` (0
+        when it is always 0).  The CUDA kernels take any offset, so the
+        port needs no alignment certificate; this mirrors the reference's
+        plan for comparison."""
+        if key in self.derived:
+            src, group = self.derived[key]
+            return self.grid_multiple(src) * group
+        if self.cfg.scheme in ("full", "static"):
+            return 0
+        return int(np.gcd.reduce(np.asarray(self.grids[key])))
+
+    def offsets(self, round_idx: int, n_clients: int
+                ) -> Dict[AxisKey, List[int]]:
+        """Per-client offsets ``{axis: [C] ints}`` for this round."""
+        c = self.cfg
+        prim = [k for k in self.sizes if k not in self.derived]
+        out = {}
+        if c.scheme in ("full", "static"):
+            for k in prim:
+                out[k] = [0] * n_clients
+        elif c.scheme == "rolling":
+            if c.stagger:
+                raise NotImplementedError(
+                    "staggered rolling windows are not ported yet "
+                    "(ROADMAP.md queue A, per-client windows)")
+            R = self.n_windows
+            perm = _epoch_permutation(c.seed, round_idx // R, R)
+            for k in prim:
+                out[k] = [self.grids[k][perm[round_idx % R]]] * n_clients
+        else:
+            raise NotImplementedError(
+                f"scheme {c.scheme!r} is not ported yet (ROADMAP.md queue A)")
+        for k, (src, group) in self.derived.items():
+            out[k] = [o * group for o in out[src]]
+        return out
+
+
+def make_scheme(submodel_cfg: SubmodelConfig, axis_dims) -> WindowScheme:
+    c = submodel_cfg
+    windowed = [(name, n) for (name, n) in axis_dims
+                if name in c.axes and c.capacity < 1.0 and c.scheme != "full"]
+
+    # GQA coupling: window kv_heads as primary, heads derived
+    derived = {}
+    kv_keys = {n: (name, n) for (name, n) in windowed if name == "kv_heads"}
+    for (name, n) in windowed:
+        if name == "heads":
+            for kvn, kvk in kv_keys.items():
+                if n % kvn == 0:
+                    derived[(name, n)] = (kvk, n // kvn)
+
+    sizes, grids = {}, {}
+    for key in windowed:
+        if key in derived:
+            continue  # size derived below
+        name, n = key
+        a = min(c.align, n)
+        w = capacity_size(c.capacity, n, c.align)
+        sizes[key] = w
+        R = max(1, math.ceil(n / w))
+        if R == 1:
+            grids[key] = [0]
+            continue
+        g = [_align_down(round(i * (n - w) / (R - 1)), a) for i in range(R)]
+        g[-1] = n - w          # tail coverage: the exact last offset
+        step = max(_align_down(w, a), a)
+        out = [g[0]]
+        for o in g[1:]:        # fill holes so the windows cover every unit
+            if o == out[-1]:
+                continue
+            while o - out[-1] > w:
+                out.append(out[-1] + step)
+            out.append(o)
+        grids[key] = out
+
+    n_windows = max([len(g) for g in grids.values()] + [1])
+    for k, g in grids.items():   # re-pad grids to a common R (cycle)
+        if len(g) < n_windows:
+            grids[k] = (g * math.ceil(n_windows / len(g)))[:n_windows]
+    for k, (src, group) in derived.items():
+        sizes[k] = sizes[src] * group
+    return WindowScheme(cfg=c, sizes=sizes, grids=grids, derived=derived,
+                        n_windows=n_windows)

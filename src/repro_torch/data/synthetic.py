@@ -1,0 +1,41 @@
+"""Synthetic language-model data, the port's own numpy copy.
+
+Ports ``BigramLM`` and ``lm_batches`` of ``repro/data/synthetic.py`` line
+for line, so one seed gives the same tokens in both packages.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+class BigramLM:
+    """Markov-chain token source: each class of batch follows a sparse
+    bigram table, giving a learnable next-token distribution."""
+
+    def __init__(self, vocab, seed=0, branching=4):
+        rng = np.random.default_rng(seed)
+        self.vocab = vocab
+        self.next_tokens = rng.integers(0, vocab, size=(vocab, branching))
+        self.probs = rng.dirichlet(np.ones(branching), size=vocab)
+
+    def sample(self, rng, batch, seq):
+        toks = np.empty((batch, seq), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab, size=batch)
+        for t in range(1, seq):
+            prev = toks[:, t - 1]
+            choice = np.array([rng.choice(self.next_tokens.shape[1],
+                                          p=self.probs[p]) for p in prev])
+            toks[:, t] = self.next_tokens[prev, choice]
+        return toks
+
+
+def lm_batches(vocab, batch_shape, seq, seed=0):
+    """Infinite iterator of ``{"tokens": int32 array}`` batches shaped
+    ``batch_shape + (seq,)``; ``batch_shape`` is ``(K, C, mb)`` for a
+    federated round."""
+    src = BigramLM(vocab, seed)
+    rng = np.random.default_rng(seed + 1)
+    flat = int(np.prod(batch_shape))
+    while True:
+        toks = src.sample(rng, flat, seq).reshape(tuple(batch_shape) + (seq,))
+        yield {"tokens": toks}

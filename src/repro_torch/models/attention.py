@@ -1,0 +1,111 @@
+"""GQA attention, training path.
+
+Ports ``attn_params``, ``_qkv``, ``blockwise_attention`` and ``gqa_train`` of
+``repro/models/attention.py``.  ``blockwise_attention`` is plain jnp in the
+reference, so it is plain torch here: the same online softmax over kv
+chunks, with the same chunk bounds for causal and sliding-window masks.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import ParamBuilder, apply_rope, head_proj
+
+NEG_INF = -1e30
+
+
+def attn_params(b: ParamBuilder, prefix, cfg):
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b.dense(f"{prefix}/wq", (D, H, hd), ("d_model", "heads", "head_dim"))
+    b.dense(f"{prefix}/wk", (D, KV, hd), ("d_model", "kv_heads", "head_dim"))
+    b.dense(f"{prefix}/wv", (D, KV, hd), ("d_model", "kv_heads", "head_dim"))
+    b.dense(f"{prefix}/wo", (H, hd, D), ("heads", "head_dim", "d_model"),
+            scale=0.02 / math.sqrt(2 * max(cfg.n_layers, 1)))
+
+
+def blockwise_attention(q, k, v, *, causal=True, window=0, q_chunk=512,
+                        kv_chunk=512, softmax_scale=None):
+    """q ``[B, Sq, H, hd]``; k, v ``[B, Sk, KV, hd]``; H % KV == 0.
+    Returns ``[B, Sq, H, hd]``.  Only the kv chunks a q chunk can see are
+    visited."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = softmax_scale or 1.0 / math.sqrt(hd)
+    q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Sk)
+    nq, nk = Sq // q_chunk, Sk // kv_chunk
+    qg = q.reshape(B, Sq, KV, G, hd)
+    q_off = Sk - Sq                     # q positions = q_off + [0..Sq)
+    ar_q = torch.arange(q_chunk, device=q.device)
+    ar_k = torch.arange(kv_chunk, device=q.device)
+    outs = []
+    for qi in range(nq):
+        qc = qg[:, qi * q_chunk:(qi + 1) * q_chunk]   # [B, Qc, KV, G, hd]
+        qpos = q_off + qi * q_chunk + ar_q
+        m = torch.full((B, KV, G, q_chunk), NEG_INF, device=q.device)
+        l = torch.zeros((B, KV, G, q_chunk), device=q.device)
+        acc = torch.zeros((B, KV, G, q_chunk, hd), device=q.device)
+        if causal or window:
+            last = (q_off + (qi + 1) * q_chunk - 1) // kv_chunk
+            first = (max(0, (q_off + qi * q_chunk - window + 1) // kv_chunk)
+                     if window else 0)
+            kv_range = range(first, last + 1)
+        else:
+            kv_range = range(nk)
+        for kj in kv_range:
+            kc = k[:, kj * kv_chunk:(kj + 1) * kv_chunk]
+            vc = v[:, kj * kv_chunk:(kj + 1) * kv_chunk]
+            kpos = kj * kv_chunk + ar_k
+            s = torch.einsum("bqkgd,bskd->bkgqs", qc, kc).float() * scale
+            valid = (qpos[:, None] >= kpos[None, :] if causal else
+                     torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                                device=q.device))
+            if window:
+                valid = valid & ((qpos[:, None] - kpos[None, :]) < window)
+            s = torch.where(valid, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(vc.dtype), vc).float()
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        # [B, KV, G, Qc, hd] -> [B, Qc, H, hd]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _qkv(p, x, cfg, positions, window=None):
+    """q/k/v projections; ``window`` (a ``WindowMap`` or None) windows the
+    q heads and the k/v kv-heads (GQA-coupled upstream by the scheme)."""
+    hspec = window.get("heads", p["wq"].shape[2]) if window else None
+    kvspec = window.get("kv_heads", p["wk"].shape[2]) if window else None
+    q = head_proj(x, p["wq"], hspec)
+    k = head_proj(x, p["wk"], kvspec)
+    v = head_proj(x, p["wv"], kvspec)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_train(p, x, cfg, positions, window=None):
+    """x ``[C, B, S, D]`` with per-client weights ``[C, ...]``; the client
+    dimension folds into attention's batch."""
+    C, B, S, D = x.shape
+    q, k, v = _qkv(p, x, cfg, positions, window=window)
+    fold = (lambda t: t.reshape(C * B, S, t.shape[-2], t.shape[-1]))
+    out = blockwise_attention(fold(q), fold(k), fold(v), causal=True,
+                              window=cfg.sliding_window)
+    wo = p["wo"]
+    hspec = window.get("heads", wo.shape[1]) if window else None
+    if hspec is not None:
+        # the contraction runs over the active heads only: a view of the
+        # output projection's rows (grads land as exact zeros outside)
+        o = hspec.shared_offset()
+        wo = wo[:, o:o + hspec.win]
+    Hw, hd = wo.shape[1], wo.shape[2]
+    out = torch.bmm(out.reshape(C, B * S, Hw * hd), wo.reshape(C, Hw * hd, D))
+    return out.reshape(C, B, S, D)

@@ -1,0 +1,208 @@
+"""Layer primitives and axis-tagged parameter construction.
+
+Ports ``repro/models/layers.py``: ``AxisWindow``, ``WindowMap``,
+``ParamBuilder``, ``rms_norm``, ``apply_rope``, ``act_fn``, ``mlp_apply``,
+``mlp_apply_rolling``, ``head_proj`` and ``softmax_xent``.
+
+Params are a flat ``{path: tensor}`` dict with a parallel ``{path: axis
+tags}`` dict; paths are the reference's ``tree_paths`` with the stacked
+``layers`` axis split into one leaf per layer (``layers/3/mlp/w_gate``).
+Inside the model every leaf carries a leading client dimension ``[C, ...]``
+(one model is C = 1): the federated round trains C copies at once, and the
+windowed products read each client's own copy.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.rolling_matmul import (Offsets, make_offsets,
+                                                rolling_matmul_batched)
+
+
+class AxisWindow:
+    """Active window of one windowed axis, in axis units: one offset per
+    client (host integers) and a static width ``win``."""
+
+    def __init__(self, offsets, win: int):
+        self.offsets = tuple(int(o) for o in offsets)
+        self.win = int(win)
+        self._cols: Dict[Tuple[int, str], Offsets] = {}
+
+    def cols(self, scale: int, device) -> Offsets:
+        """Offsets scaled to columns (a head window covers ``scale =
+        head_dim`` columns per head), on ``device``; made once per window."""
+        key = (int(scale), str(device))
+        if key not in self._cols:
+            self._cols[key] = make_offsets([o * scale for o in self.offsets],
+                                           device)
+        return self._cols[key]
+
+    def shared_offset(self) -> int:
+        """The one offset every client shares (the shared-window round)."""
+        if len(set(self.offsets)) != 1:
+            raise NotImplementedError(
+                "per-client (staggered) windows are not ported yet "
+                "(ROADMAP.md queue A, per-client windows)")
+        return self.offsets[0]
+
+
+class WindowMap:
+    """Per-axis windows for the fused forward, keyed by ``(axis name, full
+    size)`` like the reference's ``WindowScheme`` keys."""
+
+    SUPPORTED = ("d_ff", "heads", "kv_heads")
+
+    def __init__(self, windows: Dict[Tuple[str, int], AxisWindow]):
+        self.windows = {}
+        for (name, size), spec in windows.items():
+            if name not in self.SUPPORTED:
+                raise NotImplementedError(
+                    f"axis {name!r} has no window-aware forward in the port "
+                    f"yet; it supports {self.SUPPORTED}")
+            self.windows[(name, int(size))] = spec
+
+    def get(self, name: str, size) -> Optional[AxisWindow]:
+        return self.windows.get((name, int(size)))
+
+
+# ---------------------------------------------------------------------------
+# Axis-tagged parameter building
+# ---------------------------------------------------------------------------
+
+
+class ParamBuilder:
+    """Collects ``{path: tensor}`` f32 params and ``{path: axes}`` tags.
+    Weights are drawn from one ``torch.Generator`` on ``device`` (the
+    ``meta`` device builds shapes only)."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.gen = None
+        if self.device.type != "meta":
+            self.gen = torch.Generator(self.device).manual_seed(int(seed))
+        self.params: Dict[str, torch.Tensor] = {}
+        self.axes: Dict[str, Tuple[str, ...]] = {}
+
+    def _put(self, path, value, axes):
+        if value.dim() != len(axes) or path in self.params:
+            raise ValueError(f"bad or duplicate param {path}: "
+                             f"{tuple(value.shape)} {axes}")
+        self.params[path] = value
+        self.axes[path] = tuple(axes)
+
+    def dense(self, path, shape, axes, scale=None):
+        """Normal(0, scale) weight; the reference's fan-in rule."""
+        if scale is None:
+            fan = [s for s, ax in zip(shape, axes)
+                   if ax not in ("heads", "kv_heads")][:-1]
+            scale = 1.0 / math.sqrt(max(math.prod(fan) or shape[0], 1))
+        w = torch.empty(shape, dtype=torch.float32, device=self.device)
+        if self.gen is not None:
+            w.normal_(0.0, scale, generator=self.gen)
+        self._put(path, w, axes)
+
+    def const(self, path, shape, axes, value=0.0):
+        self._put(path, torch.full(shape, value, dtype=torch.float32,
+                                   device=self.device), axes)
+
+
+# ---------------------------------------------------------------------------
+# Norms / activations / positions
+# ---------------------------------------------------------------------------
+
+
+def _per_client(w, x):
+    """A ``[C, n]`` per-client vector broadcast against ``x [C, ..., n]``."""
+    return w.reshape(w.shape[0], *([1] * (x.dim() - 2)), w.shape[-1])
+
+
+def rms_norm(x, w, eps=1e-5):
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * _per_client(w, x)
+
+
+def act_fn(name):
+    return {"silu": F.silu, "gelu": F.gelu, "relu": F.relu}[name]
+
+
+def apply_rope(x, positions, theta):
+    """x: ``[..., S, H, hd]``; positions: ``[S]``."""
+    hd = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                          device=x.device) / hd))
+    angles = positions[:, None].float() * freqs          # [S, hd/2]
+    cos = torch.cos(angles)[:, None, :]                  # [S, 1, hd/2]
+    sin = torch.sin(angles)[:, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_params(b: ParamBuilder, prefix, d_model, d_ff):
+    b.dense(f"{prefix}/w_gate", (d_model, d_ff), ("d_model", "d_ff"))
+    b.dense(f"{prefix}/w_up", (d_model, d_ff), ("d_model", "d_ff"))
+    b.dense(f"{prefix}/w_down", (d_ff, d_model), ("d_ff", "d_model"))
+
+
+def _rows(x):
+    """``[C, *lead, D]`` -> ``[C, M, D]`` (a view)."""
+    return x.reshape(x.shape[0], -1, x.shape[-1])
+
+
+def mlp_apply(p, x, act="silu"):
+    x2 = _rows(x)
+    g = act_fn(act)(torch.bmm(x2, p["w_gate"]))
+    out = torch.bmm(g * torch.bmm(x2, p["w_up"]), p["w_down"])
+    return out.reshape(x.shape)
+
+
+def mlp_apply_rolling(p, x, spec: AxisWindow, act="silu"):
+    """Gated MLP on the FULL weights reading only the active ``d_ff``
+    window: the gate/up pair goes through one T = 2 windowed product (the
+    ``rolling_mm_fwd<2>`` kernel on the card), and ``w_down``'s row window
+    is a view, not a copy (the reference's ``dynamic_slice``)."""
+    x2 = _rows(x)
+    gy, u = rolling_matmul_batched(
+        x2, (p["w_gate"], p["w_up"]), spec.cols(1, x.device), spec.win)
+    o = spec.shared_offset()
+    w_down = p["w_down"][:, o:o + spec.win]
+    out = torch.bmm(act_fn(act)(gy) * u, w_down)
+    return out.reshape(x.shape)
+
+
+def head_proj(x, w, spec: Optional[AxisWindow]):
+    """``x [C, *lead, D] @ w [C, D, H, hd]`` restricted to the head window
+    ``spec`` (head units): a windowed product on the head-flattened
+    ``[C, D, H*hd]`` layout, so inactive heads' columns are never read."""
+    C, D, H, hd = w.shape
+    lead = x.shape[1:-1]
+    w2 = w.reshape(C, D, H * hd)
+    if spec is None:
+        return torch.bmm(_rows(x), w2).reshape(C, *lead, H, hd)
+    (y,) = rolling_matmul_batched(_rows(x), (w2,), spec.cols(hd, x.device),
+                                  spec.win * hd)
+    return y.reshape(C, *lead, spec.win, hd)
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits, labels):
+    """Per-client mean token cross-entropy: logits ``[C, ..., V]`` (f32
+    upcast), labels int ``[C, ...]``; returns ``[C]``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return (lse - picked).reshape(logits.shape[0], -1).mean(dim=1)

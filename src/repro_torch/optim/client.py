@@ -1,0 +1,49 @@
+"""Client (local-step) optimizers of the round.
+
+Ports ``ClientOpt``, ``client_sgd`` and ``resolve_client_opt`` of
+``repro/optim/client.py``.  The paper's local update ``w <- w - lr * g``
+goes through the SGD kernel (``kernels.masked_update.sgd_``), in place on
+each client's copy.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from repro_torch.kernels.masked_update import sgd_
+
+
+class ClientOpt(NamedTuple):
+    """(init, update) pair over per-client ``{path: [C, ...]}`` params.
+
+    init:   (params) -> state
+    update: (params, grads, state, lr) -> (params, state), in place
+    """
+
+    name: str
+    init: Callable
+    update: Callable
+
+
+def client_sgd():
+    """The paper's local update: w <- w - lr * g."""
+
+    def init(params):
+        return ()
+
+    def update(params, grads, state, lr):
+        for path, p in params.items():
+            sgd_(p, grads[path], lr)
+        return params, state
+
+    return ClientOpt("sgd", init, update)
+
+
+def resolve_client_opt(client_opt) -> ClientOpt:
+    """None or ``"sgd"`` -> the paper's SGD; a ClientOpt -> itself."""
+    if client_opt is None or client_opt == "sgd":
+        return client_sgd()
+    if isinstance(client_opt, ClientOpt):
+        return client_opt
+    raise NotImplementedError(
+        f"client optimizer {client_opt!r} is not ported yet (ROADMAP.md "
+        "queue A, optimizers and the uplink)")

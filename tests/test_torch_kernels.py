@@ -1,0 +1,284 @@
+"""The port's kernels held against the JAX reference and against their
+plain versions.
+
+On the CPU every wrapper runs its plain PyTorch version (``kernels.ref``);
+those are held against the reference's jnp arms (``repro.kernels.ref`` and
+``repro.kernels.dispatch`` with ``backend="jnp"``), values and ``jax.vjp``
+gradients.  Tolerance: float32, atol 1e-5 and rtol 1e-5 -- the two
+frameworks sum the products of a matmul in different orders, which moves
+results by a few ulp at these contraction lengths (<= 200).
+
+The ``gpu`` tests launch the CUDA kernels and hold them against the plain
+versions on the card; they decide inside the test whether a card is
+present and skip without one.  They need no JAX, so they also run where
+JAX is not installed, without the repository's conftest (which imports
+it)::
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu \
+        tests/test_torch_kernels.py
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.masked_update import sgd_  # noqa: E402
+from repro_torch.kernels.ref import (rolling_matmul_batched_dx_ref,  # noqa
+                                     rolling_matmul_batched_ref, sgd_ref)
+from repro_torch.kernels.rolling_matmul import (make_offsets,  # noqa: E402
+                                                rolling_matmul_batched,
+                                                rolling_mm_dx, rolling_mm_fwd)
+
+ATOL = RTOL = 1e-5
+
+C, M, K, N, WIN = 3, 24, 40, 96, 32
+# per-client offsets: block-aligned, unaligned, and the exact tail N - WIN
+OFFSETS = {"aligned": [0, 32, 64], "unaligned": [5, 37, 64]}
+
+
+def _data(T, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((C, M, K)).astype(np.float32)
+    ws = [rng.standard_normal((C, K, N)).astype(np.float32)
+          for _ in range(T)]
+    dys = [rng.standard_normal((C, M, WIN)).astype(np.float32)
+           for _ in range(T)]
+    return x, ws, dys
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX reference's oracles, imported at test time so that the
+    ``gpu`` tests run where JAX is not installed."""
+    jax = pytest.importorskip("jax")
+    from repro.kernels import dispatch, ref
+    return SimpleNamespace(jax=jax, jnp=jax.numpy, dispatch=dispatch, ref=ref)
+
+
+def _close(a, b):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("kind", sorted(OFFSETS))
+def test_rolling_fwd_matches_reference_oracle(jx, kind):
+    x, (w,), _ = _data(1)
+    offs = OFFSETS[kind]
+    want = jx.jax.vmap(jx.ref.rolling_matmul_ref, in_axes=(0, 0, 0, None))(
+        jx.jnp.asarray(x), jx.jnp.asarray(w),
+        jx.jnp.asarray(offs, jx.jnp.int32), WIN)
+    (got,) = rolling_matmul_batched_ref(torch.tensor(x), [torch.tensor(w)],
+                                        offs, WIN)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("kind", sorted(OFFSETS))
+def test_rolling_batched_values_and_vjp_match_dispatch(jx, kind):
+    """T = 1, per-client offsets: the autograd Function on the CPU against
+    ``dispatch.rolling_matmul_batched`` and its custom VJP."""
+    x, (w,), (dy,) = _data(1, seed=1)
+    offs = OFFSETS[kind]
+    jnp = jx.jnp
+
+    def f(x_, w_):
+        return jx.dispatch.rolling_matmul_batched(
+            x_, w_, jnp.asarray(offs, jnp.int32), WIN, backend="jnp")
+
+    y_ref, vjp = jx.jax.vjp(f, jnp.asarray(x), jnp.asarray(w))
+    dx_ref, dw_ref = vjp(jnp.asarray(dy))
+
+    xt = torch.tensor(x, requires_grad=True)
+    wt = torch.tensor(w, requires_grad=True)
+    (y,) = rolling_matmul_batched(xt, (wt,), make_offsets(offs, "cpu"), WIN)
+    y.backward(torch.tensor(dy))
+    _close(y.detach(), y_ref)
+    _close(xt.grad, dx_ref)
+    _close(wt.grad, dw_ref)
+    # outside each client's window the weight gradient is exactly zero
+    for c, o in enumerate(offs):
+        outside = torch.cat([wt.grad[c, :, :o], wt.grad[c, :, o + WIN:]], 1)
+        assert torch.count_nonzero(outside) == 0
+
+
+@pytest.mark.parametrize("kind", sorted(OFFSETS))
+def test_rolling_multi_values_and_vjp_match_dispatch(jx, kind):
+    """T = 2 (the gate/up pair), one shared offset, per-client weights:
+    against ``dispatch.rolling_matmul_multi`` under the client vmap."""
+    x, ws, dys = _data(2, seed=2)
+    off = OFFSETS[kind][1]
+    jnp = jx.jnp
+
+    def f(x_, w0, w1):
+        return jx.jax.vmap(lambda a, b, c: jx.dispatch.rolling_matmul_multi(
+            a, (b, c), off, WIN, backend="jnp"))(x_, w0, w1)
+
+    ys_ref, vjp = jx.jax.vjp(f, jnp.asarray(x), *map(jnp.asarray, ws))
+    dx_ref, dw0_ref, dw1_ref = vjp(tuple(map(jnp.asarray, dys)))
+
+    xt = torch.tensor(x, requires_grad=True)
+    wts = [torch.tensor(w, requires_grad=True) for w in ws]
+    ys = rolling_matmul_batched(xt, wts, make_offsets([off] * C, "cpu"), WIN)
+    torch.autograd.backward(ys, [torch.tensor(d) for d in dys])
+    for y, yr in zip(ys, ys_ref):
+        _close(y.detach(), yr)
+    _close(xt.grad, dx_ref)
+    _close(wts[0].grad, dw0_ref)
+    _close(wts[1].grad, dw1_ref)
+
+
+@pytest.mark.parametrize("T", [1, 2])
+def test_rolling_dx_plain_matches_reference_transpose(jx, T):
+    """The dx plain version against the reference's oracle dx: the sum over
+    weights of ``dy @ W[:, window]^T``, per client."""
+    _, ws, dys = _data(T, seed=3)
+    offs = OFFSETS["unaligned"]
+    jax, jnp = jx.jax, jx.jnp
+
+    def one(d, w_, o):
+        wsub = jax.lax.dynamic_slice_in_dim(w_, o, WIN, axis=1)
+        return jax.lax.dot_general(d, wsub, (((1,), (1,)), ((), ())))
+
+    want = 0
+    for dy, w in zip(dys, ws):
+        want = want + jax.vmap(one)(jnp.asarray(dy), jnp.asarray(w),
+                                    jnp.asarray(offs, jnp.int32))
+    got = rolling_matmul_batched_dx_ref([torch.tensor(d) for d in dys],
+                                        [torch.tensor(w) for w in ws], offs,
+                                        WIN)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("shape", [(4, 33, 7), (1000,), (3, 1)])
+def test_sgd_plain_matches_dispatch_sgd_step(jx, shape):
+    rng = np.random.default_rng(4)
+    p = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    want = jx.dispatch.sgd_step({"w": jx.jnp.asarray(p)},
+                                {"w": jx.jnp.asarray(g)}, 0.1,
+                                backend="jnp")["w"]
+    w = torch.tensor(p)
+    out = sgd_(w, torch.tensor(g), 0.1)
+    assert out is w                          # in place
+    _close(w, want)
+
+
+def test_cpu_calls_are_not_kernel_launches():
+    """On CPU tensors the wrappers run the plain versions and count no
+    launch."""
+    before = dict(_build.LAUNCHES)
+    x, ws, dys = _data(2)
+    offs = make_offsets(OFFSETS["aligned"], "cpu")
+    rolling_mm_fwd(torch.tensor(x), [torch.tensor(w) for w in ws], offs, WIN)
+    rolling_mm_dx([torch.tensor(d) for d in dys],
+                  [torch.tensor(w) for w in ws], offs, WIN)
+    sgd_(torch.zeros(8), torch.ones(8), 0.5)
+    assert dict(_build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("bad", ["float64", "noncontig_x", "offset_range",
+                                 "clients", "weight_rows", "three_weights"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x, ws, _ = _data(1)
+    xt, wt = torch.tensor(x), torch.tensor(ws[0])
+    offs, win, wts = OFFSETS["aligned"], WIN, [wt]
+    if bad == "float64":
+        xt = xt.double()
+    elif bad == "noncontig_x":
+        xt = torch.tensor(np.ascontiguousarray(x.transpose(0, 2, 1))).mT
+    elif bad == "offset_range":
+        offs = [0, 32, N - WIN + 1]
+    elif bad == "clients":
+        offs = offs[:2]
+    elif bad == "weight_rows":
+        wts = [wt.mT.contiguous().mT]
+    elif bad == "three_weights":
+        wts = [wt, wt, wt]
+    with pytest.raises((ValueError, TypeError)):
+        rolling_mm_fwd(xt, wts, make_offsets(offs, "cpu"), win)
+
+
+def test_sgd_rejects_mismatched_operands():
+    with pytest.raises(ValueError):
+        sgd_(torch.zeros(4), torch.zeros(5), 0.1)
+    with pytest.raises(TypeError):
+        sgd_(torch.zeros(4, dtype=torch.float64), torch.zeros(4), 0.1)
+
+
+# -- on the card: the CUDA kernels against their plain versions --------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; none is present")
+    return torch.device("cuda")
+
+
+# f32 on both sides, different summation order: relative to the output's
+# largest magnitude, a few ulp times sqrt(contraction length)
+GPU_RTOL = 1e-4
+
+
+def _gpu_close(a, b):
+    scale = b.abs().max().clamp_min(1.0)
+    assert (a - b).abs().max() <= GPU_RTOL * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("shape", [(C, M, K, N, WIN),
+                                   (4, 300, 1000, 777, 333)])
+def test_gpu_rolling_kernels_match_plain(cuda, T, shape):
+    c, m, k, n, win = shape
+    g = torch.Generator(cuda).manual_seed(T)
+    x = torch.randn((c, m, k), device=cuda, generator=g)
+    ws = [torch.randn((c, k, n), device=cuda, generator=g) for _ in range(T)]
+    dys = [torch.randn((c, m, win), device=cuda, generator=g)
+           for _ in range(T)]
+    offs = [(17 * i) % (n - win + 1) for i in range(c)]
+    o = make_offsets(offs, cuda)
+    n_fwd = _build.LAUNCHES[f"rolling_mm_fwd<{T}>"]
+    ys = rolling_mm_fwd(x, ws, o, win)
+    dx = rolling_mm_dx(dys, ws, o, win)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"rolling_mm_fwd<{T}>"] == n_fwd + 1
+    for y, yr in zip(ys, rolling_matmul_batched_ref(x, ws, offs, win)):
+        _gpu_close(y, yr)
+    _gpu_close(dx, rolling_matmul_batched_dx_ref(dys, ws, offs, win))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4099, 1 << 20])
+def test_gpu_sgd_kernel_is_bit_exact_to_plain(cuda, n):
+    g = torch.Generator(cuda).manual_seed(n)
+    w = torch.randn(n + 1, device=cuda, generator=g)
+    gr = torch.randn(n + 1, device=cuda, generator=g)
+    for lo in (0, 1):        # 16-byte aligned, then misaligned views
+        want = sgd_ref(w[lo:lo + n].clone(), gr[lo:lo + n], 0.05)
+        got = sgd_(w[lo:lo + n].clone(), gr[lo:lo + n], 0.05)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2])
+def test_gpu_autograd_function_matches_plain_autograd(cuda, T):
+    """dx through the kernel and the dW window writes, against autograd
+    through the plain version, with per-client offsets."""
+    c, m, k, n, win = 3, 70, 96, 130, 50
+    g = torch.Generator(cuda).manual_seed(10 + T)
+    x = torch.randn((c, m, k), device=cuda, generator=g, requires_grad=True)
+    ws = [torch.randn((c, k, n), device=cuda, generator=g,
+                      requires_grad=True) for _ in range(T)]
+    dys = [torch.randn((c, m, win), device=cuda, generator=g)
+           for _ in range(T)]
+    offs = [0, 33, n - win]
+    got = torch.autograd.grad(
+        rolling_matmul_batched(x, ws, make_offsets(offs, cuda), win),
+        [x, *ws], dys)
+    want = torch.autograd.grad(
+        rolling_matmul_batched_ref(x, ws, offs, win), [x, *ws], dys)
+    for a, b in zip(got, want):
+        _gpu_close(a, b)
