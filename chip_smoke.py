@@ -7,25 +7,36 @@ Phases, each of which fails the run when it fails:
 
 1. Build the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
    print nvcc's ``-Xptxas -v`` report and the card.
-2. Hold every kernel of the main path against its plain PyTorch version on
-   the card, at the shapes the full-width TinyLlama-1.1B round gives it
-   (plus unaligned offsets and ragged shapes), forward values and autograd
-   gradients; time each beside its plain version, one library call for the
-   same function and its f32 bound on an H100.
-3. Run one round of the reduced model on the card and on the CPU (the plain
-   versions) from the same params, tokens and windows, and hold the two
-   against each other.
-4. The main path: the shared-window federated round on full-width
+2. Hold every kernel of both paths against its plain PyTorch version on
+   the card, at the shapes the full-width TinyLlama-1.1B rounds give it
+   (plus unaligned offsets and ragged, misaligned lengths): the product
+   kernels' forward values and autograd gradients, and the three update
+   kernels bit for bit; time each beside its plain version, one library
+   call for the same function (where one exists) and its f32 bound on an
+   H100.
+3. Run two rounds of the reduced model on the card and on the CPU (the
+   plain versions) from the same params, tokens and windows or masks
+   (masks drawn on the CPU and copied), and hold the two against each
+   other: the window round, a Bernoulli mask round and a structured
+   rolling mask round at per-client capacities.
+4. The window path: the shared-window federated round on full-width
    TinyLlama-1.1B (22 layers, f32, 4 clients x 2 local steps x 2 x 256
    tokens), through ``api.fed_round`` and ``api.Trainer``, 3 rounds, with
    every kernel's launch count read before and after; then one more round
-   under ``torch.profiler`` for the device time by kernel group.
+   under ``torch.profiler`` for the device time by kernel group.  Its
+   trainer and params are freed before the next phase.
+4b. The mask path: the same configuration with ``scheme="bernoulli"``
+   (Algorithm 1, mask mode chosen by ``api.fed_round`` itself) through
+   ``api.Trainer(rng=0)``, 3 rounds, counted, checked and profiled the
+   same way; then the peak memory of one client phase run with the model
+   on ``w_c`` (what the round runs) and on the literal ``m * w_c``.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  With no
 card, or without the repository beside it, the script fails and prints no
 result.
 """
+import gc
 import json
 import math
 import subprocess
@@ -45,6 +56,7 @@ PEAK_BYTES = 3.35e12
 # relative to the output's largest magnitude
 MM_RTOL = 1e-4
 ROUND_TOL = 1e-4          # reduced round, card vs CPU (losses and params)
+HETERO = [1.0, 0.5, 0.25, 0.125]
 
 C, M, D = 4, 512, 2048    # clients, tokens per client (2 x 256), d_model
 SRC = "src/repro_torch/kernels/csrc/"
@@ -80,6 +92,18 @@ def bound(flops, nbytes):
 def err(a, b):
     d = (a - b).abs().max().item()
     return d, d / max(b.abs().max().item(), 1e-30)
+
+
+def bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def scfg_for(scheme):
+    """The main path's sub-model configuration, under ``scheme``."""
+    from repro_torch.configs.base import SubmodelConfig
+    return SubmodelConfig(scheme=scheme, capacity=0.5, local_steps=2,
+                          clients_per_round=4, client_lr=0.1,
+                          axes=("d_ff", "heads", "kv_heads"))
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -241,11 +265,76 @@ def phase_kernels(dev):
         plain_ms=cuda_ms(lambda: ref.sgd_ref(w, gr, 1e-6)),
         library_ms=cuda_ms(lambda: w.add_(gr, alpha=-1e-6)),
         library_calls=1, bound_ms=b_ms, bound_by=b_by))
+    del w, gr
+    rows += mask_kernels(dev, g)
     for r in rows:
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         print(f"[kernels] {r['name']:18s} err {r['max_abs_err']:.3g} "
               f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-              f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} "
-              f"ms ({r['bound_by']})")
+              f"library {lib}  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    return rows
+
+
+def mask_kernels(dev, g):
+    """The mask path's update kernels, bit for bit against their plain
+    versions: the masked step on the ``w_gate`` client leaf [4, 2048, 5632]
+    and on a ragged misaligned slice; the fill-in on the ``w_gate`` server
+    leaf [2048, 5632] for C in {3, 4} and server_lr in {1, 0.5}, and on a
+    ragged misaligned leaf."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.masked_update import fillin_agg_, masked_sgd_
+    rows = []
+    n = C * D * 5632
+    w = torch.randn(n, device=dev, generator=g)
+    m = (torch.rand(n, device=dev, generator=g) < 0.5).float()
+    gr = torch.randn(n, device=dev, generator=g)
+    for lo, size in ((0, n), (1, 1_000_003)):
+        sl = slice(lo, lo + size)
+        a = masked_sgd_(w[sl].clone(), m[sl], gr[sl], 0.1)
+        b = ref.masked_sgd_ref(w[sl].clone(), m[sl], gr[sl], 0.1)
+        check(bits_equal(a, b),
+              f"masked_sgd_inplace not bit-exact at {lo}+{size}")
+    b_ms, b_by = bound(3 * n, 16 * n)
+    k_ms = cuda_ms(lambda: masked_sgd_(w, m, gr, 1e-6))
+    rows.append(dict(
+        name="masked_sgd_inplace", route="cuda",
+        source=SRC + "masked_update.cu", replaces=TPU + "masked_update.py:33",
+        tpu_row=9, shape={"w": [C, D, 5632]}, max_abs_err=0.0,
+        max_rel_err=0.0, tolerance=0.0, ms=k_ms, kernel_ms=k_ms,
+        plain_ms=cuda_ms(lambda: ref.masked_sgd_ref(w, m, gr, 1e-6)),
+        library_ms=cuda_ms(lambda: w.addcmul_(m, gr, value=-1e-6)),
+        library_calls=1, bound_ms=b_ms, bound_by=b_by))
+    del w, m, gr
+
+    ns = D * 5632
+    w = torch.randn(ns, device=dev, generator=g)
+    for c in (3, 4):
+        wc = torch.randn((c, ns), device=dev, generator=g)
+        mc = (torch.rand((c, ns), device=dev, generator=g) < 0.5).float()
+        for slr in (1.0, 0.5):
+            for lo, size in ((0, ns), (1, 1_000_003)):
+                sl = slice(lo, lo + size)
+                cw = wc[:, :size].contiguous()
+                cm = mc[:, :size].contiguous()
+                a = fillin_agg_(w[sl].clone(), cw, cm, slr)
+                b = ref.fillin_agg_ref(w[sl].clone(), cw, cm, slr / c)
+                check(bits_equal(a, b), f"fillin_agg_inplace not bit-exact "
+                      f"at C={c} server_lr={slr} {lo}+{size}")
+    print("[kernels] update kernels bit-exact to their plain versions "
+          "(aligned, ragged and misaligned; fill-in C in {3, 4}, server_lr "
+          "in {1, 0.5})")
+    b_ms, b_by = bound((3 * C + 2) * ns, (8 + 8 * C) * ns)
+    k_ms = cuda_ms(lambda: fillin_agg_(w, wc, mc, 1.0))
+    rows.append(dict(
+        name="fillin_agg_inplace", route="cuda",
+        source=SRC + "masked_update.cu", replaces=TPU + "masked_update.py:79",
+        tpu_row=11, shape={"w": [D, 5632], "w_c": [C, D, 5632]},
+        max_abs_err=0.0, max_rel_err=0.0, tolerance=0.0, ms=k_ms,
+        kernel_ms=k_ms,
+        plain_ms=cuda_ms(lambda: ref.fillin_agg_ref(w, wc, mc, 1.0 / C)),
+        library_ms=None, library_calls=0, bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -253,16 +342,15 @@ def phase_kernels(dev):
 
 
 def phase_small_agreement(dev):
-    """One reduced round on the card against the same round on the CPU."""
+    """Two reduced window rounds on the card against the same rounds on
+    the CPU."""
     from repro_torch import api
-    from repro_torch.configs.base import SubmodelConfig, get_reduced_config
+    from repro_torch.configs.base import get_reduced_config
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     cfg = get_reduced_config("tinyllama_1_1b")
     model = build_model(cfg)
-    scfg = SubmodelConfig(scheme="rolling", capacity=0.5, local_steps=2,
-                          clients_per_round=4, client_lr=0.1,
-                          axes=("d_ff", "heads", "kv_heads"))
+    scfg = scfg_for("rolling")
     p_cpu = model.init(0, device="cpu")
     p_gpu = {k: v.to(dev, copy=True) for k, v in p_cpu.items()}
     batches = lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0)
@@ -284,61 +372,161 @@ def phase_small_agreement(dev):
           f"max |d param| {dp:.3g} (tolerance {ROUND_TOL})")
 
 
+def phase_small_agreement_mask(dev):
+    """Two reduced mask rounds on the card against the same rounds on the
+    CPU, with the masks drawn on the CPU and copied: Bernoulli masks, and
+    structured rolling masks at per-client capacities."""
+    from repro_torch import api
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.core.fedavg import dense_client_masks
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    cfg = get_reduced_config("tinyllama_1_1b")
+    model = build_model(cfg)
+    cpu = torch.device("cpu")
+    batch = next(lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0))
+    for scheme, caps in (("bernoulli", [0.5] * 4), ("rolling", HETERO)):
+        scfg = scfg_for(scheme)
+        masks = [dense_client_masks(torch.Generator().manual_seed(r),
+                                    model.abstract_params(), model.axes(),
+                                    scfg, caps, r, cpu) for r in range(2)]
+        p_cpu = model.init(0, device="cpu")
+        p_gpu = {k: v.to(dev, copy=True) for k, v in p_cpu.items()}
+        outs = {}
+        for where, params in (("cpu", p_cpu), ("card", p_gpu)):
+            fed = api.fed_round(model, scfg, mode="mask", capacities=caps,
+                                device=params["embed"].device)
+            trainer = api.Trainer(fed, params)
+            trainer.run(((batch, {"masks": m}) for m in masks), 2)
+            outs[where] = (trainer.history, trainer.params)
+        (h_c, p_c), (h_g, p_g) = outs["cpu"], outs["card"]
+        dl = max((a["client_loss"].cpu() - b["client_loss"]).abs().max()
+                 .item() for a, b in zip(h_g, h_c))
+        dp = max((p_g[k].cpu() - p_c[k]).abs().max().item() for k in p_c)
+        check(dl <= ROUND_TOL and dp <= ROUND_TOL,
+              f"reduced {scheme} mask round on the card disagrees with the "
+              f"CPU: loss {dl}, params {dp}")
+        print(f"[agree] reduced 2-round {scheme} mask round (capacities "
+              f"{caps}) card vs CPU: max |d loss| {dl:.3g}, max |d param| "
+              f"{dp:.3g} (tolerance {ROUND_TOL})")
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 
-def phase_main_path(dev, _build):
-    from repro_torch import api
-    from repro_torch.configs.base import SubmodelConfig, get_config
-    from repro_torch.data.synthetic import lm_batches
-    from repro_torch.models import build_model
-    cfg = get_config("tinyllama_1_1b")
-    model = build_model(cfg)
-    scfg = SubmodelConfig(scheme="rolling", capacity=0.5, local_steps=2,
-                          clients_per_round=4, client_lr=0.1,
-                          axes=("d_ff", "heads", "kv_heads"))
-    batches = lm_batches(cfg.vocab, (2, 4, 2), seq=256)
-    rounds = 3
-    data = [next(batches) for _ in range(rounds)]
-    params = model.init(seed=0, device=dev)
-    fed = api.fed_round(model, scfg, device=dev)
-    trainer = api.Trainer(fed, params)
-    n_params = sum(v.numel() for v in params.values())
-    windows = {f"{k[0]}/{k[1]}": w for k, w in fed.scheme.sizes.items()}
-    print(f"[main] {cfg.name}: {cfg.n_layers} layers, {n_params:,} params, "
-          f"f32; windows {windows}")
+def run_rounds(tag, trainer, data, _build):
+    """``len(data)`` rounds, each timed to a synchronize, with the kernel
+    launches counted from 0 and the peak memory from a reset; checks what
+    comes out and returns ``(launches, seconds per round after the
+    first)``."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     secs = []
-    for r in range(rounds):
+    for item in data:
         t0 = time.perf_counter()
-        trainer.run(iter(data[r:r + 1]), 1)
+        trainer.run(iter([item]), 1)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     losses = trainer.losses
     client = [h["client_loss"].cpu().tolist() for h in trainer.history]
-    print(f"[main] round losses {losses}")
-    print(f"[main] client losses [K, C] per round {client}")
-    print(f"[main] seconds per round {secs}; after the first "
+    print(f"[{tag}] round losses {losses}")
+    print(f"[{tag}] client losses [K, C] per round {client}")
+    print(f"[{tag}] seconds per round {secs}; after the first "
           f"{float(np.mean(secs[1:])):.3f} s")
-    print(f"[main] peak memory allocated {peak / 2**30:.2f} GiB")
-    print(f"[main] kernel launches {launches}")
-    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    print(f"[{tag}] peak memory allocated {peak / 2**30:.2f} GiB")
+    print(f"[{tag}] kernel launches {launches}")
+    check(all(math.isfinite(v) for v in losses), f"{tag} losses {losses}")
     check(all(h["client_loss"].shape == (2, 4) for h in trainer.history),
-          "client_loss is not [K=2, C=4]")
+          f"{tag} client_loss is not [K=2, C=4]")
     bad = [k for k, v in trainer.params.items()
            if not torch.isfinite(v).all()]
-    check(not bad, f"non-finite params {bad[:5]}")
-    return launches, trainer, data[0], float(np.mean(secs[1:]))
+    check(not bad, f"{tag} non-finite params {bad[:5]}")
+    return launches, float(np.mean(secs[1:]))
+
+
+def full_width(dev):
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    cfg = get_config("tinyllama_1_1b")
+    batches = lm_batches(cfg.vocab, (2, 4, 2), seq=256)
+    return cfg, build_model(cfg), [next(batches) for _ in range(3)]
+
+
+def phase_main_path(dev, _build):
+    from repro_torch import api
+    cfg, model, data = full_width(dev)
+    params = model.init(seed=0, device=dev)
+    fed = api.fed_round(model, scfg_for("rolling"), device=dev)
+    trainer = api.Trainer(fed, params)
+    n_params = sum(v.numel() for v in params.values())
+    windows = {f"{k[0]}/{k[1]}": w for k, w in fed.scheme.sizes.items()}
+    print(f"[main] {cfg.name}: {cfg.n_layers} layers, {n_params:,} params, "
+          f"f32; windows {windows}")
+    launches, round_s = run_rounds("main", trainer, data, _build)
+    return launches, trainer, data[0], round_s
+
+
+def phase_mask_path(dev, _build):
+    """The mask round (Algorithm 1) at full width: ``api.fed_round`` picks
+    mask mode for ``bernoulli`` by itself; every leaf's masked step runs
+    twice per round (K = 2) and its fill-in once."""
+    from repro_torch import api
+    cfg, model, data = full_width(dev)
+    params = model.init(seed=0, device=dev)
+    fed = api.fed_round(model, scfg_for("bernoulli"), device=dev)
+    check(isinstance(fed, api.MaskFedAvg),
+          f"bernoulli resolved to {type(fed).__name__}, not MaskFedAvg")
+    trainer = api.Trainer(fed, params, rng=0)
+    print(f"[mask] {cfg.name}: {len(params)} leaves, bernoulli masks at "
+          f"capacities {fed.capacities.tolist()}, Trainer(rng=0)")
+    launches, round_s = run_rounds("mask", trainer, data, _build)
+    leaves = len(params)
+    want = {"masked_sgd_inplace": 2 * leaves * len(data),
+            "fillin_agg_inplace": leaves * len(data)}
+    got = {k: launches.get(k, 0) for k in want}
+    check(got == want, f"mask path launches {got}, expected {want}")
+    return launches, trainer, data[0], round_s
+
+
+def phase_client_phase_peaks(trainer, batch):
+    """Peak memory and time of one client phase (K = 2 steps) of the mask
+    round, as the round runs it (the model on ``w_c``) and in the literal
+    form (the model on ``m * w_c``), from the same params and masks."""
+    from repro_torch.core.fedavg import dense_client_masks
+    fed = trainer.fed
+    dev = fed.device
+    batch = {k: torch.as_tensor(v).to(dev, dtype=torch.long)
+             for k, v in batch.items()}
+    masks = dense_client_masks(torch.Generator(dev).manual_seed(1),
+                               fed.abstract, fed.axes, fed.scfg,
+                               fed.capacities, 0, dev)
+    for literal in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        w_c, losses = fed.client_phase(trainer.params, batch, masks,
+                                       literal=literal)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(bool(torch.isfinite(losses).all()), "client phase losses")
+        del w_c, losses
+        form = "literal m * w_c" if literal else "on w_c, as the round runs"
+        print(f"[mask] client phase ({form}): peak {peak / 2**30:.2f} GiB, "
+              f"{secs:.3f} s")
 
 
 def _kernel_group(name):
     for key, group in (("rolling_mm_fwd", "rolling_mm_fwd (port)"),
                        ("rolling_mm_dx", "rolling_mm_dx (port)"),
+                       ("masked_sgd", "masked_sgd_inplace (port)"),
+                       ("fillin_agg", "fillin_agg_inplace (port)"),
                        ("sgd_inplace", "sgd_inplace (port)"),
+                       ("distribution", "random draws (masks)"),
                        ("gemm", "cuBLAS gemm (bmm, addmm)"),
                        ("elementwise", "elementwise"),
                        ("reduce", "reductions"),
@@ -348,7 +536,7 @@ def _kernel_group(name):
     return "other"
 
 
-def phase_profile(trainer, batch, round_s):
+def phase_profile(tag, trainer, batch, round_s):
     """One more round (after the counted ones) under torch.profiler:
     device time by kernel group, and its share of an unprofiled round's
     wall time ``round_s`` (the profiled round's own wall time carries the
@@ -367,20 +555,21 @@ def phase_profile(trainer, batch, round_s):
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     if not kern:
-        print("[profile] the trace holds no device time: not measured")
+        print(f"[profile {tag}] the trace holds no device time: not "
+              "measured")
         return
     total = sum(t for _, t, _ in kern)
     groups = {}
     for name, t, _ in kern:
         g = _kernel_group(name)
         groups[g] = groups.get(g, 0.0) + t
-    print(f"[profile] one round: device kernels {total:.1f} ms = "
+    print(f"[profile {tag}] one round: device kernels {total:.1f} ms = "
           f"{100 * total / (1e3 * round_s):.1f}% of an unprofiled round "
           f"({1e3 * round_s:.1f} ms); profiled wall {wall_ms:.1f} ms")
     for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] {g:26s} {t:9.2f} ms {100 * t / total:5.1f}%")
+        print(f"[profile {tag}] {g:26s} {t:9.2f} ms {100 * t / total:5.1f}%")
     for name, t, n in sorted(kern, key=lambda r: -r[1])[:12]:
-        print(f"[profile]   {t:9.2f} ms x{n:<5d} {name[:100]}")
+        print(f"[profile {tag}]   {t:9.2f} ms x{n:<5d} {name[:100]}")
 
 
 def main():
@@ -402,12 +591,21 @@ def main():
     phase_build(_build)
     rows = phase_kernels(dev)
     phase_small_agreement(dev)
+    phase_small_agreement_mask(dev)
     launches, trainer, batch, round_s = phase_main_path(dev, _build)
-    phase_profile(trainer, batch, round_s)
+    phase_profile("window", trainer, batch, round_s)
+    del trainer            # the two full-width paths do not fit together
+    gc.collect()
+    torch.cuda.empty_cache()
+    m_launches, trainer, batch, round_s = phase_mask_path(dev, _build)
+    phase_profile("mask", trainer, batch, round_s)
+    phase_client_phase_peaks(trainer, batch)
+    del trainer
+    path = {"masked_sgd_inplace": m_launches, "fillin_agg_inplace": m_launches}
     for r in rows:
-        r["launches"] = launches.get(r["name"], 0)
+        r["launches"] = path.get(r["name"], launches).get(r["name"], 0)
     missing = [r["name"] for r in rows if r["launches"] == 0]
-    check(not missing, f"kernels never launched on the main path: {missing}")
+    check(not missing, f"kernels never launched on their path: {missing}")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

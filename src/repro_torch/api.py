@@ -1,6 +1,7 @@
 """repro_torch.api — the port's public entry surface.
 
-Ports ``fed_round`` (window mode) and ``Trainer`` of ``repro/api.py``::
+Ports ``MODES``, ``resolve_mode``, ``fed_round`` (window mode with one
+shared window, and mask mode) and ``Trainer`` of ``repro/api.py``::
 
     from repro_torch import api
     from repro_torch.configs.base import SubmodelConfig, get_config
@@ -11,8 +12,12 @@ Ports ``fed_round`` (window mode) and ``Trainer`` of ``repro/api.py``::
     scfg = SubmodelConfig(scheme="rolling", capacity=0.5, local_steps=2,
                           clients_per_round=4, client_lr=0.1,
                           axes=("d_ff", "heads", "kv_heads"))
-    fed = api.fed_round(model, scfg)
+    fed = api.fed_round(model, scfg)                  # window mode
     params, history = api.Trainer(fed, params).run(batches, 3)
+
+    # Algorithm 1: unstructured Bernoulli masks resolve to mask mode
+    fed = api.fed_round(model, SubmodelConfig(scheme="bernoulli", ...))
+    params, history = api.Trainer(fed, params, rng=0).run(batches, 3)
 
 Everything runs on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch versions.
@@ -21,12 +26,32 @@ their ROADMAP.md item.
 """
 from __future__ import annotations
 
+import numpy as np
+
 from repro_torch.configs.base import SubmodelConfig
-from repro_torch.core.fedavg import WindowFedAvg, build_window_fed
+from repro_torch.core.fedavg import (MaskFedAvg, WindowFedAvg,
+                                     build_mask_fed, build_window_fed)
 from repro_torch.core.trainer import Trainer
 from repro_torch.device import resolve_device
 
-__all__ = ["fed_round", "Trainer", "WindowFedAvg"]
+__all__ = ["fed_round", "Trainer", "WindowFedAvg", "MaskFedAvg", "MODES",
+           "resolve_mode"]
+
+MODES = ("auto", "window", "mask")
+
+
+def resolve_mode(mode: str, scheme: str) -> str:
+    """``auto`` -> ``mask`` for unstructured Bernoulli masks, else
+    ``window``."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    if mode == "auto":
+        return "mask" if scheme == "bernoulli" else "window"
+    if mode == "window" and scheme == "bernoulli":
+        raise ValueError(
+            "scheme 'bernoulli' (unstructured Algorithm-1 masks) has no "
+            "compact window form; use mode='mask' or 'auto'")
+    return mode
 
 
 def _not_ported(what, item):
@@ -35,31 +60,54 @@ def _not_ported(what, item):
 
 
 def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
-              client_opt=None, server_opt=None, mesh=None, capacities=None,
-              fused_forward="auto", device="cuda") -> WindowFedAvg:
-    """Build one federated sub-model round (Algorithm 2, window mode, one
-    shared window, fused client phase).
+              client_opt=None, server_opt=None, spmd_axis=None, mesh=None,
+              capacities=None, fused_forward="auto",
+              uplink_compression=None, device="cuda"):
+    """Build one federated sub-model round: a :class:`WindowFedAvg`
+    (Algorithm 2, one shared window, fused client phase) or a
+    :class:`MaskFedAvg` (dense masks, Algorithm 1).
 
     Args:
       model: a port ``Model`` (``.loss(params, batch, window=)``,
         ``.abstract_params()``, ``.axes()``).
       scfg: the :class:`SubmodelConfig`.
-      mode: ``auto`` or ``window``.
+      mode: ``auto`` (``mask`` for ``bernoulli``, else ``window``),
+        ``window`` or ``mask``.
       client_opt: None or ``"sgd"`` (the paper's plain SGD).
-      fused_forward: ``auto`` or ``on``.
+      capacities: mask mode: per-client ``[C]`` capacities (default
+        ``scfg.capacity`` for every client).
+      fused_forward: window mode: ``auto`` or ``on``.
       device: ``cuda`` (default; raises without a card) or ``cpu``.
     """
     dev = resolve_device(device)
-    if mode == "mask" or (mode == "auto" and scfg.scheme == "bernoulli"):
-        _not_ported("mask mode", "mask mode")
-    if mode not in ("auto", "window"):
-        raise ValueError(f"unknown mode {mode!r}")
+    resolved = resolve_mode(mode, scfg.scheme)
     if server_opt not in (None, "", "none"):
         _not_ported("server optimizers", "optimizers and the uplink")
+    if mesh is not None and resolved != "window":
+        raise ValueError("mesh execution applies to window mode only "
+                         "(mask mode is the dense-mask oracle)")
+    if resolved == "mask":
+        for name, value in (("spmd_axis", spmd_axis),
+                            ("uplink_compression", uplink_compression)):
+            if value is not None:
+                raise ValueError(f"{name} applies to window mode only "
+                                 "(mask mode is the dense-mask oracle)")
+        if fused_forward in (True, "on"):
+            raise ValueError("fused_forward applies to window mode only "
+                             "(mask mode is the dense-mask oracle)")
+        if capacities is None:
+            capacities = np.full(scfg.clients_per_round, scfg.capacity,
+                                 np.float32)
+        return build_mask_fed(model.loss, scfg, model.abstract_params(),
+                              model.axes(), capacities, dev,
+                              client_opt=client_opt)
     if capacities is not None:
-        _not_ported("heterogeneous capacities", "heterogeneous capacities")
-    if mesh is not None:
+        _not_ported("heterogeneous window capacities",
+                    "heterogeneous capacities")
+    if mesh is not None or spmd_axis is not None:
         _not_ported("the mesh round", "mesh round")
+    if uplink_compression is not None:
+        _not_ported("uplink compression", "optimizers and the uplink")
     return build_window_fed(model.loss, scfg, model.abstract_params(),
                             model.axes(), dev, client_opt=client_opt,
                             fused_forward=fused_forward)

@@ -4,7 +4,10 @@ The reference keeps params as a nested dict whose ``layers`` subtree stacks
 every layer on a leading axis; the port keeps a flat ``{path: tensor}``
 dict with one leaf per layer (``layers/3/mlp/w_gate``), so that indexing a
 layer never makes autograd build a full-stack zero gradient.  Both
-directions copy values exactly.
+directions copy values exactly.  Per-client trees (masks, client params)
+carry a leading client axis before the stacked ``layers`` axis (the
+reference's ``layers/attn/wk`` mask is ``[C, L, D, KV, hd]``); ``lead=1``
+splits and re-stacks axis 1 for them.
 """
 from __future__ import annotations
 
@@ -27,25 +30,28 @@ def _flatten(tree, prefix=""):
             yield p, v
 
 
-def from_reference(params_np, device="cuda") -> Dict[str, torch.Tensor]:
+def from_reference(params_np, device="cuda", lead=0
+                   ) -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (reference layout) -> the port's flat
-    dict on ``device``, splitting the stacked ``layers`` axis."""
+    dict on ``device``, splitting the stacked ``layers`` axis (axis
+    ``lead``, after ``lead`` leading client axes)."""
     dev = resolve_device(device)
     out = {}
     for path, v in _flatten(params_np):
         v = np.asarray(v)
         head, _, rest = path.partition("/")
         if head == STACKED:
-            for i in range(v.shape[0]):
-                out[f"{STACKED}/{i}/{rest}"] = torch.tensor(v[i], device=dev)
+            for i in range(v.shape[lead]):
+                out[f"{STACKED}/{i}/{rest}"] = torch.tensor(
+                    np.take(v, i, axis=lead), device=dev)
         else:
             out[path] = torch.tensor(v, device=dev)
     return out
 
 
-def to_reference(params) -> dict:
+def to_reference(params, lead=0) -> dict:
     """The port's flat dict -> nested dict of numpy arrays with the layers
-    re-stacked (the inverse of :func:`from_reference`)."""
+    re-stacked on axis ``lead`` (the inverse of :func:`from_reference`)."""
     stacks: Dict[str, Dict[int, np.ndarray]] = {}
     tree: dict = {}
     for path, v in params.items():
@@ -57,7 +63,8 @@ def to_reference(params) -> dict:
         _insert(tree, parts, arr)
     for rest, layers in stacks.items():
         _insert(tree, [STACKED] + rest.split("/"),
-                np.stack([layers[i] for i in range(len(layers))]))
+                np.stack([layers[i] for i in range(len(layers))],
+                         axis=lead))
     return tree
 
 

@@ -1,30 +1,35 @@
-"""The window-mode federated round with one shared window (Algorithm 2).
+"""The federated rounds: window mode with one shared window (Algorithm 2)
+and mask mode (Algorithm 1 and the paper's protocol round).
 
 Ports, from ``repro/core/fedavg.py``: ``resolve_shared_window``,
 ``WindowFedAvg`` (construction, ``_resolve_fused`` for what this port
 covers, ``_client_offsets``, ``_fused_window``, ``_client_phase_fused``
-and ``_apply_mean_delta_fused`` for the shared window, ``round``) and
-``_scatter_update``.
+and ``_apply_mean_delta_fused`` for the shared window, ``round``),
+``_scatter_update``, ``dense_client_masks``, ``MaskFedAvg`` and
+``_build_mask_fed``.
 
 Clients are an explicit leading dimension ``[C, ...]`` of every leaf (the
-reference vmaps them).  Each client trains K plain-SGD steps on its own
-copy of the FULL model through the window-aware forward, so coordinates
-outside the window get exactly zero gradient; the server then takes the
-clients' mean change inside the window and adds it in place.  Batch
-leaves are ``[K, C, ...]``.
+reference vmaps them).  Each client trains K local SGD steps on its own
+copy of the FULL model.  In window mode the copy runs through the
+window-aware forward, so coordinates outside the window get exactly zero
+gradient; the server then takes the clients' mean change inside the
+window and adds it in place.  In mask mode each client's copy starts as
+``w * m_c`` under a dense mask, its steps are masked, and the server takes
+the fill-in average.  Batch leaves are ``[K, C, ...]``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import SubmodelConfig
 from repro_torch.core import submodel as sm
 from repro_torch.core.extract import extract
 from repro_torch.core.masking import (WindowScheme, collect_axis_dims,
-                                      make_scheme)
+                                      make_scheme, seeded_generator)
 from repro_torch.models.layers import AxisWindow, WindowMap
 from repro_torch.optim.client import ClientOpt, resolve_client_opt
 
@@ -157,10 +162,13 @@ class WindowFedAvg:
         return _scatter_update(params, dbar, self.axes, off0,
                                self.scheme.sizes, self.scfg.server_lr)
 
-    def round(self, params, batch, round_idx, offsets=None):
+    def round(self, params, batch, round_idx, generator=None, offsets=None):
         """One communication round; updates ``params`` in place and returns
         ``(params, {"loss": mean, "client_loss": [K, C]})``.  ``offsets``
-        (``{axis: [C] ints}``) replaces the scheme's own draw."""
+        (``{axis: [C] ints}``) replaces the scheme's own draw.
+        ``generator`` is the round's random stream, as for
+        :meth:`MaskFedAvg.round`; the shared-window schemes draw nothing
+        from it (their order is seeded by ``scfg.seed``)."""
         offsets = (self._client_offsets(round_idx) if offsets is None
                    else self._check_offsets(offsets))
         full_k, losses = self._client_phase_fused(params, batch, offsets)
@@ -185,3 +193,220 @@ def build_window_fed(loss_fn, scfg, abstract, axes, device, client_opt=None,
     return WindowFedAvg(loss_fn=loss_fn, scfg=scfg, axes=axes,
                         scheme=scheme, device=device,
                         client_opt=client_opt, fused_forward=fused_forward)
+
+
+# ---------------------------------------------------------------------------
+# Mask (dense) mode: the paper's literal formulation
+# ---------------------------------------------------------------------------
+
+
+def _round_generator(generator, scfg, round_idx, device):
+    """``generator``, or (None) one seeded by ``(scfg.seed, round_idx)``."""
+    if generator is not None:
+        return generator
+    return seeded_generator(scfg.seed, round_idx, device)
+
+
+def _window_sizes(caps, n, align):
+    """Per-client window lengths on an axis of size ``n``, as the
+    reference computes them: ``cap * n`` in float32, rounded half to even,
+    aligned down, clipped to ``[align, n]``."""
+    a = min(align, n)
+    w = np.round(caps * np.float32(n)).astype(np.int32)
+    return np.clip((w // a) * a, a, n)
+
+
+def _check_masks(masks, abstract, C, device):
+    """Injected masks ``{path: [C, *shape]}`` as float32 on ``device``."""
+    if set(masks) != set(abstract):
+        raise ValueError(f"masks name {sorted(set(masks) ^ set(abstract))[:3]}"
+                         " unlike the model's params")
+    out = {}
+    for path, shape in abstract.items():
+        m = torch.as_tensor(masks[path]).to(device, torch.float32)
+        if m.shape != (C, *shape):
+            raise ValueError(f"mask {path} is {tuple(m.shape)}; expected "
+                             f"{(C, *shape)}")
+        out[path] = m.contiguous()
+    return out
+
+
+def dense_client_masks(generator, abstract, axes, scfg: SubmodelConfig,
+                       capacities, round_idx, device, offsets=None,
+                       masks=None) -> Dict[str, torch.Tensor]:
+    """Float32 masks ``{path: [C, *shape]}``, client c at capacity
+    ``capacities[c]`` (heterogeneous capacities allowed).
+
+    Schemes: ``full`` (ones), ``bernoulli`` (unstructured, Algorithm 1,
+    drawn on ``device``), and the structured ``static``, ``rolling``
+    (shared or ``stagger``) and ``random``: one 0/1 selector per windowed
+    axis of each leaf, multiplied together, of the client's own size and
+    offset, contiguous or (``wrap``) cyclic.  ``heads`` is sized on its
+    own, not coupled to ``kv_heads``, as in the reference.  Random draws
+    (``bernoulli`` and the ``random`` offsets) come from ``generator``, or
+    one seeded by ``(scfg.seed, round_idx)``; torch cannot reproduce
+    ``jax.random``, so ``offsets`` (``{axis: [C] ints}``) may replace the
+    rolling order and ``masks`` the whole draw.
+    """
+    caps = np.asarray(capacities, np.float32).reshape(-1)
+    C = caps.shape[0]
+    if masks is not None:
+        return _check_masks(masks, abstract, C, device)
+    if offsets is not None and scfg.scheme != "rolling":
+        raise ValueError("offsets= replaces the rolling order; the scheme "
+                         f"is {scfg.scheme!r}")
+    if scfg.scheme == "full":
+        return {k: torch.ones((C, *s), device=device)
+                for k, s in abstract.items()}
+    if scfg.scheme == "bernoulli":
+        return sm.bernoulli_masks(
+            _round_generator(generator, scfg, round_idx, device), abstract,
+            torch.from_numpy(caps), device)
+    if scfg.scheme not in ("static", "rolling", "random"):
+        # "importance" needs live params, which dense masks never see
+        raise ValueError(
+            f"scheme {scfg.scheme!r} is not supported in dense-mask mode; "
+            "use window mode (api.fed_round(..., mode='window')) instead")
+    dims = collect_axis_dims(abstract, axes)
+    if scfg.scheme == "rolling":
+        # the same grid (and GQA-derived heads offsets) as window mode
+        plan = make_scheme(scfg, dims)
+        roll = (plan.offsets(round_idx, C) if offsets is None
+                else {k: [int(o) for o in v] for k, v in offsets.items()})
+        if set(roll) != set(plan.sizes) or \
+                any(len(v) != C for v in roll.values()):
+            raise ValueError(f"rolling offsets name {sorted(roll)}; the "
+                             f"scheme windows {sorted(plan.sizes)}, one "
+                             f"offset per client ({C})")
+    elif scfg.scheme == "random":
+        gen = _round_generator(generator, scfg, round_idx, device)
+    sel = {}
+    for key in sorted(d for d in dims if d[0] in scfg.axes):
+        n = key[1]
+        size = torch.as_tensor(_window_sizes(caps, n, scfg.align),
+                               device=device, dtype=torch.long)
+        if scfg.scheme == "static":
+            off = torch.zeros(C, dtype=torch.long, device=device)
+        elif scfg.scheme == "rolling":
+            off = torch.tensor(roll.get(key, [0] * C), device=device)
+        else:
+            off = torch.randint(0, n, (C,), generator=gen, device=device)
+        idx = torch.arange(n, device=device)[None]
+        if scfg.wrap:
+            s = ((idx - off[:, None]) % n) < size[:, None]
+        else:
+            off = torch.minimum(off, n - size)[:, None]
+            s = (idx >= off) & (idx < off + size[:, None])
+        sel[key] = s.float()
+    out = {}
+    for path, shape in abstract.items():
+        m = torch.ones((C, *shape), device=device)
+        for d, name in enumerate(axes[path]):
+            key = (name, int(shape[d]))
+            if key in sel:
+                view = [C] + [1] * len(shape)
+                view[1 + d] = key[1]
+                m.mul_(sel[key].view(view))
+        out[path] = m
+    return out
+
+
+@dataclass
+class MaskFedAvg:
+    """The mask-mode round: dense per-client masks, K masked local SGD
+    steps on per-client copies of the FULL model, then the server's
+    fill-in average (Algorithm 1; the round of every experiment of the
+    paper's protocol)."""
+
+    loss_fn: Callable                 # (params, batch) -> ([C], aux)
+    scfg: SubmodelConfig
+    abstract: Dict[str, torch.Size]   # {path: shape}
+    axes: Dict[str, tuple]            # {path: axis tags}
+    capacities: Any                   # [C] floats
+    device: torch.device
+    client_opt: Optional[ClientOpt] = None
+
+    def __post_init__(self):
+        self.client_opt = resolve_client_opt(self.client_opt)
+        self.capacities = self._check_capacities(self.capacities)
+
+    def _check_capacities(self, capacities):
+        caps = np.asarray(capacities, np.float32).reshape(-1)
+        if caps.shape != (self.scfg.clients_per_round,):
+            raise ValueError(f"{caps.shape[0]} capacities for "
+                             f"{self.scfg.clients_per_round} clients")
+        return caps
+
+    def client_phase(self, params, batch, masks, literal=False):
+        """K masked steps from ``w_c = w * m_c``; returns the clients'
+        params after K steps (``{path: [C, ...]}``) and the losses
+        ``[K, C]``.
+
+        With the paper's plain SGD the model runs on ``w_c`` itself rather
+        than on ``m * w_c``: ``w_c`` starts as ``w * m`` and a masked step
+        changes it only where m = 1, so ``m * w_c == w_c`` bit for bit,
+        and the masked step's ``m * g`` makes ``m * (m * grad f) == m *
+        grad f``.  The update is the literal ``m * grad f(m * w_c)`` with
+        no masked copy of the model and two fewer elementwise passes per
+        leaf per step.  That holds for plain SGD with finite gradients
+        only: any other client optimizer, or ``literal=True``, runs
+        :func:`submodel.masked_value_and_grad`.
+        """
+        c = self.scfg
+        literal = literal or self.client_opt.name != "sgd"
+        with torch.no_grad():
+            w_c = {k: v[None] * masks[k] for k, v in params.items()}
+        opt, state = self.client_opt, self.client_opt.init(w_c)
+        mvg = sm.masked_value_and_grad(self.loss_fn)
+        losses = []
+        for k in range(c.local_steps):
+            mb = {name: v[k] for name, v in batch.items()}
+            if literal:
+                (loss, _), grads = mvg(w_c, masks, mb)
+            else:
+                for v in w_c.values():
+                    v.requires_grad_()
+                loss, _ = self.loss_fn(w_c, mb)
+                grads = dict(zip(w_c, torch.autograd.grad(
+                    loss.sum(), list(w_c.values()))))
+            with torch.no_grad():
+                w_c, state = opt.update(w_c, grads, state, c.client_lr,
+                                        masks=masks)
+            del grads
+            losses.append(loss.detach())
+        for v in w_c.values():
+            v.requires_grad_(False)
+        return w_c, torch.stack(losses)
+
+    def round(self, params, batch, round_idx, generator=None, masks=None,
+              capacities=None):
+        """One communication round; updates ``params`` in place and returns
+        ``(params, {"loss": mean, "client_loss": [K, C]})``.
+        ``capacities`` (``[C]``) replaces the round's per-client capacities
+        (the paper's protocol passes each round's participants');
+        ``generator`` is the stream the masks are drawn from (None: one
+        seeded by ``(scfg.seed, round_idx)``); ``masks`` replaces the draw.
+        """
+        caps = (self.capacities if capacities is None
+                else self._check_capacities(capacities))
+        masks = dense_client_masks(generator, self.abstract, self.axes,
+                                   self.scfg, caps, round_idx, self.device,
+                                   masks=masks)
+        w_c, losses = self.client_phase(params, batch, masks)
+        with torch.no_grad():
+            sm.fillin_average(params, w_c, masks, self.scfg.server_lr)
+            del w_c, masks
+            sm.project_l2(params, self.scfg.proj_radius)
+        return params, {"loss": losses.mean(), "client_loss": losses}
+
+    def round_with_server_opt(self, *args, **kwargs):
+        raise NotImplementedError(
+            "server optimizers are not ported yet (ROADMAP.md queue A, "
+            "optimizers and the uplink)")
+
+
+def build_mask_fed(loss_fn, scfg, abstract, axes, capacities, device,
+                   client_opt=None) -> MaskFedAvg:
+    return MaskFedAvg(loss_fn=loss_fn, scfg=scfg, abstract=abstract,
+                      axes=axes, capacities=capacities, device=device,
+                      client_opt=client_opt)

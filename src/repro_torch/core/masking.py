@@ -3,7 +3,7 @@
 Ports ``collect_axis_dims``, ``capacity_size``, ``WindowScheme`` (sizes,
 grids, GQA-derived axes, ``grid_multiple``, ``offsets``) and ``make_scheme``
 of ``repro/core/masking.py`` for the ``full``, ``static`` and ``rolling``
-schemes.  Offsets are host integers, one per client.
+(shared or staggered) schemes.  Offsets are host integers, one per client.
 
 The rolling permutation of epoch ``e`` comes from a ``torch.Generator``
 seeded by ``(cfg.seed, e)``; it is a different order from the reference's
@@ -54,10 +54,15 @@ def capacity_size(capacity: float, n: int, align: int) -> int:
     return min(w, n)
 
 
+def seeded_generator(seed: int, k: int, device="cpu") -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded by the pair ``(seed,
+    k)`` (an epoch, a round)."""
+    return torch.Generator(device).manual_seed(
+        (int(seed) * 1_000_003 + int(k)) % (1 << 63))
+
+
 def _epoch_permutation(seed: int, epoch: int, n: int) -> List[int]:
-    gen = torch.Generator().manual_seed(
-        (int(seed) * 1_000_003 + int(epoch)) % (1 << 63))
-    return torch.randperm(n, generator=gen).tolist()
+    return torch.randperm(n, generator=seeded_generator(seed, epoch)).tolist()
 
 
 @dataclass
@@ -84,7 +89,10 @@ class WindowScheme:
 
     def offsets(self, round_idx: int, n_clients: int
                 ) -> Dict[AxisKey, List[int]]:
-        """Per-client offsets ``{axis: [C] ints}`` for this round."""
+        """Per-client offsets ``{axis: [C] ints}`` for this round.  Window
+        mode runs only a shared window; dense rolling masks also take the
+        staggered order (``stagger``), as the reference's
+        ``perm[(r + c) % R]``."""
         c = self.cfg
         prim = [k for k in self.sizes if k not in self.derived]
         out = {}
@@ -92,14 +100,14 @@ class WindowScheme:
             for k in prim:
                 out[k] = [0] * n_clients
         elif c.scheme == "rolling":
-            if c.stagger:
-                raise NotImplementedError(
-                    "staggered rolling windows are not ported yet "
-                    "(ROADMAP.md queue A, per-client windows)")
             R = self.n_windows
+            r = round_idx % R
             perm = _epoch_permutation(c.seed, round_idx // R, R)
+            # staggered: client c takes the epoch's (r + c)-th window
+            idx = [perm[(r + i) % R] if c.stagger else perm[r]
+                   for i in range(n_clients)]
             for k in prim:
-                out[k] = [self.grids[k][perm[round_idx % R]]] * n_clients
+                out[k] = [self.grids[k][j] for j in idx]
         else:
             raise NotImplementedError(
                 f"scheme {c.scheme!r} is not ported yet (ROADMAP.md queue A)")

@@ -1,9 +1,12 @@
-"""The client SGD step, ``w <- w - lr * g`` in place.
+"""The in-place update kernels of the round: the client SGD step, the
+masked client SGD step and the server's fill-in average.
 
-Ports ``sgd_2d`` of ``repro/kernels/masked_update.py`` (reached through
-``dispatch.sgd_step``).  On a CUDA tensor :func:`sgd_` launches the
-``csrc/sgd.cu`` kernel or raises; on a CPU tensor it runs the plain version
-in ``kernels.ref``.
+Ports ``sgd_2d``, ``masked_sgd_2d`` and ``fillin_agg_2d`` of
+``repro/kernels/masked_update.py`` (reached through ``dispatch.sgd_step``,
+``dispatch.masked_sgd`` and ``dispatch.fillin_agg``).  On CUDA tensors
+:func:`sgd_`, :func:`masked_sgd_` and :func:`fillin_agg_` launch the
+``csrc/sgd.cu`` and ``csrc/masked_update.cu`` kernels or raise; on CPU
+tensors they run the plain versions in ``kernels.ref``.
 """
 from __future__ import annotations
 
@@ -12,20 +15,84 @@ import torch
 from repro_torch.kernels import _build, ref
 
 
+def _check_f32_contiguous(what, *ts):
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"{what} takes float32 tensors")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{what} takes contiguous tensors")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{what}: operands on {[str(t.device) for t in ts]}")
+
+
+def _overlaps(a, b):
+    lo_a, lo_b = a.data_ptr(), b.data_ptr()
+    return (lo_a < lo_b + b.numel() * b.element_size()
+            and lo_b < lo_a + a.numel() * a.element_size())
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def sgd_(w: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
     """Update ``w`` in place (one read of w and g, one write of w: no new
     copy of the leaf); returns ``w``."""
-    if w.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError("the SGD step takes float32 params and grads")
-    if w.shape != g.shape or w.device != g.device:
-        raise ValueError(f"param {tuple(w.shape)} on {w.device} and grad "
-                         f"{tuple(g.shape)} on {g.device} disagree")
-    if not (w.is_contiguous() and g.is_contiguous()):
-        raise ValueError("the SGD step takes contiguous tensors")
+    _check_f32_contiguous("the SGD step", w, g)
+    if w.shape != g.shape:
+        raise ValueError(f"param {tuple(w.shape)} and grad {tuple(g.shape)} "
+                         "disagree")
     if w.device.type == "cpu":
         return ref.sgd_ref(w, g, lr)
     err = _build.library().sgd_inplace(
-        w.data_ptr(), g.data_ptr(), float(lr), w.numel(),
-        torch.cuda.current_stream(w.device).cuda_stream)
+        w.data_ptr(), g.data_ptr(), float(lr), w.numel(), _stream(w))
     _build.check_launch("sgd_inplace", err)
+    return w
+
+
+def masked_sgd_(w: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
+                lr: float) -> torch.Tensor:
+    """``w <- w - (lr * m) * g`` in place (reads w, m and g once, writes w
+    once); returns ``w``."""
+    _check_f32_contiguous("the masked SGD step", w, m, g)
+    if not w.shape == m.shape == g.shape:
+        raise ValueError(f"param {tuple(w.shape)}, mask {tuple(m.shape)} and "
+                         f"grad {tuple(g.shape)} disagree")
+    if _overlaps(w, m) or _overlaps(w, g):
+        raise ValueError("the masked SGD step updates w in place; it must "
+                         "not share memory with the mask or the grad")
+    if w.device.type == "cpu":
+        return ref.masked_sgd_ref(w, m, g, lr)
+    err = _build.library().masked_sgd_inplace(
+        w.data_ptr(), m.data_ptr(), g.data_ptr(), float(lr), w.numel(),
+        _stream(w))
+    _build.check_launch("masked_sgd_inplace", err)
+    return w
+
+
+def fillin_agg_(w: torch.Tensor, w_clients: torch.Tensor,
+                m_clients: torch.Tensor, server_lr: float = 1.0
+                ) -> torch.Tensor:
+    """The server fill-in average in delta form, in place:
+    ``w <- w + (server_lr / C) * sum_c m_c * (w_c - w)`` over the ``[C,
+    *w.shape]`` client leaves and masks (reads each once, writes w once);
+    returns ``w``.  ``server_lr / C`` is taken in double and rounded once
+    to float32, as the reference's ``scale=float(scale)``."""
+    _check_f32_contiguous("the fill-in average", w, w_clients, m_clients)
+    C = w_clients.shape[0] if w_clients.dim() else 0
+    if C < 1 or w_clients.shape != (C, *w.shape) or \
+            m_clients.shape != w_clients.shape:
+        raise ValueError(f"server leaf {tuple(w.shape)}, client leaves "
+                         f"{tuple(w_clients.shape)} and masks "
+                         f"{tuple(m_clients.shape)}: expected [C, "
+                         f"{', '.join(map(str, w.shape))}] for both")
+    if _overlaps(w, w_clients) or _overlaps(w, m_clients):
+        raise ValueError("the fill-in average updates the server leaf in "
+                         "place; it must not share memory with the clients")
+    scale = float(server_lr) / C
+    if w.device.type == "cpu":
+        return ref.fillin_agg_ref(w, w_clients, m_clients, scale)
+    err = _build.library().fillin_agg_inplace(
+        w.data_ptr(), w_clients.data_ptr(), m_clients.data_ptr(), scale,
+        w.numel(), C, w.numel(), _stream(w))
+    _build.check_launch("fillin_agg_inplace", err)
     return w

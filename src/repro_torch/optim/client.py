@@ -2,21 +2,23 @@
 
 Ports ``ClientOpt``, ``client_sgd`` and ``resolve_client_opt`` of
 ``repro/optim/client.py``.  The paper's local update ``w <- w - lr * g``
-goes through the SGD kernel (``kernels.masked_update.sgd_``), in place on
-each client's copy.
+goes through the SGD kernel (``kernels.masked_update.sgd_``), and its
+masked form ``w <- w - (lr * m) * g`` through the masked SGD kernel
+(``masked_sgd_``), in place on each client's copy.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from repro_torch.kernels.masked_update import sgd_
+from repro_torch.kernels.masked_update import masked_sgd_, sgd_
 
 
 class ClientOpt(NamedTuple):
     """(init, update) pair over per-client ``{path: [C, ...]}`` params.
 
     init:   (params) -> state
-    update: (params, grads, state, lr) -> (params, state), in place
+    update: (params, grads, state, lr, *, masks=None) -> (params, state),
+            in place
     """
 
     name: str
@@ -25,14 +27,17 @@ class ClientOpt(NamedTuple):
 
 
 def client_sgd():
-    """The paper's local update: w <- w - lr * g."""
+    """The paper's local update: w <- w - lr * g (masked in mask mode)."""
 
     def init(params):
         return ()
 
-    def update(params, grads, state, lr):
+    def update(params, grads, state, lr, *, masks=None):
         for path, p in params.items():
-            sgd_(p, grads[path], lr)
+            if masks is None:
+                sgd_(p, grads[path], lr)
+            else:
+                masked_sgd_(p, masks[path], grads[path], lr)
         return params, state
 
     return ClientOpt("sgd", init, update)

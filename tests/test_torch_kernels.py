@@ -8,6 +8,17 @@ gradients.  Tolerance: float32, atol 1e-5 and rtol 1e-5 -- the two
 frameworks sum the products of a matmul in different orders, which moves
 results by a few ulp at these contraction lengths (<= 200).
 
+The masked SGD step and the fill-in average round their product and
+their sum separately (the Pallas bodies' ``p - lr * m * g`` and ``w +
+scale * acc``), as the port's plain versions and CUDA kernels do.  XLA's
+CPU backend contracts each of those into one fused multiply-add, so the
+reference's interpret-mode Pallas bodies and jnp arms round once where
+the port rounds twice; and the fill-in's jnp arm divides the client sum
+by C where the Pallas body multiplies by ``server_lr / C``.  Tolerance
+there: 2 ulp of the product term plus 1 ulp of the result
+(:func:`_close_fma`); bit-exact where the product is exact (the fill-in
+at C = 2^k, whose products are by 0, 1 and powers of two).
+
 The ``gpu`` tests launch the CUDA kernels and hold them against the plain
 versions on the card; they decide inside the test whether a card is
 present and skip without one.  They need no JAX, so they also run where
@@ -25,8 +36,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.masked_update import sgd_  # noqa: E402
-from repro_torch.kernels.ref import (rolling_matmul_batched_dx_ref,  # noqa
+from repro_torch.kernels.masked_update import (fillin_agg_,  # noqa: E402
+                                               masked_sgd_, sgd_)
+from repro_torch.kernels.ref import (fillin_agg_ref,  # noqa: E402
+                                     masked_sgd_ref,
+                                     rolling_matmul_batched_dx_ref,
                                      rolling_matmul_batched_ref, sgd_ref)
 from repro_torch.kernels.rolling_matmul import (make_offsets,  # noqa: E402
                                                 rolling_matmul_batched,
@@ -54,8 +68,9 @@ def jx():
     """The JAX reference's oracles, imported at test time so that the
     ``gpu`` tests run where JAX is not installed."""
     jax = pytest.importorskip("jax")
-    from repro.kernels import dispatch, ref
-    return SimpleNamespace(jax=jax, jnp=jax.numpy, dispatch=dispatch, ref=ref)
+    from repro.kernels import dispatch, masked_update, ref
+    return SimpleNamespace(jax=jax, jnp=jax.numpy, dispatch=dispatch, ref=ref,
+                           pallas=masked_update)
 
 
 def _close(a, b):
@@ -165,6 +180,113 @@ def test_sgd_plain_matches_dispatch_sgd_step(jx, shape):
     _close(w, want)
 
 
+def _masked_data(shape, C=None, seed=5):
+    """w, a 0/1 mask and g (or, with C, the clients' w_c and m_c too), with
+    negative values so that signed zeros occur."""
+    rng = np.random.default_rng(seed)
+    lead = () if C is None else (C,)
+    w = rng.standard_normal(shape).astype(np.float32)
+    m = (rng.random(lead + shape) < 0.5).astype(np.float32)
+    g = rng.standard_normal(lead + shape).astype(np.float32)
+    return w, m, g
+
+
+def _close_fma(got, want, term):
+    """``got`` (two roundings) against ``want`` (XLA's one fused
+    multiply-add) for an update ``x + term``: within 2 ulp of ``term``
+    plus 1 ulp of the result."""
+    got, want = np.asarray(got), np.asarray(want)
+    tol = 2 * np.spacing(np.abs(term)) + np.spacing(np.abs(want))
+    assert np.all(np.abs(got - want) <= tol), np.max(np.abs(got - want))
+
+
+def _bits_equal(got, want):
+    np.testing.assert_array_equal(np.asarray(got).view(np.int32),
+                                  np.asarray(want).view(np.int32))
+
+
+@pytest.mark.parametrize("lr", [0.1, 0.037])
+def test_masked_sgd_plain_matches_pallas_and_jnp_arms(jx, lr):
+    """[R, 1024] (the Pallas layout) and the jnp arm on a ragged leaf."""
+    for shape in ((16, 1024), (4, 33, 7)):
+        w, m, g = _masked_data(shape)
+        jw, jm, jg = map(jx.jnp.asarray, (w, m, g))
+        want = (jx.pallas.masked_sgd_2d(jw, jm, jg, lr, interpret=True)
+                if len(shape) == 2 and shape[1] == 1024 else
+                jx.dispatch.masked_sgd({"w": jw}, {"w": jm}, {"w": jg}, lr,
+                                       backend="jnp")["w"])
+        w_t = torch.tensor(w)
+        assert masked_sgd_(w_t, torch.tensor(m), torch.tensor(g), lr) is w_t
+        _close_fma(w_t.numpy(), want, np.float32(lr) * m * g)
+
+
+@pytest.mark.parametrize("server_lr", [1.0, 0.5])
+@pytest.mark.parametrize("C", [3, 4])
+def test_fillin_plain_matches_pallas_and_jnp_arms(jx, C, server_lr):
+    jnp = jx.jnp
+    for shape in ((16, 1024), (5, 3, 70)):
+        w, m, wc = _masked_data(shape, C=C)
+        if shape[-1] == 1024:
+            want = jx.pallas.fillin_agg_2d(jnp.asarray(w), jnp.asarray(wc),
+                                           jnp.asarray(m), server_lr / C,
+                                           interpret=True)
+        else:
+            want = jx.dispatch.fillin_agg(
+                {"w": jnp.asarray(w)}, {"w": jnp.asarray(wc)},
+                {"w": jnp.asarray(m)}, server_lr=server_lr,
+                backend="jnp")["w"]
+        got = fillin_agg_(torch.tensor(w), torch.tensor(wc), torch.tensor(m),
+                          server_lr).numpy()
+        acc = np.zeros_like(w)
+        for c in range(C):
+            acc += m[c] * (wc[c] - w)
+        if (C & (C - 1)) == 0:       # C = 2^k: every product exact
+            _bits_equal(got, want)
+        else:
+            _close_fma(got, want, np.float32(server_lr / C) * acc)
+        ref = fillin_agg_ref(torch.tensor(w), torch.tensor(wc),
+                             torch.tensor(m), server_lr / C)
+        _bits_equal(ref, got)
+
+
+@pytest.mark.parametrize("bad", ["float64", "shape", "noncontig", "alias",
+                                 "devices"])
+def test_masked_sgd_rejects_bad_operands(bad, monkeypatch):
+    w, m, g = torch.zeros(6, 4), torch.ones(6, 4), torch.ones(6, 4)
+    if bad == "float64":
+        m = m.double()
+    elif bad == "shape":
+        g = torch.ones(6, 5)
+    elif bad == "noncontig":
+        w = torch.zeros(4, 6).mT
+    elif bad == "alias":
+        m = w
+    elif bad == "devices":
+        g = torch.ones(6, 4, device="meta")
+    with pytest.raises((TypeError, ValueError)):
+        masked_sgd_(w, m, g, 0.1)
+
+
+@pytest.mark.parametrize("bad", ["float64", "clients", "mask_shape",
+                                 "noncontig", "alias", "no_client_axis"])
+def test_fillin_rejects_bad_operands(bad):
+    w, wc, mc = torch.zeros(6, 4), torch.ones(3, 6, 4), torch.ones(3, 6, 4)
+    if bad == "float64":
+        wc = wc.double()
+    elif bad == "clients":
+        wc = torch.ones(3, 6, 5)
+    elif bad == "mask_shape":
+        mc = torch.ones(2, 6, 4)
+    elif bad == "noncontig":
+        wc = torch.ones(6, 3, 4).transpose(0, 1)
+    elif bad == "alias":
+        w = wc[1]
+    elif bad == "no_client_axis":
+        wc, mc = torch.ones(6, 4), torch.ones(6, 4)
+    with pytest.raises((TypeError, ValueError)):
+        fillin_agg_(w, wc, mc, 1.0)
+
+
 def test_cpu_calls_are_not_kernel_launches():
     """On CPU tensors the wrappers run the plain versions and count no
     launch."""
@@ -175,6 +297,8 @@ def test_cpu_calls_are_not_kernel_launches():
     rolling_mm_dx([torch.tensor(d) for d in dys],
                   [torch.tensor(w) for w in ws], offs, WIN)
     sgd_(torch.zeros(8), torch.ones(8), 0.5)
+    masked_sgd_(torch.zeros(8), torch.ones(8), torch.ones(8), 0.5)
+    fillin_agg_(torch.zeros(8), torch.ones(2, 8), torch.ones(2, 8))
     assert dict(_build.LAUNCHES) == before
 
 
@@ -282,3 +406,35 @@ def test_gpu_autograd_function_matches_plain_autograd(cuda, T):
         rolling_matmul_batched_ref(x, ws, offs, win), [x, *ws], dys)
     for a, b in zip(got, want):
         _gpu_close(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4099, 1 << 20])
+def test_gpu_masked_sgd_kernel_is_bit_exact_to_plain(cuda, n):
+    g = torch.Generator(cuda).manual_seed(n)
+    w = torch.randn(n + 1, device=cuda, generator=g)
+    m = (torch.rand(n + 1, device=cuda, generator=g) < 0.5).float()
+    gr = torch.randn(n + 1, device=cuda, generator=g)
+    for lo in (0, 1):        # 16-byte aligned, then misaligned views
+        sl = slice(lo, lo + n)
+        want = masked_sgd_ref(w[sl].clone(), m[sl], gr[sl], 0.05)
+        got = masked_sgd_(w[sl].clone(), m[sl], gr[sl], 0.05)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("server_lr", [1.0, 0.5])
+@pytest.mark.parametrize("C", [3, 4])
+@pytest.mark.parametrize("n", [1, 4099, 1 << 20])
+def test_gpu_fillin_kernel_is_bit_exact_to_plain(cuda, C, server_lr, n):
+    g = torch.Generator(cuda).manual_seed(n + C)
+    w = torch.randn(n + 1, device=cuda, generator=g)
+    wc = torch.randn(C, n + 1, device=cuda, generator=g)
+    mc = (torch.rand(C, n + 1, device=cuda, generator=g) < 0.5).float()
+    for lo in (0, 1):        # aligned, then a misaligned server leaf
+        sl = slice(lo, lo + n)
+        want = fillin_agg_ref(w[sl].clone(), wc[:, :n], mc[:, :n],
+                              server_lr / C)
+        got = fillin_agg_(w[sl].clone(), wc[:, :n].contiguous(),
+                          mc[:, :n].contiguous(), server_lr)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -165,7 +165,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="mask"), dict(server_opt="adam"), dict(capacities=[0.5] * 4),
+    dict(mode="mask", server_opt="adam"), dict(server_opt="adam"),
+    dict(capacities=[0.5] * 4),
     dict(mesh=object()), dict(fused_forward="off"),
     dict(client_opt="momentum")])
 def test_unported_options_raise_not_implemented(kw):
