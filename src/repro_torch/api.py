@@ -1,7 +1,8 @@
 """repro_torch.api — the port's public entry surface.
 
 Ports ``MODES``, ``resolve_mode``, ``fed_round`` (window mode with one
-shared window, and mask mode) and ``Trainer`` of ``repro/api.py``::
+shared window, and mask mode), ``Trainer`` and ``checkpoint_callback`` of
+``repro/api.py``::
 
     from repro_torch import api
     from repro_torch.configs.base import SubmodelConfig, get_config
@@ -19,6 +20,12 @@ shared window, and mask mode) and ``Trainer`` of ``repro/api.py``::
     fed = api.fed_round(model, SubmodelConfig(scheme="bernoulli", ...))
     params, history = api.Trainer(fed, params, rng=0).run(batches, 3)
 
+    # held-out loss each round, logged, with a checkpoint (reference layout)
+    trainer = api.Trainer(
+        fed, params, eval_every=1, log_every=1,
+        eval_fn=lambda p: {"eval": model.loss(p, eval_batch)[0]},
+        callbacks=[api.checkpoint_callback("ckpt.npz")])
+
 Everything runs on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch versions.
 Arguments the port does not cover yet raise ``NotImplementedError`` naming
@@ -31,11 +38,11 @@ import numpy as np
 from repro_torch.configs.base import SubmodelConfig
 from repro_torch.core.fedavg import (MaskFedAvg, WindowFedAvg,
                                      build_mask_fed, build_window_fed)
-from repro_torch.core.trainer import Trainer
+from repro_torch.core.trainer import Trainer, checkpoint_callback
 from repro_torch.device import resolve_device
 
-__all__ = ["fed_round", "Trainer", "WindowFedAvg", "MaskFedAvg", "MODES",
-           "resolve_mode"]
+__all__ = ["fed_round", "Trainer", "checkpoint_callback", "WindowFedAvg",
+           "MaskFedAvg", "MODES", "resolve_mode"]
 
 MODES = ("auto", "window", "mask")
 

@@ -1,19 +1,23 @@
 """The training loop over federated rounds.
 
-Ports ``Trainer.step``, ``Trainer.run`` and ``Trainer.losses`` of
-``repro/core/trainer.py`` (no eval, logging, checkpoint or server-optimizer
-callbacks yet).  Batch iterators yield a batch dict (numpy or torch leaves
-``[K, C, ...]``) or a ``(batch, round_kwargs)`` pair whose kwargs go to the
-round, e.g. ``{"offsets": ...}`` to inject window offsets, ``{"masks":
-...}`` to inject masks or ``{"capacities": [...]}`` for a mask round's
-participants (the paper's protocol passes them so).
+Ports ``Trainer`` (``step``, ``run``, ``losses``; eval, logging, callbacks
+and ``start_round`` resume) and ``checkpoint_callback`` of
+``repro/core/trainer.py``; server optimizers are not ported yet.  Batch
+iterators yield a batch dict (numpy or torch leaves ``[K, C, ...]``) or a
+``(batch, round_kwargs)`` pair whose kwargs go to the round, e.g.
+``{"offsets": ...}`` to inject window offsets, ``{"masks": ...}`` to inject
+masks or ``{"capacities": [...]}`` for a mask round's participants (the
+paper's protocol passes them so).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
+
+from repro_torch.checkpoint.checkpoint import save
 
 
 @dataclass
@@ -21,8 +25,11 @@ class Trainer:
     """Drives ``fed.round`` for N rounds on ``fed.device``::
 
         fed = api.fed_round(model, scfg)
-        trainer = api.Trainer(fed, params)
+        trainer = api.Trainer(fed, params, log_every=10,
+                              eval_fn=lambda p: {"eval": model.loss(
+                                  p, eval_batch)[0]})
         params, history = trainer.run(batches, n_rounds=3)
+        trainer.run(batches, 3)           # resumes at round 3
 
     The round updates ``params`` in place.  ``history`` keeps per-round
     metric records as device tensors; :attr:`losses` reads them once.
@@ -30,22 +37,44 @@ class Trainer:
     round's device, which every round draws its masks from
     (``generator=``).  Its stream is torch's, not ``jax.random``'s: the
     same seed gives other masks than the reference's ``Trainer``.
+
+    After each round, on rounds ``r % eval_every == 0`` and on the last
+    round of a :meth:`run` (``eval_every=0``: the last round only),
+    ``eval_fn(params)`` runs under ``torch.no_grad()`` (JAX builds no tape
+    for a plain call; this is the same, and it lets the flash kernel,
+    which has no backward, run) and its values merge into the round's
+    record as floats.  Then each callback runs as ``cb(round_idx, params,
+    record)``, and every ``log_every`` rounds (and on the last)
+    ``log_fn`` gets ``round   r loss x.xxxx`` plus the record's other
+    scalars.  ``start_round`` resumes a restored schedule mid-way.
     """
 
     fed: Any
     params: Dict[str, torch.Tensor]
     rng: Optional[int] = None
+    server_opt: Any = None
+    callbacks: Sequence[Callable] = ()
+    eval_fn: Optional[Callable] = None    # (params) -> {name: scalar}
+    eval_every: int = 0                   # 0 = the last round only
+    log_every: int = 0                    # 0 = silent
+    log_fn: Callable = print
+    start_round: int = 0                  # resume mid-schedule
 
     round_idx: int = field(default=0, init=False)
     history: List[Dict] = field(default_factory=list, init=False)
     generator: Any = field(default=None, init=False)
 
     def __post_init__(self):
+        if self.server_opt not in (None, "", "none"):
+            raise NotImplementedError(
+                "server optimizers are not ported yet (ROADMAP.md queue A, "
+                "optimizers and the uplink)")
         dev = self.fed.device
         wrong = [k for k, v in self.params.items() if v.device != dev]
         if wrong:
             raise ValueError(f"params {wrong[:3]} are not on the round's "
                              f"device {dev}")
+        self.round_idx = self.start_round
         self.generator = torch.Generator(dev).manual_seed(
             0 if self.rng is None else int(self.rng))
 
@@ -61,15 +90,49 @@ class Trainer:
     def run(self, batch_iter, n_rounds):
         """Train for ``n_rounds``; returns ``(params, history)``."""
         batch_iter = iter(batch_iter)
+        last = self.round_idx + n_rounds - 1
         for _ in range(n_rounds):
             item = next(batch_iter)
             batch, kw = item if isinstance(item, tuple) else (item, None)
-            self.history.append(self.step(batch, kw))
+            rec = self.step(batch, kw)
+            r = rec["round"]
+            if self.eval_fn and (r == last or (
+                    self.eval_every and r % self.eval_every == 0)):
+                with torch.no_grad():
+                    rec.update({k: float(v) for k, v in
+                                self.eval_fn(self.params).items()})
+            self.history.append(rec)
+            for cb in self.callbacks:
+                cb(r, self.params, rec)
+            if self.log_every and (r % self.log_every == 0 or r == last):
+                extras = " ".join(f"{k} {float(v):.4f}"
+                                  for k, v in rec.items()
+                                  if k not in ("round", "loss")
+                                  and np.ndim(v) == 0)
+                self.log_fn(f"round {r:4d} loss {float(rec['loss']):.4f}"
+                            + (f"  {extras}" if extras else ""))
         return self.params, self.history
 
     @property
     def losses(self) -> List[float]:
         return [float(h["loss"]) for h in self.history]
+
+
+def checkpoint_callback(path, every=0, meta=None):
+    """Trainer callback that checkpoints params (and the running loss
+    history) in the reference's file layout (:mod:`repro_torch.checkpoint.
+    checkpoint`); ``every=0`` saves on every call, ``every=N`` on rounds
+    ``r % N == 0``.  The metadata's ``round`` is the next round to run."""
+    losses: List[float] = []
+
+    def cb(round_idx, params, record):
+        losses.append(float(record["loss"]))
+        if every and round_idx % every != 0:
+            return
+        save(path, params, {**(meta or {}), "round": round_idx + 1,
+                            "history": losses})
+
+    return cb
 
 
 def _to_device(v, device):

@@ -1,0 +1,89 @@
+"""Flash attention forward: causal or sliding-window GQA online softmax.
+
+Ports ``flash_attention`` of ``repro/kernels/flash_attention.py`` with its
+public layout: q ``[B, Sq, H, hd]``, k and v ``[B, Skv, KV, hd]`` ->
+``[B, Sq, H, hd]``, GQA groups ``G = H // KV``, ``causal``, ``window`` and
+``softmax_scale`` (default ``1 / sqrt(hd)``).  Query and key positions both
+start at 0; a key is visible when ``qpos >= kpos`` (causal) and ``qpos -
+kpos < window`` (window > 0).  The TPU's ``bq``/``bkv`` block sizes were its
+tiling and are gone: any ``Sq`` and ``Skv`` work.  float32 only.
+
+There is no backward, as the reference has none: with autograd recording,
+inputs that require a gradient are refused.
+
+On a CUDA tensor the wrapper launches ``flash_attn_fwd``
+(``csrc/flash_attn.cu``) or raises; on a CPU tensor it runs the plain
+version, ``kernels.ref.flash_attention_ref``, a transcription of the
+Pallas body.  A row of a visited Pallas block whose keys are all masked
+briefly holds ``exp(0)`` weights until its first visible key rescales them
+by exactly 0, where the kernel skips such rows; so the two agree whenever
+every query row sees at least one key.  Only a window with ``Sq >= Skv +
+window`` leaves a row without one (the Pallas body would give it the mean
+of V over its visited blocks, a value of its tiling), and such inputs are
+refused on both devices.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+#: head dims the CUDA kernel is built for (its q row and accumulator live
+#: in registers, so the width is a compile-time constant)
+HEAD_DIMS = (8, 16, 32, 64, 128)
+#: query rows per block: a kv head's group G <= 128 shares each K/V tile
+MAX_GROUP = 128
+
+
+def _check(q, k, v, window):
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise TypeError("flash attention takes float32 q, k and v (bf16 is "
+                        "ROADMAP.md queue B, row 13)")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be [B, Sq, H, hd] and k, v one [B, Skv, "
+                         f"KV, hd] shape; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, H, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} "
+                         "disagree on batch or head_dim, or H % KV != 0")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k and v need unit stride along head_dim")
+    if window > 0 and q.shape[1] >= k.shape[1] + window:
+        raise ValueError(f"query rows {k.shape[1] + window - 1}.. of "
+                         f"{q.shape[1]} see no key in a window of {window} "
+                         f"over {k.shape[1]} keys")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("q, k and v lie on several devices")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash attention has no backward (the reference kernel has none "
+            "either): call it under torch.no_grad(), or leave "
+            "REPRO_USE_FLASH unset to train (ROADMAP.md queue A, flash "
+            "attention backward)")
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softmax_scale=None):
+    """``softmax(scale * q k^T + mask) v`` per query head, over the keys of
+    its kv head; see the module docstring."""
+    _check(q, k, v, window)
+    scale = softmax_scale or 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softmax_scale=scale)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if hd not in HEAD_DIMS or G > MAX_GROUP:
+        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS} and "
+                         f"groups of at most {MAX_GROUP}; got {hd}, {G}")
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)]
+    err = _build.library().flash_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+        B, KV, G, Sq, Skv, hd, int(bool(causal)), int(window), scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_launch("flash_attention", err)
+    return out

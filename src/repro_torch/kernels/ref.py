@@ -7,8 +7,12 @@ reference, and ``chip_smoke.py`` holds each kernel against them on the card.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+NEG_INF = -1e30
 
 
 def rolling_matmul_batched_ref(x, ws, offsets, win):
@@ -53,3 +57,57 @@ def fillin_agg_ref(w, w_clients, m_clients, scale):
     for wc, mc in zip(w_clients, m_clients):
         acc += mc * (wc - w)
     return w.add_(acc * float(np.float32(scale)))
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0,
+                        softmax_scale=None, bq=512, bkv=512):
+    """The Pallas flash kernel's body (``repro/kernels/flash_attention.py``
+    ``_flash_kernel``) in plain torch, block for block: q ``[B, Sq, H,
+    hd]``, k and v ``[B, Skv, KV, hd]`` -> ``[B, Sq, H, hd]``.  For each
+    ``bq`` tile of queries, the ``bkv`` tiles of keys in order, skipping
+    those wholly above the causal diagonal or outside the window; scores
+    masked to ``-1e30``; the online softmax; ``acc / max(l, 1e-30)``.  A
+    ragged last tile is simply shorter (the reference asserts that the
+    tiles divide the lengths)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = softmax_scale or 1.0 / math.sqrt(hd)
+    bq, bkv = min(bq, Sq), min(bkv, Skv)
+    qg = q.float().reshape(B, Sq, KV, G, hd).permute(0, 2, 1, 3, 4) \
+        .reshape(B * KV, Sq, G, hd)
+    kg = k.float().permute(0, 2, 1, 3).reshape(B * KV, Skv, hd)
+    vg = v.float().permute(0, 2, 1, 3).reshape(B * KV, Skv, hd)
+    out = torch.empty_like(qg)
+    for q0 in range(0, Sq, bq):
+        qb = qg[:, q0:q0 + bq]                       # [B*KV, n, G, hd]
+        n = qb.shape[1]
+        qpos = (q0 + torch.arange(n, device=q.device))[:, None, None]
+        m = torch.full(qb.shape[:3], NEG_INF, device=q.device)
+        l = torch.zeros(qb.shape[:3], device=q.device)
+        acc = torch.zeros(qb.shape, device=q.device)
+        for k0 in range(0, Skv, bkv):
+            nk = min(bkv, Skv - k0)
+            if causal and k0 > q0 + n - 1:
+                continue
+            if window and k0 + nk - 1 < q0 - window + 1:
+                continue
+            kb, vb = kg[:, k0:k0 + nk], vg[:, k0:k0 + nk]
+            s = torch.einsum("bqgd,bsd->bqgs", qb, kb) * scale
+            kpos = k0 + torch.arange(nk, device=q.device)
+            valid = torch.ones((n, 1, nk), dtype=torch.bool, device=q.device)
+            if causal:
+                valid = valid & (qpos >= kpos)
+            if window:
+                valid = valid & ((qpos - kpos) < window)
+            s = torch.where(valid, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bqgs,bsd->bqgd", p,
+                                                       vb)
+            m = m_new
+        out[:, q0:q0 + n] = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, KV, Sq, G, hd).permute(0, 2, 1, 3, 4) \
+        .reshape(B, Sq, H, hd).to(q.dtype)

@@ -10,6 +10,18 @@ operand, as the reference's client vmap makes them:
 
 T weights share one x and one window (the MLP's gate/up pair is T = 2).
 
+One model (no client dimension) takes the scalar-offset forms, which port
+``rolling_matmul``/``rolling_matmul_multi`` (``repro/kernels/
+rolling_matmul.py``), ``rolling_matmul_dx``/``rolling_matmul_dx_multi``
+(``rolling_matmul_bwd.py``) and the custom VJP of ``dispatch.rolling_matmul``
+and ``dispatch.rolling_matmul_multi``: ``x [M, K]``, ``w [K, N]``, one
+offset.  They run as C = 1 launches of the same kernels, through the same
+autograd function, on ``unsqueeze(0)`` views (no copy of the weight),
+counted under the reference's scalar names.
+The kernels take any offset, where the TPU's need one aligned to their
+blocks; a batch of tokens folds into the M rows, the reference's rule for a
+shared weight and offset (``dispatch.py:276-287``).
+
 On a CUDA tensor each wrapper launches its kernel (``csrc/rolling_mm.cu``)
 or raises; on a CPU tensor it runs the plain version in ``kernels.ref``.
 There is no other arm and no fallback.
@@ -70,9 +82,10 @@ def _check(x, ws, offsets, win, x_name="x"):
     return C, x.shape[1], K, N, w0.stride(1), w0.stride(0)
 
 
-def rolling_mm_fwd(x, ws, offsets: Offsets, win):
+def rolling_mm_fwd(x, ws, offsets: Offsets, win, name=None):
     """``ys[t] = x @ ws[t][:, :, window]`` per client; ``x [C, M, K]``,
-    each ``ws[t] [C, K, N]``; returns a tuple of T ``[C, M, win]``."""
+    each ``ws[t] [C, K, N]``; returns a tuple of T ``[C, M, win]``.  A
+    launch counts under ``name`` (default ``rolling_mm_fwd<T>``)."""
     C, M, K, N, ldw, w_bs = _check(x, ws, offsets, win)
     if x.shape[2] != K:
         raise ValueError(f"x has {x.shape[2]} columns, weights {K} rows")
@@ -87,13 +100,14 @@ def rolling_mm_fwd(x, ws, offsets: Offsets, win):
         T, x.data_ptr(), wp[0], wp[1], yp[0], yp[1], offsets.dev.data_ptr(),
         C, M, K, N, win, w_bs, ldw, torch.cuda.current_stream(
             x.device).cuda_stream)
-    _build.check_launch(f"rolling_mm_fwd<{T}>", err)
+    _build.check_launch(name or f"rolling_mm_fwd<{T}>", err)
     return ys
 
 
-def rolling_mm_dx(dys, ws, offsets: Offsets, win):
+def rolling_mm_dx(dys, ws, offsets: Offsets, win, name=None):
     """``dx = sum_t dys[t] @ ws[t][:, :, window]^T`` per client;
-    ``dys[t] [C, M, win]``; returns ``[C, M, K]``."""
+    ``dys[t] [C, M, win]``; returns ``[C, M, K]``.  A launch counts under
+    ``name`` (default ``rolling_mm_dx<T>``)."""
     dy0 = dys[0]
     C, M, K, N, ldw, w_bs = _check(dy0, ws, offsets, win, x_name="dy")
     if len(dys) != len(ws) or any(
@@ -113,7 +127,7 @@ def rolling_mm_dx(dys, ws, offsets: Offsets, win):
         T, dp[0], dp[1], wp[0], wp[1], dx.data_ptr(), offsets.dev.data_ptr(),
         C, M, K, N, win, w_bs, ldw, torch.cuda.current_stream(
             dy0.device).cuda_stream)
-    _build.check_launch(f"rolling_mm_dx<{T}>", err)
+    _build.check_launch(name or f"rolling_mm_dx<{T}>", err)
     return dx
 
 
@@ -124,12 +138,14 @@ class RollingMatmulBatched(torch.autograd.Function):
     ``x[c]^T @ dy_t[c]`` into a full-shaped zero gradient, so coordinates
     outside the window get exactly 0.
 
-    ``RollingMatmulBatched.apply(x, offsets, win, *ws)`` returns a tuple of
-    T outputs."""
+    ``RollingMatmulBatched.apply(x, offsets, win, names, *ws)`` returns a
+    tuple of T outputs; ``names`` is the (forward, dx) pair of launch-count
+    names, or None for the kernels' own."""
 
     @staticmethod
-    def forward(ctx, x, offsets, win, *ws):
-        ys = rolling_mm_fwd(x, ws, offsets, win)
+    def forward(ctx, x, offsets, win, names, *ws):
+        fwd_name, ctx.dx_name = names or (None, None)
+        ys = rolling_mm_fwd(x, ws, offsets, win, name=fwd_name)
         ctx.save_for_backward(x, *ws)
         ctx.offsets, ctx.win = offsets, win
         return ys
@@ -139,7 +155,7 @@ class RollingMatmulBatched(torch.autograd.Function):
         x, *ws = ctx.saved_tensors
         offsets, win = ctx.offsets, ctx.win
         dys = [d.contiguous() for d in dys]
-        dx = (rolling_mm_dx(dys, ws, offsets, win)
+        dx = (rolling_mm_dx(dys, ws, offsets, win, name=ctx.dx_name)
               if ctx.needs_input_grad[0] else None)
         dws = []
         for w, dy in zip(ws, dys):
@@ -148,9 +164,30 @@ class RollingMatmulBatched(torch.autograd.Function):
                 # the product writes straight into the window view of dW
                 dw[c, :, o:o + win].addmm_(x[c].mT, dy[c])
             dws.append(dw)
-        return (dx, None, None, *dws)
+        return (dx, None, None, None, *dws)
 
 
-def rolling_matmul_batched(x, ws, offsets: Offsets, win):
+def rolling_matmul_batched(x, ws, offsets: Offsets, win, names=None):
     """Differentiable windowed product; see :class:`RollingMatmulBatched`."""
-    return RollingMatmulBatched.apply(x, offsets, win, *ws)
+    return RollingMatmulBatched.apply(x, offsets, win, names, *ws)
+
+
+# -- one model: a scalar offset, C = 1 launches --------------------------------
+
+#: (forward, dx) launch-count names of one model's products, by T: the
+#: reference's scalar-offset kernels (TPU rows 1-4)
+SCALAR_NAMES = {1: ("rolling_matmul", "rolling_matmul_dx"),
+                2: ("rolling_matmul_multi", "rolling_matmul_dx_multi")}
+
+
+def rolling_matmul(x, ws, offset: int, win):
+    """One model's differentiable ``ys[t] = x [M, K] @ ws[t] [K, N][:,
+    offset : offset + win]`` for T <= 2 weights sharing one x and one
+    window (the reference's ``rolling_matmul`` at T = 1,
+    ``rolling_matmul_multi`` at T = 2); returns a tuple of T ``[M, win]``.
+    :func:`rolling_matmul_batched` on C = 1 views, counted under
+    :data:`SCALAR_NAMES`."""
+    ys = rolling_matmul_batched(
+        x.contiguous().unsqueeze(0), [w.unsqueeze(0) for w in ws],
+        make_offsets((offset,), x.device), win, names=SCALAR_NAMES[len(ws)])
+    return tuple(y[0] for y in ys)

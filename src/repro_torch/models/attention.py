@@ -4,13 +4,17 @@ Ports ``attn_params``, ``_qkv``, ``blockwise_attention`` and ``gqa_train`` of
 ``repro/models/attention.py``.  ``blockwise_attention`` is plain jnp in the
 reference, so it is plain torch here: the same online softmax over kv
 chunks, with the same chunk bounds for causal and sliding-window masks.
+Under ``REPRO_USE_FLASH`` attention runs the flash kernel instead
+(forward only; see :func:`gqa_train`).
 """
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import ParamBuilder, apply_rope, head_proj
 
 NEG_INF = -1e30
@@ -93,12 +97,23 @@ def _qkv(p, x, cfg, positions, window=None):
 
 def gqa_train(p, x, cfg, positions, window=None):
     """x ``[C, B, S, D]`` with per-client weights ``[C, ...]``; the client
-    dimension folds into attention's batch."""
+    dimension folds into attention's batch.
+
+    With ``REPRO_USE_FLASH`` set (to anything non-empty), attention runs the flash kernel
+    (``kernels.flash_attention``), as the reference's does.  The reference
+    reads the switch once, at import; the port reads it at every call, so
+    one process can train with blockwise attention and evaluate with
+    flash.  The flash kernel has no backward (the reference's has none
+    either): under the switch, q, k and v must not require a gradient
+    (evaluate under ``torch.no_grad()``), or ``NotImplementedError`` is
+    raised."""
     C, B, S, D = x.shape
     q, k, v = _qkv(p, x, cfg, positions, window=window)
     fold = (lambda t: t.reshape(C * B, S, t.shape[-2], t.shape[-1]))
-    out = blockwise_attention(fold(q), fold(k), fold(v), causal=True,
-                              window=cfg.sliding_window)
+    attend = (flash_attention if os.environ.get("REPRO_USE_FLASH")
+              else blockwise_attention)
+    out = attend(fold(q), fold(k), fold(v), causal=True,
+                 window=cfg.sliding_window)
     wo = p["wo"]
     hspec = window.get("heads", wo.shape[1]) if window else None
     if hspec is not None:

@@ -9,26 +9,34 @@ tags}`` dict; paths are the reference's ``tree_paths`` with the stacked
 ``layers`` axis split into one leaf per layer (``layers/3/mlp/w_gate``).
 Inside the model every leaf carries a leading client dimension ``[C, ...]``
 (one model is C = 1): the federated round trains C copies at once, and the
-windowed products read each client's own copy.
+windowed products read each client's own copy.  A window with one scalar
+offset (one model, as the reference's ``AxisWindow.offset``) runs the same
+products on C = 1, counted under the reference's scalar-offset names.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rolling_matmul import (Offsets, make_offsets,
+from repro_torch.kernels.rolling_matmul import (SCALAR_NAMES, Offsets,
+                                                make_offsets,
                                                 rolling_matmul_batched)
 
 
 class AxisWindow:
     """Active window of one windowed axis, in axis units: one offset per
-    client (host integers) and a static width ``win``."""
+    client (host integers) and a static width ``win``.  A scalar offset
+    is the window of one model (``scalar``): its products run on C = 1 and
+    count their launches under the scalar-offset names."""
 
     def __init__(self, offsets, win: int):
-        self.offsets = tuple(int(o) for o in offsets)
+        self.scalar = np.ndim(offsets) == 0
+        self.offsets = ((int(offsets),) if self.scalar
+                        else tuple(int(o) for o in offsets))
         self.win = int(win)
         self._cols: Dict[Tuple[int, str], Offsets] = {}
 
@@ -40,6 +48,12 @@ class AxisWindow:
             self._cols[key] = make_offsets([o * scale for o in self.offsets],
                                            device)
         return self._cols[key]
+
+    def names(self, T: int):
+        """The (forward, dx) launch-count names of its T-weight product:
+        the reference's scalar-offset kernels for one model's window, the
+        kernels' own (None) for per-client ones."""
+        return SCALAR_NAMES[T] if self.scalar else None
 
     def shared_offset(self) -> int:
         """The one offset every client shares (the shared-window round)."""
@@ -169,11 +183,11 @@ def mlp_apply(p, x, act="silu"):
 def mlp_apply_rolling(p, x, spec: AxisWindow, act="silu"):
     """Gated MLP on the FULL weights reading only the active ``d_ff``
     window: the gate/up pair goes through one T = 2 windowed product (the
-    ``rolling_mm_fwd<2>`` kernel on the card), and ``w_down``'s row window
-    is a view, not a copy (the reference's ``dynamic_slice``)."""
-    x2 = _rows(x)
+    ``rolling_mm_fwd<2>`` kernel on the card), and ``w_down``'s row
+    window is a view, not a copy (the reference's ``dynamic_slice``)."""
     gy, u = rolling_matmul_batched(
-        x2, (p["w_gate"], p["w_up"]), spec.cols(1, x.device), spec.win)
+        _rows(x), (p["w_gate"], p["w_up"]), spec.cols(1, x.device),
+        spec.win, names=spec.names(2))
     o = spec.shared_offset()
     w_down = p["w_down"][:, o:o + spec.win]
     out = torch.bmm(act_fn(act)(gy) * u, w_down)
@@ -190,7 +204,7 @@ def head_proj(x, w, spec: Optional[AxisWindow]):
     if spec is None:
         return torch.bmm(_rows(x), w2).reshape(C, *lead, H, hd)
     (y,) = rolling_matmul_batched(_rows(x), (w2,), spec.cols(hd, x.device),
-                                  spec.win * hd)
+                                  spec.win * hd, names=spec.names(1))
     return y.reshape(C, *lead, spec.win, hd)
 
 

@@ -5,25 +5,34 @@ Ports ``build_params``, ``block_apply``, ``Model.forward`` and ``Model.loss``
 The reference scans a stacked ``layers`` axis under ``remat``; here the
 layers are separate leaves and a plain Python loop runs them.
 
-Every leaf that enters :meth:`Model.forward` carries a leading client
-dimension ``[C, ...]`` and the tokens are ``[C, B, S]``; :meth:`Model.loss`
-returns one loss per client.  :meth:`Model.init` makes one (server) model
-without the client dimension.
+:meth:`Model.forward` and :meth:`Model.loss` take two forms, told apart by
+the tokens' rank:
+
+- one model, the reference's signature: params without a client
+  dimension, tokens ``[B, S]``; ``loss`` returns ``(scalar, metrics)``.
+  It runs as C = 1 views, and its ``window=`` (scalar offsets) counts
+  its window products as the reference's scalar-offset kernels;
+- C clients, the round's form: every leaf carries a leading client
+  dimension ``[C, ...]``, tokens are ``[C, B, S]``, and ``loss`` returns
+  one loss per client.
+
+:meth:`Model.init` makes one (server) model without the client dimension.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import attn_params, gqa_train
-from repro_torch.models.layers import (ParamBuilder, WindowMap, mlp_apply,
-                                       mlp_apply_rolling, mlp_params,
-                                       rms_norm, softmax_xent)
+from repro_torch.models.layers import (AxisWindow, ParamBuilder, WindowMap,
+                                       mlp_apply, mlp_apply_rolling,
+                                       mlp_params, rms_norm, softmax_xent)
 
 
 def _check_supported(cfg: ModelConfig):
@@ -97,10 +106,44 @@ class Model:
     def axes(self) -> Dict[str, tuple]:
         return build_params(self.cfg, 0, "meta")[1]
 
-    def forward(self, params, tokens, window: Optional[WindowMap] = None):
-        """tokens ``[C, B, S]`` int; ``window`` routes every windowed
-        product through the fused sub-model forward.  Returns logits
-        ``[C, B, S, V]`` and the final hidden state."""
+    def _one_model(self, params, window):
+        """One model's params and window as the C = 1 form takes them:
+        ``unsqueeze(0)`` views, and scalar :class:`AxisWindow` s.
+        ``window`` is a :class:`WindowMap`, a ``{(axis, size): (offset,
+        win) | AxisWindow}`` dict, or an ``(offset, win)`` pair meaning a
+        bare ``d_ff`` window (the reference's ``_norm_window`` forms)."""
+        if params["embed"].dim() != 2:
+            raise ValueError("tokens [B, S] are one model's; its params "
+                             "carry no client dimension")
+        params = {k: v.unsqueeze(0) for k, v in params.items()}
+        if window is None:
+            return params, None
+        if isinstance(window, WindowMap):
+            window = window.windows
+        elif not isinstance(window, dict):
+            window = {("d_ff", self.cfg.d_ff): window}
+        specs = {}
+        for key, spec in window.items():
+            offset, win = ((spec.offsets, spec.win)
+                           if isinstance(spec, AxisWindow) else spec)
+            if np.ndim(offset) and len(offset) != 1:
+                raise ValueError(f"one model takes one offset for {key}; "
+                                 f"got {offset}")
+            specs[key] = AxisWindow(int(np.reshape(offset, -1)[0]), win)
+        return params, WindowMap(specs)
+
+    def forward(self, params, tokens, window=None):
+        """tokens ``[B, S]`` (one model) or ``[C, B, S]`` (C clients) int;
+        ``window`` routes every windowed product through the fused
+        sub-model forward.  Returns logits ``[(C,) B, S, V]`` and the final
+        hidden state."""
+        if tokens.dim() == 2:
+            params, window = self._one_model(params, window)
+            logits, h = self._forward(params, tokens[None], window)
+            return logits[0], h[0]
+        return self._forward(params, tokens, window)
+
+    def _forward(self, params, tokens, window: Optional[WindowMap]):
         cfg = self.cfg
         C, B, S = tokens.shape
         emb = params["embed"]                                 # [C, V, D]
@@ -117,12 +160,23 @@ class Model:
         return logits.reshape(C, B, S, -1), h
 
     def loss(self, params, batch, window=None):
-        """batch ``{"tokens": [C, B, S]}``; returns ``(loss [C], metrics)``
-        with each client's mean next-token cross-entropy."""
+        """batch ``{"tokens": [B, S]}`` (one model): returns ``(loss,
+        metrics)`` with the mean next-token cross-entropy and the
+        reference's ``lm_loss``, ``aux_loss`` (0 for the dense family) and
+        ``loss``.  batch ``{"tokens": [C, B, S]}``: returns ``(loss [C],
+        {"lm_loss": loss})``, each client's own."""
         tokens = batch["tokens"]
-        logits, _ = self.forward(params, tokens, window=window)
+        one = tokens.dim() == 2
+        if one:
+            params, window = self._one_model(params, window)
+            tokens = tokens[None]
+        logits, _ = self._forward(params, tokens, window)
         lm = softmax_xent(logits[:, :, :-1], tokens[:, :, 1:])
-        return lm, {"lm_loss": lm}
+        if not one:
+            return lm, {"lm_loss": lm}
+        lm = lm[0]
+        return lm, {"lm_loss": lm, "aux_loss": torch.zeros_like(lm),
+                    "loss": lm}
 
 
 def build_model(cfg: ModelConfig) -> Model:

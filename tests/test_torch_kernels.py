@@ -43,6 +43,7 @@ from repro_torch.kernels.ref import (fillin_agg_ref,  # noqa: E402
                                      rolling_matmul_batched_dx_ref,
                                      rolling_matmul_batched_ref, sgd_ref)
 from repro_torch.kernels.rolling_matmul import (make_offsets,  # noqa: E402
+                                                rolling_matmul,
                                                 rolling_matmul_batched,
                                                 rolling_mm_dx, rolling_mm_fwd)
 
@@ -438,3 +439,31 @@ def test_gpu_fillin_kernel_is_bit_exact_to_plain(cuda, C, server_lr, n):
         got = fillin_agg_(w[sl].clone(), wc[:, :n].contiguous(),
                           mc[:, :n].contiguous(), server_lr)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("shape", [(300, 1000, 777, 333, 17),
+                                   (512, 2048, 5632, 2816, 2816)])
+def test_gpu_scalar_products_match_plain(cuda, T, shape):
+    """TPU rows 1-4: one model's windowed products (C = 1 launches).
+    Launches counted under the reference's scalar names; values and the
+    autograd VJP against plain autograd on the window views."""
+    m, k, n, win, off = shape
+    g = torch.Generator(cuda).manual_seed(T)
+    x = torch.randn((m, k), device=cuda, generator=g, requires_grad=True)
+    ws = [torch.randn((k, n), device=cuda, generator=g, requires_grad=True)
+          for _ in range(T)]
+    dys = [torch.randn((m, win), device=cuda, generator=g)
+           for _ in range(T)]
+    names = (["rolling_matmul", "rolling_matmul_dx"] if T == 1 else
+             ["rolling_matmul_multi", "rolling_matmul_dx_multi"])
+    before = [_build.LAUNCHES[nm] for nm in names]
+    ys = rolling_matmul(x, ws, off, win)
+    got = torch.autograd.grad(ys, [x, *ws], dys)
+    torch.cuda.synchronize()
+    assert [_build.LAUNCHES[nm] for nm in names] == [b + 1 for b in before]
+    want_y = [x @ w[:, off:off + win] for w in ws]
+    want = torch.autograd.grad(want_y, [x, *ws], dys)
+    for a, b in zip([*ys, *got], [*want_y, *want]):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max().clamp_min(1.0)
