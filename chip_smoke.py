@@ -7,21 +7,24 @@ Phases, each of which fails the run when it fails:
 
 1. Build the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
    print nvcc's ``-Xptxas -v`` report and the card.
-2. Hold every kernel of the three paths against its plain PyTorch version
-   on the card, at the shapes the full-width TinyLlama-1.1B rounds and
-   evaluation give it (plus unaligned offsets, ragged lengths, sliding
-   windows and other head groupings): the product kernels' forward values
-   and autograd gradients, the flash kernel's output, and the three update
-   kernels bit for bit; time each beside its plain version, one library
-   call for the same function (where one exists) and its f32 bound on an
-   H100.
+2. Hold every kernel of the paths against its plain PyTorch version on
+   the card, at the shapes the full-width TinyLlama-1.1B rounds and
+   evaluation and the Mamba2-130M prefill give it (plus unaligned offsets,
+   ragged lengths, sliding windows, other head groupings, short and
+   ragged chunks and head windows): the product kernels' forward values
+   and autograd gradients, the flash kernel's output, the SSD chunk
+   kernel's outputs and chunk states (also against the sequential
+   recurrence), and the three update kernels bit for bit; time each beside
+   its plain version, one library call for the same function (where one
+   exists) and its f32 bound on an H100.
 3. Run two rounds of the reduced model on the card and on the CPU (the
    plain versions) from the same params, tokens and windows or masks
    (masks drawn on the CPU and copied), and hold the two against each
    other: the window round (checkpointed through ``checkpoint_callback``
    and loaded back bit for bit), a Bernoulli mask round and a structured
-   rolling mask round at per-client capacities; and one model's eval
-   through the flash kernel against the same eval on the CPU.
+   rolling mask round at per-client capacities; one model's eval
+   through the flash kernel against the same eval on the CPU; and reduced
+   Mamba2 serving (prefill 2 x 64, 4 greedy steps) and its loss.
 4. The window path: the shared-window federated round on full-width
    TinyLlama-1.1B (22 layers, f32, 4 clients x 2 local steps x 2 x 256
    tokens), through ``api.fed_round`` and ``api.Trainer``, 3 rounds, with
@@ -42,6 +45,16 @@ Phases, each of which fails the run when it fails:
    ``api.Trainer(rng=0)``, 3 rounds, counted, checked and profiled the
    same way; then the peak memory of one client phase run with the model
    on ``w_c`` (what the round runs) and on the literal ``m * w_c``.
+4c. Serving, after the mask path is freed: full-width Mamba2-130M (24
+   layers, f32, random weights from seed 0) prefills 8 BigramLM prompts of
+   32768 tokens and decodes 64 greedy tokens through ``serve.generate``
+   (launches counted, peak from a reset, prefill and ms per token timed);
+   teacher-forced decode of the last 256 tokens against one prefill of all
+   of them, on the logits and every layer's state; its loss on 4 x 2048
+   held-out tokens; one prefill under ``torch.profiler``.  Then
+   full-width TinyLlama-1.1B prefills 4 x 1536 tokens and decodes 512
+   greedy tokens, checked by teacher-forced decode against one prefill of
+   all 2048.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  With no
@@ -73,6 +86,13 @@ PEAK_BYTES = 3.35e12
 MM_RTOL = 1e-4
 ROUND_TOL = 1e-4          # reduced round, card vs CPU (losses and params)
 EVAL_RTOL = 1e-5          # full-width eval loss, flash vs blockwise
+# full-width Mamba2, teacher-forced decode vs prefill: each layer's state h
+# past layer 0.  One-token decode and 32k-token prefill round their
+# products differently (other GEMM shapes); the differences grow through the
+# residual stream with depth (8e-6 at layer 0 to 1.1e-4 at layer 21 of 24 on
+# an H100 at 700 W), while layer 0's mixer on one input agrees within 1e-5
+# (``layer_states_vs_recurrence``, held to MM_RTOL)
+DEPTH_RTOL = 1e-3
 HETERO = [1.0, 0.5, 0.25, 0.125]
 
 C, M, D = 4, 512, 2048    # clients, tokens per client (2 x 256), d_model
@@ -307,6 +327,7 @@ def phase_kernels(dev):
     rows += mask_kernels(dev, g)
     rows += scalar_kernels(dev, g)
     rows += flash_kernels(dev, g)
+    rows += ssd_kernels(dev, g)
     for r in rows:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -543,6 +564,96 @@ def flash_kernels(dev, g):
     return [row]
 
 
+# the SSD chunk block's cases (tag, Bt, nc, Q, nh, hd, N, head_offset,
+# head_win); the first is one layer of the Mamba2-130M prefill (8 x 32768
+# tokens, chunk 256), timed
+SSD = [
+    ("Mamba2 prefill layer", 8, 128, 256, 24, 64, 128, None, 0),
+    ("hymba's shape", 2, 4, 128, 50, 64, 16, None, 0),
+    ("reduced shape", 2, 4, 32, 16, 32, 16, None, 0),
+    ("Q = 15", 2, 2, 15, 16, 32, 16, None, 0),
+    ("Q = 100", 2, 2, 100, 24, 64, 128, None, 0),
+    ("head window (5, 7)", 2, 4, 256, 24, 64, 128, 5, 7),
+    ("head window (0, 24)", 2, 4, 256, 24, 64, 128, 0, 24),
+    ("head window (16, 8)", 2, 4, 256, 24, 64, 128, 16, 8),
+]
+
+
+def ssd_inputs(dev, g, Bt, nc, Q, nh, hd, N):
+    """x, dt, A, B, C as the model makes them: dt a softplus, A negative."""
+    F = torch.nn.functional
+    return (0.5 * torch.randn((Bt, nc, Q, nh, hd), device=dev, generator=g),
+            F.softplus(torch.randn((Bt, nc, Q, nh), device=dev, generator=g)),
+            -torch.exp(0.3 * torch.randn((nh,), device=dev, generator=g)),
+            0.5 * torch.randn((Bt, nc, Q, N), device=dev, generator=g),
+            0.5 * torch.randn((Bt, nc, Q, N), device=dev, generator=g))
+
+
+def ssd_flops_bytes(Bt, nc, Q, nh, hd, N):
+    """What one call's data needs: C B^T once per chunk over the causal
+    pairs (ngroups = 1: it does not depend on the head), M x per head over
+    the same pairs, and the state per head, at 2 flops a multiply-add; each
+    input read once and each output written once."""
+    pairs = Q * (Q + 1) // 2
+    flops = Bt * nc * (2 * pairs * N + nh * (2 * pairs * hd + 2 * Q * hd * N))
+    nbytes = 4 * (2 * Bt * nc * Q * nh * hd + Bt * nc * Q * nh + nh
+                  + 2 * Bt * nc * Q * N + Bt * nc * nh * hd * N)
+    return flops, nbytes
+
+
+def ssd_kernels(dev, g):
+    """TPU row 12: the SSD chunk kernel against its plain version (the
+    Pallas body transcribed) at each case, y and states within MM_RTOL of
+    their largest magnitude, and against the sequential oracle on a few
+    chunks; timed at one Mamba2 prefill layer (no single PyTorch call
+    computes the block, so there is no library time)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_intra
+    row = None
+    for tag, Bt, nc, Q, nh, hd, N, off, win in SSD:
+        args = ssd_inputs(dev, g, Bt, nc, Q, nh, hd, N)
+        x, dt, A, B, C = args
+        hs = slice(off or 0, (off or 0) + (win or nh))
+        kern = lambda: ssd_chunk_intra(*args, head_offset=off,   # noqa: E731
+                                       head_win=win)
+        plain = lambda: ref.ssd_chunk_intra_ref(  # noqa: E731
+            x[..., hs, :], dt[..., hs], A[hs], B, C)
+        (y, s), (yr, sr) = kern(), plain()
+        e = max(err(y, yr), err(s, sr), key=lambda t: t[1])
+        check(y.shape == yr.shape and s.shape == sr.shape and e[1] <= MM_RTOL,
+              f"ssd_chunk_intra {tag}: shapes {tuple(y.shape)} "
+              f"{tuple(s.shape)}, error {e}")
+        print(f"[kernels] ssd {tag:22s} x {[Bt, nc, Q, nh, hd]} N {N} heads "
+              f"[{hs.start}, {hs.stop}): max abs err {e[0]:.3g} (rel "
+              f"{e[1]:.3g})")
+        if row is None:
+            flops, nbytes = ssd_flops_bytes(Bt, nc, Q, nh, hd, N)
+            b_ms, b_by = bound(flops, nbytes)
+            del y, s, yr, sr
+            k_ms = cuda_ms(kern)
+            row = dict(
+                name="ssd_chunk_intra", route="cuda",
+                source=SRC + "ssd_chunk.cu",
+                replaces=TPU + "ssd_chunk.py:58", tpu_row=12,
+                shape={"x": [Bt, nc, Q, nh, hd], "B": [Bt, nc, Q, N]},
+                max_abs_err=e[0], max_rel_err=e[1], tolerance=MM_RTOL,
+                ms=k_ms, kernel_ms=k_ms, plain_ms=cuda_ms(plain, iters=3,
+                                                          warmup=1),
+                library_ms=None, library_calls=0, bound_ms=b_ms,
+                bound_by=b_by)
+        del args, x, dt, A, B, C
+    # chunk by chunk against the recurrence from a zero state
+    x, dt, A, B, C = ssd_inputs(dev, g, 1, 3, 64, 4, 32, 16)
+    y, s = ssd_chunk_intra(x, dt, A, B, C)
+    for c in range(3):
+        yo, so = ref.ssd_chunk_ref(x[0, c], dt[0, c], A, B[0, c], C[0, c])
+        e = max(err(y[0, c], yo), err(s[0, c], so), key=lambda t: t[1])
+        check(e[1] <= MM_RTOL, f"ssd_chunk_intra vs the recurrence: {e}")
+    print(f"[kernels] ssd against the sequential oracle on 3 chunks of 64: "
+          f"within {MM_RTOL} of max|oracle|")
+    return [row]
+
+
 # -- phase 3 ------------------------------------------------------------------
 
 
@@ -641,6 +752,41 @@ def phase_small_agreement_mask(dev):
         print(f"[agree] reduced 2-round {scheme} mask round (capacities "
               f"{caps}) card vs CPU: max |d loss| {dl:.3g}, max |d param| "
               f"{dp:.3g} (tolerance {ROUND_TOL})")
+
+
+def phase_small_agreement_ssm(dev):
+    """Reduced Mamba2 serving on the card against the CPU from the same
+    params: prefill 2 x 64 tokens and 4 greedy decode steps
+    (``serve.generate``), logits within ROUND_TOL of their largest
+    magnitude at every step and the same tokens; and one model's loss."""
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.specs import sample_prompts
+    from repro_torch.models import build_model
+    cfg = get_reduced_config("mamba2_130m")
+    model = build_model(cfg)
+    p_cpu = model.init(0, device="cpu")
+    p_gpu = {k: v.to(dev, copy=True) for k, v in p_cpu.items()}
+    prompts = torch.as_tensor(sample_prompts(cfg, 2, 64, seed=0)[0],
+                              dtype=torch.long)
+    got = generate(model, p_gpu, prompts.to(dev), 4, return_logits=True)
+    want = generate(model, p_cpu, prompts, 4, return_logits=True)
+    e = max((err(a.cpu(), b) for a, b in zip(got["logits"], want["logits"])),
+            key=lambda t: t[1])
+    same = torch.equal(got["tokens"].cpu(), want["tokens"])
+    check(e[1] <= ROUND_TOL and same, f"reduced Mamba2 serving card vs CPU: "
+          f"logits {e}, tokens equal {same}")
+    print(f"[agree] reduced Mamba2 prefill 2x64 + 4 greedy steps card vs "
+          f"CPU: logits max abs diff {e[0]:.3g} (rel {e[1]:.3g}, tolerance "
+          f"{ROUND_TOL}), tokens equal")
+    toks = prompts[:, :64]
+    losses = [eval_loss(model, p, toks.to(p["embed"].device))
+              for p in (p_gpu, p_cpu)]
+    d = abs(losses[0] - losses[1])
+    check(d <= ROUND_TOL, f"reduced Mamba2 loss card {losses[0]} vs CPU "
+          f"{losses[1]}")
+    print(f"[agree] reduced Mamba2 loss card {losses[0]:.6f} vs CPU "
+          f"{losses[1]:.6f}: |d| {d:.3g} (tolerance {ROUND_TOL})")
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -802,7 +948,6 @@ def phase_eval(dev, trainer, _build):
 def phase_profile_eval(tag, fn):
     """One more run of an eval part under torch.profiler: device time by
     kernel group (the flash kernel's share) and the profiled wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -811,19 +956,12 @@ def phase_profile_eval(tag, fn):
         fn()
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    kern = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    kern, groups = device_kernels(prof)
     if not kern:
         print(f"[profile eval] {tag}: the trace holds no device time: not "
               "measured")
         return
     total = sum(t for _, t, _ in kern)
-    groups = {}
-    for name, t, _ in kern:
-        g = _kernel_group(name)
-        groups[g] = groups.get(g, 0.0) + t
     print(f"[profile eval] {tag}: device kernels {total:.1f} ms in "
           f"{sum(n for _, _, n in kern)} launches; profiled wall "
           f"{wall_ms:.1f} ms")
@@ -914,8 +1052,296 @@ def phase_client_phase_peaks(trainer, batch):
               f"{secs:.3f} s")
 
 
+SB, SS, SG = 8, 32768, 64    # Mamba2 serving: batch, prompt, greedy steps
+DB, DS, DG = 4, 1536, 512    # TinyLlama serving: 2048 positions in all
+
+
+def timed(fn, n):
+    """``n`` calls of ``fn``, each timed to a synchronize; returns the
+    seconds and the last result."""
+    secs, out = [], None
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs, out
+
+
+def teacher_forced(model, params, seq, split):
+    """Prefill ``seq[:, :split]``, then feed ``seq[:, split:]`` through
+    ``decode_step`` one token at a time; returns the last logits and the
+    caches."""
+    S = seq.shape[1]
+    with torch.no_grad():
+        logits, cache = model.prefill(params, seq[:, :split], max_len=S)
+        for pos in range(split, S):
+            logits, cache = model.decode_step(params, seq[:, pos], cache, pos)
+    return logits, cache
+
+
+def phase_serve_ssm(dev, _build):
+    """Full-width Mamba2-130M serving (random weights, seed 0, f32): 8
+    BigramLM prompts of 32768 tokens, prefill and 64 greedy decode steps
+    through ``serve.generate``.  The first run is counted (launches from 0,
+    peak from a reset) and is the warm-up; two more are timed.  Then the
+    kernel's chunk states against the recurrence: prefill 32512 tokens and
+    decode the last 256, teacher-forced, against one prefill of all 32768.
+    Returns the model, params and prompts for the eval and the profile, and
+    the launches of the counted run."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.specs import sample_prompts
+    from repro_torch.models import build_model
+    cfg = get_config("mamba2_130m")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    t0 = time.perf_counter()
+    prompts = torch.as_tensor(sample_prompts(cfg, SB, SS, seed=0)[0],
+                              dtype=torch.long).to(dev)
+    print(f"[serve ssm] {cfg.name}: {cfg.n_layers} layers, "
+          f"{sum(v.numel() for v in params.values()):,} params, f32; prompts "
+          f"{list(prompts.shape)} (BigramLM, seed 0, drawn in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    first = generate(model, params, prompts, SG)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    runs = [generate(model, params, prompts, SG) for _ in range(2)]
+    pre = [r["prefill_s"] for r in runs]
+    dec = [1e3 * r["decode_s"] / SG for r in runs]
+    print(f"[serve ssm] prefill {SB}x{SS}: {float(np.mean(pre)):.4f} s (mean "
+          f"of 2 after a warm-up: {[round(t, 4) for t in pre]}; warm-up "
+          f"{first['prefill_s']:.4f} s)")
+    print(f"[serve ssm] decode: {float(np.mean(dec)):.3f} ms/token ({SG} "
+          f"greedy steps, batch {SB}; runs {[round(t, 3) for t in dec]})")
+    print(f"[serve ssm] peak memory allocated {peak / 2**30:.2f} GiB; "
+          f"kernel launches {launches}")
+    toks = first["tokens"]
+    check(launches.get("ssd_chunk_intra") == cfg.n_layers,
+          f"ssd_chunk_intra launched {launches.get('ssd_chunk_intra')} times "
+          f"in one prefill of {cfg.n_layers} layers")
+    check(toks.shape == (SB, SG) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab, f"generated tokens {toks.shape}")
+    same = all(torch.equal(r["tokens"], toks) for r in runs)
+    print(f"[serve ssm] generations equal across the 3 runs: {same}; first "
+          f"row {toks[0, :12].tolist()}")
+
+    with torch.no_grad():
+        want, full = model.prefill(params, prompts)
+    split = SS - cfg.ssm.chunk
+    got, cache = teacher_forced(model, params, prompts, split)
+    e = err(got, want)
+    eh = [err(cache[f"ssm_layers/{i}/h"], full[f"ssm_layers/{i}/h"])
+          for i in range(cfg.n_layers)]
+    worst = max(eh, key=lambda t: t[1])
+    check(bool(torch.isfinite(want).all()), "prefill logits not finite")
+    check(e[1] <= MM_RTOL and eh[0][1] <= MM_RTOL
+          and worst[1] <= DEPTH_RTOL,
+          f"prefill {split} + {SS - split} decode steps vs prefill {SS}: "
+          f"logits {e}, state h per layer {eh}")
+    print(f"[serve ssm] prefill {split} + {SS - split} teacher-forced decode "
+          f"steps vs prefill {SS}: logits max abs diff {e[0]:.3g} (rel "
+          f"{e[1]:.3g}, tolerance {MM_RTOL}); state h rel by layer "
+          f"{[float(f'{r:.3g}') for _, r in eh]} (layer 0 within {MM_RTOL}, "
+          f"all within {DEPTH_RTOL})")
+    e0 = layer_states_vs_recurrence(model, params, prompts, split)
+    check(e0[1] <= MM_RTOL, f"layer 0's chunk states vs the recurrence on "
+          f"the same input: {e0}")
+    print(f"[serve ssm] layer 0 on the prefill's own input: chunked SSD over "
+          f"{SS} vs chunked {split} + {SS - split} recurrent steps: state h "
+          f"max abs diff {e0[0]:.3g} (rel {e0[1]:.3g}, tolerance {MM_RTOL})")
+    return model, params, prompts, launches, float(np.mean(pre))
+
+
+def layer_states_vs_recurrence(model, params, prompts, split):
+    """Layer 0's mixer on one input, the embedded and normed prompts: the
+    state of one chunked pass over all of them (the kernel's chunk states
+    and the inter-chunk loop) against a chunked pass over ``split`` tokens
+    followed by one recurrent step per token.  Returns ``err``."""
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import rms_norm_plain
+    cfg = model.cfg
+    pre = "ssm_layers/0/ssm/"
+    p = {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+    with torch.no_grad():
+        u = rms_norm_plain(torch.nn.functional.embedding(prompts,
+                                                         params["embed"]),
+                           params["ssm_layers/0/ln1"], cfg.norm_eps)
+        _, whole = ssm.ssm_train(p, u, cfg, return_state=True)
+        _, cache = ssm.ssm_train(p, u[:, :split], cfg, return_state=True)
+        for t in range(split, u.shape[1]):
+            _, cache = ssm.ssm_decode(p, u[:, t:t + 1], cfg, cache, t)
+    return err(cache["h"], whole["h"])
+
+
+def phase_eval_ssm(dev, model, params, _build):
+    """Mamba2-130M's loss (``Model.loss`` under no_grad) on 4 x 2048
+    held-out tokens: counted once (the warm-up), then timed 3 times."""
+    from repro_torch.data.synthetic import lm_batches
+    tokens = torch.as_tensor(next(lm_batches(model.cfg.vocab, (EB,), ES,
+                                             seed=999))["tokens"],
+                             dtype=torch.long).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    loss = eval_loss(model, params, tokens)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    secs, again = timed(lambda: eval_loss(model, params, tokens), 3)
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(loss) and math.isfinite(again),
+          f"eval ssm loss {loss}, {again}")
+    check(launches.get("ssd_chunk_intra") == model.cfg.n_layers,
+          f"eval ssm launches {launches}")
+    print(f"[eval ssm] {model.cfg.name} loss on {EB}x{ES} held-out tokens "
+          f"(seed 999) {loss:.6f} (timed runs: {again:.6f})  "
+          f"{float(np.mean(secs)):.4f} s (mean of 3 "
+          f"after a warm-up: {[round(t, 4) for t in secs]})  peak "
+          f"{peak / 2**30:.2f} GiB  launches {launches}")
+
+
+def phase_profile_serve_ssm(model, params, prompts, prefill_s):
+    """One Mamba2 prefill under torch.profiler: device time by kernel group,
+    the inter-chunk loop's device and host time (its profiler range), and
+    the device time's share of an unprofiled prefill."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ssd_chunk import RECURRENCE
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            torch.no_grad():
+        model.prefill(params, prompts)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    # the range shows up on the device too, as an annotation: not a kernel
+    kern, groups = device_kernels(prof, skip=(RECURRENCE,))
+    if not kern:
+        print("[profile serve ssm] the trace holds no device time: not "
+              "measured")
+        return
+    total = sum(t for _, t, _ in kern)
+    print(f"[profile serve ssm] one prefill {SB}x{SS}: device kernels "
+          f"{total:.1f} ms in {sum(n for _, _, n in kern)} launches = "
+          f"{100 * total / (1e3 * prefill_s):.1f}% of an unprofiled prefill "
+          f"({1e3 * prefill_s:.1f} ms); profiled wall {wall_ms:.1f} ms")
+    for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[profile serve ssm] {g:26s} {t:9.2f} ms "
+              f"{100 * t / total:5.1f}%")
+    for e in prof.key_averages():
+        if e.key == RECURRENCE and e.device_type == DeviceType.CPU:
+            dev_ms = e.device_time_total / 1e3
+            print(f"[profile serve ssm] inter-chunk loop ({RECURRENCE}, "
+                  f"{e.count} ranges): its kernels {dev_ms:.2f} ms on the "
+                  f"device = {100 * dev_ms / total:.1f}%; "
+                  f"{e.cpu_time_total / 1e3:.2f} ms on the host, waits on "
+                  "the full launch queue included")
+    for name, t, n in sorted(kern, key=lambda r: -r[1])[:10]:
+        print(f"[profile serve ssm]   {t:9.2f} ms x{n:<5d} {name[:100]}")
+    with torch.no_grad():
+        logits, cache = model.prefill(params, prompts[:, :256], max_len=257)
+    tok = torch.argmax(logits, -1)
+    profile_decode_step("serve ssm", lambda: model.decode_step(
+        params, tok, cache, 256))
+
+
+def profile_decode_step(tag, fn):
+    """One decode step: its unprofiled wall time (mean of 3 after a
+    warm-up) against the device time and launches of one more step under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    secs, _ = timed(fn, 3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern, groups = device_kernels(prof)
+    if not kern:
+        print(f"[profile {tag}] decode step: the trace holds no device "
+              "time: not measured")
+        return
+    total = sum(t for _, t, _ in kern)
+    wall = 1e3 * float(np.mean(secs))
+    print(f"[profile {tag}] one decode step: device kernels {total:.3f} ms "
+          f"in {sum(n for _, _, n in kern)} launches = "
+          f"{100 * total / wall:.1f}% of an unprofiled step ({wall:.3f} ms); "
+          + ", ".join(f"{g} {t:.3f} ms" for g, t in
+                      sorted(groups.items(), key=lambda kv: -kv[1])))
+
+
+def phase_serve_dense(dev, _build):
+    """Full-width TinyLlama-1.1B serving: 4 prompts of 1536 tokens, 512
+    greedy steps (2048 positions, its context).  A short warm-up, two
+    timed prefills, then the full generation timed with the peak from a
+    reset; then prefill 1536 + the 512 generated tokens teacher-forced
+    against one prefill of all 2048."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.specs import sample_prompts
+    from repro_torch.models import build_model
+    cfg = get_config("tinyllama_1_1b")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    prompts = torch.as_tensor(sample_prompts(cfg, DB, DS, seed=0)[0],
+                              dtype=torch.long).to(dev)
+    generate(model, params, prompts, 8)
+    with torch.no_grad():
+        pre, (logits, cache) = timed(lambda: model.prefill(
+            params, prompts, max_len=DS + DG), 2)
+    tok = torch.argmax(logits, -1)
+    profile_decode_step("serve dense", lambda: model.decode_step(
+        params, tok, cache, DS))
+    del logits, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    out = generate(model, params, prompts, DG)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[serve dense] {cfg.name}: prefill {DB}x{DS}: "
+          f"{float(np.mean(pre)):.4f} s (mean of 2 after a warm-up: "
+          f"{[round(t, 4) for t in pre]}; in the generation "
+          f"{out['prefill_s']:.4f} s)")
+    print(f"[serve dense] decode: {1e3 * out['decode_s'] / DG:.3f} ms/token "
+          f"({DG} greedy steps, batch {DB}); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB; kernel launches {launches}")
+    seq = torch.cat([prompts, out["tokens"]], dim=1)
+    with torch.no_grad():
+        want, _ = model.prefill(params, seq)
+    got, _ = teacher_forced(model, params, seq, DS)
+    e = err(got, want)
+    check(bool(torch.isfinite(want).all()) and e[1] <= MM_RTOL,
+          f"dense prefill {DS} + {DG} decode steps vs prefill {DS + DG}: {e}")
+    print(f"[serve dense] prefill {DS} + {DG} teacher-forced decode steps vs "
+          f"prefill {DS + DG}: logits max abs diff {e[0]:.3g} (rel "
+          f"{e[1]:.3g}, tolerance {MM_RTOL})")
+
+
+def device_kernels(prof, skip=()):
+    """``(name, device ms, count)`` of every kernel in a profile, leaving
+    out the names in ``skip``, and their device ms summed by group."""
+    from torch.autograd import DeviceType
+    kern = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in skip
+            and e.self_device_time_total > 0]
+    groups = {}
+    for name, t, _ in kern:
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + t
+    return kern, groups
+
+
 def _kernel_group(name):
     for key, group in (("flash_attn", "flash_attention (port)"),
+                       ("ssd_chunk", "ssd_chunk_intra (port)"),
                        ("rolling_mm_fwd", "rolling_mm_fwd (port)"),
                        ("rolling_mm_dx", "rolling_mm_dx (port)"),
                        ("masked_sgd", "masked_sgd_inplace (port)"),
@@ -936,7 +1362,6 @@ def phase_profile(tag, trainer, batch, round_s):
     device time by kernel group, and its share of an unprofiled round's
     wall time ``round_s`` (the profiled round's own wall time carries the
     profiler's host cost, so it is printed but not divided by)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -945,19 +1370,12 @@ def phase_profile(tag, trainer, batch, round_s):
         trainer.run(iter([batch]), 1)
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    kern = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    kern, groups = device_kernels(prof)
     if not kern:
         print(f"[profile {tag}] the trace holds no device time: not "
               "measured")
         return
     total = sum(t for _, t, _ in kern)
-    groups = {}
-    for name, t, _ in kern:
-        g = _kernel_group(name)
-        groups[g] = groups.get(g, 0.0) + t
     print(f"[profile {tag}] one round: device kernels {total:.1f} ms = "
           f"{100 * total / (1e3 * round_s):.1f}% of an unprofiled round "
           f"({1e3 * round_s:.1f} ms); profiled wall {wall_ms:.1f} ms")
@@ -990,6 +1408,7 @@ def main():
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     phase_small_agreement_mask(dev)
+    phase_small_agreement_ssm(dev)
     launches, trainer, batch, round_s = phase_main_path(dev, _build)
     e_launches = phase_eval(dev, trainer, _build)
     phase_profile("window", trainer, batch, round_s)
@@ -1001,7 +1420,18 @@ def main():
     phase_profile("mask", trainer, batch, round_s)
     phase_client_phase_peaks(trainer, batch)
     del trainer
-    path = {"masked_sgd_inplace": m_launches, "fillin_agg_inplace": m_launches}
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, prompts, s_launches, prefill_s = phase_serve_ssm(dev,
+                                                                    _build)
+    phase_eval_ssm(dev, model, params, _build)
+    phase_profile_serve_ssm(model, params, prompts, prefill_s)
+    del model, params, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_dense(dev, _build)
+    path = {"masked_sgd_inplace": m_launches, "fillin_agg_inplace": m_launches,
+            "ssd_chunk_intra": s_launches}
     path.update({name: e_launches for name in (
         "flash_attention", "rolling_matmul", "rolling_matmul_multi",
         "rolling_matmul_dx", "rolling_matmul_dx_multi")})

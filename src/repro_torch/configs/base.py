@@ -4,14 +4,25 @@ Ports ``ModelConfig``, ``SubmodelConfig``, ``_shrink``, ``get_config`` and
 ``get_reduced_config`` of ``repro/configs/base.py``.  Field names and
 defaults are the reference's, so one config means the same model in both
 packages.  The registry holds only the architectures the port can run; the
-family extensions (``moe``, ``ssm``, ``mla``, ...) keep their fields, and
-the model refuses them until they are ported.
+family extensions (``moe``, ``mla``, ...) keep their fields, and the model
+refuses them until they are ported.  ``SSMConfig`` is the reference's, for
+the attention-free family.
 """
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
 from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int                   # SSD state size N
+    head_dim: int = 64             # P
+    n_heads: int = 0               # derived if 0: expand*d_model // head_dim
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 256               # SSD chunk length
 
 
 @dataclass(frozen=True)
@@ -73,7 +84,7 @@ class SubmodelConfig:
     shared_window: Optional[bool] = None
 
 
-ARCHS = ["tinyllama_1_1b"]
+ARCHS = ["tinyllama_1_1b", "mamba2_130m"]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}
 
@@ -98,7 +109,7 @@ def get_reduced_config(arch: str) -> ModelConfig:
 
 def _shrink(cfg: ModelConfig, **over) -> ModelConfig:
     """Generic reduction preserving the family structure (the reference's
-    rule for the dense family)."""
+    rule for the dense and SSM families)."""
     base = dict(
         n_layers=2,
         d_model=min(cfg.d_model, 256),
@@ -110,5 +121,8 @@ def _shrink(cfg: ModelConfig, **over) -> ModelConfig:
         vision_patches=min(cfg.vision_patches, 16),
         vision_d=min(cfg.vision_d, 64),
     )
+    if cfg.ssm is not None:
+        base["ssm"] = replace(cfg.ssm, d_state=min(cfg.ssm.d_state, 16),
+                              head_dim=32, chunk=32)
     base.update(over)
     return replace(cfg, name=cfg.name + "-reduced", **base)

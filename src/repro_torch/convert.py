@@ -1,13 +1,19 @@
-"""Weights carried between the JAX package's layout and the port's.
+"""Weights and caches carried between the JAX package's layout and the
+port's.
 
-The reference keeps params as a nested dict whose ``layers`` subtree stacks
-every layer on a leading axis; the port keeps a flat ``{path: tensor}``
-dict with one leaf per layer (``layers/3/mlp/w_gate``), so that indexing a
-layer never makes autograd build a full-stack zero gradient.  Both
-directions copy values exactly.  Per-client trees (masks, client params)
-carry a leading client axis before the stacked ``layers`` axis (the
-reference's ``layers/attn/wk`` mask is ``[C, L, D, KV, hd]``); ``lead=1``
-splits and re-stacks axis 1 for them.
+The reference keeps params as a nested dict whose layer stacks (the
+subtrees its ``_layer_kind`` names: ``layers``, ``ssm_layers``,
+``dense_layers``, ``moe_layers``) stack every layer on a leading axis; the
+port keeps a flat ``{path: tensor}`` dict with one leaf per layer
+(``layers/3/mlp/w_gate``, ``ssm_layers/3/ssm/w_x``), so that indexing a
+layer never makes autograd build a full-stack zero gradient.  The serving
+caches are stacked the same way in the reference (``{stack: {"k": [L, B,
+...]}}``, ``Model.init_cache``) and flat per layer in the port
+(``layers/3/k``), so the same functions carry them.  Both directions copy
+values exactly.  Per-client trees (masks, client params) carry a leading
+client axis before the stacked axis (the reference's ``layers/attn/wk``
+mask is ``[C, L, D, KV, hd]``); ``lead=1`` splits and re-stacks axis 1
+for them.
 """
 from __future__ import annotations
 
@@ -18,7 +24,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-STACKED = "layers"
+#: the reference's layer stacks (``transformer.py`` ``_layer_kind``)
+STACKS = ("layers", "ssm_layers", "dense_layers", "moe_layers")
 
 
 def _flatten(tree, prefix=""):
@@ -33,16 +40,16 @@ def _flatten(tree, prefix=""):
 def from_reference(params_np, device="cuda", lead=0
                    ) -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (reference layout) -> the port's flat
-    dict on ``device``, splitting the stacked ``layers`` axis (axis
-    ``lead``, after ``lead`` leading client axes)."""
+    dict on ``device``, splitting each stack's layer axis (axis ``lead``,
+    after ``lead`` leading client axes)."""
     dev = resolve_device(device)
     out = {}
     for path, v in _flatten(params_np):
         v = np.asarray(v)
         head, _, rest = path.partition("/")
-        if head == STACKED:
+        if head in STACKS:
             for i in range(v.shape[lead]):
-                out[f"{STACKED}/{i}/{rest}"] = torch.tensor(
+                out[f"{head}/{i}/{rest}"] = torch.tensor(
                     np.take(v, i, axis=lead), device=dev)
         else:
             out[path] = torch.tensor(v, device=dev)
@@ -50,19 +57,20 @@ def from_reference(params_np, device="cuda", lead=0
 
 
 def to_reference(params, lead=0) -> dict:
-    """The port's flat dict -> nested dict of numpy arrays with the layers
-    re-stacked on axis ``lead`` (the inverse of :func:`from_reference`)."""
-    stacks: Dict[str, Dict[int, np.ndarray]] = {}
+    """The port's flat dict -> nested dict of numpy arrays with each
+    stack's layers re-stacked on axis ``lead`` (the inverse of
+    :func:`from_reference`)."""
+    stacks: Dict[tuple, Dict[int, np.ndarray]] = {}
     tree: dict = {}
     for path, v in params.items():
         arr = v.detach().cpu().numpy()
         parts = path.split("/")
-        if parts[0] == STACKED:
-            stacks.setdefault("/".join(parts[2:]), {})[int(parts[1])] = arr
+        if parts[0] in STACKS:
+            stacks.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = arr
             continue
         _insert(tree, parts, arr)
-    for rest, layers in stacks.items():
-        _insert(tree, [STACKED] + rest.split("/"),
+    for parts, layers in stacks.items():
+        _insert(tree, list(parts),
                 np.stack([layers[i] for i in range(len(layers))],
                          axis=lead))
     return tree

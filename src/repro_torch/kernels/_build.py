@@ -28,7 +28,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("rolling_mm.cu", "sgd.cu", "masked_update.cu", "flash_attn.cu")
+SOURCES = ("rolling_mm.cu", "sgd.cu", "masked_update.cu", "flash_attn.cu",
+           "ssd_chunk.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -47,6 +48,7 @@ _SIGNATURES = {
     "masked_sgd_inplace": [_P, _P, _P, _F, _LL, _P],
     "fillin_agg_inplace": [_P, _P, _P, _F, _LL, _I, _LL, _P],
     "flash_attn_fwd": [_P] * 4 + [_LL] * 12 + [_I] * 8 + [_F, _P],
+    "ssd_chunk_intra_fwd": [_P] * 7 + [_LL] * 14 + [_I] * 8 + [_P],
 }
 
 _lib = None

@@ -111,3 +111,53 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0,
         out[:, q0:q0 + n] = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.reshape(B, KV, Sq, G, hd).permute(0, 2, 1, 3, 4) \
         .reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def ssd_chunk_intra_ref(x, dt, A, B, C):
+    """The Pallas body ``_ssd_chunk_kernel`` (``repro/kernels/ssd_chunk.py``)
+    in plain torch, for every (batch, chunk) and all heads at once: x
+    ``[Bt, nc, Q, nh, hd]``, dt ``[Bt, nc, Q, nh]``, A ``[nh]``, B and C
+    ``[Bt, nc, Q, N]`` -> ``(y [Bt, nc, Q, nh, hd], states [Bt, nc, nh, hd,
+    N])``.  The body's order of operations: ``L = cumsum(dt * A)``
+    (inclusive), ``diff = L_q - L_t``, ``where(causal, exp(diff), 0)``,
+    ``M = (C B^T * decay) * dt_t``, ``y = M x``; the state ``sum_t exp(L_last
+    - L_t) * dt_t * x_t (x) B_t``.  One batch row at a time, so the ``[nc,
+    nh, Q, Q]`` decay tensor is the largest temporary."""
+    Q = x.shape[2]
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=x.device))
+    ys, states = [], []
+    for b in range(x.shape[0]):
+        xb, dtb = x[b].float(), dt[b].float()            # [nc,Q,nh,hd]
+        Bb, Cb = B[b].float(), C[b].float()              # [nc,Q,N]
+        L = torch.cumsum(dtb * A.float(), dim=1)         # [nc,Q,nh]
+        CB = torch.einsum("cqn,ctn->cqt", Cb, Bb)        # [nc,Q,Q]
+        Lh = L.transpose(1, 2)                           # [nc,nh,Q]
+        diff = Lh[..., :, None] - Lh[..., None, :]       # [nc,nh,Q,Q]
+        decay = torch.where(causal, torch.exp(diff), 0.0)
+        del diff
+        dth = dtb.transpose(1, 2)                        # [nc,nh,Q]
+        M = CB[:, None] * decay * dth[:, :, None, :]
+        del decay
+        ys.append(torch.einsum("chqt,cthp->cqhp", M, xb))
+        del M
+        sdecay = torch.exp(Lh[..., -1:] - Lh) * dth      # [nc,nh,Q]
+        states.append(torch.einsum("cthp,ctn,cht->chpn", xb, Bb, sdecay))
+    return (torch.stack(ys).to(x.dtype), torch.stack(states))
+
+
+def ssd_chunk_ref(x, dt, A, B, C):
+    """Sequential (recurrent) oracle for one chunk of SSD (the reference's
+    ``repro/kernels/ref.py`` ``ssd_chunk_ref``): x ``[Q, nh, hd]``, dt
+    ``[Q, nh]``, A ``[nh]``, B and C ``[Q, N]`` -> ``(y [Q, nh, hd], final
+    state [nh, hd, N])``, one step per position."""
+    Q, nh, hd = x.shape
+    h = torch.zeros((nh, hd, B.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(Q):
+        decay = torch.exp(dt[t] * A)                     # [nh]
+        h = h * decay[:, None, None] + torch.einsum(
+            "hp,n,h->hpn", x[t].float(), B[t], dt[t])
+        ys.append(torch.einsum("hpn,n->hp", h, C[t]))
+    return torch.stack(ys), h

@@ -1,0 +1,106 @@
+"""Serving launcher: batched prefill, then greedy decode with KV/SSM caches.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \\
+        --reduced --batch 4 --prompt-len 32 --gen 16 --device cpu
+
+Ports the batch engine of ``repro/launch/serve.py``: prefill the batch of
+prompts (``launch.specs.sample_prompts``), then decode greedily, one
+``Model.decode_step`` per token, and print the prefill's time, the time per
+decoded token and two rows of the generations.  There is no ``jit``: the
+same prefill, argmax and decode loop run eagerly, timed to a
+``torch.cuda.synchronize()`` on the card.  Runs on the card unless
+``--device cpu`` is given.  ``--engine continuous`` (the slot-pool batcher,
+``repro/launch/batching.py``) is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config, get_reduced_config
+from repro_torch.device import resolve_device
+from repro_torch.launch.specs import sample_prompts
+from repro_torch.models import build_model
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(model, params, prompts, gen, return_logits=False):
+    """Greedy generation of ``gen`` tokens after ``prompts [B, S]`` (int, on
+    the params' device): one prefill, then ``gen`` decode steps, each fed
+    the argmax of the logits before it (the reference's loop).  Returns a
+    dict with ``tokens [B, gen]``, ``prefill_s`` and ``decode_s`` (host
+    seconds, each ending in a synchronize on the card) and, with
+    ``return_logits``, ``logits``: the ``gen + 1`` logits ``[B, V]`` of
+    the prefill and of every decode step."""
+    device = prompts.device
+    B, S = prompts.shape
+    with torch.no_grad():
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, prompts, max_len=S + gen)
+        tok = torch.argmax(logits, -1)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        kept = [logits] if return_logits else []
+        toks = []
+        t0 = time.perf_counter()
+        for i in range(gen):
+            toks.append(tok)
+            logits, cache = model.decode_step(params, tok, cache, S + i)
+            tok = torch.argmax(logits, -1)
+            if return_logits:
+                kept.append(logits)
+        _sync(device)
+        decode_s = time.perf_counter() - t0
+    out = {"tokens": torch.stack(toks, dim=1), "prefill_s": prefill_s,
+           "decode_s": decode_s}
+    if return_logits:
+        out["logits"] = kept
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--engine", default="batch",
+                    choices=["batch", "continuous"],
+                    help="batch: one generation-level batch; continuous: "
+                         "the slot-pool engine (not ported yet)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.engine == "continuous":
+        raise NotImplementedError(
+            "the continuous batcher (launch/batching.py) is not ported yet "
+            "(ROADMAP.md queue A, the continuous batcher)")
+
+    device = resolve_device(args.device)
+    cfg = (get_reduced_config(args.arch) if args.reduced
+           else get_config(args.arch))
+    model = build_model(cfg)
+    params = model.init(args.seed, device=device)
+    B, S, G = args.batch, args.prompt_len, args.gen
+    prompts, _ = sample_prompts(cfg, B, S, seed=args.seed)
+    prompts = torch.as_tensor(prompts, dtype=torch.long, device=device)
+    out = generate(model, params, prompts, G)
+    print(f"prefill: {out['prefill_s'] * 1e3:.1f} ms ({B}x{S} tokens, "
+          f"{device.type})")
+    print(f"decode : {out['decode_s'] / G * 1e3:.1f} ms/token ({G} steps, "
+          f"batch {B})")
+    print("sample generations (first 2 rows):")
+    print(np.asarray(out["tokens"][:2].cpu()))
+
+
+if __name__ == "__main__":
+    main()

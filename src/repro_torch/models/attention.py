@@ -1,11 +1,15 @@
-"""GQA attention, training path.
+"""GQA attention: training, prefill and decode.
 
-Ports ``attn_params``, ``_qkv``, ``blockwise_attention`` and ``gqa_train`` of
-``repro/models/attention.py``.  ``blockwise_attention`` is plain jnp in the
-reference, so it is plain torch here: the same online softmax over kv
-chunks, with the same chunk bounds for causal and sliding-window masks.
-Under ``REPRO_USE_FLASH`` attention runs the flash kernel instead
-(forward only; see :func:`gqa_train`).
+Ports ``attn_params``, ``_qkv``, ``blockwise_attention``, ``gqa_train``,
+``gqa_prefill``, ``gqa_decode`` (without context parallelism) and
+``decode_attention`` of ``repro/models/attention.py``.
+``blockwise_attention`` is plain jnp in the reference, so it is plain torch
+here: the same online softmax over kv chunks, with the same chunk bounds
+for causal and sliding-window masks.  Under ``REPRO_USE_FLASH`` training
+attention runs the flash kernel instead (forward only; see
+:func:`gqa_train`); prefill runs blockwise attention, as the reference's
+does.  Activations and weights carry the leading client dimension ``[C,
+...]`` (one model is C = 1); a KV cache is ``[C, B, Sc, KV, hd]``.
 """
 from __future__ import annotations
 
@@ -124,3 +128,76 @@ def gqa_train(p, x, cfg, positions, window=None):
     Hw, hd = wo.shape[1], wo.shape[2]
     out = torch.bmm(out.reshape(C, B * S, Hw * hd), wo.reshape(C, Hw * hd, D))
     return out.reshape(C, B, S, D)
+
+
+def gqa_prefill(p, x, cfg, positions, cache_len):
+    """x ``[C, B, S, D]``: attention over the prompt and its KV cache of
+    ``cache_len`` positions.  When ``cache_len < S`` (a sliding window) the
+    cache is a ring holding the last ``cache_len`` keys, rolled so that
+    position ``i`` sits in slot ``i % cache_len``."""
+    C, B, S, D = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    fold = (lambda t: t.reshape(C * B, S, t.shape[-2], t.shape[-1]))
+    out = blockwise_attention(fold(q), fold(k), fold(v), causal=True,
+                              window=cfg.sliding_window)
+    if cache_len < S:
+        shift = (S - cache_len) % cache_len if cache_len else 0
+        kc = torch.roll(k[:, :, -cache_len:], shift, dims=2)
+        vc = torch.roll(v[:, :, -cache_len:], shift, dims=2)
+    else:
+        kc, vc = k, v
+    wo = p["wo"]
+    H, hd = wo.shape[1], wo.shape[2]
+    out = torch.bmm(out.reshape(C, B * S, H * hd), wo.reshape(C, H * hd, D))
+    return out.reshape(C, B, S, D), {"k": kc, "v": vc}
+
+
+def decode_attention(q, k, v, valid, softmax_scale=None):
+    """q ``[B, H, hd]``; k, v ``[B, Sc, KV, hd]``; valid ``[B, Sc]`` bool.
+    Returns ``[B, H, hd]``."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = softmax_scale or 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k).float() * scale
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype), v).float()
+    return out.reshape(B, H, -1)
+
+
+def gqa_decode(p, x, cfg, cache, pos, valid_override=None, rope_pos=None):
+    """x ``[C, B, 1, D]``; cache ``{k, v: [C, B, Sc, KV, hd]}``; ``pos`` the
+    host integer position of the token (cache write slot ``pos % Sc`` and
+    causal horizon).  ``valid_override [B, Sc]`` bool: per-slot cache
+    validity; ``rope_pos [B]``: per-row positions (continuous batching).
+    Returns ``(out [C, B, 1, D], new cache)``; the cache passed in is not
+    changed."""
+    C, B = x.shape[:2]
+    pos = int(pos)
+    positions = (rope_pos[:, None] if rope_pos is not None else
+                 torch.full((B, 1), pos, device=x.device))
+    q, k, v = _qkv(p, x, cfg, positions)               # [C, B, 1, ., hd]
+    Sc = cache["k"].shape[2]
+    slot = pos % Sc
+    kc, vc = cache["k"].clone(), cache["v"].clone()
+    kc[:, :, slot] = k[:, :, 0]
+    vc[:, :, slot] = v[:, :, 0]
+    idx = torch.arange(Sc, device=x.device)
+    if valid_override is not None:
+        valid = valid_override
+    elif cfg.sliding_window and Sc <= cfg.sliding_window:
+        # the ring is fully valid once it has wrapped
+        valid = ((idx <= pos) | (pos + 1 >= Sc)).expand(B, Sc)
+    else:
+        valid = (idx <= pos).expand(B, Sc)
+    H, hd = q.shape[-2], q.shape[-1]
+    out = decode_attention(q.reshape(C * B, H, hd),
+                           kc.reshape(C * B, Sc, *kc.shape[3:]),
+                           vc.reshape(C * B, Sc, *vc.shape[3:]),
+                           valid.repeat(C, 1))
+    wo = p["wo"]
+    out = torch.bmm(out.reshape(C, B, H * hd).to(x.dtype),
+                    wo.reshape(C, H * hd, wo.shape[-1]))
+    return out[:, :, None], {"k": kc, "v": vc}

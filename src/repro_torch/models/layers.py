@@ -1,8 +1,11 @@
 """Layer primitives and axis-tagged parameter construction.
 
 Ports ``repro/models/layers.py``: ``AxisWindow``, ``WindowMap``,
-``ParamBuilder``, ``rms_norm``, ``apply_rope``, ``act_fn``, ``mlp_apply``,
-``mlp_apply_rolling``, ``head_proj`` and ``softmax_xent``.
+``ParamBuilder`` (its fan-in rule covers the SSM's 3-D leaves: the product
+of every axis but the last, ``heads``/``kv_heads`` left out), ``rms_norm``
+(``rms_norm_plain`` without the client dimension), ``apply_rope``,
+``act_fn``, ``mlp_apply``, ``mlp_apply_rolling``, ``head_proj`` and
+``softmax_xent``.
 
 Params are a flat ``{path: tensor}`` dict with a parallel ``{path: axis
 tags}`` dict; paths are the reference's ``tree_paths`` with the stacked
@@ -134,10 +137,18 @@ def _per_client(w, x):
     return w.reshape(w.shape[0], *([1] * (x.dim() - 2)), w.shape[-1])
 
 
-def rms_norm(x, w, eps=1e-5):
+def rms_norm_plain(x, w, eps=1e-5):
+    """The reference's ``rms_norm``: over the last axis, ``w`` broadcast
+    against ``x`` as it stands (one model's SSM norm ``y_norm [nh, hd]``
+    normalises each head over its ``hd``)."""
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * _per_client(w, x)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def rms_norm(x, w, eps=1e-5):
+    """``x [C, ..., n]`` normalised by per-client weights ``w [C, n]``."""
+    return rms_norm_plain(x, _per_client(w, x), eps)
 
 
 def act_fn(name):
@@ -145,13 +156,14 @@ def act_fn(name):
 
 
 def apply_rope(x, positions, theta):
-    """x: ``[..., S, H, hd]``; positions: ``[S]``."""
+    """x: ``[..., S, H, hd]``; positions: ``[..., S]`` (broadcastable: ``[S]``
+    for a sequence, ``[B, 1]`` for one decode step per row)."""
     hd = x.shape[-1]
     freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                           device=x.device) / hd))
-    angles = positions[:, None].float() * freqs          # [S, hd/2]
-    cos = torch.cos(angles)[:, None, :]                  # [S, 1, hd/2]
-    sin = torch.sin(angles)[:, None, :]
+    angles = positions[..., None].float() * freqs        # [..., S, hd/2]
+    cos = torch.cos(angles)[..., None, :]                # [..., S, 1, hd/2]
+    sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

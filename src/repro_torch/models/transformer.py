@@ -1,9 +1,12 @@
-"""Model assembly for the dense GQA family (the port's first slice).
+"""Model assembly for the dense GQA family and the SSM family.
 
-Ports ``build_params``, ``block_apply``, ``Model.forward`` and ``Model.loss``
-(with ``window=``) and ``build_model`` of ``repro/models/transformer.py``.
-The reference scans a stacked ``layers`` axis under ``remat``; here the
-layers are separate leaves and a plain Python loop runs them.
+Ports ``build_params``, ``block_apply``, ``Model.forward``, ``Model.loss``
+(with ``window=``), ``Model.prefill``, ``Model._pad_caches``,
+``Model.decode_step``, ``Model.init_cache`` and ``build_model`` of
+``repro/models/transformer.py``.  The reference scans each stacked layer
+axis (``_layer_kind``: ``layers``, or ``ssm_layers`` for the SSM family)
+under ``remat``; here the layers are separate leaves and a plain Python
+loop runs them.
 
 :meth:`Model.forward` and :meth:`Model.loss` take two forms, told apart by
 the tokens' rank:
@@ -14,7 +17,14 @@ the tokens' rank:
   its window products as the reference's scalar-offset kernels;
 - C clients, the round's form: every leaf carries a leading client
   dimension ``[C, ...]``, tokens are ``[C, B, S]``, and ``loss`` returns
-  one loss per client.
+  one loss per client (the dense family only: the SSM family cannot
+  train yet, ROADMAP.md queue A, SSM training).
+
+Serving (``prefill``, ``decode_step``, ``init_cache``) is one model's, in
+the reference's signatures.  Caches are a flat ``{path: tensor}`` dict with
+one leaf per layer (``layers/3/k`` ``[B, Sc, KV, hd]``, ``ssm_layers/3/h``
+``[B, nh, hd, N]``), which ``repro_torch.convert`` carries to and from the
+reference's stacked ``{stack: {name: [L, B, ...]}}``.
 
 :meth:`Model.init` makes one (server) model without the client dimension.
 """
@@ -29,24 +39,34 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import attn_params, gqa_train
+from repro_torch.models.attention import (attn_params, gqa_decode,
+                                          gqa_prefill, gqa_train)
 from repro_torch.models.layers import (AxisWindow, ParamBuilder, WindowMap,
                                        mlp_apply, mlp_apply_rolling,
                                        mlp_params, rms_norm, softmax_xent)
+from repro_torch.models.ssm import n_heads, ssm_decode, ssm_params, ssm_train
 
 
 def _check_supported(cfg: ModelConfig):
-    extras = {"moe": cfg.moe is not None, "ssm": cfg.ssm is not None,
+    ssm = cfg.family == "ssm"
+    extras = {"moe": cfg.moe is not None,
+              "ssm": cfg.ssm is not None and not ssm,
               "mla": cfg.mla is not None, "hybrid": cfg.hybrid,
               "mtp": cfg.mtp, "codebooks": bool(cfg.n_codebooks),
               "vision": cfg.vision_stub, "qk_norm": cfg.qk_norm,
-              "tied embeddings": cfg.tie_embeddings,
-              f"{cfg.pos_embed} positions": cfg.pos_embed != "rope"}
+              f"{cfg.pos_embed} positions":
+                  cfg.pos_embed != ("none" if ssm else "rope")}
     missing = [k for k, v in extras.items() if v]
-    if cfg.family != "dense" or missing:
+    if cfg.family not in ("dense", "ssm") or missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense GQA family with rope; "
-            f"{missing or cfg.family} is not ported yet (ROADMAP.md queue A)")
+            f"{cfg.name}: the port runs the dense GQA family with rope and "
+            f"the attention-free SSM family; {missing or cfg.family} is not "
+            "ported yet (ROADMAP.md queue A)")
+
+
+def _layer_kind(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Stack names in execution order."""
+    return ("ssm_layers",) if cfg.family == "ssm" else ("layers",)
 
 
 def build_params(cfg: ModelConfig, seed=0, device="cuda"
@@ -54,13 +74,18 @@ def build_params(cfg: ModelConfig, seed=0, device="cuda"
     b = ParamBuilder(seed, device)
     D, V = cfg.d_model, cfg.vocab
     b.dense("embed", (V, D), ("vocab", "d_model"), scale=0.02)
-    b.dense("head", (D, V), ("d_model", "vocab"))
-    for i in range(cfg.n_layers):
-        pre = f"layers/{i}"
-        b.const(f"{pre}/ln1", (D,), ("d_model",), 1.0)
-        attn_params(b, f"{pre}/attn", cfg)
-        b.const(f"{pre}/ln2", (D,), ("d_model",), 1.0)
-        mlp_params(b, f"{pre}/mlp", D, cfg.d_ff)
+    if not cfg.tie_embeddings:
+        b.dense("head", (D, V), ("d_model", "vocab"))
+    for stack in _layer_kind(cfg):
+        for i in range(cfg.n_layers):
+            pre = f"{stack}/{i}"
+            b.const(f"{pre}/ln1", (D,), ("d_model",), 1.0)
+            if cfg.family == "ssm":
+                ssm_params(b, f"{pre}/ssm", cfg)
+                continue
+            attn_params(b, f"{pre}/attn", cfg)
+            b.const(f"{pre}/ln2", (D,), ("d_model",), 1.0)
+            mlp_params(b, f"{pre}/mlp", D, cfg.d_ff)
     b.const("final_norm", (D,), ("d_model",), 1.0)
     return b.params, b.axes
 
@@ -71,12 +96,59 @@ def _sub(params, prefix):
     return {k[n:]: v for k, v in params.items() if k.startswith(prefix + "/")}
 
 
-def block_apply(p, h, cfg, positions, window=None):
-    """One layer on ``h [C, B, S, D]``; ``window`` (a :class:`WindowMap` or
-    None) routes the windowed products through the fused sub-model forward
-    on the full weights."""
+def _by_layer(tree, prefixes):
+    """``{prefix: {rest: leaf}}`` for each layer prefix, in one pass."""
+    out = {pre: {} for pre in prefixes}
+    for k, v in tree.items():
+        stack, _, rest = k.partition("/")
+        i, _, rest = rest.partition("/")
+        sub = out.get(f"{stack}/{i}")
+        if sub is not None:
+            sub[rest] = v
+    return out
+
+
+def _ssm_block(p, x, cfg, mode, cache, pos, window):
+    """The SSM mixer on the C = 1 views of one model: strips the client
+    dimension for ``models.ssm`` and puts it back on what comes out."""
+    if x.shape[0] != 1:
+        raise NotImplementedError(
+            "the SSM family runs one model (C = 1); its federated round "
+            "needs the SSD block's backward (ROADMAP.md queue A, SSM "
+            "training)")
+    p1 = {k: v[0] for k, v in p.items()}
+    if mode == "train":
+        out, c = ssm_train(p1, x[0], cfg, window=window), {}
+    elif mode == "prefill":
+        out, c = ssm_train(p1, x[0], cfg, return_state=True)
+    else:
+        out, c = ssm_decode(p1, x[0], cfg, {k: v[0] for k, v in cache.items()},
+                            pos)
+    return out[None], {k: v[None] for k, v in c.items()}
+
+
+def block_apply(p, h, cfg, positions, window=None, mode="train", cache=None,
+                pos=None, valid=None, rope_pos=None):
+    """One layer on ``h [C, B, S, D]``; returns ``(h, new cache)`` (the
+    cache is empty in ``train`` mode).  ``window`` (a :class:`WindowMap`
+    or None) routes the windowed products through the fused sub-model
+    forward on the full weights; ``mode`` is ``train``, ``prefill`` or
+    ``decode`` (one token against ``cache``, at position ``pos``)."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
-    h = h + gqa_train(_sub(p, "attn"), x, cfg, positions, window=window)
+    if cfg.family == "ssm":
+        out, c = _ssm_block(_sub(p, "ssm"), x, cfg, mode, cache, pos, window)
+        return h + out, c
+    attn = _sub(p, "attn")
+    if mode == "train":
+        a, c = gqa_train(attn, x, cfg, positions, window=window), {}
+    elif mode == "prefill":
+        S = x.shape[2]
+        clen = min(S, cfg.sliding_window) if cfg.sliding_window else S
+        a, c = gqa_prefill(attn, x, cfg, positions, clen)
+    else:
+        a, c = gqa_decode(attn, x, cfg, cache, pos, valid_override=valid,
+                          rope_pos=rope_pos)
+    h = h + a
     x2 = rms_norm(h, p["ln2"], cfg.norm_eps)
     mlp = _sub(p, "mlp")
     spec = window.get("d_ff", mlp["w_gate"].shape[-1]) if window else None
@@ -84,7 +156,7 @@ def block_apply(p, h, cfg, positions, window=None):
         out = mlp_apply_rolling(mlp, x2, spec, cfg.act)
     else:
         out = mlp_apply(mlp, x2, cfg.act)
-    return h + out
+    return h + out, c
 
 
 @dataclass
@@ -143,21 +215,50 @@ class Model:
             return logits[0], h[0]
         return self._forward(params, tokens, window)
 
-    def _forward(self, params, tokens, window: Optional[WindowMap]):
-        cfg = self.cfg
-        C, B, S = tokens.shape
+    def _prefixes(self):
+        return [f"{stack}/{i}" for stack in _layer_kind(self.cfg)
+                for i in range(self.cfg.n_layers)]
+
+    def _embed(self, params, tokens):
+        """tokens ``[C, B, S]`` -> ``[C, B, S, D]``, each client's rows."""
+        C = tokens.shape[0]
         emb = params["embed"]                                 # [C, V, D]
         V = emb.shape[1]
         rows = tokens + (torch.arange(C, device=tokens.device) * V
                          ).view(C, 1, 1)
-        h = F.embedding(rows, emb.reshape(C * V, emb.shape[2]))
+        return F.embedding(rows, emb.reshape(C * V, emb.shape[2]))
+
+    def _head(self, params, h):
+        """``h [C, B, S, D]`` -> logits ``[C, B, S, V]`` (the tied head
+        multiplies by the embedding's transpose)."""
+        C, B, S, D = h.shape
+        w = (params["embed"].transpose(1, 2) if self.cfg.tie_embeddings
+             else params["head"])
+        return torch.bmm(h.reshape(C, B * S, D), w).reshape(C, B, S, -1)
+
+    def _run(self, params, h, positions, mode, window=None, caches=None,
+             pos=None, valid=None, rope_pos=None):
+        """Every layer in order; returns ``h`` and the new caches (flat,
+        keyed ``{stack}/{i}/{name}``)."""
+        prefixes = self._prefixes()
+        layers = _by_layer(params, prefixes)
+        layer_caches = (_by_layer(caches, prefixes) if caches is not None
+                        else {})
+        new = {}
+        for pre in prefixes:
+            h, c = block_apply(layers[pre], h, self.cfg, positions, window,
+                               mode, layer_caches.get(pre), pos, valid,
+                               rope_pos)
+            new.update({f"{pre}/{k}": v for k, v in c.items()})
+        return h, new
+
+    def _forward(self, params, tokens, window: Optional[WindowMap]):
+        S = tokens.shape[2]
+        h = self._embed(params, tokens)
         positions = torch.arange(S, device=tokens.device)
-        for i in range(cfg.n_layers):
-            h = block_apply(_sub(params, f"layers/{i}"), h, cfg, positions,
-                            window=window)
-        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-        logits = torch.bmm(h.reshape(C, B * S, -1), params["head"])
-        return logits.reshape(C, B, S, -1), h
+        h, _ = self._run(params, h, positions, "train", window)
+        h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        return self._head(params, h), h
 
     def loss(self, params, batch, window=None):
         """batch ``{"tokens": [B, S]}`` (one model): returns ``(loss,
@@ -177,6 +278,86 @@ class Model:
         lm = lm[0]
         return lm, {"lm_loss": lm, "aux_loss": torch.zeros_like(lm),
                     "loss": lm}
+
+
+    # -- serving (one model) -------------------------------------------------
+    def prefill(self, params, tokens, max_len=None, pos_offset=0,
+                return_all_logits=False):
+        """tokens ``[B, S]`` int: run the prompt and build the caches.
+        ``max_len``: total cache capacity for the ``decode_step`` s that
+        follow (the KV caches are padded to it); ``pos_offset``: position
+        of the first token; ``return_all_logits``: logits ``[B, S, V]``
+        rather than the last position's ``[B, V]``.  Returns ``(logits,
+        caches)``."""
+        p1, _ = self._one_model(params, None)
+        S = tokens.shape[1]
+        h = self._embed(p1, tokens[None])
+        positions = pos_offset + torch.arange(S, device=tokens.device)
+        h, caches = self._run(p1, h, positions, "prefill")
+        h = rms_norm(h, p1["final_norm"], self.cfg.norm_eps)
+        logits = self._head(p1, h if return_all_logits else h[:, :, -1:])[0]
+        caches = {k: v[0] for k, v in caches.items()}
+        if max_len is not None:
+            caches = self._pad_caches(caches, max_len)
+        return (logits if return_all_logits else logits[:, 0]), caches
+
+    def _pad_caches(self, caches, max_len):
+        """Zero-pad each KV cache along its positions to ``max_len`` (a
+        sliding window's ring to at most the window)."""
+        cfg = self.cfg
+        kv_target = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+                     else max_len)
+        out = {}
+        for path, x in caches.items():
+            key = path.rsplit("/", 1)[-1]
+            if key in ("k", "v") and x.shape[1] < kv_target:
+                pad = [0, 0] * (x.dim() - 2) + [0, kv_target - x.shape[1]]
+                x = F.pad(x, pad)
+            out[path] = x
+        return out
+
+    def decode_step(self, params, tokens, caches, pos, valid=None,
+                    rope_pos=None):
+        """tokens ``[B]`` int; caches from :meth:`prefill` or
+        :meth:`init_cache`; ``pos`` the host integer position of the token;
+        ``valid [B, Sc]`` an optional per-slot cache mask and ``rope_pos
+        [B]`` per-row positions (continuous batching).  Returns ``(logits
+        [B, V], new caches)``; the caches passed in are not changed."""
+        p1, _ = self._one_model(params, None)
+        h = self._embed(p1, tokens[None, :, None])
+        c1 = {k: v[None] for k, v in caches.items()}
+        h, new = self._run(p1, h, None, "decode", caches=c1, pos=pos,
+                           valid=valid, rope_pos=rope_pos)
+        h = rms_norm(h, p1["final_norm"], self.cfg.norm_eps)
+        return self._head(p1, h)[0, :, 0], {k: v[0] for k, v in new.items()}
+
+    def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+        """Empty caches for ``batch`` rows of ``seq_len`` positions (the
+        SSM state in float32, the rest in ``dtype``), on ``device``."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        caches = {}
+        for pre in self._prefixes():
+            if cfg.family == "ssm":
+                s = cfg.ssm
+                nh = n_heads(cfg)
+                caches[f"{pre}/h"] = torch.zeros(
+                    (batch, nh, s.head_dim, s.d_state), device=dev)
+                for name, ch in (("conv_x", nh * s.head_dim),
+                                 ("conv_B", s.d_state),
+                                 ("conv_C", s.d_state)):
+                    caches[f"{pre}/{name}"] = torch.zeros(
+                        (batch, s.conv_width - 1, ch), dtype=dtype,
+                        device=dev)
+                continue
+            Sc = (min(seq_len, cfg.sliding_window) if cfg.sliding_window
+                  else seq_len)
+            for name in ("k", "v"):
+                caches[f"{pre}/{name}"] = torch.zeros(
+                    (batch, Sc, cfg.n_kv_heads, cfg.head_dim), dtype=dtype,
+                    device=dev)
+        return caches
 
 
 def build_model(cfg: ModelConfig) -> Model:
