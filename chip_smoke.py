@@ -16,7 +16,9 @@ Phases, each of which fails the run when it fails:
    kernel's outputs and chunk states (also against the sequential
    recurrence), and the three update kernels bit for bit; time each beside
    its plain version, one library call for the same function (where one
-   exists) and its f32 bound on an H100.
+   exists) and its bound on an H100 (f32 FMAs; for the product kernels,
+   rows 1-8, three TF32 tensor-core passes), with the block tile each
+   timed product launch took, and two launches of each bit-equal.
 3. Run two rounds of the reduced model on the card and on the CPU (the
    plain versions) from the same params, tokens and windows or masks
    (masks drawn on the CPU and copied), and hold the two against each
@@ -34,8 +36,9 @@ Phases, each of which fails the run when it fails:
    ``REPRO_USE_FLASH`` set and without, the windowed sub-model's loss
    with the switch (the scalar-offset products and the flash kernel), and
    one backward pass of the windowed sub-model's loss at 2 x 256 tokens
-   without it; launches counted per part, seconds and peak memory, one
-   flash eval and one backward pass under ``torch.profiler``.  Then one more window round under
+   without it; launches counted per part, seconds and peak memory, the
+   server's and the sub-model's flash evals and the backward pass under
+   ``torch.profiler``.  Then one more window round under
    ``torch.profiler`` for the device time by kernel group, and two rounds
    of ``api.Trainer`` with ``eval_fn``, ``eval_every=1`` and
    ``log_every=1``.  The trainer and params are freed before the next
@@ -81,6 +84,11 @@ CKPT_DIR = ROOT / "build" / "chip_smoke"     # git-ignored; removed after use
 # One H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# The product kernels (rows 1-8) keep f32 accuracy with the 3xTF32 split:
+# three TF32 tensor-core passes (495 TFLOP/s dense, the same data sheet) for
+# each f32 product, so 2*M*N*K runs at 495 / 3 TFLOP/s at best.
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 # kernel vs plain version: f32 both, different summation order; bounded
 # relative to the output's largest magnitude
 MM_RTOL = 1e-4
@@ -141,8 +149,8 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -173,7 +181,8 @@ def phase_build(_build):
     _build.library()
     print(f"[build] {path.name} in {time.time() - t0:.1f} s")
     for line in log.splitlines():
-        if "ptxas info" in line or line.startswith("=="):
+        if ("ptxas info" in line or line.startswith("==")
+                or "spill" in line):
             print(f"[build] {line.strip()}")
 
 
@@ -190,7 +199,9 @@ def nvidia_smi():
 
 # (kernel, TPU row, TPU function, T, N, win, offset, direction) at the main
 # path's shapes: the q projection (heads window 16 of 32 at offset 16, i.e.
-# 1024 of 2048 columns) and the gate/up pair (d_ff window 2816 of 5632)
+# 1024 of 2048 columns) and the gate/up pair (d_ff window 2816 of 5632);
+# rows 5 and 6 also at the k/v projections' shape (kv_heads window 2 of 4,
+# 128 of 256 columns), which takes 88 of a round's 132 launches of each
 ROLLING = [
     ("rolling_mm_fwd<1>", 5, "rolling_matmul_batched.py:60", 1, 2048, 1024,
      1024, "fwd"),
@@ -243,48 +254,13 @@ def phase_kernels(dev):
           f"within {MM_RTOL} of max|plain|")
 
     for name, row, tpu_fn, T, N, win, off, kind in ROLLING:
-        x = torch.randn((C, M, D), device=dev, generator=g)
-        ws = [torch.randn((C, D, N), device=dev, generator=g)
-              for _ in range(T)]
-        dys = [torch.randn((C, M, win), device=dev, generator=g)
-               for _ in range(T)]
-        offs = [off] * C
-        o = make_offsets(offs, dev)
-        views = [w[:, :, off:off + win] for w in ws]
-        flops = 2 * C * T * M * D * win
-        if kind == "fwd":
-            kern = lambda: rolling_mm_fwd(x, ws, o, win)            # noqa
-            plain = lambda: ref.rolling_matmul_batched_ref(x, ws, offs,  # noqa
-                                                           win)
-            lib = lambda: [torch.bmm(x, v) for v in views]         # noqa
-            out, want = kern(), plain()
-            e = max((err(a, b) for a, b in zip(out, want)),
-                    key=lambda t: t[1])
-            nbytes = 4 * (C * M * D + T * C * D * win + T * C * M * win)
-            shape = {"x": [C, M, D], "W": [T, C, D, N], "win": win}
-        else:
-            kern = lambda: rolling_mm_dx(dys, ws, o, win)          # noqa
-            plain = lambda: ref.rolling_matmul_batched_dx_ref(  # noqa
-                dys, ws, offs, win)
-
-            def lib():
-                acc = torch.bmm(dys[0], views[0].mT)
-                for d, v in zip(dys[1:], views[1:]):
-                    acc = torch.baddbmm(acc, d, v.mT)
-                return acc
-            e = err(kern(), plain())
-            nbytes = 4 * (T * C * M * win + T * C * D * win + C * M * D)
-            shape = {"dy": [T, C, M, win], "W": [T, C, D, N], "win": win}
-        check(e[1] <= MM_RTOL, f"{name} at {shape}: {e}")
-        b_ms, b_by = bound(flops, nbytes)
-        k_ms = cuda_ms(kern)
-        rows.append(dict(
-            name=name, route="cuda", source=SRC + "rolling_mm.cu",
-            replaces=TPU + tpu_fn, tpu_row=row, shape=shape,
-            max_abs_err=e[0], max_rel_err=e[1], tolerance=MM_RTOL,
-            ms=k_ms, kernel_ms=k_ms, plain_ms=cuda_ms(plain),
-            library_ms=cuda_ms(lib), library_calls=T,
-            bound_ms=b_ms, bound_by=b_by))
+        r = product_timing(dev, g, kind, T, C, M, N, win, off)
+        rows.append(dict(name=name, route="cuda",
+                         source=SRC + "rolling_mm.cu",
+                         replaces=TPU + tpu_fn, tpu_row=row, **r))
+        if row in (5, 6):      # the k/v projections: window 128 of 256
+            rows[-1]["sub_rows"] = [product_timing(dev, g, kind, T, C, M,
+                                                   256, 128, 128)]
 
     # autograd through the Function at the gate/up shape against plain
     # autograd on the window views
@@ -329,13 +305,86 @@ def phase_kernels(dev):
     rows += flash_kernels(dev, g)
     rows += ssd_kernels(dev, g)
     for r in rows:
-        lib = ("none" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms")
-        print(f"[kernels] {r['name']:18s} err {r['max_abs_err']:.3g} "
-              f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-              f"library {lib}  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})")
+        for sub in [r, *r.get("sub_rows", [])]:
+            lib = ("none" if sub["library_ms"] is None
+                   else f"{sub['library_ms']:.4f} ms")
+            tile = ("" if "block_tile" not in sub else
+                    " tile {}x{}".format(*sub["block_tile"]))
+            print(f"[kernels] {r['name']:23s} {json.dumps(sub['shape'])} "
+                  f"err {sub['max_abs_err']:.3g} kernel {sub['ms']:.4f} ms"
+                  f"  plain {sub['plain_ms']:.4f} ms  library {lib}  bound "
+                  f"{sub['bound_ms']:.4f} ms ({sub['bound_by']}){tile}")
     return rows
+
+
+def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None):
+    """One product kernel ("fwd" or "dx", T weights) at one shape: ``c``
+    clients of ``m`` tokens, x [c, m, D], W [c, D, N], window ``win`` at
+    ``off``.  Held against its plain version within MM_RTOL, then timed
+    beside it, beside the library (``bmm``/``baddbmm`` on the window views;
+    ``mm``/``addmm`` for one model, ``scalar_name`` given, which also names
+    the launches) and beside its bound at the 3xTF32 rate; a second launch
+    must equal the first bit for bit.  Returns the kernel table's numbers
+    and the block tile the launch took."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rolling_matmul import (block_tile, make_offsets,
+                                                    rolling_mm_dx,
+                                                    rolling_mm_fwd)
+    x = torch.randn((c, m, D), device=dev, generator=g)
+    ws = [torch.randn((c, D, N), device=dev, generator=g) for _ in range(T)]
+    dys = [torch.randn((c, m, win), device=dev, generator=g)
+           for _ in range(T)]
+    offs = [off] * c
+    o = make_offsets(offs, dev)     # the device copy a model keeps
+    views = [w[:, :, off:off + win] for w in ws]
+    flops = 2 * c * T * m * D * win
+    lead = [] if scalar_name else [c]
+    if kind == "fwd":
+        kern = lambda: rolling_mm_fwd(x, ws, o, win, name=scalar_name)  # noqa
+        plain = lambda: ref.rolling_matmul_batched_ref(x, ws, offs,  # noqa
+                                                       win)
+        if scalar_name:
+            lib = lambda: [torch.mm(x[0], v[0]) for v in views]  # noqa
+        else:
+            lib = lambda: [torch.bmm(x, v) for v in views]       # noqa
+        out = kern()
+        e = max((err(a, b) for a, b in zip(out, plain())),
+                key=lambda t: t[1])
+        nbytes = 4 * (c * m * D + T * c * D * win + T * c * m * win)
+        shape = {"x": lead + [m, D], "W": [T] + lead + [D, N], "win": win}
+    else:
+        kern = lambda: rolling_mm_dx(dys, ws, o, win, name=scalar_name)  # noqa
+        plain = lambda: ref.rolling_matmul_batched_dx_ref(  # noqa
+            dys, ws, offs, win)
+
+        def lib():
+            if scalar_name:
+                acc = torch.mm(dys[0][0], views[0][0].mT)
+                for d, v in zip(dys[1:], views[1:]):
+                    acc = torch.addmm(acc, d[0], v[0].mT)
+                return acc
+            acc = torch.bmm(dys[0], views[0].mT)
+            for d, v in zip(dys[1:], views[1:]):
+                acc = torch.baddbmm(acc, d, v.mT)
+            return acc
+        out = [kern()]
+        e = err(out[0], plain())
+        nbytes = 4 * (T * c * m * win + T * c * D * win + c * m * D)
+        shape = {"dy": [T] + lead + [m, win], "W": [T] + lead + [D, N],
+                 "win": win}
+    check(e[1] <= MM_RTOL, f"{kind}<{T}> at {shape}: {e}")
+    again = kern()
+    check(all(bits_equal(a, b) for a, b in zip(
+        out, again if kind == "fwd" else [again])),
+          f"{kind}<{T}> at {shape}: two launches differ")
+    b_ms, b_by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
+    k_ms = cuda_ms(kern)
+    return dict(
+        shape=shape, block_tile=list(block_tile(kind, T, c, m, D, win)),
+        max_abs_err=e[0], max_rel_err=e[1], tolerance=MM_RTOL, ms=k_ms,
+        kernel_ms=k_ms, plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
+        library_calls=T, bound_ms=b_ms, bound_by=b_by,
+        bound_rate="3xTF32: 2*M*N*K at 495/3 TFLOP/s")
 
 
 def mask_kernels(dev, g):
@@ -467,43 +516,11 @@ def scalar_kernels(dev, g):
 
     rows = []
     for name, row, tpu_fn, T, m, N, win, off, kind in SCALAR:
-        x = torch.randn((m, D), device=dev, generator=g)
-        ws = [torch.randn((D, N), device=dev, generator=g) for _ in range(T)]
-        dys = [torch.randn((m, win), device=dev, generator=g)
-               for _ in range(T)]
-        o = make_offsets([off], dev)     # the device copy a model keeps
-        views = [w[:, off:off + win] for w in ws]
-        flops = 2 * T * m * D * win
-        if kind == "fwd":
-            kern = lambda: rolling_matmul_fwd(x, ws, o, win)      # noqa
-            plain = lambda: plain_fwd(x, ws, off, win)            # noqa
-            lib = lambda: [torch.mm(x, v) for v in views]         # noqa
-            e = max((err(a, b[0]) for a, b in zip(kern(), plain())),
-                    key=lambda t: t[1])
-            nbytes = 4 * (m * D + T * D * win + T * m * win)
-            shape = {"x": [m, D], "W": [T, D, N], "win": win}
-        else:
-            kern = lambda: rolling_matmul_dx(dys, ws, o, win)     # noqa
-            plain = lambda: plain_dx(dys, ws, off, win)           # noqa
-
-            def lib():
-                acc = torch.mm(dys[0], views[0].mT)
-                for d, v in zip(dys[1:], views[1:]):
-                    acc = torch.addmm(acc, d, v.mT)
-                return acc
-            e = err(kern(), plain()[0])
-            nbytes = 4 * (T * m * win + T * D * win + m * D)
-            shape = {"dy": [T, m, win], "W": [T, D, N], "win": win}
-        check(e[1] <= MM_RTOL, f"{name} at {shape}: {e}")
-        b_ms, b_by = bound(flops, nbytes)
-        k_ms = cuda_ms(kern)
-        rows.append(dict(
-            name=name, route="cuda", source=SRC + "rolling_mm.cu",
-            replaces=TPU + tpu_fn, tpu_row=row, shape=shape,
-            max_abs_err=e[0], max_rel_err=e[1], tolerance=MM_RTOL,
-            ms=k_ms, kernel_ms=k_ms, plain_ms=cuda_ms(plain),
-            library_ms=cuda_ms(lib), library_calls=T,
-            bound_ms=b_ms, bound_by=b_by))
+        r = product_timing(dev, g, kind, T, 1, m, N, win, off,
+                           scalar_name=name)
+        rows.append(dict(name=name, route="cuda",
+                         source=SRC + "rolling_mm.cu",
+                         replaces=TPU + tpu_fn, tpu_row=row, **r))
     return rows
 
 
@@ -940,7 +957,7 @@ def phase_eval(dev, trainer, _build):
     print(f"[eval] server logits flash vs blockwise: max abs diff {e[0]:.3g} "
           f"(rel {e[1]:.3g}, tolerance {MM_RTOL})")
     print(f"[eval] kernel launches on the eval path {total}")
-    for tag, fn in (parts[0], parts[-1]):
+    for tag, fn in (parts[0], parts[2], parts[-1]):
         phase_profile_eval(tag, fn)
     return total
 

@@ -44,6 +44,7 @@ _SIGNATURES = {
                        _LL, _P],
     "rolling_mm_dx": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL,
                       _LL, _P],
+    "rolling_mm_tile": [_I] * 6,
     "sgd_inplace": [_P, _P, _F, _LL, _P],
     "masked_sgd_inplace": [_P, _P, _P, _F, _LL, _P],
     "fillin_agg_inplace": [_P, _P, _P, _F, _LL, _I, _LL, _P],

@@ -131,6 +131,16 @@ def rolling_mm_dx(dys, ws, offsets: Offsets, win, name=None):
     return dx
 
 
+def block_tile(kind, T, C, M, K, win):
+    """The ``(rows, columns)`` output tile of each block that the
+    ``kind`` ("fwd" or "dx") kernel takes for these sizes on the current
+    card: the kernel picks it per launch, the largest whose grid covers
+    every SM, else the narrowest."""
+    code = _build.library().rolling_mm_tile(int(kind == "dx"), T, C, M, K,
+                                             win)
+    return code >> 16, code & 0xFFFF
+
+
 class RollingMatmulBatched(torch.autograd.Function):
     """Differentiable ``rolling_mm_fwd``, with the reference's VJP split
     (``dispatch.py:486-503`` and ``:662-683``): ``dx`` through the

@@ -42,7 +42,8 @@ from repro_torch.kernels.ref import (fillin_agg_ref,  # noqa: E402
                                      masked_sgd_ref,
                                      rolling_matmul_batched_dx_ref,
                                      rolling_matmul_batched_ref, sgd_ref)
-from repro_torch.kernels.rolling_matmul import (make_offsets,  # noqa: E402
+from repro_torch.kernels.rolling_matmul import (block_tile,  # noqa: E402
+                                                make_offsets,
                                                 rolling_matmul,
                                                 rolling_matmul_batched,
                                                 rolling_mm_dx, rolling_mm_fwd)
@@ -352,18 +353,83 @@ def _gpu_close(a, b):
     assert (a - b).abs().max() <= GPU_RTOL * scale
 
 
+def _tf32(a):
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, by bit mask: add half a TF32 ulp to the magnitude's bits,
+    then clear the 13 low bits (the kernels' split of ``big``)."""
+    bits = a.view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _tf32_trunc(a):
+    """What the tensor core reads of f32 bits: the 13 low bits dropped
+    (the kernels pass ``small`` so)."""
+    return (a.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_product(a, b, passes):
+    """``a @ b`` as the product kernels compute it: for each 32-deep stage
+    of the contraction, the TF32 products summed on the tensor core (here
+    exactly) and added to an f32 accumulator, rounded to nearest.
+    ``passes`` 3: the split ``a = big + small`` with the small products
+    first; 1: one TF32 pass."""
+    ab, bb = _tf32(a), _tf32(b)
+    a_s, b_s = _tf32_trunc(a - ab), _tf32_trunc(b - bb)
+    terms = [(a_s, bb), (ab, b_s), (ab, bb)] if passes == 3 else [(ab, bb)]
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(0, a.shape[1], 32):
+        acc += sum(p[:, k:k + 32].astype(np.float64)
+                   @ q[k:k + 32].astype(np.float64)
+                   for p, q in terms).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("K", [2048, 2 * 2816])
+def test_3xtf32_split_keeps_f32_accuracy(K):
+    """The numerics the product kernels rely on, emulated on the CPU at the
+    main path's contraction lengths (d_model, and the gate/up pair's dx
+    over two windows of 2816): the 3xTF32 split stays within a tenth of
+    the card tolerance of an f64 product, relative to the largest output;
+    one TF32 pass misses the tolerance itself."""
+    rng = np.random.default_rng(K)
+    a = rng.standard_normal((32, K)).astype(np.float32)
+    b = rng.standard_normal((K, 32)).astype(np.float32)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(want).max()
+    err3 = np.abs(_tf32_product(a, b, 3) - want).max() / scale
+    err1 = np.abs(_tf32_product(a, b, 1) - want).max() / scale
+    assert err3 <= GPU_RTOL / 10
+    assert err1 > GPU_RTOL
+
+
+# (C, M, K, N, win, per-client offsets).  The first two are ragged (an odd
+# row stride N = 777, offsets that are not multiples of 4: 4-byte copies);
+# the rest are the main path's shapes, which select each block tile on a
+# 132-SM H100: the k/v projection (win 128 of 256: 64 x 32 forward, 128 x
+# 128 dx), the q projection (128 x 64 forward), row 4's C = 1, M = 512 (64 x
+# 64 dx) and row 2's C = 1, M = 8192 (128 x 128), with offsets that are and
+# are not multiples of 4.
+GPU_SHAPES = [
+    (C, M, K, N, WIN, [0, 17, 34]),
+    (4, 300, 1000, 777, 333, [0, 17, 34, 51]),
+    (4, 512, 2048, 256, 128, [128, 37, 0, 5]),
+    (4, 512, 2048, 2048, 1024, [1024, 3, 1024, 1020]),
+    (1, 512, 2048, 5632, 2816, [2816]),
+    (1, 8192, 2048, 5632, 2816, [1]),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("T", [1, 2])
-@pytest.mark.parametrize("shape", [(C, M, K, N, WIN),
-                                   (4, 300, 1000, 777, 333)])
+@pytest.mark.parametrize("shape", GPU_SHAPES)
 def test_gpu_rolling_kernels_match_plain(cuda, T, shape):
-    c, m, k, n, win = shape
+    c, m, k, n, win, offs = shape
     g = torch.Generator(cuda).manual_seed(T)
     x = torch.randn((c, m, k), device=cuda, generator=g)
     ws = [torch.randn((c, k, n), device=cuda, generator=g) for _ in range(T)]
     dys = [torch.randn((c, m, win), device=cuda, generator=g)
            for _ in range(T)]
-    offs = [(17 * i) % (n - win + 1) for i in range(c)]
     o = make_offsets(offs, cuda)
     n_fwd = _build.LAUNCHES[f"rolling_mm_fwd<{T}>"]
     ys = rolling_mm_fwd(x, ws, o, win)
@@ -373,6 +439,47 @@ def test_gpu_rolling_kernels_match_plain(cuda, T, shape):
     for y, yr in zip(ys, rolling_matmul_batched_ref(x, ws, offs, win)):
         _gpu_close(y, yr)
     _gpu_close(dx, rolling_matmul_batched_dx_ref(dys, ws, offs, win))
+
+
+@pytest.mark.gpu
+def test_gpu_block_tiles_follow_the_grid_rule(cuda):
+    """Each launch takes the largest block tile (128 x 128, 128 x 64, 64 x
+    64) whose grid covers every SM, else 64 x 32; on a 132-SM H100 the main
+    path's shapes reach all four."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    seen = set()
+    for c, m, k, n, win, _ in GPU_SHAPES:
+        for T in (1, 2):
+            for kind, cols, z in (("fwd", win, c * T), ("dx", k, c)):
+                want = next(
+                    (bm, bn)
+                    for bm, bn in ((128, 128), (128, 64), (64, 64), (64, 32))
+                    if -(-cols // bn) * -(-m // bm) * z >= sms
+                    or (bm, bn) == (64, 32))
+                assert block_tile(kind, T, c, m, k, win) == want
+                seen.add(want)
+    if sms == 132:
+        assert seen == {(128, 128), (128, 64), (64, 64), (64, 32)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("shape", [GPU_SHAPES[1], GPU_SHAPES[2],
+                                   GPU_SHAPES[3]])
+def test_gpu_rolling_kernels_are_deterministic(cuda, T, shape):
+    """One block sums each output in a fixed order (no split contraction,
+    no atomics): two launches on the same inputs are bit-equal."""
+    c, m, k, n, win, offs = shape
+    g = torch.Generator(cuda).manual_seed(20 + T)
+    x = torch.randn((c, m, k), device=cuda, generator=g)
+    ws = [torch.randn((c, k, n), device=cuda, generator=g) for _ in range(T)]
+    dys = [torch.randn((c, m, win), device=cuda, generator=g)
+           for _ in range(T)]
+    o = make_offsets(offs, cuda)
+    first = [*rolling_mm_fwd(x, ws, o, win), rolling_mm_dx(dys, ws, o, win)]
+    second = [*rolling_mm_fwd(x, ws, o, win), rolling_mm_dx(dys, ws, o, win)]
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.gpu
