@@ -7,18 +7,19 @@ Phases, each of which fails the run when it fails:
 
 1. Build the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
    print nvcc's ``-Xptxas -v`` report and the card.
-2. Hold every kernel of the paths against its plain PyTorch version on
-   the card, at the shapes the full-width TinyLlama-1.1B rounds and
-   evaluation and the Mamba2-130M prefill give it (plus unaligned offsets,
-   ragged lengths, sliding windows, other head groupings, short and
-   ragged chunks and head windows): the product kernels' forward values
-   and autograd gradients, the flash kernel's output, the SSD chunk
-   kernel's outputs and chunk states (also against the sequential
-   recurrence), and the three update kernels bit for bit; time each beside
-   its plain version, one library call for the same function (where one
-   exists) and its bound on an H100 (f32 FMAs; for the product kernels,
-   rows 1-8, three TF32 tensor-core passes), with the block tile each
-   timed product launch took, and two launches of each bit-equal.
+2. Hold every kernel of the paths against its plain PyTorch version on the
+   card, at the shapes the full-width TinyLlama-1.1B rounds and evaluation
+   and the Mamba2-130M prefill give it (plus unaligned offsets, ragged
+   lengths, sliding windows, other head groupings, short and ragged chunks
+   and head windows): the product kernels' forward values and autograd
+   gradients, the flash kernel's output, the SSD chunk kernel's outputs and
+   chunk states (also against the sequential recurrence), and the three
+   update kernels bit for bit (the two SGD steps also in place on views
+   with shared and mismatched misalignments); time each beside its plain
+   version, one library call for the same function (where one exists) and
+   its bound on an H100 (f32 FMAs; for the product kernels, rows 1-8, three
+   TF32 tensor-core passes), with the block tile each timed product launch
+   took, and two launches of each bit-equal.
 3. Run two rounds of the reduced model on the card and on the CPU (the
    plain versions) from the same params, tokens and windows or masks
    (masks drawn on the CPU and copied), and hold the two against each
@@ -33,16 +34,16 @@ Phases, each of which fails the run when it fails:
    every kernel's launch count read before and after.
 4a. The eval path, on the server params those rounds leave: the held-out
    loss of one model (``Model.loss``, 4 x 2048 tokens) with
-   ``REPRO_USE_FLASH`` set and without, the windowed sub-model's loss
-   with the switch (the scalar-offset products and the flash kernel), and
-   one backward pass of the windowed sub-model's loss at 2 x 256 tokens
-   without it; launches counted per part, seconds and peak memory, the
-   server's and the sub-model's flash evals and the backward pass under
-   ``torch.profiler``.  Then one more window round under
-   ``torch.profiler`` for the device time by kernel group, and two rounds
-   of ``api.Trainer`` with ``eval_fn``, ``eval_every=1`` and
-   ``log_every=1``.  The trainer and params are freed before the next
-   phase.
+   ``REPRO_USE_FLASH`` set and without, the windowed sub-model's loss with
+   the switch (the scalar-offset products and the flash kernel), and one
+   backward pass of the windowed sub-model's loss at 2 x 256 tokens without
+   it; launches counted per part, seconds and peak memory, the server's and
+   the sub-model's flash evals and the backward pass under
+   ``torch.profiler``. Then one more window round under ``torch.profiler``
+   for the device time by kernel group (and the ``sgd_inplace`` group
+   beside the round's byte bound for it), and two rounds of ``api.Trainer``
+   with ``eval_fn``, ``eval_every=1`` and ``log_every=1``. The trainer and
+   params are freed before the next phase.
 4b. The mask path: the same configuration with ``scheme="bernoulli"``
    (Algorithm 1, mask mode chosen by ``api.fed_round`` itself) through
    ``api.Trainer(rng=0)``, 3 rounds, counted, checked and profiled the
@@ -102,6 +103,7 @@ EVAL_RTOL = 1e-5          # full-width eval loss, flash vs blockwise
 # (``layer_states_vs_recurrence``, held to MM_RTOL)
 DEPTH_RTOL = 1e-3
 HETERO = [1.0, 0.5, 0.25, 0.125]
+WARM_MS = 25.0            # kernel timing: warm-up wall time before counting
 
 C, M, D = 4, 512, 2048    # clients, tokens per client (2 x 256), d_model
 EB, ES = 4, 2048          # eval batch: 4 sequences of TinyLlama's context
@@ -135,10 +137,17 @@ def eval_loss(model, params, tokens, window=None, flash=False):
 
 
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls, after
+    ``warmup`` calls and then more until WARM_MS of wall time has passed:
+    a card that idled while the host checked the last result runs its first
+    calls at a lower clock."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while 1e3 * (time.perf_counter() - t0) < WARM_MS:
+        fn()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -281,7 +290,10 @@ def phase_kernels(dev):
               f"(rel {e[1]:.3g})")
     del x, ws, dys, ys, got, ys_ref, want
 
-    # the SGD step on the largest leaf, and on a ragged misaligned one
+    # the SGD step on the largest leaf, and on a ragged misaligned one; then
+    # in place on views with mismatched misalignments (w at +1 float, g at
+    # +2: the scalar loop) and a shared one (both at +1: a scalar head, then
+    # the float4 body)
     n = C * D * 5632
     w = torch.randn(n, device=dev, generator=g)
     gr = torch.randn(n, device=dev, generator=g)
@@ -289,6 +301,13 @@ def phase_kernels(dev):
         a = sgd_(w[lo:lo + size].clone(), gr[lo:lo + size], 0.1)
         b = ref.sgd_ref(w[lo:lo + size].clone(), gr[lo:lo + size], 0.1)
         check(torch.equal(a, b), f"sgd_inplace not bit-exact at {lo}+{size}")
+    size = n - 2
+    for wo, go in ((1, 2), (1, 1)):
+        b = ref.sgd_ref(w[wo:wo + size].clone(), gr[go:go + size], 0.1)
+        a = w.clone()[wo:wo + size]
+        sgd_(a, gr[go:go + size], 0.1)
+        check(bits_equal(a, b), f"sgd_inplace not bit-exact on views at w+"
+              f"{wo}, g+{go}")
     b_ms, b_by = bound(2 * n, 12 * n)
     k_ms = cuda_ms(lambda: sgd_(w, gr, 1e-6))
     rows.append(dict(
@@ -406,6 +425,14 @@ def mask_kernels(dev, g):
         b = ref.masked_sgd_ref(w[sl].clone(), m[sl], gr[sl], 0.1)
         check(bits_equal(a, b),
               f"masked_sgd_inplace not bit-exact at {lo}+{size}")
+    size = n - 2          # in place on views: mismatched, then shared
+    for wo, go in ((1, 2), (1, 1)):
+        b = ref.masked_sgd_ref(w[wo:wo + size].clone(), m[go:go + size],
+                               gr[go:go + size], 0.1)
+        a = w.clone()[wo:wo + size]
+        masked_sgd_(a, m[go:go + size], gr[go:go + size], 0.1)
+        check(bits_equal(a, b), f"masked_sgd_inplace not bit-exact on views "
+              f"at w+{wo}, m and g+{go}")
     b_ms, b_by = bound(3 * n, 16 * n)
     k_ms = cuda_ms(lambda: masked_sgd_(w, m, gr, 1e-6))
     rows.append(dict(
@@ -433,8 +460,9 @@ def mask_kernels(dev, g):
                 check(bits_equal(a, b), f"fillin_agg_inplace not bit-exact "
                       f"at C={c} server_lr={slr} {lo}+{size}")
     print("[kernels] update kernels bit-exact to their plain versions "
-          "(aligned, ragged and misaligned; fill-in C in {3, 4}, server_lr "
-          "in {1, 0.5})")
+          "(aligned, ragged and misaligned; SGD steps in place on views with "
+          "shared and mismatched misalignments; fill-in C in {3, 4}, "
+          "server_lr in {1, 0.5})")
     b_ms, b_by = bound((3 * C + 2) * ns, (8 + 8 * C) * ns)
     k_ms = cuda_ms(lambda: fillin_agg_(w, wc, mc, 1.0))
     rows.append(dict(
@@ -1378,8 +1406,12 @@ def phase_profile(tag, trainer, batch, round_s):
     """One more round (after the counted ones) under torch.profiler:
     device time by kernel group, and its share of an unprofiled round's
     wall time ``round_s`` (the profiled round's own wall time carries the
-    profiler's host cost, so it is printed but not divided by)."""
+    profiler's host cost, so it is printed but not divided by); the client
+    steps' update group beside its byte bound for the round, from the
+    leaves' sizes."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import api
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1400,6 +1432,22 @@ def phase_profile(tag, trainer, batch, round_s):
         print(f"[profile {tag}] {g:26s} {t:9.2f} ms {100 * t / total:5.1f}%")
     for name, t, n in sorted(kern, key=lambda r: -r[1])[:12]:
         print(f"[profile {tag}]   {t:9.2f} ms x{n:<5d} {name[:100]}")
+    # the client steps' update group against its byte bound for the round:
+    # K steps x C clients x every element of every leaf, reading w and g (and
+    # m) and writing w once
+    group, per_elt = (("masked_sgd_inplace (port)", 16)
+                      if isinstance(trainer.fed, api.MaskFedAvg)
+                      else ("sgd_inplace (port)", 12))
+    scfg = trainer.fed.scfg
+    elts = scfg.local_steps * scfg.clients_per_round * sum(
+        v.numel() for v in trainer.params.values())
+    b_ms = 1e3 * per_elt * elts / PEAK_BYTES
+    check(groups.get(group, 0.0) > 0,
+          f"[profile {tag}] no {group} time in the profile")
+    t = groups[group]
+    print(f"[profile {tag}] update group {group}: {t:.2f} ms against its "
+          f"byte bound {b_ms:.2f} ms ({per_elt * elts / 1e9:.1f} GB at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s): {t / b_ms:.3f}x")
 
 
 def main():

@@ -33,6 +33,9 @@ their ROADMAP.md item.
 """
 from __future__ import annotations
 
+import inspect
+from typing import Any, Tuple
+
 import numpy as np
 
 from repro_torch.configs.base import SubmodelConfig
@@ -66,6 +69,29 @@ def _not_ported(what, item):
                               f"A, {item})")
 
 
+def _model_parts(model) -> Tuple[Any, Any, Any]:
+    if all(hasattr(model, a) for a in ("loss", "abstract_params", "axes")):
+        return model.loss, model.abstract_params(), model.axes()
+    if isinstance(model, (tuple, list)) and len(model) == 3:
+        return tuple(model)
+    raise TypeError(
+        "model must expose the model-zoo protocol (.loss, "
+        ".abstract_params(), .axes()) or be a (loss_fn, abstract, "
+        f"axes_tree) triple; got {type(model).__name__}")
+
+
+def _windowed_loss(loss_fn):
+    """``loss_fn`` itself when it is window-aware (accepts a ``window=``
+    kwarg, like ``Model.loss``), else None: the fused client phase is only
+    offered where it exists."""
+    try:
+        if "window" in inspect.signature(loss_fn).parameters:
+            return loss_fn
+    except (TypeError, ValueError):
+        pass
+    return None
+
+
 def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
               client_opt=None, server_opt=None, spmd_axis=None, mesh=None,
               capacities=None, fused_forward="auto",
@@ -76,7 +102,12 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
 
     Args:
       model: a port ``Model`` (``.loss(params, batch, window=)``,
-        ``.abstract_params()``, ``.axes()``).
+        ``.abstract_params()``, ``.axes()``) or a ``(loss_fn, abstract,
+        axes)`` triple: ``abstract`` is ``{path: torch.Size}``, ``axes``
+        ``{path: axis tags}``, and ``loss_fn(params, batch[, window=])``
+        takes ``[C, ...]`` params and batch leaves and returns ``([C]
+        losses, aux)``.  Window mode needs a ``window=`` argument (the
+        extract client phase is not ported).
       scfg: the :class:`SubmodelConfig`.
       mode: ``auto`` (``mask`` for ``bernoulli``, else ``window``),
         ``window`` or ``mask``.
@@ -86,6 +117,7 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
       fused_forward: window mode: ``auto`` or ``on``.
       device: ``cuda`` (default; raises without a card) or ``cpu``.
     """
+    loss_fn, abstract, axes = _model_parts(model)
     dev = resolve_device(device)
     resolved = resolve_mode(mode, scfg.scheme)
     if server_opt not in (None, "", "none"):
@@ -105,8 +137,7 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
         if capacities is None:
             capacities = np.full(scfg.clients_per_round, scfg.capacity,
                                  np.float32)
-        return build_mask_fed(model.loss, scfg, model.abstract_params(),
-                              model.axes(), capacities, dev,
+        return build_mask_fed(loss_fn, scfg, abstract, axes, capacities, dev,
                               client_opt=client_opt)
     if capacities is not None:
         _not_ported("heterogeneous window capacities",
@@ -115,6 +146,10 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
         _not_ported("the mesh round", "mesh round")
     if uplink_compression is not None:
         _not_ported("uplink compression", "optimizers and the uplink")
-    return build_window_fed(model.loss, scfg, model.abstract_params(),
-                            model.axes(), dev, client_opt=client_opt,
+    wloss = _windowed_loss(loss_fn)
+    if wloss is None:
+        _not_ported("the extract client phase (for a loss without "
+                    "window=)", "extract client phase")
+    return build_window_fed(wloss, scfg, abstract, axes, dev,
+                            client_opt=client_opt,
                             fused_forward=fused_forward)

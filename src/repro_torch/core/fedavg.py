@@ -129,16 +129,16 @@ class WindowFedAvg:
         window-aware forward.  Returns the clients' params after K steps
         (``{path: [C, ...]}``) and the losses ``[K, C]``."""
         c = self.scfg
-        tokens = batch["tokens"]                      # [K, C, mb, S]
-        C = tokens.shape[1]
+        first = next(iter(batch.values()))            # every leaf [K, C, ...]
+        C = first.shape[1]
         full = {k: v.unsqueeze(0).repeat(C, *([1] * v.dim())).requires_grad_()
                 for k, v in params.items()}
         window = self._fused_window(offsets)
         opt, state = self.client_opt, self.client_opt.init(full)
         losses = []
-        for k in range(tokens.shape[0]):
-            loss, _ = self.loss_fn(full, {"tokens": tokens[k]},
-                                   window=window)
+        for k in range(first.shape[0]):
+            mb = {name: v[k] for name, v in batch.items()}
+            loss, _ = self.loss_fn(full, mb, window=window)
             # summing the per-client losses gives each client its own grad
             grads = torch.autograd.grad(loss.sum(), list(full.values()))
             with torch.no_grad():

@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
 process per source, all started together), and the objects are linked into
 one shared library with a plain C interface, loaded with ``ctypes``.  The
 build runs at first use, into ``build/kernels/`` at the root of the
-checkout, under a name keyed by the sources' content, so an edit rebuilds
+checkout, under a name keyed by the content of the sources and their
+shared headers (``csrc/*.cuh``), so an edit rebuilds
 and an unchanged tree reuses the library.  ``-Xptxas -v`` reports each
 kernel's registers, shared memory and spills; :func:`build` returns that
 log.
@@ -69,8 +70,8 @@ def _nvcc() -> str:
 
 def _key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in SOURCES:
-        h.update((CSRC / s).read_bytes())
+    for path in [*(CSRC / s for s in SOURCES), *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -18,22 +18,33 @@
 // (w_c, m_c) and writes w, (8 + 8C) bytes per element; 44.0 GB per round
 // at C = 4, 13.1 ms.
 //
-// Design: grid-stride loops of 16-byte (float4) loads and stores when every
-// pointer (and the client stride) is 16-byte aligned, and a scalar loop for
-// the tail or for a misaligned leaf.  fillin gives each thread its elements
-// and walks the clients in order inside the thread, so the sum over clients
-// stays in registers and w is read and written once.  Every product, sum
-// and difference is written with a _rn intrinsic, so nvcc cannot contract
-// them into FMAs: the results are bit-exact against the plain PyTorch
-// versions (kernels/ref.py masked_sgd_ref, fillin_agg_ref).
+// Design of masked_sgd (float4_body.cuh, as sgd.cu): one float4 of w, m
+// and g a thread, one block for every 256 float4 and no grid stride, plain
+// loads and stores.  A leaf whose operands share one misalignment runs a
+// scalar head up to the 16-byte boundary, then the float4 body; only
+// mismatched misalignments go wholly scalar.
+//
+// Design of fillin: a grid-stride loop of 16-byte (float4) loads and
+// stores when every pointer (and the client stride) is 16-byte aligned,
+// and a scalar loop for the tail or for a misaligned leaf, on a grid of up
+// to 16 blocks of 256 per SM of the 132-SM part.  Each thread walks the
+// clients in order for its elements, so the sum over clients stays in
+// registers and w is read and written once.
+//
+// Every product, sum and difference is written with a _rn intrinsic, so
+// nvcc cannot contract them into FMAs: the results are bit-exact against
+// the plain PyTorch versions (kernels/ref.py masked_sgd_ref,
+// fillin_agg_ref).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "float4_body.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132 * 16;  // 16 blocks per SM, then stride
+using float4_body::kThreads;
+constexpr long long kMaxBlocks = 132 * 16;  // fillin: 16 blocks per SM
 
 __device__ __forceinline__ float masked_step(float w, float m, float g,
                                              float lr) {
@@ -49,33 +60,28 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-__global__ void masked_sgd_kernel(float* __restrict__ w,
-                                  const float* __restrict__ m,
-                                  const float* __restrict__ g, float lr,
-                                  long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  long long done = 0;
-  if (aligned16(w) && aligned16(m) && aligned16(g)) {
-    const long long n4 = n / 4;
-    float4* w4 = reinterpret_cast<float4*>(w);
-    const float4* m4 = reinterpret_cast<const float4*>(m);
-    const float4* g4 = reinterpret_cast<const float4*>(g);
-    for (long long i = tid; i < n4; i += stride) {
-      float4 a = w4[i];
-      const float4 b = m4[i];
-      const float4 c = g4[i];
-      a.x = masked_step(a.x, b.x, c.x, lr);
-      a.y = masked_step(a.y, b.y, c.y, lr);
-      a.z = masked_step(a.z, b.z, c.z, lr);
-      a.w = masked_step(a.w, b.w, c.w, lr);
-      w4[i] = a;
-    }
-    done = n4 * 4;
+__global__ void __launch_bounds__(kThreads)
+    masked_sgd_kernel(float* __restrict__ w, const float* __restrict__ m,
+                      const float* __restrict__ g, float lr, long long n,
+                      float4_body::Split s) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < s.head) w[i] = masked_step(w[i], m[i], g[i], lr);
+  if (s.tail + i < n) {
+    const long long t = s.tail + i;
+    w[t] = masked_step(w[t], m[t], g[t], lr);
   }
-  for (long long i = done + tid; i < n; i += stride)
-    w[i] = masked_step(w[i], m[i], g[i], lr);
+  if (i < s.n4) {
+    float4* w4 = reinterpret_cast<float4*>(w + s.head);
+    float4 a = w4[i];
+    const float4 b = reinterpret_cast<const float4*>(m + s.head)[i];
+    const float4 c = reinterpret_cast<const float4*>(g + s.head)[i];
+    a.x = masked_step(a.x, b.x, c.x, lr);
+    a.y = masked_step(a.y, b.y, c.y, lr);
+    a.z = masked_step(a.z, b.z, c.z, lr);
+    a.w = masked_step(a.w, b.w, c.w, lr);
+    w4[i] = a;
+  }
 }
 
 // wc and mc hold client c's leaf at wc + c * cstride (elements).
@@ -133,8 +139,10 @@ unsigned grid_for(long long n) {
 extern "C" int masked_sgd_inplace(float* w, const float* m, const float* g,
                                   float lr, long long n, void* stream) {
   if (n <= 0) return 0;
-  masked_sgd_kernel<<<grid_for(n), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(w, m, g, lr, n);
+  const float4_body::Split s = float4_body::split(n, w, m, g);
+  masked_sgd_kernel<<<float4_body::grid(n, s), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(w, m, g, lr, n,
+                                                           s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,6 +41,9 @@ def sgd_(w: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
     if w.shape != g.shape:
         raise ValueError(f"param {tuple(w.shape)} and grad {tuple(g.shape)} "
                          "disagree")
+    if _overlaps(w, g):
+        raise ValueError("the SGD step updates w in place; it must not share "
+                         "memory with the grad")
     if w.device.type == "cpu":
         return ref.sgd_ref(w, g, lr)
     err = _build.library().sgd_inplace(

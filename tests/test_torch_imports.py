@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (imports of
-``repro_torch`` itself are fine).  A static AST scan, so it holds for code
-paths no CPU test reaches."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not the card's measurement scripts in ``tools/``
+import ``jax`` or the JAX package ``repro`` (imports of ``repro_torch``
+itself are fine).  A static AST scan, so it holds for code paths no CPU
+test reaches."""
 import ast
 from pathlib import Path
 
@@ -9,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -326,6 +326,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         rolling_mm_fwd(xt, wts, make_offsets(offs, "cpu"), win)
 
 
+@pytest.mark.parametrize("overlap", ["same", "shifted"])
+def test_sgd_rejects_overlapping_operands(overlap):
+    """The kernel reads g through the read-only path while it writes w, so
+    the two must not share memory."""
+    buf = torch.zeros(12)
+    w, g = (buf[:8], buf[:8]) if overlap == "same" else (buf[:8], buf[4:])
+    with pytest.raises(ValueError, match="share memory"):
+        sgd_(w, g, 0.1)
+    assert torch.equal(buf, torch.zeros(12))
+
+
 def test_sgd_rejects_mismatched_operands():
     with pytest.raises(ValueError):
         sgd_(torch.zeros(4), torch.zeros(5), 0.1)
@@ -482,16 +493,65 @@ def test_gpu_rolling_kernels_are_deterministic(cuda, T, shape):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+# around the update kernels' block of 256 float4 (1024 floats) and four of
+# them (4096): empty, shorter than a float4, one float short of a block and
+# 5 past it
+UPDATE_SIZES = [0, 1, 3, 1023, 1029, 4095, 4099, 4101, 1 << 20]
+# in-place views of the update kernels' operands, offsets in floats: (w, g)
+# and (w, m, g) sharing one misalignment (a scalar head, then the float4
+# body) and with mismatched ones (the scalar loop)
+SGD_VIEWS = [(1, 1), (1, 2), (2, 0)]
+MASKED_VIEWS = [(1, 1, 1), (1, 2, 2), (0, 2, 1)]
+
+
+def _in_place_view(w, lo, n):
+    """A copy of ``w`` and its view ``[lo, lo + n)``: the kernel then
+    updates a leaf that starts off the allocation's 16-byte boundary."""
+    buf = w.clone()
+    return buf, buf[lo:lo + n]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 4099, 1 << 20])
+@pytest.mark.parametrize("n", UPDATE_SIZES)
 def test_gpu_sgd_kernel_is_bit_exact_to_plain(cuda, n):
     g = torch.Generator(cuda).manual_seed(n)
-    w = torch.randn(n + 1, device=cuda, generator=g)
-    gr = torch.randn(n + 1, device=cuda, generator=g)
+    w = torch.randn(n + 2, device=cuda, generator=g)
+    gr = torch.randn(n + 2, device=cuda, generator=g)
     for lo in (0, 1):        # 16-byte aligned, then misaligned views
         want = sgd_ref(w[lo:lo + n].clone(), gr[lo:lo + n], 0.05)
         got = sgd_(w[lo:lo + n].clone(), gr[lo:lo + n], 0.05)
         assert torch.equal(got, want)
+    for wo, go in SGD_VIEWS:
+        want = sgd_ref(w[wo:wo + n].clone(), gr[go:go + n], 0.05)
+        buf, view = _in_place_view(w, wo, n)
+        assert sgd_(view, gr[go:go + n], 0.05) is view
+        assert torch.equal(view.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(buf[:wo], w[:wo])           # nothing outside
+        assert torch.equal(buf[wo + n:], w[wo + n:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sgd", "masked_sgd"])
+def test_gpu_update_kernels_are_deterministic(cuda, kind):
+    """Two launches on the same inputs are bit-equal (aligned, and on
+    views with a scalar head)."""
+    n = 3 * 4096 + 7
+    g = torch.Generator(cuda).manual_seed(5)
+    w = torch.randn(n + 1, device=cuda, generator=g)
+    m = (torch.rand(n + 1, device=cuda, generator=g) < 0.5).float()
+    gr = torch.randn(n + 1, device=cuda, generator=g)
+    for lo in (0, 1):
+        outs = []
+        for _ in range(2):
+            v = w[lo:lo + n].clone() if lo == 0 else \
+                _in_place_view(w, lo, n)[1]
+            if kind == "sgd":
+                outs.append(sgd_(v, gr[lo:lo + n], 0.05))
+            else:
+                outs.append(masked_sgd_(v, m[lo:lo + n], gr[lo:lo + n],
+                                        0.05))
+        assert torch.equal(outs[0].view(torch.int32),
+                           outs[1].view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -517,17 +577,25 @@ def test_gpu_autograd_function_matches_plain_autograd(cuda, T):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 4099, 1 << 20])
+@pytest.mark.parametrize("n", UPDATE_SIZES)
 def test_gpu_masked_sgd_kernel_is_bit_exact_to_plain(cuda, n):
     g = torch.Generator(cuda).manual_seed(n)
-    w = torch.randn(n + 1, device=cuda, generator=g)
-    m = (torch.rand(n + 1, device=cuda, generator=g) < 0.5).float()
-    gr = torch.randn(n + 1, device=cuda, generator=g)
+    w = torch.randn(n + 2, device=cuda, generator=g)
+    m = (torch.rand(n + 2, device=cuda, generator=g) < 0.5).float()
+    gr = torch.randn(n + 2, device=cuda, generator=g)
     for lo in (0, 1):        # 16-byte aligned, then misaligned views
         sl = slice(lo, lo + n)
         want = masked_sgd_ref(w[sl].clone(), m[sl], gr[sl], 0.05)
         got = masked_sgd_(w[sl].clone(), m[sl], gr[sl], 0.05)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for wo, mo, go in MASKED_VIEWS:
+        want = masked_sgd_ref(w[wo:wo + n].clone(), m[mo:mo + n],
+                              gr[go:go + n], 0.05)
+        buf, view = _in_place_view(w, wo, n)
+        assert masked_sgd_(view, m[mo:mo + n], gr[go:go + n], 0.05) is view
+        assert torch.equal(view.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(buf[:wo], w[:wo])           # nothing outside
+        assert torch.equal(buf[wo + n:], w[wo + n:])
 
 
 @pytest.mark.gpu
