@@ -17,9 +17,11 @@ Phases, each of which fails the run when it fails:
    update kernels bit for bit (the two SGD steps also in place on views
    with shared and mismatched misalignments); time each beside its plain
    version, one library call for the same function (where one exists) and
-   its bound on an H100 (f32 FMAs; for the product kernels, rows 1-8, three
-   TF32 tensor-core passes), with the block tile each timed product launch
-   took, and two launches of each bit-equal.
+   its bound on an H100 (three TF32 tensor-core passes for the kernels on
+   the tensor cores, rows 1-8, 12 and 13; f32 FMAs or bytes for the
+   others), with the block tile each timed product launch took, and two
+   launches of each bit-equal; flash also at head_dim 128.  The build's
+   report gives each tensor-core source's spill stores and HMMA count.
 3. Run two rounds of the reduced model on the card and on the CPU (the
    plain versions) from the same params, tokens and windows or masks
    (masks drawn on the CPU and copied), and hold the two against each
@@ -193,6 +195,40 @@ def phase_build(_build):
         if ("ptxas info" in line or line.startswith("==")
                 or "spill" in line):
             print(f"[build] {line.strip()}")
+    for src, (n, spill, hmma) in kernel_report(_build, path, log).items():
+        print(f"[build] {src}: {n} kernels, {spill} bytes of spill stores, "
+              f"HMMA (tensor-core mma) per kernel {min(hmma)}..{max(hmma)}")
+
+
+def kernel_report(_build, path, log):
+    """Per source: its kernels, the spill stores ptxas reports over all of
+    them (bytes) and the HMMA instructions cuobjdump finds in each."""
+    src, fn, spills = None, None, {}
+    for line in log.splitlines():
+        if line.startswith("== nvcc "):
+            src = line.split()[2]
+        elif "Function properties for" in line:
+            fn = line.rsplit(" ", 1)[-1]
+        elif "spill stores" in line and fn:
+            spills[fn] = (src, int(line.split(" bytes spill stores")[0]
+                                   .rsplit(" ", 1)[-1]))
+            fn = None
+    sass = subprocess.run(
+        [str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+         str(path)], capture_output=True, text=True, timeout=300,
+        check=True).stdout
+    hmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            hmma[fn] = 0
+        elif "HMMA" in line and fn:
+            hmma[fn] += 1
+    out = {}
+    for fn, (src, spill) in spills.items():
+        n, total, counts = out.get(src, (0, 0, []))
+        out[src] = (n + 1, total + spill, counts + [hmma.get(fn, 0)])
+    return out
 
 
 def nvidia_smi():
@@ -571,42 +607,61 @@ def visible_pairs(S, window):
 
 def flash_kernels(dev, g):
     """TPU row 13: the flash kernel against its plain version (the Pallas
-    body transcribed) at each case, timed at the eval shape beside one
-    f32 ``scaled_dot_product_attention`` (timed only; the port never calls
-    it)."""
+    body transcribed) at each case; timed at the eval shape and at head_dim
+    128 (qwen3's, mixtral's and deepseek_7b's) by ``flash_timing``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    hd, row = 64, None
+    hd = 64
     for tag, B, S, H, KV, win in FLASH:
         q = torch.randn((B, S, H, hd), device=dev, generator=g)
         k = torch.randn((B, S, KV, hd), device=dev, generator=g)
         v = torch.randn((B, S, KV, hd), device=dev, generator=g)
-        kern = lambda: flash_attention(q, k, v, window=win)              # noqa
-        plain = lambda: ref.flash_attention_ref(q, k, v, window=win)     # noqa
-        e = err(kern(), plain())
+        e = err(flash_attention(q, k, v, window=win),
+                ref.flash_attention_ref(q, k, v, window=win))
         check(e[1] <= MM_RTOL, f"flash {tag} {(B, S, H, KV, win)}: {e}")
         print(f"[kernels] flash {tag:30s} q {[B, S, H, hd]} kv heads {KV} "
               f"window {win}: max abs err {e[0]:.3g} (rel {e[1]:.3g})")
-        if row is not None:
-            continue
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        flops = 4 * B * H * hd * visible_pairs(S, win)
-        nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-        b_ms, b_by = bound(flops, nbytes)
-        k_ms = cuda_ms(kern)
-        row = dict(
-            name="flash_attention", route="cuda",
-            source=SRC + "flash_attn.cu",
-            replaces=TPU + "flash_attention.py:88", tpu_row=13,
-            shape={"q": [B, S, H, hd], "kv": [B, S, KV, hd], "causal": True,
-                   "window": win},
-            max_abs_err=e[0], max_rel_err=e[1], tolerance=MM_RTOL,
-            ms=k_ms, kernel_ms=k_ms, plain_ms=cuda_ms(plain, iters=5),
-            library_ms=cuda_ms(lib), library_calls=1,
-            bound_ms=b_ms, bound_by=b_by)
+    del q, k, v
+    row = dict(name="flash_attention", route="cuda",
+               source=SRC + "flash_attn.cu",
+               replaces=TPU + "flash_attention.py:88", tpu_row=13,
+               **flash_timing(dev, g, EB, ES, 32, 4, 64))
+    row["sub_rows"] = [flash_timing(dev, g, EB, ES, 32, 8, 128)]
     return [row]
+
+
+def flash_timing(dev, g, B, S, H, KV, hd):
+    """The flash kernel at one causal shape: held against its plain version
+    within MM_RTOL, a second launch bit-equal to the first, timed beside it,
+    beside one f32 ``scaled_dot_product_attention`` (timed only; the port
+    never calls it) and beside its bound at the 3xTF32 rate."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn((B, S, H, hd), device=dev, generator=g)
+    k = torch.randn((B, S, KV, hd), device=dev, generator=g)
+    v = torch.randn((B, S, KV, hd), device=dev, generator=g)
+    kern = lambda: flash_attention(q, k, v)                          # noqa
+    plain = lambda: ref.flash_attention_ref(q, k, v)                 # noqa
+    out = kern()
+    e = err(out, plain())
+    shape = {"q": [B, S, H, hd], "kv": [B, S, KV, hd], "causal": True,
+             "window": 0}
+    check(e[1] <= MM_RTOL, f"flash at {shape}: {e}")
+    check(bits_equal(out, kern()), f"flash at {shape}: two launches differ")
+    del out
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    flops = 4 * B * H * hd * visible_pairs(S, 0)
+    nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    b_ms, b_by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
+    k_ms = cuda_ms(kern)
+    return dict(
+        shape=shape, max_abs_err=e[0], max_rel_err=e[1], tolerance=MM_RTOL,
+        ms=k_ms, kernel_ms=k_ms, plain_ms=cuda_ms(plain, iters=5),
+        library_ms=cuda_ms(lib), library_calls=1, bound_ms=b_ms,
+        bound_by=b_by,
+        bound_rate="3xTF32: 4*B*H*hd*(visible pairs) at 495/3 TFLOP/s")
 
 
 # the SSD chunk block's cases (tag, Bt, nc, Q, nh, hd, N, head_offset,
@@ -621,6 +676,7 @@ SSD = [
     ("head window (5, 7)", 2, 4, 256, 24, 64, 128, 5, 7),
     ("head window (0, 24)", 2, 4, 256, 24, 64, 128, 0, 24),
     ("head window (16, 8)", 2, 4, 256, 24, 64, 128, 16, 8),
+    ("ragged head groups (5, 53)", 2, 4, 256, 64, 64, 128, 5, 53),
 ]
 
 
@@ -650,8 +706,9 @@ def ssd_kernels(dev, g):
     """TPU row 12: the SSD chunk kernel against its plain version (the
     Pallas body transcribed) at each case, y and states within MM_RTOL of
     their largest magnitude, and against the sequential oracle on a few
-    chunks; timed at one Mamba2 prefill layer (no single PyTorch call
-    computes the block, so there is no library time)."""
+    chunks; timed at one Mamba2 prefill layer beside its bound at the 3xTF32
+    rate, a second launch there bit-equal to the first (no single PyTorch
+    call computes the block, so there is no library time)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_chunk import ssd_chunk_intra
     row = None
@@ -673,8 +730,12 @@ def ssd_kernels(dev, g):
               f"{e[1]:.3g})")
         if row is None:
             flops, nbytes = ssd_flops_bytes(Bt, nc, Q, nh, hd, N)
-            b_ms, b_by = bound(flops, nbytes)
-            del y, s, yr, sr
+            b_ms, b_by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
+            del yr, sr
+            y2, s2 = kern()
+            check(bits_equal(y, y2) and bits_equal(s, s2),
+                  f"ssd_chunk_intra {tag}: two launches differ")
+            del y, s, y2, s2
             k_ms = cuda_ms(kern)
             row = dict(
                 name="ssd_chunk_intra", route="cuda",
@@ -685,7 +746,9 @@ def ssd_kernels(dev, g):
                 ms=k_ms, kernel_ms=k_ms, plain_ms=cuda_ms(plain, iters=3,
                                                           warmup=1),
                 library_ms=None, library_calls=0, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by,
+                bound_rate="3xTF32: the data's 2*multiply-adds at 495/3 "
+                           "TFLOP/s")
         del args, x, dt, A, B, C
     # chunk by chunk against the recurrence from a zero state
     x, dt, A, B, C = ssd_inputs(dev, g, 1, 3, 64, 4, 32, 16)
@@ -1386,7 +1449,7 @@ def device_kernels(prof, skip=()):
 
 def _kernel_group(name):
     for key, group in (("flash_attn", "flash_attention (port)"),
-                       ("ssd_chunk", "ssd_chunk_intra (port)"),
+                       ("ssd_", "ssd_chunk_intra (port)"),
                        ("rolling_mm_fwd", "rolling_mm_fwd (port)"),
                        ("rolling_mm_dx", "rolling_mm_dx (port)"),
                        ("masked_sgd", "masked_sgd_inplace (port)"),

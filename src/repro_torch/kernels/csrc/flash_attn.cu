@@ -1,4 +1,5 @@
-// Flash attention forward: causal or sliding-window GQA online softmax, f32.
+// Flash attention forward: causal or sliding-window GQA online softmax, f32,
+// on Hopper's tensor cores.
 //
 // flash_attn_fwd: out[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h / G])
 //                                 * v[b, j, h / G]
@@ -11,138 +12,303 @@
 // What bounds it on an H100: operations.  At the eval shape (B = 4,
 // S = 2048, H = 32, KV = 4, hd = 64, causal) each layer does
 // 4 * B * H * hd * S^2 / 2 = 68.7 GFLOP (q.k and p.v, 2 flops per
-// multiply-add, half the pairs visible) on 0.13 GB of q, k, v and out:
-// 1.03 ms at the 67 TFLOP/s f32 peak outside the tensor cores, 0.04 ms at
-// 3.35 TB/s.
+// multiply-add, half the pairs visible) on 0.13 GB of q, k, v and out.  Both
+// products run as 3xTF32 on mma.sync m16n8k8 (tf32x3.cuh), at 165 TFLOP/s at
+// best: 0.416 ms, against 0.04 ms for the bytes at 3.35 TB/s.
 //
-// Design (simple and right first, not fast): one block per (batch x kv
-// head, tile of query positions); each of its 128 threads owns one query
-// row (position, head of the kv head's group of G), so all G query heads of
-// a kv head share every K/V tile.  The block walks only the kv tiles its
-// query tile can see (causal diagonal and window), staging each 64-key K
-// and V tile in shared memory; that loop replaces the TPU's sequential kv
-// grid axis and its VMEM scratch.  A thread keeps its q row, its
-// accumulator and its running max and sum in registers, and takes 16 keys
-// per online-softmax update: 16 scores, one rescale of the accumulator,
-// 16 weighted V rows.  Every product is an f32 fmaf on CUDA cores (no
-// tensor cores), and K/V rows are read from shared memory as broadcast
-// float4s, once per query row: the shared-memory reads and the single
-// FMA issue per thread are what hold it back from the bound (a redesign
-// with mma/wgmma on register-blocked tiles is later work).  Masked keys
-// score -1e30 like the reference's, so their weight exp(-1e30 - m) is
-// exactly 0 once a row has seen one key; 16-key groups that a row cannot
-// see are skipped, so a row's state only ever holds visible keys.
+// This design replaces a first one in which a thread owned one query row
+// and every product was an f32 FMA on CUDA cores, held back by its
+// shared-memory reads and single FMA issue, and spilling at hd 128.  The
+// rows of the product are the (query position, head of the kv head's
+// group) pairs, so all G query heads of a kv head share every K/V tile.  A
+// block of 4 warps owns 64 such rows of one (batch, kv head), each warp 16
+// of them, and walks only the key tiles its rows can see (causal diagonal
+// and window; 64 keys a tile up to hd 64, 32 above), the next K and V tile
+// in flight through a 2-deep cp.async ring while this one is multiplied;
+// that loop replaces the TPU's sequential kv grid axis and its VMEM
+// scratch.  Row tiles go longest first.
+// For each tile a warp forms S = q k^T (q's fragments split once and kept in
+// registers up to hd 64; above, read from shared memory and split per tile),
+// scales it by scale * log2(e), masks it element by element only on tiles
+// that meet the diagonal, the window's edge or the end of the keys, and
+// takes the online softmax on the accumulator fragments (row max and the
+// final row sums by quad shuffles, exp2).  P goes straight back in as the A
+// operand of O += P v: an accumulator fragment (rows g, g + 8; keys 2q,
+// 2q + 1) is an A fragment with its contraction order permuted, and V's B
+// fragment is read in the same permuted order.  Each tile's P v is summed on
+// the tensor core from zero and added to the rescaled O in f32; a tile's
+// scores are at most 3 hd / 8 = 48 products summed from zero.  The
+// products go to the tensor core one kind at a time across all of a warp's
+// tiles (mma3_tiles), so consecutive mma never wait on each other's
+// accumulator; what is left holding the kernel back is the issue of the
+// splits of K and V, which every warp of a block repeats.  Masked keys
+// score -1e30 like the reference's, so their weight is exactly 0 once a row
+// has seen one key (weights a row takes before its first visible key are
+// rescaled by exactly 0 when it comes, as in the Pallas body); a warp skips
+// a tile none of its rows can see.  No atomics: a launch gives the same bits
+// every time.  Shared memory rows are hd + 4 floats, so every fragment read
+// of a warp hits 32 distinct banks and rows stay 16-byte aligned.
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;  // query rows per block
-constexpr int BKV = 64;       // keys per shared-memory tile
-constexpr int SUB = 16;       // keys per online-softmax update
+constexpr int THREADS = 128;  // 4 warps of 16 rows
+constexpr int BM = 64;        // rows of a block
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
   long long b, s, h;  // batch, position and head strides, in elements
 };
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out,
-                  Strides sq, Strides sk, Strides sv, Strides so, int KV,
-                  int G, int Sq, int Skv, int bq, int causal, int window,
-                  float scale) {
-  extern __shared__ float4 smem[];
-  float* Ks = reinterpret_cast<float*>(smem);  // [BKV][HD]
-  float* Vs = Ks + BKV * HD;                   // [BKV][HD]
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
-  const int q0 = blockIdx.x * bq;
-  const int qi = tid / G, g = tid % G;
-  const int qpos = q0 + qi;
-  const bool active = qi < bq && qpos < Sq;
-  const int h = kvh * G + g;
+struct Cfg {
+  static constexpr int BKV = HD <= 64 ? 64 : 32;  // keys of a K/V tile
+  static constexpr bool QREG = HD <= 64;  // q's split fragments in registers
+  static constexpr int S = HD + 4;        // shared-memory row stride
+  static constexpr int KT = BKV / 8;      // n8 key tiles of S
+  static constexpr int DK = HD / 8;       // k8 steps of q k^T; n8 tiles of O
+  // n8 tiles of O summed at once in P v (their V fragments and stage sums
+  // live in registers together)
+  static constexpr int NCH = DK <= 8 ? DK : DK / 2;
+  static constexpr int KV_FLOATS = 2 * BKV * S;  // one stage: K, then V
+  static constexpr int smem_bytes = 4 * (2 * KV_FLOATS + (QREG ? 0 : BM * S));
+};
 
-  // keys the block's query tile can see, and those this row sees
-  const int q_last = min(q0 + bq, Sq) - 1;
-  const int blk_lo = window ? max(0, q0 - window + 1) : 0;
-  const int blk_hi = causal ? min(Skv - 1, q_last) : Skv - 1;
-  const int row_lo = window ? max(0, qpos - window + 1) : 0;
-  const int row_hi = causal ? min(Skv - 1, qpos) : Skv - 1;
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 2)
+    flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      Strides sq, Strides sk, Strides sv, Strides so, int KV,
+                      int G, int Sq, int Skv, int causal, int window,
+                      float scale) {
+  using CF = Cfg<HD>;
+  constexpr int BKV = CF::BKV, S = CF::S, KT = CF::KT, DK = CF::DK;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem + 2 * CF::KV_FLOATS;  // [BM][S], above hd 64 only
 
-  float qr[HD], acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) qr[d] = acc[d] = 0.0f;
-  if (active) {
-    const float* qrow = q + b * sq.b + (long long)qpos * sq.s + h * sq.h;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = qrow[d];
-  }
-  float m = NEG_INF, l = 0.0f;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int nrows = Sq * G;
+  // longest first: the first blocks take the last rows
+  const int R0 = (gridDim.y - 1 - blockIdx.y) * BM;
+
+  // keys the block's rows can see
+  const int qmin = R0 / G, qmax = min((R0 + BM - 1) / G, Sq - 1);
+  const int blk_lo = window ? max(0, qmin - window + 1) : 0;
+  const int blk_hi = causal ? min(Skv - 1, qmax) : Skv - 1;
+  const int t_first = (blk_lo / BKV) * BKV;
+  const int ntiles = blk_hi < t_first ? 0 : (blk_hi - t_first) / BKV + 1;
+
+  // this warp's rows, and this lane's two (ra, rb = ra + 8)
+  const int wr0 = R0 + 16 * warp;
+  const bool idle = wr0 >= nrows;
+  const int wq_lo = wr0 / G, wq_hi = min((wr0 + 15) / G, Sq - 1);
+  const int ra = wr0 + g, rb = ra + 8;
+  const int pa = ra / G, pb = rb / G;  // their query positions
+  auto qrow = [&](int r) {
+    return q + b * sq.b + static_cast<long long>(r / G) * sq.s +
+           static_cast<long long>(kvh * G + r % G) * sq.h;
+  };
 
   const float* kb = k + b * sk.b + kvh * sk.h;
   const float* vb = v + b * sv.b + kvh * sv.h;
-  for (int t0 = (blk_lo / BKV) * BKV; t0 <= blk_hi; t0 += BKV) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = tid; idx < BKV * HD; idx += THREADS) {
-      const int j = idx / HD, d = idx % HD;
-      const int kp = t0 + j;
-      Ks[idx] = kp < Skv ? kb[(long long)kp * sk.s + d] : 0.0f;
-      Vs[idx] = kp < Skv ? vb[(long long)kp * sv.s + d] : 0.0f;
+  const bool kvec = sk.s % 4 == 0 && sk.b % 4 == 0 && sk.h % 4 == 0 &&
+                    aligned16(k);
+  const bool vvec = sv.s % 4 == 0 && sv.b % 4 == 0 && sv.h % 4 == 0 &&
+                    aligned16(v);
+  auto load_kv = [&](int it) {
+    const int t0 = t_first + it * BKV;
+    float* st = smem + (it & 1) * CF::KV_FLOATS;
+    load_rows<BKV, HD, S, THREADS>(st, kb + t0 * sk.s, sk.s, Skv - t0, kvec);
+    load_rows<BKV, HD, S, THREADS>(st + BKV * S, vb + t0 * sv.s, sv.s,
+                                   Skv - t0, vvec);
+  };
+
+  // q: split once into registers, or staged with the first K/V tile
+  uint32_t qb[CF::QREG ? DK : 1][4], qs[CF::QREG ? DK : 1][4];
+  if constexpr (CF::QREG) {
+    const float* qa = ra < nrows ? qrow(ra) : nullptr;
+    const float* qc = rb < nrows ? qrow(rb) : nullptr;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      const int d = 8 * kk + qd;
+      split_tf32(qa ? qa[d] : 0.0f, qb[kk][0], qs[kk][0]);
+      split_tf32(qc ? qc[d] : 0.0f, qb[kk][1], qs[kk][1]);
+      split_tf32(qa ? qa[d + 4] : 0.0f, qb[kk][2], qs[kk][2]);
+      split_tf32(qc ? qc[d + 4] : 0.0f, qb[kk][3], qs[kk][3]);
     }
-    __syncthreads();
-    if (!active) continue;
-    for (int j0 = 0; j0 < BKV; j0 += SUB) {
-      const int kp0 = t0 + j0;
-      // skip a group the row cannot see; otherwise it holds >= 1 visible key
-      if (kp0 > row_hi || kp0 + SUB - 1 < row_lo) continue;
-      float s[SUB];
-      float mx = NEG_INF;
+  } else {
+    const bool qvec = sq.s % 4 == 0 && sq.b % 4 == 0 && sq.h % 4 == 0 &&
+                      aligned16(q);
+    constexpr int CPR = HD / 4;
+    for (int i = threadIdx.x; i < BM * CPR; i += THREADS) {
+      const int r = i / CPR, c = (i % CPR) * 4;
+      const bool ok = R0 + r < nrows;
+      const float* src = ok ? qrow(R0 + r) + c : q;
+      if (qvec) {
+        cp_async16(Qs + r * S + c, src, ok ? 16 : 0);
+      } else {
 #pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const float4* kr =
-            reinterpret_cast<const float4*>(Ks + (j0 + jj) * HD);
-        float dot = 0.0f;
-#pragma unroll
-        for (int d4 = 0; d4 < HD / 4; ++d4) {
-          const float4 kk = kr[d4];
-          dot = fmaf(qr[4 * d4], kk.x, dot);
-          dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-          dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-          dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
-        }
-        const int kp = kp0 + jj;
-        s[jj] = (kp >= row_lo && kp <= row_hi) ? dot * scale : NEG_INF;
-        mx = fmaxf(mx, s[jj]);
+        for (int e = 0; e < 4; ++e)
+          cp_async4(Qs + r * S + c + e, ok ? src + e : q, ok ? 4 : 0);
       }
-      const float m_new = fmaxf(m, mx);
-      const float corr = expf(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const float p = expf(s[jj] - m_new);  // exactly 0 for a masked key
-        l += p;
-        const float4* vr =
-            reinterpret_cast<const float4*>(Vs + (j0 + jj) * HD);
-#pragma unroll
-        for (int d4 = 0; d4 < HD / 4; ++d4) {
-          const float4 vv = vr[d4];
-          acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
-          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-        }
-      }
-      m = m_new;
     }
   }
-  if (!active) return;
-  const float inv = 1.0f / fmaxf(l, 1e-30f);
-  float* orow = out + b * so.b + (long long)qpos * so.s + h * so.h;
+  if (ntiles > 0) load_kv(0);
+  cp_async_commit();
+
+  const float c2 = scale * LOG2E;  // scores in the exp2 domain
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.0f, l_b = 0.0f;
+  float o[DK][4] = {};
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it landed for all; tile it - 1 is read by all
+    if (it + 1 < ntiles) load_kv(it + 1);
+    cp_async_commit();
+    const int t0 = t_first + it * BKV;
+    if (idle || (causal && t0 > wq_hi) ||
+        (window && t0 + BKV - 1 <= wq_lo - window))
+      continue;  // none of the warp's rows sees a key of this tile
+    const bool mask = (causal && t0 + BKV - 1 > wq_lo) ||
+                      (window && wq_hi - t0 >= window) || t0 + BKV > Skv;
+    const float* Ks = smem + (it & 1) * CF::KV_FLOATS;
+    const float* Vs = Ks + BKV * S;
+
+    // S = q k^T
+    float sc[1][KT][4] = {};
+    auto& s = sc[0];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) orow[d] = acc[d] * inv;
+    for (int kk = 0; kk < DK; ++kk) {
+      uint32_t ab[1][4], as[1][4];
+      if constexpr (CF::QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ab[0][e] = qb[kk][e], as[0][e] = qs[kk][e];
+      } else {
+        uint32_t x[4];
+        ldmatrix_x4(x, Qs + (16 * warp + (lane & 15)) * S + 8 * kk +
+                           (lane >> 4) * 4);
+        split4(x, ab[0], as[0]);
+      }
+      uint32_t bb[KT][2], bs[KT][2];
+#pragma unroll
+      for (int j = 0; j < KT; j += 2) {
+        uint32_t x[4], xb[4], xs[4];
+        ldmatrix_x4(x, Ks + (8 * j + (lane & 7) + (lane >> 4) * 8) * S +
+                           8 * kk + ((lane >> 3) & 1) * 4);
+        split4(x, xb, xs);
+        bb[j][0] = xb[0], bb[j][1] = xb[1], bb[j + 1][0] = xb[2],
+        bb[j + 1][1] = xb[3];
+        bs[j][0] = xs[0], bs[j][1] = xs[1], bs[j + 1][0] = xs[2],
+        bs[j + 1][1] = xs[3];
+      }
+      mma3_tiles<1, KT>(sc, ab, as, bb, bs);
+    }
+
+    // scale, mask, row max over the quad
+    float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * c2;
+        if (mask) {
+          const int key = t0 + 8 * j + 2 * qd + (e & 1);
+          const int p = e < 2 ? pa : pb;
+          const bool ok = key < Skv && (!causal || key <= p) &&
+                          (!window || p - key < window);
+          x = ok ? x : NEG_INF;
+        }
+        s[j][e] = x;
+        if (e < 2)
+          mx_a = fmaxf(mx_a, x);
+        else
+          mx_b = fmaxf(mx_b, x);
+      }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float corr_a = exp2f(m_a - mn_a), corr_b = exp2f(m_b - mn_b);
+    m_a = mn_a, m_b = mn_b;
+    l_a *= corr_a, l_b *= corr_b;  // this lane's share of the row sums
+
+    // P in place of S
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      s[j][0] = exp2f(s[j][0] - mn_a), s[j][1] = exp2f(s[j][1] - mn_a);
+      s[j][2] = exp2f(s[j][2] - mn_b), s[j][3] = exp2f(s[j][3] - mn_b);
+      l_a += s[j][0] + s[j][1];
+      l_b += s[j][2] + s[j][3];
+    }
+
+    // O = corr O + P v, NCH n8 tiles of O at a time
+#pragma unroll
+    for (int n0 = 0; n0 < DK; n0 += CF::NCH) {
+      float t[1][CF::NCH][4] = {};
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        // P's A fragment, keys permuted: k = qd is key 2 qd, k = qd + 4 is
+        // key 2 qd + 1 of the n8 tile
+        uint32_t pb[1][4], ps[1][4];
+        split_tf32(s[j][0], pb[0][0], ps[0][0]);
+        split_tf32(s[j][2], pb[0][1], ps[0][1]);
+        split_tf32(s[j][1], pb[0][2], ps[0][2]);
+        split_tf32(s[j][3], pb[0][3], ps[0][3]);
+        uint32_t bb[CF::NCH][2], bs[CF::NCH][2];
+#pragma unroll
+        for (int n = 0; n < CF::NCH; ++n) {
+          const float* vc = Vs + (8 * j + 2 * qd) * S + 8 * (n0 + n) + g;
+          split_tf32(vc[0], bb[n][0], bs[n][0]);
+          split_tf32(vc[S], bb[n][1], bs[n][1]);
+        }
+        mma3_tiles<1, CF::NCH>(t, pb, ps, bb, bs);
+      }
+#pragma unroll
+      for (int n = 0; n < CF::NCH; ++n) {
+        o[n0 + n][0] = o[n0 + n][0] * corr_a + t[0][n][0];
+        o[n0 + n][1] = o[n0 + n][1] * corr_a + t[0][n][1];
+        o[n0 + n][2] = o[n0 + n][2] * corr_b + t[0][n][2];
+        o[n0 + n][3] = o[n0 + n][3] * corr_b + t[0][n][3];
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (idle) return;
+#pragma unroll
+  for (int o2 = 1; o2 < 4; o2 <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, o2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, o2);
+  }
+  const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+  const bool pairs = so.b % 2 == 0 && so.s % 2 == 0 && so.h % 2 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 8 == 0;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = hf ? rb : ra;
+    if (r >= nrows) continue;
+    const float inv = hf ? inv_b : inv_a;
+    float* orow = out + b * so.b + static_cast<long long>(r / G) * so.s +
+                  static_cast<long long>(kvh * G + r % G) * so.h + 2 * qd;
+#pragma unroll
+    for (int n = 0; n < DK; ++n) {
+      const float x0 = o[n][2 * hf] * inv, x1 = o[n][2 * hf + 1] * inv;
+      if (pairs) {
+        *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x0, x1);
+      } else {
+        orow[8 * n] = x0;
+        orow[8 * n + 1] = x1;
+      }
+    }
+  }
 }
 
 template <int HD>
@@ -150,18 +316,17 @@ int launch(const float* q, const float* k, const float* v, float* out,
            Strides sq, Strides sk, Strides sv, Strides so, int B, int KV,
            int G, int Sq, int Skv, int causal, int window, float scale,
            cudaStream_t s) {
-  const int smem = 2 * BKV * HD * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int bq = THREADS / G;  // query positions per block
-  const dim3 grid((Sq + bq - 1) / bq, B * KV);
+  const int smem = Cfg<HD>::smem_bytes;
+  // above 48 KB a block's dynamic shared memory needs this opt-in
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles = (static_cast<long long>(Sq) * G + BM - 1) / BM;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(B * KV, static_cast<unsigned>(tiles));
   flash_attn_kernel<HD><<<grid, THREADS, smem, s>>>(
-      q, k, v, out, sq, sk, sv, so, KV, G, Sq, Skv, bq, causal, window,
-      scale);
+      q, k, v, out, sq, sk, sv, so, KV, G, Sq, Skv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -169,7 +334,7 @@ int launch(const float* q, const float* k, const float* v, float* out,
 
 // q [B, Sq, H, hd], k and v [B, Skv, KV, hd], out [B, Sq, H, hd], each with
 // unit stride along hd and the given batch / position / head strides (in
-// elements); H = KV * G with G <= 128; hd one of 8, 16, 32, 64, 128.
+// elements); H = KV * G with G <= 128; hd one of 8, 16, 32, 64, 96, 128.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
                               float* out, long long sq_b, long long sq_s,
@@ -179,7 +344,7 @@ extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
                               long long so_h, int B, int KV, int G, int Sq,
                               int Skv, int hd, int causal, int window,
                               float scale, void* stream) {
-  if (G < 1 || G > THREADS || B < 1 || KV < 1 || Sq < 1 || Skv < 1)
+  if (G < 1 || G > 128 || B < 1 || KV < 1 || Sq < 1 || Skv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{sq_b, sq_s, sq_h}, sk{sk_b, sk_s, sk_h},
       sv{sv_b, sv_s, sv_h}, so{so_b, so_s, so_h};
@@ -196,6 +361,9 @@ extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
                         causal, window, scale, s);
     case 64:
       return launch<64>(q, k, v, out, sq, sk, sv, so, B, KV, G, Sq, Skv,
+                        causal, window, scale, s);
+    case 96:
+      return launch<96>(q, k, v, out, sq, sk, sv, so, B, KV, G, Sq, Skv,
                         causal, window, scale, s);
     case 128:
       return launch<128>(q, k, v, out, sq, sk, sv, so, B, KV, G, Sq, Skv,

@@ -13,14 +13,11 @@
 //   rolling_matmul_dx_multi.
 //
 // What bounds them on an H100: operations.  The products keep f32 accuracy
-// with the 3xTF32 split: each operand a = big + small, big = a rounded to
-// TF32 (to nearest, ties away from zero) and small = a - big (exact in f32),
-// and each product is small*big + big*small + big*big, the small products
-// first (small*small is below f32 rounding).  That is three TF32
-// tensor-core passes, so 2*M*N*K operations run at 495 / 3 = 165 TFLOP/s at
-// best.  The gate/up forward of a window round (C = 4, M = 512, K = 2048,
-// win 2816) is 47.2 GFLOP, 0.29 ms at that rate against 0.07 ms for its
-// 0.25 GB at 3.35 TB/s.
+// with the 3xTF32 split of tf32x3.cuh (three TF32 tensor-core passes a
+// product, the split and its two numerical rules stated there), so 2*M*N*K
+// operations run at 495 / 3 = 165 TFLOP/s at best.  The gate/up forward of
+// a window round (C = 4, M = 512, K = 2048, win 2816) is 47.2 GFLOP,
+// 0.29 ms at that rate against 0.07 ms for its 0.25 GB at 3.35 TB/s.
 //
 // Design.  Each block owns a BM x BN output tile and walks the contraction
 // in 32-deep stages through a ring of STAGES shared-memory buffers filled by
@@ -35,15 +32,8 @@
 // the window along the contraction) are both K-major, which makes dx the
 // first candidate for wgmma fed by TMA.
 //
-// Two numerical points.  The tensor core's f32 accumulation truncates, and
-// on a running sum over the whole contraction that bias toward zero grows
-// with its length: so each output tile's 12 products of a stage are summed
-// on the tensor core from zero and added to the register accumulator with
-// an f32 add, rounded to nearest.  The split rounds big by integer add and
-// mask, (bits + 0x1000) & ~0x1fff, which is cvt.rna.tf32.f32 for finite
-// values in two integer instructions (cvt.rna compiles to a longer sequence
-// that also tests for inf and NaN); small goes to the tensor core as f32
-// bits, whose low 13 bits it ignores (an error below 2^-21 of a).
+// Each output tile's 12 products of a stage are summed on the tensor core
+// from zero and added to the register accumulator in f32 (tf32x3.cuh).
 //
 // Shared memory: A [BM][32 + 4] (contraction contiguous); B [32][BN + 8] in
 // the forward (output columns contiguous) and [BN][32 + 4] in dx.  The
@@ -65,6 +55,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -99,116 +91,6 @@ using Narrow = Tile<64, 32, 2, 2, 4, 3>;
 struct WPtrs {
   const float* p[2];
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Copy 16 bytes, of which the first `bytes` come from src and the rest are
-// zero.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copy a ROWS x COLS tile of a matrix (COLS contiguous, row stride ld, the
-// tile's first element at g) into shared memory of row stride SLD; elements
-// at row >= nr or column >= nc are zero.  vec: 16-byte copies (g and ld are
-// multiples of 4 floats), else 4-byte copies.  A thread copies one column
-// (chunk) of every RSTEP-th row, walking one source pointer down the rows.
-template <int ROWS, int COLS, int SLD, int THREADS>
-__device__ __forceinline__ void load_tile(float* s, const float* g,
-                                          long long ld, int nr, int nc,
-                                          bool vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-    constexpr int CPR = COLS / 4;  // 16-byte chunks in a row
-    constexpr int RSTEP = THREADS / CPR;
-    static_assert(THREADS % CPR == 0 && ROWS % RSTEP == 0, "tile shape");
-    const int r0 = tid / CPR, c = (tid % CPR) * 4;
-    const int v = min(max(nc - c, 0), 4);
-    const float* src = g + r0 * ld + c;
-    float* dst = s + r0 * SLD + c;
-#pragma unroll
-    for (int l = 0; l < ROWS / RSTEP; ++l) {
-      const int n = r0 + l * RSTEP < nr ? v : 0;
-      cp_async16(dst + l * RSTEP * SLD, n ? src : g, 4 * n);
-      src += RSTEP * ld;
-    }
-  } else {
-    constexpr int RSTEP = THREADS / COLS;
-    static_assert(THREADS % COLS == 0 && ROWS % RSTEP == 0, "tile shape");
-    const int r0 = tid / COLS, c = tid % COLS;
-    const float* src = g + r0 * ld + c;
-    float* dst = s + r0 * SLD + c;
-    // not unrolled: the compiler would keep every copy's address live
-    // across the main loop, registers the products need
-#pragma unroll 1
-    for (int l = 0; l < ROWS / RSTEP; ++l) {
-      const bool ok = c < nc && r0 + l * RSTEP < nr;
-      cp_async4(dst + l * RSTEP * SLD, ok ? src : g, ok ? 4 : 0);
-      src += RSTEP * ld;
-    }
-  }
-}
-
-// a = big + small: big is a rounded to TF32 (to nearest, ties away from
-// zero), small = a - big exactly in f32; the tensor core reads small's
-// top 19 bits.
-__device__ __forceinline__ void split_tf32(float a, uint32_t& big,
-                                           uint32_t& small) {
-  big = (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
-  small = __float_as_uint(a - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void split4(const uint32_t (&v)[4],
-                                       uint32_t (&big)[4],
-                                       uint32_t (&small)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    split_tf32(__uint_as_float(v[e]), big[e], small[e]);
-}
-
-// Four 8 x 4 f32 matrices (8 rows of 16 bytes each; lane l gives the address
-// of row l % 8 of matrix l / 8); lane 4 g + q receives element (g, q) of each.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&v)[4], const float* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a b: a 16 x 8 (row), b 8 x 8 (col), d 16 x 8, per the m16n8k8 TF32
-// fragment layouts (lane = 4 g + q: a = (g, q), (g + 8, q), (g, q + 4),
-// (g + 8, q + 4); b = (k q, n g), (k q + 4, n g); d = (g, 2q), (g, 2q + 1),
-// (g + 8, 2q), (g + 8, 2q + 1)).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // The A fragment of rows r0 .. r0 + 15 and contraction kk .. kk + 7.
 template <class TL>
@@ -410,10 +292,6 @@ int pick_tile(int cols, int M, int Z) {
   if (blocks(Medium::BM, Medium::BN) >= sms) return 1;
   if (blocks(Small::BM, Small::BN) >= sms) return 2;
   return 3;
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <class TL, int T>

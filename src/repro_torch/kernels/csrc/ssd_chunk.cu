@@ -1,4 +1,5 @@
-// The intra-chunk block of Mamba-2's SSD mixer, f32.
+// The intra-chunk block of Mamba-2's SSD mixer, f32, on Hopper's tensor
+// cores.
 //
 // ssd_chunk_intra_fwd: for every (batch b, chunk c, head h of the window),
 // with dA = dt * A[h] and L = cumsum(dA) (inclusive) over the chunk's Q
@@ -12,43 +13,77 @@
 // recurrence stays in plain PyTorch (kernels/ssd_chunk.py ssd_chunk_scan).
 //
 // What bounds it on an H100: operations.  At one Mamba2-130M prefill layer
-// (8 x 32768 tokens: Bt 8, nc 128, Q 256, nh 24, hd 64, N 128) the work the
-// data needs is C B^T once per chunk over the causal pairs (Q(Q+1)/2 * N
-// multiply-adds, 8.6 GFLOP in all; ngroups = 1, so it does not depend on the
-// head), M x per head over the same pairs (103 GFLOP) and the state per head
-// (Q * hd * N, 103 GFLOP): 0.215 TFLOP, 3.2 ms at the 67 TFLOP/s f32 peak
-// outside the tensor cores, against 4.4 GB of x, dt, B, C, y and states
-// (1.3 ms at 3.35 TB/s).  This kernel recomputes C B^T for every head, as the
-// Pallas body does per head block: 64-row tiles over every causal tile pair
-// (10 of 16 at Q = 256) make that 16.8 MFLOP per (chunk, head), 4x the M x
-// work, so it executes about 0.62 TFLOP for the 0.215 the bound counts.
+// (8 x 32768 tokens: Bt 8, nc 128, Q 256, nh 24, hd 64, N 128) the data needs
+// C B^T once per chunk over the causal pairs (Q(Q+1)/2 * N multiply-adds,
+// 8.6 GFLOP; ngroups = 1, so it does not depend on the head), M x per head
+// over the same pairs (103 GFLOP) and the state per head (Q * hd * N, 103
+// GFLOP): 0.215 TFLOP.  Every product runs as 3xTF32 on mma.sync m16n8k8
+// (tf32x3.cuh), at 165 TFLOP/s at best: 1.30 ms, against 4.3 GB of x, dt,
+// B, C, y and states (1.29 ms at 3.35 TB/s).
 //
-// Design (simple and right first, not fast): one block of 256 threads per
-// (batch, chunk, head).  A Q x Q f32 tile of C B^T (256 KB at Q = 256) does
-// not fit in shared memory, so the block walks 64-row query tiles and, for
-// each, the 64-row key tiles t0 <= q: C's query tile and B's key tile are
-// staged transposed in shared memory (n-major, so a thread reads four
-// neighbouring rows as one float4), each thread forms a 4 x 4 block of
-// C B^T by f32 fmaf over n, applies the causal mask before the exponential
-// (t > q never forms exp(L_q - L_t), which overflows), and the masked M tile
-// goes back to shared memory for the 64 x hd product with x's key tile.  L
-// is summed once per block in shared memory, sequentially, with dt * A
-// rounded before each add (the body's cumsum of dA), and every weight is a
-// difference of L, never a sum over (t, q].  Then the state: the block
-// walks all key tiles again with B row-major and x scaled by its decay.
-// No tensor cores and no pipelining; the C B^T recomputation and the
-// shared-memory reads of the 4 x 4 blocks are what hold it back (a redesign
-// with one C B^T per chunk shared across heads and mma tiles is later work).
+// This design replaces a first one that ran every product as f32 FMAs on
+// CUDA cores and formed C B^T again for every head (about 0.62 TFLOP
+// executed for the 0.215 the data needs).  Two kernels run behind the one
+// entry point, on the caller's stream.
+//
+// ssd_y_kernel forms y.  A block of 8 warps (4 along the rows, 2 along hd)
+// owns one (batch, chunk, 64-row query tile) and a group of up to HG = 24
+// heads of the window (the last group ragged where HG does not divide it).
+// It first forms its causal strip of C B^T once for the whole group: 64
+// query rows against the key tiles t0 <= its last row, contraction over
+// d_state in 16-deep cp.async stages, parked in shared memory in the warps'
+// own accumulator order (64 x 256 f32 at Q = 256).  Then, for each head of
+// its group, it walks the visible keys in 32-deep stages of that head's x,
+// three stages (and so the next head's first) in flight through a 4-deep
+// cp.async ring while one is multiplied.  As a warp reads C B^T back it
+// builds M = CB * exp(L_q - L_t) * dt_t, splits it and feeds it to the
+// tensor core as the A operand: an accumulator fragment (rows g, g + 8;
+// keys 2q, 2q + 1) is an A fragment with its contraction order permuted,
+// and x's B fragment is read in the same permuted order.  The weight of an
+// m16 tile's k8 step is, where every key of the 32-key stage precedes every
+// row, exp(L_q - L_ref) * u_t with ref the stage's last key and u_t =
+// exp(L_ref - L_t) * dt_t tabulated once a head (two exponentials a row a
+// stage); else, where the step's keys precede the rows, the same with ref
+// the step's last key; else, on the diagonal, exp(L_q - L_t) * dt_t with
+// the mask applied before the exponential (t > q never forms exp(L_q -
+// L_t), which overflows).  Every exponent is <= 0.  A warp loads the next
+// head's dt at a head's first stage and tabulates it at the last, where its
+// rows (q0 .. q0 + 31) see none of the keys.  Query tiles go longest first.
+//
+// ssd_state_kernel forms S, one block per (batch, chunk, head), 4 warps
+// (8 at hd 128): a 3xTF32 product hd x N over the chunk's positions, A =
+// (x * w)^T with the key weight w_t = exp(L_{Q-1} - L_t) * dt_t computed
+// once per (t, head), B the chunk's B rows, through a 3-deep cp.async ring.
+//
+// In both, the products of a stage go to the tensor core one kind at a
+// time across all of a warp's tiles (mma3_tiles), so consecutive mma never
+// wait on each other's accumulator.  L is a warp's scan of dt * A (each
+// product rounded, as the body's dA; every weight a difference of L, never
+// a sum over (t, q]): it rounds its partial sums in another order than the
+// plain version's sequential cumsum, which at |L| in the hundreds moves y by
+// about 1e-5 of its largest value, inside the 1e-4 the kernel is held to
+// (a sequential cumsum a head would cost a millisecond at the prefill
+// shape).  Copies are 16 bytes where the rows allow it (row stride a
+// multiple of 4 floats, 16-byte aligned start), else 4 bytes, the ragged
+// edges zero-filled by the copy's source size.  No split of a contraction
+// across blocks and no atomics: one block sums each output in a fixed
+// order, so a launch gives the same bits every time.
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;  // 16 x 16: (ty, tx)
-constexpr int TQ = 64;        // query rows per tile
-constexpr int TT = 64;        // key rows per tile
-constexpr int NMAX = 128;     // largest d_state
-constexpr int QMAX = 256;     // largest chunk
-constexpr int PAD = TQ + 4;   // row stride of the transposed tiles
+constexpr int NMAX = 128;      // largest d_state
+constexpr int QMAX = 256;      // largest chunk
+constexpr int TQ = 64;         // query rows of a y block
+constexpr int CB_BK = 16;      // d_state depth of a C B^T stage
+constexpr int CB_S = CB_BK + 4;  // row stride of the C and B stage tiles
+constexpr int KS = 32;         // positions of an x (or state) stage
+constexpr int STAGES = 3;      // the cp.async ring
+constexpr int HG = 24;         // most heads a y block serves
 
 struct Args {
   const float* x;
@@ -65,182 +100,509 @@ struct Args {
   int nc, Q, N, win, head_offset;
 };
 
-constexpr int smem_floats(int hd) {
-  return 2 * QMAX + 2 * NMAX * PAD + TT * hd + TT * PAD;
+// One warp: L[t] = cumsum(dt * Ah) (inclusive) and dts[t] = dt_t for t <
+// QMAX, from lane l's v = dt_t for t = 8 l .. 8 l + 7, zero past Q (so L
+// stays at L[Q - 1]).  Each lane sums its 8, then the lanes' totals are
+// scanned by shuffles.
+__device__ __forceinline__ void scan_L(const float (&v)[QMAX / 32], float Ah,
+                                       float* L, float* dts, int lane) {
+  constexpr int PER = QMAX / 32;
+  const int t0 = lane * PER;
+  float run[PER];
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    dts[t0 + i] = v[i];
+    acc = __fadd_rn(acc, __fmul_rn(v[i], Ah));  // no contraction
+    run[i] = acc;
+  }
+  float incl = acc;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) L[t0 + i] = excl + run[i];
+  __syncwarp();
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS, 2) ssd_chunk_kernel(Args a) {
-  constexpr int PW = HD / 16;  // hd columns per thread
-  constexpr int NJ = NMAX / 16;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Ls = smem;               // [QMAX]
-  float* dts = Ls + QMAX;         // [QMAX]
-  float* CsT = dts + QMAX;        // [NMAX][PAD]: C[q0 + qi, n] at n * PAD + qi
-  float* BsT = CsT + NMAX * PAD;  // [NMAX][PAD]: B[t0 + ti, n] at n * PAD + ti
-  float* Xs = BsT + NMAX * PAD;   // [TT][HD]
-  float* MsT = Xs + TT * HD;      // [TT][PAD]: M[qi, ti] at ti * PAD + qi
-  float* Bs = CsT;                // state pass: [TT][N] row-major
+// One warp: lane l's dt_t for t = 8 l .. 8 l + 7 (zero past Q), as plain
+// loads into registers, which may stay in flight across a barrier.
+__device__ __forceinline__ void load_dt(float (&v)[QMAX / 32], const float* dtp,
+                                        long long sd_q, int Q, int lane) {
+#pragma unroll
+  for (int i = 0; i < QMAX / 32; ++i) {
+    const int t = lane * (QMAX / 32) + i;
+    v[i] = t < Q ? dtp[t * sd_q] : 0.0f;
+  }
+}
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+// The y kernel's per-head tables: L, dt, u[t] = exp(L[ref] - L[t]) * dt_t
+// with ref = min(t | 31, Q - 1), the last key of t's stage, and u8[t] the
+// same with ref = min(t | 7, Q - 1), the last key of t's k8 step.
+__device__ __forceinline__ void head_tables(const float (&v)[QMAX / 32],
+                                            float Ah, int Q, float* tab,
+                                            int lane) {
+  float* L = tab;
+  float* dts = tab + QMAX;
+  float* u = tab + 2 * QMAX;
+  float* u8 = tab + 3 * QMAX;
+  scan_L(v, Ah, L, dts, lane);
+  for (int t = lane; t < QMAX; t += 32) {
+    const bool in = t < Q;
+    u[t] = in ? __fmul_rn(__expf(L[min(t | (KS - 1), Q - 1)] - L[t]), dts[t])
+              : 0.0f;
+    u8[t] = in ? __fmul_rn(__expf(L[min(t | 7, Q - 1)] - L[t]), dts[t]) : 0.0f;
+  }
+  __syncwarp();
+}
+
+
+template <int HD>
+struct YCfg {
+  static constexpr int WM = 4;          // warps along the 64 rows
+  static constexpr int WN = 2;          // warps along hd
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int MT = 4 / WM;     // m16 tiles of a warp
+  static constexpr int NT = HD / 16;    // n8 tiles of a warp (half of hd)
+  static constexpr int XS = HD + 4;     // x stage row stride: the permuted
+                                        // fragment reads hit 32 banks
+  static constexpr int CB_STAGE = 2 * TQ * CB_S;
+  static constexpr int X_STAGE = KS * XS;
+  static constexpr int XSTAGES = 4;  // the x ring's depth
+  static constexpr int RING = STAGES * CB_STAGE > XSTAGES * X_STAGE
+                                  ? STAGES * CB_STAGE
+                                  : XSTAGES * X_STAGE;
+  static constexpr int TABS = 4 * QMAX;  // L, dt, u, u8 of a head
+  static constexpr int fixed_floats() { return RING + 2 * TABS; }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(YCfg<HD>::THREADS, 2)
+    ssd_y_kernel(Args a, int nqt, int ngr, int hg, int nj) {
+  using CF = YCfg<HD>;
+  constexpr int MT = CF::MT, NT = CF::NT, XS = CF::XS;
+  constexpr int THREADS = CF::THREADS, TABS = CF::TABS;
+  constexpr int XST = CF::XSTAGES, XSTAGE = CF::X_STAGE;
+  constexpr int STAGE = CF::CB_STAGE;     // the C B^T phase's ring slots
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                     // CF::RING floats
+  float* tabs = ring + CF::RING;          // [2][TABS], by head parity
+  float* cbf = tabs + 2 * TABS;           // [4 m16][nj n8][32 lanes][4]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / CF::WN, wn = warp % CF::WN;
+  const int g = lane >> 2, qd = lane & 3;
+  const int Q = a.Q, N = a.N;
+  const int wrow = wm * MT * 16;  // the warp's first row in the tile
+
+  // longest first: the first blocks take the last query tile
+  const long long per_qt = gridDim.x / nqt;
+  const int qt = nqt - 1 - static_cast<int>(blockIdx.x / per_qt);
+  const long long rem = blockIdx.x % per_qt;
+  const int gr = static_cast<int>(rem % ngr);
+  const int c = static_cast<int>((rem / ngr) % a.nc);
+  const long long b = rem / (static_cast<long long>(ngr) * a.nc);
+  const int q0 = qt * TQ;
+  const int h_lo = gr * hg, h_n = min(hg, a.win - h_lo);
+
+  const float* Cp = a.C + b * a.sc_b + c * a.sc_c;
+  const float* Bp = a.B + b * a.sb_b + c * a.sb_c;
+  const float* xb = a.x + b * a.sx_b + c * a.sx_c;
+  const float* dtb = a.dt + b * a.sd_b + c * a.sd_c;
+  auto head_dt = [&](int hh) {
+    return dtb + static_cast<long long>(a.head_offset + h_lo + hh) * a.sd_h;
+  };
+  float dtv[QMAX / 32];  // a head's dt on its way to the tables
+  if (warp == 0) load_dt(dtv, head_dt(0), a.sd_q, Q, lane);
+
+  // ---- C B^T: the strip of rows q0 .. q0 + 63 against keys 0 .. q0 + 63
+  {
+    const int ns = (N + CB_BK - 1) / CB_BK;  // d_state stages of a key tile
+    const int total = (qt + 1) * ns;
+    const bool cv = a.sc_q % 4 == 0 && aligned16(Cp);
+    const bool bv = a.sb_q % 4 == 0 && aligned16(Bp);
+    auto load = [&](int s) {
+      float* st = ring + (s % STAGES) * STAGE;
+      const int kt = s / ns, n0 = (s % ns) * CB_BK;
+      load_tile<TQ, CB_BK, CB_S, THREADS>(st, Cp + q0 * a.sc_q + n0, a.sc_q,
+                                          Q - q0, N - n0, cv);
+      load_tile<TQ, CB_BK, CB_S, THREADS>(st + TQ * CB_S,
+                                          Bp + kt * TQ * a.sb_q + n0, a.sb_q,
+                                          Q - kt * TQ, N - n0, bv);
+    };
+    float cb[MT][4][4] = {};
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < total) load(s);
+      cp_async_commit();
+    }
+    for (int s = 0; s < total; ++s) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // stage s landed for all; stage s - 1 is read by all
+      if (s + STAGES - 1 < total) load(s + STAGES - 1);
+      cp_async_commit();
+      const float* Cs = ring + (s % STAGES) * STAGE;
+      const float* Bs = Cs + TQ * CB_S;
+      uint32_t bb[2][4][2], bs[2][4][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 4; j += 2) {
+          uint32_t v[4], vb[4], vs[4];
+          ldmatrix_x4(v, Bs + (wn * 32 + j * 8 + (lane & 7) + (lane >> 4) * 8) *
+                                  CB_S +
+                             8 * h + ((lane >> 3) & 1) * 4);
+          split4(v, vb, vs);
+          bb[h][j][0] = vb[0], bb[h][j][1] = vb[1];
+          bb[h][j + 1][0] = vb[2], bb[h][j + 1][1] = vb[3];
+          bs[h][j][0] = vs[0], bs[h][j][1] = vs[1];
+          bs[h][j + 1][0] = vs[2], bs[h][j + 1][1] = vs[3];
+        }
+      float t[MT][4][4] = {};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          uint32_t v[4];
+          ldmatrix_x4(v, Cs + (wrow + 16 * i + (lane & 15)) * CB_S + 8 * h +
+                             (lane >> 4) * 4);
+          split4(v, ab[i], as[i]);
+        }
+        mma3_tiles<MT, 4>(t, ab, as, bb[h], bs[h]);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cb[i][j][e] += t[i][j][e];
+      if (s % ns == ns - 1) {  // a key tile is done: park it, warp order
+        const int kt = s / ns;
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float4* dst = reinterpret_cast<float4*>(
+                cbf + (((wm * MT + i) * nj + kt * 8 + wn * 4 + j) * 32 + lane) *
+                          4);
+            *dst = make_float4(cb[i][j][0], cb[i][j][1], cb[i][j][2],
+                               cb[i][j][3]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) cb[i][j][e] = 0.0f;
+          }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the strip is complete; the ring is free
+  }
+
+  // ---- y, head by head: keys 0 .. min(q0 + 64, Q) - 1 in 32-deep stages
+  const int nks = (min(q0 + TQ, Q) + KS - 1) / KS;
+  const int total = h_n * nks;
+  const bool xq4 = a.sx_q % 4 == 0;
+  auto head_x = [&](int hh) {
+    return xb + static_cast<long long>(a.head_offset + h_lo + hh) * a.sx_h;
+  };
+  auto load = [&](int s) {
+    const int hh = s / nks, t0 = (s % nks) * KS;
+    const float* xh = head_x(hh);
+    load_rows<KS, HD, XS, THREADS>(ring + (s % XST) * XSTAGE,
+                                   xh + t0 * a.sx_q, a.sx_q, Q - t0,
+                                   xq4 && aligned16(xh));
+  };
+  if (warp == 0) head_tables(dtv, a.A[a.head_offset + h_lo], Q, tabs, lane);
+#pragma unroll
+  for (int s = 0; s < XST - 1; ++s) {
+    if (s < total) load(s);
+    cp_async_commit();
+  }
+  const long long y_row = static_cast<long long>(a.win) * HD;
+  float acc[MT][NT][4] = {};
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<XST - 2>();
+    __syncthreads();
+    if (s + XST - 1 < total) load(s + XST - 1);
+    cp_async_commit();
+    const int hh = s / nks, ks = s % nks, t0 = ks * KS;
+    // the next head's tables, into the buffer head hh - 1 used (its last
+    // stage is done; head hh + 1's first stage is behind another barrier):
+    // its dt is loaded at this head's first stage, the loads in flight
+    // meanwhile, and tabulated at the last, keys q0 + 32 .. q0 + 63, where
+    // the warps of rows q0 .. q0 + 31 (warps 0 .. 3) have no product to add
+    if (hh + 1 < h_n && warp == hh % 4) {
+      if (ks == 0) load_dt(dtv, head_dt(hh + 1), a.sd_q, Q, lane);
+      if (ks == nks - 1)
+        head_tables(dtv, a.A[a.head_offset + h_lo + hh + 1], Q,
+                    tabs + ((hh + 1) & 1) * TABS, lane);
+    }
+    const float* Lh = tabs + (hh & 1) * TABS;
+    const float* dth = Lh + QMAX;
+    const float* uh = Lh + 2 * QMAX;
+    const float* u8h = Lh + 3 * QMAX;
+    const float* Xs = ring + (s % XST) * XSTAGE;
+
+    // a warp whose rows all precede the stage's keys has nothing to add
+    if (t0 <= q0 + wrow + MT * 16 - 1) {
+      // A fragments (M, split) of the warp's m16 tiles, 4 k8 steps; masked
+      // keys weigh 0, so the products below need no branch
+      uint32_t ab[MT][4][4], as[MT][4][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int r0 = q0 + wrow + 16 * i;     // the tile's first row
+        const int ra = r0 + g, rb = ra + 8;    // this lane's rows
+        const bool full = t0 + KS - 1 <= r0;   // every key precedes every row
+        const float La = Lh[ra], Lb = Lh[rb];
+        float fa = 0.0f, fb = 0.0f;
+        if (full) {
+          const float Lr = Lh[t0 + KS - 1];
+          fa = __expf(La - Lr);
+          fb = __expf(Lb - Lr);
+        }
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int k0 = t0 + 8 * h;
+          const float4 cv = *reinterpret_cast<const float4*>(
+              cbf + (((wm * MT + i) * nj + (k0 >> 3)) * 32 + lane) * 4);
+          // cv: (ra, t), (ra, t + 1), (rb, t), (rb, t + 1)
+          const int t = k0 + 2 * qd;
+          float m[4];
+          if (full) {
+            const float2 u = *reinterpret_cast<const float2*>(uh + t);
+            m[0] = __fmul_rn(cv.x, __fmul_rn(fa, u.x));
+            m[1] = __fmul_rn(cv.y, __fmul_rn(fa, u.y));
+            m[2] = __fmul_rn(cv.z, __fmul_rn(fb, u.x));
+            m[3] = __fmul_rn(cv.w, __fmul_rn(fb, u.y));
+          } else if (k0 + 7 <= r0) {  // the k8 step precedes the rows
+            const float Lr = Lh[k0 + 7];
+            const float ga = __expf(La - Lr), gb = __expf(Lb - Lr);
+            const float2 u = *reinterpret_cast<const float2*>(u8h + t);
+            m[0] = __fmul_rn(cv.x, __fmul_rn(ga, u.x));
+            m[1] = __fmul_rn(cv.y, __fmul_rn(ga, u.y));
+            m[2] = __fmul_rn(cv.z, __fmul_rn(gb, u.x));
+            m[3] = __fmul_rn(cv.w, __fmul_rn(gb, u.y));
+          } else if (k0 > r0 + 15) {  // the k8 step follows the rows
+            m[0] = m[1] = m[2] = m[3] = 0.0f;
+          } else {  // on the diagonal: the mask before the exponential
+            const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e < 2 ? ra : rb, tt = t + (e & 1);
+              m[e] = tt <= r ? __fmul_rn(
+                                   __fmul_rn(cr[e], __expf(Lh[r] - Lh[tt])),
+                                   dth[tt])
+                             : 0.0f;
+            }
+          }
+          // the contraction permuted: k = qd is key t, k = qd + 4 key t + 1
+          split_tf32(m[0], ab[i][h][0], as[i][h][0]);
+          split_tf32(m[2], ab[i][h][1], as[i][h][1]);
+          split_tf32(m[1], ab[i][h][2], as[i][h][2]);
+          split_tf32(m[3], ab[i][h][3], as[i][h][3]);
+        }
+      }
+      float t[MT][NT][4] = {};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        uint32_t bb[NT][2], bs[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float* xc =
+              Xs + (8 * h + 2 * qd) * XS + wn * (HD / 2) + 8 * j + g;
+          split_tf32(xc[0], bb[j][0], bs[j][0]);   // key t
+          split_tf32(xc[XS], bb[j][1], bs[j][1]);  // key t + 1
+        }
+        uint32_t a_b[MT][4], a_s[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            a_b[i][e] = ab[i][h][e], a_s[i][e] = as[i][h][e];
+        mma3_tiles<MT, NT>(t, a_b, a_s, bb, bs);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += t[i][j][e];
+    }
+
+    if (ks == nks - 1) {  // head hh is done: write its rows, start afresh
+      float* yh = a.y + ((b * a.nc + c) * Q) * y_row + (h_lo + hh) * HD;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = q0 + wrow + 16 * i + g + 8 * hf;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            if (r < Q)
+              *reinterpret_cast<float2*>(yh + r * y_row + wn * (HD / 2) +
+                                         8 * j + 2 * qd) =
+                  make_float2(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
+            acc[i][j][2 * hf] = acc[i][j][2 * hf + 1] = 0.0f;
+          }
+        }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The state kernel's warps: WM along hd, WN along d_state (NMAX columns).
+template <int HD>
+struct SCfg {
+  static constexpr int WM = HD == 16 ? 1 : (HD == 128 ? 4 : 2);
+  static constexpr int WN = HD == 16 ? 4 : 2;
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int MT = HD / (16 * WM);  // m16 tiles of a warp
+  static constexpr int NT = NMAX / (8 * WN);  // n8 tiles of a warp
+  static constexpr int XS = HD + 8;           // x stage row stride
+  static constexpr int BS = NMAX + 8;         // B stage row stride
+  static constexpr int STAGE = KS * (XS + BS);
+  static constexpr int smem_bytes = 4 * (STAGES * STAGE + 2 * QMAX);
+  // two 256-thread blocks an SM leave 128 registers a thread: too few for
+  // hd 128's two m16 tiles of accumulators and their stage sums
+  static constexpr int MINB = HD == 128 ? 1 : 2;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(SCfg<HD>::THREADS, SCfg<HD>::MINB)
+    ssd_state_kernel(Args a) {
+  using CF = SCfg<HD>;
+  constexpr int MT = CF::MT, NT = CF::NT, XS = CF::XS, BS = CF::BS;
+  constexpr int STAGE = CF::STAGE;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* w = ring + STAGES * STAGE;  // [QMAX] key weights (L first)
+  float* dts = w + QMAX;             // [QMAX]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int m0 = (warp / CF::WN) * MT * 16, n0 = (warp % CF::WN) * NT * 8;
   const int Q = a.Q, N = a.N;
   const long long blk = blockIdx.x;
   const int hr = static_cast<int>(blk % a.win);
   const int c = static_cast<int>((blk / a.win) % a.nc);
   const long long b = blk / (static_cast<long long>(a.win) * a.nc);
   const int h = a.head_offset + hr;
-
-  const float* xp = a.x + b * a.sx_b + c * a.sx_c + h * a.sx_h;
-  const float* dtp = a.dt + b * a.sd_b + c * a.sd_c + h * a.sd_h;
+  const float* xh = a.x + b * a.sx_b + c * a.sx_c + h * a.sx_h;
   const float* Bp = a.B + b * a.sb_b + c * a.sb_c;
-  const float* Cp = a.C + b * a.sc_b + c * a.sc_c;
 
-  for (int q = tid; q < Q; q += THREADS) dts[q] = dtp[q * a.sd_q];
-  __syncthreads();
-  if (tid == 0) {
-    const float Ah = a.A[h];
-    float acc = 0.0f;
-    for (int q = 0; q < Q; ++q) {
-      acc = __fadd_rn(acc, __fmul_rn(dts[q], Ah));  // no contraction
-      Ls[q] = acc;
-    }
+  // dt's loads stay in flight while the first stages are issued; the
+  // weights are formed once stage 0 has landed
+  float dtv[QMAX / 32];
+  if (warp == 0)
+    load_dt(dtv, a.dt + b * a.sd_b + c * a.sd_c + h * a.sd_h, a.sd_q, Q,
+            lane);
+  const int total = (Q + KS - 1) / KS;
+  const bool xv = a.sx_q % 4 == 0 && aligned16(xh);
+  const bool bv = a.sb_q % 4 == 0 && aligned16(Bp);
+  auto load = [&](int s) {
+    float* st = ring + (s % STAGES) * STAGE;
+    const int t0 = s * KS;
+    load_tile<KS, HD, XS, CF::THREADS>(st, xh + t0 * a.sx_q, a.sx_q, Q - t0,
+                                       HD, xv);
+    load_tile<KS, NMAX, BS, CF::THREADS>(st + KS * XS, Bp + t0 * a.sb_q,
+                                         a.sb_q, Q - t0, N, bv);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) load(s);
+    cp_async_commit();
   }
-
-  // ---- y: query tiles, each against the key tiles t0 <= its last row ----
-  const long long y_row = static_cast<long long>(a.win) * HD;
-  float* yp = a.y + ((b * a.nc + c) * Q) * y_row + hr * HD;
-  for (int q0 = 0; q0 < Q; q0 += TQ) {
-    __syncthreads();  // the previous tile's C is no longer read
-    for (int idx = tid; idx < TQ * N; idx += THREADS) {
-      const int qi = idx / N, n = idx % N;
-      CsT[n * PAD + qi] = q0 + qi < Q ? Cp[(q0 + qi) * a.sc_q + n] : 0.0f;
-    }
-    float acc[4][PW];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < PW; ++k) acc[i][k] = 0.0f;
-    const int t_end = min(q0 + TQ, Q);
-    for (int t0 = 0; t0 < t_end; t0 += TT) {
-      __syncthreads();  // the previous key tile and M tile are no longer read
-      for (int idx = tid; idx < TT * N; idx += THREADS) {
-        const int ti = idx / N, n = idx % N;
-        BsT[n * PAD + ti] = t0 + ti < Q ? Bp[(t0 + ti) * a.sb_q + n] : 0.0f;
-      }
-      for (int idx = tid; idx < TT * HD; idx += THREADS) {
-        const int ti = idx / HD, p = idx % HD;
-        Xs[idx] = t0 + ti < Q ? xp[(t0 + ti) * a.sx_q + p] : 0.0f;
-      }
-      __syncthreads();
-      float cb[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) cb[i][j] = 0.0f;
-      for (int n = 0; n < N; ++n) {
-        const float4 cv =
-            *reinterpret_cast<const float4*>(CsT + n * PAD + ty * 4);
-        const float4 bv =
-            *reinterpret_cast<const float4*>(BsT + n * PAD + tx * 4);
-        const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
-        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) cb[i][j] = fmaf(cr[i], br[j], cb[i][j]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = t0 + tx * 4 + j;
-        float m[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int q = q0 + ty * 4 + i;
-          m[i] = 0.0f;
-          if (t <= q && q < Q) {  // the mask before the exponential
-            const float decay = expf(Ls[q] - Ls[t]);
-            m[i] = __fmul_rn(__fmul_rn(cb[i][j], decay), dts[t]);
-          }
-        }
-        *reinterpret_cast<float4*>(MsT + (tx * 4 + j) * PAD + ty * 4) =
-            make_float4(m[0], m[1], m[2], m[3]);
-      }
-      __syncthreads();
-      const int nt = min(TT, Q - t0);
-      for (int ti = 0; ti < nt; ++ti) {
-        const float4 mv =
-            *reinterpret_cast<const float4*>(MsT + ti * PAD + ty * 4);
-        const float mr[4] = {mv.x, mv.y, mv.z, mv.w};
-        float xv[PW];
-#pragma unroll
-        for (int k = 0; k < PW; ++k) xv[k] = Xs[ti * HD + tx * PW + k];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < PW; ++k)
-            acc[i][k] = fmaf(mr[i], xv[k], acc[i][k]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = q0 + ty * 4 + i;
-      if (q >= Q) continue;
-#pragma unroll
-      for (int k = 0; k < PW; ++k) yp[q * y_row + tx * PW + k] = acc[i][k];
-    }
-  }
-
-  // ---- the chunk-exit state: S[p, n] over all Q positions ----
-  float s[PW][NJ];
-#pragma unroll
-  for (int i = 0; i < PW; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[i][j] = 0.0f;
-  for (int t0 = 0; t0 < Q; t0 += TT) {
-    __syncthreads();  // the y pass (or the previous tile) is done with smem
-    const int nt = min(TT, Q - t0);
-    for (int idx = tid; idx < nt * N; idx += THREADS) {
-      const int ti = idx / N, n = idx % N;
-      Bs[idx] = Bp[(t0 + ti) * a.sb_q + n];
-    }
-    for (int idx = tid; idx < nt * HD; idx += THREADS) {
-      const int ti = idx / HD, p = idx % HD;
-      const int t = t0 + ti;
-      const float w = __fmul_rn(expf(Ls[Q - 1] - Ls[t]), dts[t]);
-      Xs[idx] = __fmul_rn(xp[t * a.sx_q + p], w);
-    }
+  float acc[MT][NT][4] = {};
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
-    for (int ti = 0; ti < nt; ++ti) {
-      float xv[PW];
-#pragma unroll
-      for (int i = 0; i < PW; ++i) xv[i] = Xs[ti * HD + ty * PW + i];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = tx + 16 * j;
-        const float bv = n < N ? Bs[ti * N + n] : 0.0f;
-#pragma unroll
-        for (int i = 0; i < PW; ++i) s[i][j] = fmaf(xv[i], bv, s[i][j]);
+    if (s + STAGES - 1 < total) load(s + STAGES - 1);
+    cp_async_commit();
+    if (s == 0) {  // L, then w in its place
+      if (warp == 0) {
+        scan_L(dtv, a.A[h], w, dts, lane);
+        const float last = w[Q - 1];
+        __syncwarp();  // every lane has read L[Q - 1] before it is replaced
+        for (int t = lane; t < QMAX; t += 32)
+          w[t] = t < Q ? __fmul_rn(__expf(last - w[t]), dts[t]) : 0.0f;
       }
+      __syncthreads();
     }
+    if (n0 >= N) continue;  // a warp past d_state waits at the barriers
+    const float* Xs = ring + (s % STAGES) * STAGE;
+    const float* Bs = Xs + KS * XS;
+    float t[MT][NT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS / 8; ++kk) {
+      const int tq = 8 * kk + qd;  // positions tq and tq + 4 of the stage
+      const float w0 = w[s * KS + tq], w1 = w[s * KS + tq + 4];
+      uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float* xc = Xs + tq * XS + m0 + 16 * i + g;
+        split_tf32(__fmul_rn(xc[0], w0), ab[i][0], as[i][0]);
+        split_tf32(__fmul_rn(xc[8], w0), ab[i][1], as[i][1]);
+        split_tf32(__fmul_rn(xc[4 * XS], w1), ab[i][2], as[i][2]);
+        split_tf32(__fmul_rn(xc[4 * XS + 8], w1), ab[i][3], as[i][3]);
+      }
+      uint32_t bb[NT][2], bs[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {  // columns past N are zero-filled
+        const float* bc = Bs + tq * BS + n0 + 8 * j + g;
+        split_tf32(bc[0], bb[j][0], bs[j][0]);
+        split_tf32(bc[4 * BS], bb[j][1], bs[j][1]);
+      }
+      mma3_tiles<MT, NT>(t, ab, as, bb, bs);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += t[i][j][e];
   }
+  cp_async_wait<0>();
   float* sp = a.states + (blk * HD) * N;  // [Bt, nc, win, hd, N] contiguous
 #pragma unroll
-  for (int i = 0; i < PW; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = tx + 16 * j;
-      if (n < N) sp[(ty * PW + i) * N + n] = s[i][j];
+    for (int hf = 0; hf < 2; ++hf) {
+      const int p = m0 + 16 * i + g + 8 * hf;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + 8 * j + 2 * qd;
+        if (n < N) sp[p * N + n] = acc[i][j][2 * hf];
+        if (n + 1 < N) sp[p * N + n + 1] = acc[i][j][2 * hf + 1];
+      }
     }
 }
 
 template <int HD>
-int launch(const Args& a, long long blocks, cudaStream_t s) {
-  const int smem = smem_floats(HD) * static_cast<int>(sizeof(float));
-  const cudaError_t e = cudaFuncSetAttribute(
-      ssd_chunk_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch(const Args& a, int Bt, cudaStream_t s) {
+  const int nqt = (a.Q + TQ - 1) / TQ;
+  const int ngr = (a.win + HG - 1) / HG;
+  const int hg = (a.win + ngr - 1) / ngr;  // heads a block serves
+  const int nj = nqt * TQ / 8;             // n8 key tiles of the strip
+  const long long yblocks = static_cast<long long>(nqt) * Bt * a.nc * ngr;
+  const int ysmem =
+      4 * (YCfg<HD>::fixed_floats() + 4 * nj * 32 * 4);
+  const auto yk = ssd_y_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      yk, cudaFuncAttributeMaxDynamicSharedMemorySize, ysmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_chunk_kernel<HD><<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(a);
+  yk<<<static_cast<unsigned>(yblocks), YCfg<HD>::THREADS, ysmem, s>>>(
+      a, nqt, ngr, hg, nj);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto sk = ssd_state_kernel<HD>;
+  e = cudaFuncSetAttribute(sk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SCfg<HD>::smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sk<<<static_cast<unsigned>(static_cast<long long>(Bt) * a.nc * a.win),
+       SCfg<HD>::THREADS, SCfg<HD>::smem_bytes, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -251,7 +613,7 @@ int launch(const Args& a, long long blocks, cudaStream_t s) {
 // elements.  Writes y [Bt, nc, Q, win, hd] and states [Bt, nc, win, hd, N],
 // both contiguous, for heads head_offset .. head_offset + win - 1.
 // Q <= 256, N <= 128, hd one of 16, 32, 64, 128.  Returns the CUDA error of
-// the launch (0 on success).
+// the launches (0 on success).
 extern "C" int ssd_chunk_intra_fwd(
     const float* x, const float* dt, const float* A, const float* B,
     const float* C, float* y, float* states, long long sx_b, long long sx_c,
@@ -263,7 +625,7 @@ extern "C" int ssd_chunk_intra_fwd(
   const long long blocks = static_cast<long long>(Bt) * nc * win;
   if (Bt < 1 || nc < 1 || Q < 1 || Q > QMAX || N < 1 || N > NMAX ||
       win < 1 || head_offset < 0 || head_offset + win > nh ||
-      blocks > 0x7fffffffLL)
+      4 * blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x,    dt,   A,    B,    C,    y,    states, sx_b, sx_c,
                sx_q, sx_h, sd_b, sd_c, sd_q, sd_h, sb_b,   sb_c, sb_q,
@@ -271,13 +633,13 @@ extern "C" int ssd_chunk_intra_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:
-      return launch<16>(a, blocks, s);
+      return launch<16>(a, Bt, s);
     case 32:
-      return launch<32>(a, blocks, s);
+      return launch<32>(a, Bt, s);
     case 64:
-      return launch<64>(a, blocks, s);
+      return launch<64>(a, Bt, s);
     case 128:
-      return launch<128>(a, blocks, s);
+      return launch<128>(a, Bt, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

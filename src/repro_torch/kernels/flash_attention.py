@@ -14,13 +14,14 @@ inputs that require a gradient are refused.
 On a CUDA tensor the wrapper launches ``flash_attn_fwd``
 (``csrc/flash_attn.cu``) or raises; on a CPU tensor it runs the plain
 version, ``kernels.ref.flash_attention_ref``, a transcription of the
-Pallas body.  A row of a visited Pallas block whose keys are all masked
-briefly holds ``exp(0)`` weights until its first visible key rescales them
-by exactly 0, where the kernel skips such rows; so the two agree whenever
-every query row sees at least one key.  Only a window with ``Sq >= Skv +
-window`` leaves a row without one (the Pallas body would give it the mean
-of V over its visited blocks, a value of its tiling), and such inputs are
-refused on both devices.
+Pallas body.  A row of a visited block whose keys are all masked briefly
+holds ``exp(0)`` weights until its first visible key rescales them by
+exactly 0, in the Pallas body and in the kernel alike (the kernel skips
+only key tiles that none of a warp's 16 rows can see); so the two agree
+whenever every query row sees at least one key.  Only a window with
+``Sq >= Skv + window`` leaves a row without one (the Pallas body would give
+it the mean of V over its visited blocks, a value of its tiling), and such
+inputs are refused on both devices.
 """
 from __future__ import annotations
 
@@ -30,10 +31,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-#: head dims the CUDA kernel is built for (its q row and accumulator live
-#: in registers, so the width is a compile-time constant)
-HEAD_DIMS = (8, 16, 32, 64, 128)
-#: query rows per block: a kv head's group G <= 128 shares each K/V tile
+#: head dims the CUDA kernel is built for (its tensor-core tiles and
+#: accumulators are compile-time; a multiple of the mma's 8)
+HEAD_DIMS = (8, 16, 32, 64, 96, 128)
+#: the largest kv head group (G query heads share each K/V tile)
 MAX_GROUP = 128
 
 

@@ -37,6 +37,7 @@ SHAPES = [
     (1, 128, 8, 8, 32, 32, 32, 0),
     (2, 64, 4, 2, 16, 16, 16, 24),   # sliding window
     (1, 96, 6, 2, 8, 32, 32, 0),     # ragged block count
+    (1, 64, 4, 2, 96, 32, 32, 0),    # head_dim 96 (phi_3_vision_4_2b)
 ]
 
 
@@ -187,6 +188,10 @@ GPU_RTOL = 1e-4
     (1, 37, 90, 6, 3, 16, False, 0),         # non-causal, Sq != Skv
     (1, 100, 60, 4, 2, 16, True, 41),        # Sq > Skv, last row: 1 key
     (1, 64, 64, 256, 2, 8, True, 0),         # G = 128, one position/block
+    (1, 2048, 2048, 16, 4, 128, True, 0),    # hd 128 at TinyLlama's context
+    (1, 200, 200, 8, 2, 96, True, 0),        # hd 96 (phi_3_vision_4_2b)
+    (1, 70, 300, 8, 2, 64, False, 0),        # Skv past the last key tile
+    (1, 150, 150, 4, 1, 128, True, 50),      # hd 128, window, ragged Skv
 ], ids=str)
 def test_gpu_flash_kernel_matches_plain(cuda, case):
     B, Sq, Skv, H, KV, hd, causal, win = case
@@ -214,3 +219,17 @@ def test_gpu_flash_kernel_takes_strided_views(cuda):
     want = flash_attention_ref(q, k, v, window=64, softmax_scale=0.2)
     assert got.is_contiguous()
     assert (got - want).abs().max() <= GPU_RTOL * want.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+def test_gpu_flash_kernel_is_deterministic(cuda, hd):
+    """Two launches on the same inputs give the same bits: one block sums
+    each output row in a fixed order, with no atomics."""
+    g = torch.Generator(cuda).manual_seed(hd)
+    q = torch.randn((2, 1000, 16, hd), device=cuda, generator=g)
+    k = torch.randn((2, 1000, 4, hd), device=cuda, generator=g)
+    v = torch.randn((2, 1000, 4, hd), device=cuda, generator=g)
+    a = flash_attention(q, k, v, window=300)
+    b = flash_attention(q, k, v, window=300)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -268,6 +268,11 @@ GPU_RTOL = 1e-4
     (1, 2, 100, 3, 16, 100, None, 0),     # ragged Q and N
     (1, 2, 64, 24, 64, 128, 5, 7),        # unaligned head window
     (1, 1, 64, 24, 128, 32, 16, 8),       # hd 128, window at the end
+    (1, 2, 256, 64, 32, 64, 5, 53),       # head groups 18, 18, 17
+    (1, 2, 256, 24, 64, 128, 3, 19),      # a window inside one group
+    (1, 2, 64, 6, 32, 50, None, 0),       # N 50: rows not 16-byte aligned
+    (1, 2, 37, 4, 128, 64, None, 0),      # Q 37, hd 128
+    (2, 1, 200, 9, 16, 24, None, 0),      # hd 16, Q 200
 ], ids=str)
 def test_gpu_ssd_kernel_matches_plain(cuda, case):
     Bt, nc, Q, nh, hd, N, off, win = case
@@ -298,3 +303,15 @@ def test_gpu_ssd_kernel_takes_strided_views(cuda):
     want = ref.ssd_chunk_intra_ref(x, dt, A, B, C)
     for g, w in zip(got, want):
         assert (g - w).abs().max() <= GPU_RTOL * w.abs().max()
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs give the same bits: one block sums
+    each output in a fixed order, with no atomics."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _inputs((2, 3), 256, 24, 64, 128, seed=3)]
+    ya, sa = ssd_chunk_intra(*args)
+    yb, sb = ssd_chunk_intra(*args)
+    for a, b in ((ya, yb), (sa, sb)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
