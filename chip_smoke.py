@@ -28,8 +28,11 @@ Phases, each of which fails the run when it fails:
    other: the window round (checkpointed through ``checkpoint_callback``
    and loaded back bit for bit), a Bernoulli mask round and a structured
    rolling mask round at per-client capacities; one model's eval
-   through the flash kernel against the same eval on the CPU; and reduced
-   Mamba2 serving (prefill 2 x 64, 4 greedy steps) and its loss.
+   through the flash kernel against the same eval on the CPU; reduced
+   Mamba2 serving (prefill 2 x 64, 4 greedy steps) and its loss; the
+   extract round (``fused_forward="off"``) and scheme ``full``; and a
+   reduced ``PaperExperiment`` (ResNet, 2 rounds each of ``rolling`` and
+   ``random`` with CPU-drawn masks, and ``static``).
 4. The window path: the shared-window federated round on full-width
    TinyLlama-1.1B (22 layers, f32, 4 clients x 2 local steps x 2 x 256
    tokens), through ``api.fed_round`` and ``api.Trainer``, 3 rounds, with
@@ -46,6 +49,15 @@ Phases, each of which fails the run when it fails:
    beside the round's byte bound for it), and two rounds of ``api.Trainer``
    with ``eval_fn``, ``eval_every=1`` and ``log_every=1``. The trainer and
    params are freed before the next phase.
+4d. The extract path: the window path's configuration with
+   ``fused_forward="off"`` (Algorithm 2 as written: compact per-client
+   copies through the ordinary forward), 3 rounds from the same initial
+   params and offsets, held against the fused path's params and losses;
+   the "no per-client W_sub copy" pin (allocation shapes recorded under a
+   ``TorchDispatchMode``: the fused client phase makes no stacked compact
+   copy of the leaves its kernels read in place, the extract phase does);
+   then 2 rounds of scheme ``full`` (FedAvg, every client on a full
+   replica).  Seconds per round, peaks and row 10's launches.
 4b. The mask path: the same configuration with ``scheme="bernoulli"``
    (Algorithm 1, mask mode chosen by ``api.fed_round`` itself) through
    ``api.Trainer(rng=0)``, 3 rounds, counted, checked and profiled the
@@ -61,7 +73,18 @@ Phases, each of which fails the run when it fails:
    full-width TinyLlama-1.1B prefills 4 x 1536 tokens and decodes 512
    greedy tokens, checked by teacher-forced decode against one prefill of
    all 2048.
+4e. The paper's protocol (§5) on full-width pre-act ResNet18: 100 clients
+   with 2 labels each, 10 a round, the HeteroFL capacity mix, K = 2 x 32
+   images, SyntheticCIFAR 50 000 + 10 000; 5 rounds each of ``rolling``,
+   ``random``, ``static`` and ``full`` through ``PaperExperiment.run``,
+   evaluated on the last (seconds per round, test loss and accuracy, the
+   generalization gap, peak, rows 9 and 11's launches a round); then
+   ``python -m repro_torch.launch.experiment --rounds 3`` on the card
+   (``stability_finite`` and ``thm1_bound_holds`` held to 1).
 
+The update kernels (rows 9-11) are also held and timed at the shapes the
+extract and paper paths give them, and their rows carry each path's
+launches (``launches_by_path``).
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  With no
 card, or without the repository beside it, the script fails and prints no
@@ -359,6 +382,7 @@ def phase_kernels(dev):
     rows += scalar_kernels(dev, g)
     rows += flash_kernels(dev, g)
     rows += ssd_kernels(dev, g)
+    path_update_rows(dev, g, rows)
     for r in rows:
         for sub in [r, *r.get("sub_rows", [])]:
             lib = ("none" if sub["library_ms"] is None
@@ -510,6 +534,56 @@ def mask_kernels(dev, g):
         plain_ms=cuda_ms(lambda: ref.fillin_agg_ref(w, wc, mc, 1.0 / C)),
         library_ms=None, library_calls=0, bound_ms=b_ms, bound_by=b_by))
     return rows
+
+
+def path_update_rows(dev, g, rows):
+    """The update kernels also at the shapes the extract and paper paths
+    give them, bit for bit against their plain versions and timed (a
+    ``sub_rows`` entry each): row 10 on the extract round's stacked compact
+    ``w_gate`` [4, 2048, 2816]; rows 9 and 11 on ResNet18's largest leaf
+    (stage 3's ``conv2``, [3, 3, 512, 512]) at the paper round's 10
+    clients."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.masked_update import (fillin_agg_, masked_sgd_,
+                                                   sgd_)
+    by = {r["name"]: r for r in rows}
+
+    def sub(name, shape, ok, n_ops, n_bytes, kern, plain, lib):
+        check(ok, f"{name} not bit-exact at {shape}")
+        b_ms, b_by = bound(n_ops, n_bytes)
+        by[name].setdefault("sub_rows", []).append(dict(
+            shape=shape, max_abs_err=0.0, max_rel_err=0.0, tolerance=0.0,
+            ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+            library_ms=None if lib is None else cuda_ms(lib),
+            bound_ms=b_ms, bound_by=b_by))
+
+    n = C * D * 2816
+    w = torch.randn(n, device=dev, generator=g)
+    gr = torch.randn(n, device=dev, generator=g)
+    sub("sgd_inplace", {"w": [C, D, 2816]},
+        bits_equal(sgd_(w.clone(), gr, 0.1), ref.sgd_ref(w.clone(), gr, 0.1)),
+        2 * n, 12 * n, lambda: sgd_(w, gr, 1e-6),
+        lambda: ref.sgd_ref(w, gr, 1e-6), lambda: w.add_(gr, alpha=-1e-6))
+    cp, leaf = 10, [3, 3, 512, 512]
+    ns = math.prod(leaf)
+    n = cp * ns
+    w = torch.randn(n, device=dev, generator=g)
+    m = (torch.rand(n, device=dev, generator=g) < 0.5).float()
+    gr = torch.randn(n, device=dev, generator=g)
+    sub("masked_sgd_inplace", {"w": [cp] + leaf},
+        bits_equal(masked_sgd_(w.clone(), m, gr, 0.1),
+                   ref.masked_sgd_ref(w.clone(), m, gr, 0.1)),
+        3 * n, 16 * n, lambda: masked_sgd_(w, m, gr, 1e-6),
+        lambda: ref.masked_sgd_ref(w, m, gr, 1e-6),
+        lambda: w.addcmul_(m, gr, value=-1e-6))
+    ws = torch.randn(ns, device=dev, generator=g)
+    wc, mc = w.view(cp, ns), m.view(cp, ns)
+    sub("fillin_agg_inplace", {"w": leaf, "w_c": [cp] + leaf},
+        bits_equal(fillin_agg_(ws.clone(), wc, mc, 1.0),
+                   ref.fillin_agg_ref(ws.clone(), wc, mc, 1.0 / cp)),
+        (3 * cp + 2) * ns, (8 + 8 * cp) * ns,
+        lambda: fillin_agg_(ws, wc, mc, 1.0),
+        lambda: ref.fillin_agg_ref(ws, wc, mc, 1.0 / cp), None)
 
 
 # the scalar-offset (one model) products at the eval path's shapes: rows 1-2
@@ -953,7 +1027,11 @@ def phase_main_path(dev, _build):
     print(f"[main] {cfg.name}: {cfg.n_layers} layers, {n_params:,} params, "
           f"f32; windows {windows}")
     launches, round_s = run_rounds("main", trainer, data, _build)
-    return launches, trainer, data[0], round_s
+    # what the extract path is held against, kept on the host
+    fused = {"params": {k: v.cpu() for k, v in trainer.params.items()},
+             "losses": trainer.losses,
+             "offsets": [fed.scheme.offsets(r, 4) for r in range(len(data))]}
+    return launches, trainer, data[0], round_s, fused
 
 
 def phase_eval(dev, trainer, _build):
@@ -1432,6 +1510,364 @@ def phase_serve_dense(dev, _build):
           f"{e[1]:.3g}, tolerance {MM_RTOL})")
 
 
+# -- phase 3, the extract round and the paper's protocol ----------------------
+
+
+def phase_small_agreement_extract(dev):
+    """Two reduced rounds of the extract client phase (``fused_forward=
+    "off"``, rolling) and two of scheme ``full`` (every client on a full
+    replica, no windowed axis) on the card against the same rounds on the
+    CPU, from the same params, tokens and offsets."""
+    from repro_torch import api
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    cfg = get_reduced_config("tinyllama_1_1b")
+    model = build_model(cfg)
+    batch = next(lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0))
+    for scheme, ff in (("rolling", "off"), ("full", "auto")):
+        p_cpu = model.init(0, device="cpu")
+        p_gpu = {k: v.to(dev, copy=True) for k, v in p_cpu.items()}
+        outs = {}
+        for where, params in (("cpu", p_cpu), ("card", p_gpu)):
+            fed = api.fed_round(model, scfg_for(scheme), fused_forward=ff,
+                                device=params["embed"].device)
+            check(not fed.use_fused, f"{scheme} resolved to the fused phase")
+            offsets = [fed.scheme.offsets(r, 4) for r in range(2)]
+            trainer = api.Trainer(fed, params)
+            trainer.run(((batch, {"offsets": o}) for o in offsets), 2)
+            outs[where] = (trainer.history, trainer.params)
+        (h_c, p_c), (h_g, p_g) = outs["cpu"], outs["card"]
+        dl = max((a["client_loss"].cpu() - b["client_loss"]).abs().max()
+                 .item() for a, b in zip(h_g, h_c))
+        dp = max((p_g[k].cpu() - p_c[k]).abs().max().item() for k in p_c)
+        check(dl <= ROUND_TOL and dp <= ROUND_TOL,
+              f"reduced {scheme} extract round on the card disagrees with "
+              f"the CPU: loss {dl}, params {dp}")
+        print(f"[agree] reduced 2-round extract round ({scheme}, "
+              f"fused_forward={ff!r}) card vs CPU: max |d loss| {dl:.3g}, "
+              f"max |d param| {dp:.3g} (tolerance {ROUND_TOL})")
+
+
+def _inject_cpu_masks(exp, scheme):
+    """Wrap ``exp``'s batch iterator so that each round carries masks drawn
+    on the CPU (a generator seeded by the round) at the round's
+    capacities."""
+    from repro_torch.core.fedavg import dense_client_masks
+    fed = exp.make_fed(scheme)
+    orig = exp._round_batches
+
+    def wrapped(scheme, uniform_cap):
+        for r, (batch, kw) in enumerate(orig(scheme, uniform_cap)):
+            masks = dense_client_masks(
+                torch.Generator().manual_seed(r), fed.abstract, fed.axes,
+                fed.scfg, kw["capacities"], r, torch.device("cpu"))
+            yield batch, {**kw, "masks": masks}
+
+    exp._round_batches = wrapped
+
+
+def phase_small_agreement_paper(dev):
+    """A reduced ``PaperExperiment`` (ResNet-8ish, 6 clients, 3 taking part)
+    on the card against the CPU from the same params: 2 rounds each of
+    ``rolling`` and ``random`` with the masks drawn on the CPU and copied,
+    and ``static`` as it runs; curves (train loss, test loss, accuracy)
+    and the generalization gap."""
+    from repro_torch.core.paper_protocol import PaperExperiment
+    kw = dict(n_clients=6, participate=3, n_train=240, n_test=48, mb=4)
+    params, axes = PaperExperiment(**kw, device="cpu").init_params()
+    for scheme in ("rolling", "random", "static"):
+        res = {}
+        for where in ("cpu", dev):
+            exp = PaperExperiment(**kw, device=where)
+            exp.init_params = lambda where=where: (
+                {k: v.to(where, copy=True) for k, v in params.items()}, axes)
+            if scheme != "static":
+                _inject_cpu_masks(exp, scheme)
+            res[str(where)] = exp.run(scheme, rounds=2, eval_every=1)
+        a, b = res[str(dev)], res["cpu"]
+        d = max([abs(x[k] - y[k]) for x, y in zip(a["curve"], b["curve"])
+                 for k in ("train_loss", "test_loss", "test_acc")]
+                + [abs(a["gap"][k] - b["gap"][k]) for k in b["gap"]])
+        check(d <= ROUND_TOL and len(a["curve"]) == 2,
+              f"reduced paper protocol ({scheme}) card vs CPU: {d}")
+        print(f"[agree] reduced PaperExperiment {scheme} 2 rounds card vs "
+              f"CPU: max |d| over curves and gap {d:.3g} (tolerance "
+              f"{ROUND_TOL}); test loss {a['final']['test_loss']:.5f}")
+
+
+# -- phase 4d: the extract path ------------------------------------------------
+
+# the extract round against the fused round from the same params, tokens
+# and offsets after 3 rounds: the fused round's products run the 3xTF32
+# hand kernels (rows 5-8), the extract round's cuBLAS f32, so each param
+# differs by their rounding, carried through 6 SGD steps at lr 0.1
+EXTRACT_TOL = 1e-4
+
+
+# the leaves whose windows the fused forward reads in place through the
+# windowed-product kernels (rows 5-8): the fused client phase must allocate
+# no stacked compact copy of them.  (The gradients of the wo and w_down
+# window views are compact-shaped in both phases, as the reference's
+# dynamic_slice VJP makes them, so those shapes witness nothing.)
+PINNED = ("mlp/w_gate", "mlp/w_up", "attn/wq", "attn/wk", "attn/wv")
+
+
+def compact_shapes(fed, C):
+    """``{shape: leaf names}`` of the stacked compact copy ``[C, *sub
+    shape]`` of every leaf the round's window narrows (names without the
+    layer prefix)."""
+    from repro_torch.core.extract import sub_abstract
+    out = {}
+    for k, s in sub_abstract(fed.abstract, fed.axes,
+                             fed.scheme.sizes).items():
+        if s != fed.abstract[k]:
+            out.setdefault((C, *s), set()).add(k.split("/", 2)[-1])
+    return out
+
+
+def allocation_shapes(fn):
+    """Run ``fn()`` and return ``(result, {shape: count})`` of the tensors
+    its operators allocate (outputs that share no storage with an input:
+    views and in-place results are left out)."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def ptrs(tree):
+        return {t.untyped_storage().data_ptr() for t in tree_leaves(tree)
+                if isinstance(t, torch.Tensor)}
+
+    class Allocations(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            seen = ptrs((args, kwargs))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and \
+                        t.untyped_storage().data_ptr() not in seen:
+                    self.shapes[tuple(t.shape)] += 1
+            return out
+
+    with Allocations() as mode:
+        result = fn()
+    return result, mode.shapes
+
+
+def phase_wsub_pin(dev, model, params, batch, offsets):
+    """"No per-client W_sub copy": the fused client phase allocates no
+    tensor shaped like a stacked compact leaf (``[C, 2048, 2816]`` for
+    ``w_gate``, ``[C, 2048, 16, 64]`` for ``wq``, ...), while the extract
+    phase allocates them; both from the same params, batch and offsets."""
+    from repro_torch import api
+    batch = {k: torch.as_tensor(v).to(dev, torch.long)
+             for k, v in batch.items()}
+    found = {}
+    for ff in ("on", "off"):
+        fed = api.fed_round(model, scfg_for("rolling"), fused_forward=ff,
+                            device=dev)
+        compact = compact_shapes(fed, 4)
+        pinned = {s for s, names in compact.items() if names <= set(PINNED)}
+        other = {(4, *s) for s in fed.abstract.values()} | \
+            (set(compact) - pinned)
+        check(pinned and not pinned & other, f"stacked compact shapes "
+              f"{sorted(pinned & other)} are also other tensors' shapes: "
+              "the pin could not witness a copy")
+        phase = fed._client_phase_fused if ff == "on" else fed._client_phase
+        out, shapes = allocation_shapes(lambda: phase(params, batch,
+                                                      offsets))
+        del out
+        found[ff] = {"/".join(sorted(compact[s])): n
+                     for s, n in shapes.items() if s in pinned}
+        seen = {"/".join(sorted(compact[s])): n for s, n in shapes.items()
+                if s in compact and s not in pinned}
+        print(f"[wsub] {'fused' if ff == 'on' else 'extract'} client phase: "
+              f"{sum(shapes.values())} allocations; stacked compact copies "
+              f"of {PINNED}: {found[ff]}; other compact-shaped tensors "
+              f"(window-view gradients in the fused phase): {seen}")
+    check(not found["on"], f"the fused client phase allocated stacked "
+          f"compact leaves: {found['on']}")
+    check(any("w_gate" in k for k in found["off"]) and
+          any("wq" in k for k in found["off"]),
+          f"the extract client phase allocated no compact w_gate or wq "
+          f"({found['off']}): the detector sees nothing")
+
+
+def phase_extract_path(dev, _build, fused):
+    """The extract round (``fused_forward="off"``) in the window path's
+    configuration, 3 rounds from its initial params (seed 0) and its
+    offsets, held against the fused path's params and losses after its 3
+    rounds (``fused``, kept on the host); the "no W_sub copy" pin; then
+    scheme ``full`` (the FedAvg baseline, every client on a full replica),
+    2 rounds.  Returns the launches of both."""
+    from repro_torch import api
+    cfg, model, data = full_width(dev)
+    fed = api.fed_round(model, scfg_for("rolling"), fused_forward="off",
+                        device=dev)
+    check(not fed.use_fused, "fused_forward='off' took the fused phase")
+    offsets = [fed.scheme.offsets(r, 4) for r in range(len(data))]
+    check(offsets == fused["offsets"], f"the extract round's offsets "
+          f"{offsets} are not the window path's {fused['offsets']}")
+    params = model.init(seed=0, device=dev)
+    trainer = api.Trainer(fed, params)
+    print(f"[extract] {cfg.name}: fused_forward='off', windows "
+          f"{ {f'{k[0]}/{k[1]}': w for k, w in fed.scheme.sizes.items()} }")
+    launches, round_s = run_rounds(
+        "extract", trainer, [(b, {"offsets": o}) for b, o in
+                             zip(data, offsets)], _build)
+    leaves = len(params)
+    per_round = launches.get("sgd_inplace", 0) / len(data)
+    check(per_round == 2 * leaves, f"extract path: {per_round} sgd_inplace "
+          f"launches a round, expected {2 * leaves}")
+    print(f"[extract] row 10 (sgd_inplace) launches a round {per_round:.0f} "
+          f"({leaves} leaves x K = 2), seconds per round after the first "
+          f"{round_s:.3f}")
+    dl = max(abs(a - b) for a, b in zip(trainer.losses, fused["losses"]))
+    dp = max((trainer.params[k].cpu() - v).abs().max().item()
+             for k, v in fused["params"].items())
+    check(dl <= EXTRACT_TOL and dp <= EXTRACT_TOL,
+          f"extract vs fused path after {len(data)} rounds: loss {dl}, "
+          f"params {dp} (tolerance {EXTRACT_TOL})")
+    print(f"[extract] vs the fused path after {len(data)} rounds: max |d "
+          f"loss| {dl:.3g}, max |d param| {dp:.3g} (tolerance {EXTRACT_TOL}: "
+          "3xTF32 hand kernels vs cuBLAS f32)")
+    phase_profile("extract", trainer, (data[0], {"offsets": offsets[0]}),
+                  round_s)
+    phase_wsub_pin(dev, model, trainer.params, data[0],
+                   {k: v for k, v in offsets[0].items()})
+    del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fed = api.fed_round(model, scfg_for("full"), device=dev)
+    check(not fed.use_fused and fed.scheme.sizes == {},
+          "scheme full windowed an axis")
+    trainer = api.Trainer(fed, model.init(seed=0, device=dev))
+    print(f"[full] {cfg.name}: scheme 'full' (FedAvg, every client on a full "
+          "replica; the first round warms up)")
+    f_launches, _ = run_rounds("full", trainer, data[:2], _build)
+    check(f_launches.get("sgd_inplace", 0) == 2 * 2 * leaves,
+          f"full path launches {f_launches}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, f_launches
+
+
+# -- phase 4e: the paper's protocol ---------------------------------------------
+
+PAPER_SCHEMES = ("rolling", "random", "static", "full")
+PAPER_ROUNDS = 5
+
+
+def phase_paper_path(dev, _build):
+    """The paper's §5 protocol at full width: pre-act ResNet18 (stages 2,
+    2, 2, 2, width 64, 32 x 32 x 3, 10 classes), 100 clients with 2 labels
+    each, 10 taking part a round, the HeteroFL capacity mix, K = 2, 32
+    images a step, SyntheticCIFAR with 50 000 train and 10 000 test
+    images; 5 rounds of each scheme, evaluated on the last.  A round's
+    seconds run from one batch handed to the Trainer to the next (the
+    round's device work and the next batch's assembly on the host, to a
+    synchronize).  ResNet18 has 56 leaves (1 stem, 8 blocks x 6, 3
+    projections, the final BN's 2 and fc's 2).  Returns the launches over
+    all schemes' rounds."""
+    from repro_torch.configs.resnet18_cifar import CAPACITY_BETAS, CONFIG
+    from repro_torch.core.paper_protocol import PaperExperiment
+    leaves, n_test = 56, 10_000
+    total = {}
+    for scheme in PAPER_SCHEMES:
+        t0 = time.perf_counter()
+        exp = PaperExperiment(n_clients=100, participate=10,
+                              partition="label", labels_per_client=2,
+                              capacities=CAPACITY_BETAS, k_steps=2, mb=32,
+                              n_train=50_000, n_test=n_test, rcfg=CONFIG,
+                              device=dev)
+        setup_s = time.perf_counter() - t0
+        stamps, orig = [], exp._round_batches
+
+        def stamped(scheme, uniform_cap, orig=orig, stamps=stamps):
+            for item in orig(scheme, uniform_cap):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                yield item
+
+        exp._round_batches = stamped
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        r = exp.run(scheme, rounds=PAPER_ROUNDS, eval_every=0)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        secs = np.diff(stamps).tolist()
+        per = {k: launches.get(k, 0) / PAPER_ROUNDS
+               for k in ("masked_sgd_inplace", "fillin_agg_inplace")}
+        n_leaves = len(exp.make_fed(scheme).abstract)
+        check(n_leaves == leaves and per == {
+            "masked_sgd_inplace": 2 * leaves, "fillin_agg_inplace": leaves},
+              f"paper {scheme}: {n_leaves} leaves, launches a round {per}")
+        fin, gap = r["final"], r["gap"]
+        check(all(math.isfinite(v) for v in (fin["train_loss"],
+                                             fin["test_loss"],
+                                             gap["loss_gap"])),
+              f"paper {scheme}: non-finite results {fin} {gap}")
+        print(f"[paper] {scheme}: seconds per round {secs} (rounds 0-3); "
+              f"after the first {float(np.mean(secs[1:])):.4f} s; run "
+              f"{run_s:.2f} s with the {n_test}-image eval and the gap; data "
+              f"and clients {setup_s:.2f} s")
+        print(f"[paper] {scheme}: train loss {fin['train_loss']:.5f}, test "
+              f"loss {fin['test_loss']:.5f}, test acc {fin['test_acc']:.4f}, "
+              f"gap loss {gap['loss_gap']:+.5f} acc {gap['acc_gap']:+.4f}; "
+              f"peak memory allocated {peak / 2**30:.2f} GiB; launches a "
+              f"round {per}")
+        if scheme == "rolling":       # one more round, profiled
+            from repro_torch import api
+            trainer = api.Trainer(exp.make_fed(scheme),
+                                  exp.init_params()[0], rng=exp.seed + 1)
+            items = exp._round_batches(scheme, None)
+            trainer.run(items, 1)
+            phase_profile("paper", trainer, next(items),
+                          float(np.mean(secs[1:])))
+            del trainer, items
+        del exp, r
+        gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_experiment_cli(dev):
+    """``repro_torch.launch.experiment`` on the card, 3 rounds: the three
+    tracks through the CLI's entry point."""
+    from repro_torch.launch import experiment
+    out = CKPT_DIR / "experiment.json"
+    try:
+        t0 = time.perf_counter()
+        rec = experiment.main(["--rounds", "3", "--device", dev.type,
+                               "--out", str(out)])
+        secs = time.perf_counter() - t0
+        check(out.exists(), "the experiment CLI wrote no results file")
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    check(sorted(rec) == sorted(experiment.metric_names()),
+          f"experiment records {sorted(rec)}")
+    check(rec["stability_finite"] == 1 and rec["thm1_bound_holds"] == 1,
+          f"experiment: stability_finite {rec['stability_finite']}, "
+          f"thm1_bound_holds {rec['thm1_bound_holds']}")
+    print(f"[experiment] 3 rounds in {secs:.1f} s: stability_finite 1, "
+          f"thm1_bound_holds 1 (excess {rec['thm1_excess']} <= bound "
+          f"{rec['thm1_bound']}); shuffled_beats_random "
+          f"{rec['shuffled_beats_random']} (torch's draws: a sample, not "
+          "held)")
+
+
 def device_kernels(prof, skip=()):
     """``(name, device ms, count)`` of every kernel in a profile, leaving
     out the names in ``skip``, and their device ms summed by group."""
@@ -1456,6 +1892,10 @@ def _kernel_group(name):
                        ("fillin_agg", "fillin_agg_inplace (port)"),
                        ("sgd_inplace", "sgd_inplace (port)"),
                        ("distribution", "random draws (masks)"),
+                       ("convolve", "cuDNN convolutions"),
+                       ("fprop", "cuDNN convolutions"),
+                       ("dgrad", "cuDNN convolutions"),
+                       ("wgrad", "cuDNN convolutions"),
                        ("gemm", "cuBLAS gemm (bmm, addmm)"),
                        ("elementwise", "elementwise"),
                        ("reduce", "reductions"),
@@ -1496,14 +1936,20 @@ def phase_profile(tag, trainer, batch, round_s):
     for name, t, n in sorted(kern, key=lambda r: -r[1])[:12]:
         print(f"[profile {tag}]   {t:9.2f} ms x{n:<5d} {name[:100]}")
     # the client steps' update group against its byte bound for the round:
-    # K steps x C clients x every element of every leaf, reading w and g (and
-    # m) and writing w once
+    # K steps x C clients x every element of every leaf they step (compact
+    # in the extract round), reading w and g (and m) and writing w once
     group, per_elt = (("masked_sgd_inplace (port)", 16)
                       if isinstance(trainer.fed, api.MaskFedAvg)
                       else ("sgd_inplace (port)", 12))
-    scfg = trainer.fed.scfg
-    elts = scfg.local_steps * scfg.clients_per_round * sum(
-        v.numel() for v in trainer.params.values())
+    fed, scfg = trainer.fed, trainer.fed.scfg
+    if isinstance(fed, api.WindowFedAvg) and not fed.use_fused:
+        # the extract round steps its clients' compact copies
+        from repro_torch.core.extract import sub_abstract
+        n = sum(math.prod(v) for v in sub_abstract(
+            fed.abstract, fed.axes, fed.scheme.sizes).values())
+    else:
+        n = sum(v.numel() for v in trainer.params.values())
+    elts = scfg.local_steps * scfg.clients_per_round * n
     b_ms = 1e3 * per_elt * elts / PEAK_BYTES
     check(groups.get(group, 0.0) > 0,
           f"[profile {tag}] no {group} time in the profile")
@@ -1537,13 +1983,17 @@ def main():
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     phase_small_agreement_mask(dev)
     phase_small_agreement_ssm(dev)
-    launches, trainer, batch, round_s = phase_main_path(dev, _build)
+    phase_small_agreement_extract(dev)
+    phase_small_agreement_paper(dev)
+    launches, trainer, batch, round_s, fused = phase_main_path(dev, _build)
     e_launches = phase_eval(dev, trainer, _build)
     phase_profile("window", trainer, batch, round_s)
     phase_trainer_eval(trainer, full_width(dev)[2])
     del trainer            # the two full-width paths do not fit together
     gc.collect()
     torch.cuda.empty_cache()
+    x_launches, f_launches = phase_extract_path(dev, _build, fused)
+    del fused
     m_launches, trainer, batch, round_s = phase_mask_path(dev, _build)
     phase_profile("mask", trainer, batch, round_s)
     phase_client_phase_peaks(trainer, batch)
@@ -1558,14 +2008,26 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_dense(dev, _build)
+    p_launches = phase_paper_path(dev, _build)
+    phase_experiment_cli(dev)
     path = {"masked_sgd_inplace": m_launches, "fillin_agg_inplace": m_launches,
             "ssd_chunk_intra": s_launches}
     path.update({name: e_launches for name in (
         "flash_attention", "rolling_matmul", "rolling_matmul_multi",
         "rolling_matmul_dx", "rolling_matmul_dx_multi")})
+    # the launches of the extract, full and paper paths (rows 9-11)
+    more = {"sgd_inplace": {"extract": x_launches, "full": f_launches},
+            "masked_sgd_inplace": {"paper": p_launches},
+            "fillin_agg_inplace": {"paper": p_launches}}
     for r in rows:
         r["launches"] = path.get(r["name"], launches).get(r["name"], 0)
-    missing = [r["name"] for r in rows if r["launches"] == 0]
+        if r["name"] in more:
+            r["launches_by_path"] = {
+                "main": r["launches"], **{p: n.get(r["name"], 0) for p, n in
+                                          more[r["name"]].items()}}
+    missing = [r["name"] for r in rows if r["launches"] == 0] + [
+        f"{r['name']} ({p})" for r in rows
+        for p, n in r.get("launches_by_path", {}).items() if n == 0]
     check(not missing, f"kernels never launched on their path: {missing}")
 
     print(json.dumps({"kernels": rows}))

@@ -1,8 +1,8 @@
 """repro_torch.api — the port's public entry surface.
 
 Ports ``MODES``, ``resolve_mode``, ``fed_round`` (window mode with one
-shared window, and mask mode), ``Trainer`` and ``checkpoint_callback`` of
-``repro/api.py``::
+shared window or none, through the fused or the extract client phase, and
+mask mode), ``Trainer`` and ``checkpoint_callback`` of ``repro/api.py``::
 
     from repro_torch import api
     from repro_torch.configs.base import SubmodelConfig, get_config
@@ -19,6 +19,11 @@ shared window, and mask mode), ``Trainer`` and ``checkpoint_callback`` of
     # Algorithm 1: unstructured Bernoulli masks resolve to mask mode
     fed = api.fed_round(model, SubmodelConfig(scheme="bernoulli", ...))
     params, history = api.Trainer(fed, params, rng=0).run(batches, 3)
+
+    # Algorithm 2 as written: compact per-client copies (the extract phase)
+    fed = api.fed_round(model, scfg, fused_forward="off")
+    # the FedAvg baseline: every client trains a full replica
+    fed = api.fed_round(model, SubmodelConfig(scheme="full", ...))
 
     # held-out loss each round, logged, with a checkpoint (reference layout)
     trainer = api.Trainer(
@@ -83,7 +88,7 @@ def _model_parts(model) -> Tuple[Any, Any, Any]:
 def _windowed_loss(loss_fn):
     """``loss_fn`` itself when it is window-aware (accepts a ``window=``
     kwarg, like ``Model.loss``), else None: the fused client phase is only
-    offered where it exists."""
+    offered where it exists, and the round takes the extract phase."""
     try:
         if "window" in inspect.signature(loss_fn).parameters:
             return loss_fn
@@ -97,8 +102,8 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
               capacities=None, fused_forward="auto",
               uplink_compression=None, device="cuda"):
     """Build one federated sub-model round: a :class:`WindowFedAvg`
-    (Algorithm 2, one shared window, fused client phase) or a
-    :class:`MaskFedAvg` (dense masks, Algorithm 1).
+    (Algorithm 2, one shared window or none) or a :class:`MaskFedAvg`
+    (dense masks, Algorithm 1).
 
     Args:
       model: a port ``Model`` (``.loss(params, batch, window=)``,
@@ -106,15 +111,18 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
         axes)`` triple: ``abstract`` is ``{path: torch.Size}``, ``axes``
         ``{path: axis tags}``, and ``loss_fn(params, batch[, window=])``
         takes ``[C, ...]`` params and batch leaves and returns ``([C]
-        losses, aux)``.  Window mode needs a ``window=`` argument (the
-        extract client phase is not ported).
+        losses, aux)``.  A loss without ``window=`` runs window mode
+        through the extract client phase.
       scfg: the :class:`SubmodelConfig`.
       mode: ``auto`` (``mask`` for ``bernoulli``, else ``window``),
         ``window`` or ``mask``.
       client_opt: None or ``"sgd"`` (the paper's plain SGD).
       capacities: mask mode: per-client ``[C]`` capacities (default
         ``scfg.capacity`` for every client).
-      fused_forward: window mode: ``auto`` or ``on``.
+      fused_forward: window mode: ``auto`` (the fused client phase where
+        every windowed axis has a fused forward, else the extract phase),
+        ``on``/True (the fused phase, or ValueError) or ``off``/False (the
+        extract phase).
       device: ``cuda`` (default; raises without a card) or ``cpu``.
     """
     loss_fn, abstract, axes = _model_parts(model)
@@ -146,10 +154,7 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
         _not_ported("the mesh round", "mesh round")
     if uplink_compression is not None:
         _not_ported("uplink compression", "optimizers and the uplink")
-    wloss = _windowed_loss(loss_fn)
-    if wloss is None:
-        _not_ported("the extract client phase (for a loss without "
-                    "window=)", "extract client phase")
-    return build_window_fed(wloss, scfg, abstract, axes, dev,
+    return build_window_fed(loss_fn, scfg, abstract, axes, dev,
                             client_opt=client_opt,
+                            windowed_loss_fn=_windowed_loss(loss_fn),
                             fused_forward=fused_forward)

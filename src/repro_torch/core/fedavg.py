@@ -1,21 +1,26 @@
-"""The federated rounds: window mode with one shared window (Algorithm 2)
-and mask mode (Algorithm 1 and the paper's protocol round).
+"""The federated rounds: window mode with one shared window or none
+(Algorithm 2) and mask mode (Algorithm 1 and the paper's protocol round).
 
 Ports, from ``repro/core/fedavg.py``: ``resolve_shared_window``,
-``WindowFedAvg`` (construction, ``_resolve_fused`` for what this port
-covers, ``_client_offsets``, ``_fused_window``, ``_client_phase_fused``
-and ``_apply_mean_delta_fused`` for the shared window, ``round``),
-``_scatter_update``, ``dense_client_masks``, ``MaskFedAvg`` and
-``_build_mask_fed``.
+``WindowFedAvg`` (construction, ``_resolve_fused``, ``_client_offsets``,
+``_fused_window``, ``_extract_clients``, ``_client_phase``,
+``_apply_mean_delta``, ``_mean_delta_full``, ``_client_phase_fused`` and
+``_apply_mean_delta_fused`` for the shared window, ``round``),
+``_scatter_update``, ``dense_client_masks``, ``MaskFedAvg``,
+``_build_mask_fed``, ``output_model`` and ``run_rounds``.
 
 Clients are an explicit leading dimension ``[C, ...]`` of every leaf (the
-reference vmaps them).  Each client trains K local SGD steps on its own
-copy of the FULL model.  In window mode the copy runs through the
-window-aware forward, so coordinates outside the window get exactly zero
-gradient; the server then takes the clients' mean change inside the
-window and adds it in place.  In mask mode each client's copy starts as
-``w * m_c`` under a dense mask, its steps are masked, and the server takes
-the fill-in average.  Batch leaves are ``[K, C, ...]``.
+reference vmaps them).  Window mode has two client phases, as the
+reference's.  The fused one trains each client's copy of the FULL model
+through the window-aware forward, so coordinates outside the window get
+exactly zero gradient, and the server adds the clients' mean change into
+the window in place.  The extract one (Algorithm 2 as written) gives each
+client a compact copy of its window (a full replica when no axis is
+windowed, as under scheme ``full``), trains it through the model's
+ordinary loss and sends back the change; the server averages the changes
+and scatters them into the window.  In mask mode each client's copy
+starts as ``w * m_c`` under a dense mask, its steps are masked, and the
+server takes the fill-in average.  Batch leaves are ``[K, C, ...]``.
 """
 from __future__ import annotations
 
@@ -27,9 +32,10 @@ import torch
 
 from repro_torch.configs.base import SubmodelConfig
 from repro_torch.core import submodel as sm
-from repro_torch.core.extract import extract
+from repro_torch.core.extract import extract, scatter_delta
 from repro_torch.core.masking import (WindowScheme, collect_axis_dims,
                                       make_scheme, seeded_generator)
+from repro_torch.core.trainer import Trainer, _to_device
 from repro_torch.models.layers import AxisWindow, WindowMap
 from repro_torch.optim.client import ClientOpt, resolve_client_opt
 
@@ -50,53 +56,88 @@ def resolve_shared_window(scfg: SubmodelConfig) -> bool:
     return scfg.shared_window
 
 
+def _steps(params, batch, loss_fn, opt, lr):
+    """K local steps on ``params`` (``{path: [C, ...]}``, trained in place)
+    over batch leaves ``[K, C, ...]``; ``loss_fn(params, step batch)``
+    returns ``([C], aux)``.  Returns the losses ``[K, C]``."""
+    for v in params.values():
+        v.requires_grad_()
+    state = opt.init(params)
+    losses = []
+    for k in range(next(iter(batch.values())).shape[0]):
+        loss, _ = loss_fn(params, {name: v[k] for name, v in batch.items()})
+        # summing the per-client losses gives each client its own grad
+        grads = torch.autograd.grad(loss.sum(), list(params.values()))
+        with torch.no_grad():
+            params, state = opt.update(params, dict(zip(params, grads)),
+                                       state, lr)
+        del grads
+        losses.append(loss.detach())
+    for v in params.values():
+        v.requires_grad_(False)
+    return torch.stack(losses)
+
+
 @dataclass
 class WindowFedAvg:
-    loss_fn: Callable                 # (params, batch, window=) -> ([C], aux)
+    loss_fn: Callable                 # (params, batch) -> ([C], aux)
     scfg: SubmodelConfig
+    abstract: Dict[str, torch.Size]   # {path: full shape}
     axes: Dict[str, tuple]            # {path: axis tags}
     scheme: WindowScheme
     device: torch.device
     client_opt: Optional[ClientOpt] = None
-    fused_forward: Any = "auto"       # "auto" | True/"on"
+    # loss_fn(params, batch, window=WindowMap): the fused client phase runs
+    # it; None (a loss without window=) leaves the extract phase only
+    windowed_loss_fn: Optional[Callable] = None
+    fused_forward: Any = "auto"       # "auto" | True/"on" | False/"off"
 
     def __post_init__(self):
         self.shared_window = resolve_shared_window(self.scfg)
         self.client_opt = resolve_client_opt(self.client_opt)
-        self._fused_keys = self._resolve_fused()
+        self.use_fused = self._resolve_fused()
 
-    def _resolve_fused(self):
-        """The windows the fused client phase runs (every properly
-        windowed axis).  The port runs only the fused phase, with one
-        shared window; anything else is not ported yet and says so."""
-        if self.fused_forward in (False, "off"):
-            raise NotImplementedError(
-                "the extract client phase is not ported yet (ROADMAP.md "
-                "queue A, extract client phase)")
-        if self.fused_forward not in (True, "on", "auto", None):
-            raise ValueError(f"fused_forward must be 'auto' or 'on'; got "
-                             f"{self.fused_forward!r}")
-        if not self.shared_window:
+    def _resolve_fused(self) -> bool:
+        """Whether the round takes the fused client phase (every properly
+        windowed axis has a fused forward) or the extract one, as the
+        reference resolves it; per-client windows are not ported."""
+        want = self.fused_forward
+        if want not in (True, "on", False, "off", "auto", None):
+            raise ValueError(f"fused_forward must be 'auto', 'on'/True or "
+                             f"'off'/False; got {want!r}")
+        # proper windows only (size < full dim): improper ones are no-ops
+        proper = {k: w for k, w in self.scheme.sizes.items() if w < k[1]}
+        if proper and not self.shared_window:
             raise NotImplementedError(
                 "per-client (staggered or random) windows are not ported yet "
                 "(ROADMAP.md queue A, per-client windows)")
-        proper = {k: w for k, w in self.scheme.sizes.items() if w < k[1]}
+        if want in (False, "off"):
+            return False
+        reasons = []
+        if self.windowed_loss_fn is None:
+            reasons.append("the model exposes no windowed forward "
+                           "(loss(params, batch, window=...))")
         if not proper:
-            raise NotImplementedError(
-                "no axis is windowed, so the round would train the full "
-                "model through the extract client phase, which is not "
-                "ported yet (ROADMAP.md queue A, extract client phase)")
-        unsupported = sorted(k for k in proper
-                             if k[0] not in WindowMap.SUPPORTED)
-        uncoupled = sorted(k for k in proper if k[0] == "heads"
-                           and k not in self.scheme.derived)
-        if unsupported or uncoupled:
-            raise NotImplementedError(
-                f"axes {unsupported + uncoupled} have no fused window-aware "
-                f"forward in the port (it fuses {WindowMap.SUPPORTED}, heads "
-                "GQA-derived from kv_heads); the extract client phase is not "
-                "ported yet (ROADMAP.md queue A, extract client phase)")
-        return proper
+            reasons.append("no axis is actually windowed (nothing to fuse)")
+        unsupported = [k for k in proper if k[0] not in WindowMap.SUPPORTED]
+        if unsupported:
+            reasons.append(f"axes {sorted(unsupported)} have no fused "
+                           f"window-aware forward (supported: "
+                           f"{WindowMap.SUPPORTED})")
+        # GQA coupling: a heads window must derive from the kv_heads one
+        uncoupled = [k for k in proper
+                     if k[0] == "heads" and k not in self.scheme.derived]
+        if uncoupled and any(name == "kv_heads" for name, _ in
+                             collect_axis_dims(self.abstract, self.axes)):
+            reasons.append(f"heads windows {sorted(uncoupled)} are not "
+                           "GQA-derived from a kv_heads window")
+        if reasons:
+            if want in (True, "on"):
+                raise ValueError("fused_forward=True requires: "
+                                 + "; ".join(reasons))
+            return False
+        self._fused_keys = proper
+        return True
 
     # -- round phases ---------------------------------------------------------
 
@@ -124,31 +165,79 @@ class WindowFedAvg:
         return WindowMap({k: AxisWindow(offsets[k], w)
                           for k, w in self._fused_keys.items()})
 
+    def _extract_clients(self, params, offsets, count=None):
+        """Per-client compact sub-models ``{path: [C, *sub shape]}``,
+        contiguous copies (the client steps update them in place); with no
+        offsets every client gets a full replica.  ``count`` overrides C."""
+        C = self.scfg.clients_per_round if count is None else count
+        off0 = {k: v[0] for k, v in offsets.items()}
+        sub = extract(params, self.axes, off0, self.scheme.sizes)
+        return {k: v.unsqueeze(0).repeat(C, *([1] * v.dim()))
+                for k, v in sub.items()}
+
+    def _client_phase(self, params, batch, offsets):
+        """extract -> K local steps through the ordinary ``loss_fn`` ->
+        delta.  Returns the clients' float32 changes ``{path: [C, *sub
+        shape]}`` (computed in place of their trained copies) and the
+        losses ``[K, C]``."""
+        C = next(iter(batch.values())).shape[1]       # every leaf [K, C, ...]
+        sub = self._extract_clients(params, offsets, count=C)
+        losses = _steps(sub, batch, self.loss_fn, self.client_opt,
+                        self.scfg.client_lr)
+        off0 = {k: v[0] for k, v in offsets.items()}
+        sub_0 = extract(params, self.axes, off0, self.scheme.sizes)
+        with torch.no_grad():
+            delta = {k: v.float().sub_(sub_0[k].float()[None])
+                     for k, v in sub.items()}
+        return delta, losses
+
+    def _apply_mean_delta(self, params, delta, offsets):
+        """Plain averaging (the paper's fill-in update, delta form), in
+        place.  Shared window: the mean change over clients, then one
+        in-place scatter.  Otherwise (no windowed axis, where every
+        scatter is the identity) the float32 sum of the clients' scattered
+        changes, ``w + server_lr * sum / C``."""
+        c = self.scfg
+        if self.shared_window and offsets:
+            off0 = {k: v[0] for k, v in offsets.items()}
+            dbar = {k: d.float().mean(0) for k, d in delta.items()}
+            return _scatter_update(params, dbar, self.axes, off0,
+                                   self.scheme.sizes, c.server_lr)
+        C = next(iter(delta.values())).shape[0]
+        for path, w in params.items():
+            acc = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+            for ci in range(C):
+                off_c = {k: v[ci] for k, v in offsets.items()}
+                acc += scatter_delta({path: delta[path][ci]}, self.abstract,
+                                     self.axes, off_c,
+                                     self.scheme.sizes)[path]
+            w.copy_((w.float() + c.server_lr * acc / C).to(w.dtype))
+        return params
+
+    def _mean_delta_full(self, params, delta, offsets):
+        """The full-shaped float32 mean client delta (``output_model``'s
+        averaged gradient): the clients' mean, scattered into the shared
+        window (no windowed axis: the mean itself)."""
+        dbar = {k: d.float().mean(0) for k, d in delta.items()}
+        if not offsets:
+            return dbar
+        off0 = {k: v[0] for k, v in offsets.items()}
+        return scatter_delta(dbar, self.abstract, self.axes, off0,
+                             self.scheme.sizes)
+
     def _client_phase_fused(self, params, batch, offsets):
         """K SGD steps on per-client copies of the FULL model, through the
-        window-aware forward.  Returns the clients' params after K steps
-        (``{path: [C, ...]}``) and the losses ``[K, C]``."""
-        c = self.scfg
-        first = next(iter(batch.values()))            # every leaf [K, C, ...]
-        C = first.shape[1]
-        full = {k: v.unsqueeze(0).repeat(C, *([1] * v.dim())).requires_grad_()
+        window-aware forward; no compact copy of any leaf.  Returns the
+        clients' params after K steps (``{path: [C, ...]}``) and the
+        losses ``[K, C]``."""
+        C = next(iter(batch.values())).shape[1]       # every leaf [K, C, ...]
+        full = {k: v.unsqueeze(0).repeat(C, *([1] * v.dim()))
                 for k, v in params.items()}
         window = self._fused_window(offsets)
-        opt, state = self.client_opt, self.client_opt.init(full)
-        losses = []
-        for k in range(first.shape[0]):
-            mb = {name: v[k] for name, v in batch.items()}
-            loss, _ = self.loss_fn(full, mb, window=window)
-            # summing the per-client losses gives each client its own grad
-            grads = torch.autograd.grad(loss.sum(), list(full.values()))
-            with torch.no_grad():
-                full, state = opt.update(full, dict(zip(full, grads)), state,
-                                         c.client_lr)
-            del grads
-            losses.append(loss.detach())
-        for v in full.values():
-            v.requires_grad_(False)
-        return full, torch.stack(losses)
+        wloss = self.windowed_loss_fn
+        losses = _steps(full, batch, lambda p, mb: wloss(p, mb, window=window),
+                        self.client_opt, self.scfg.client_lr)
+        return full, losses
 
     def _apply_mean_delta_fused(self, params, full_k, offsets):
         """Shared window: out-of-window coordinates of every client's change
@@ -171,10 +260,17 @@ class WindowFedAvg:
         from it (their order is seeded by ``scfg.seed``)."""
         offsets = (self._client_offsets(round_idx) if offsets is None
                    else self._check_offsets(offsets))
-        full_k, losses = self._client_phase_fused(params, batch, offsets)
-        with torch.no_grad():
-            self._apply_mean_delta_fused(params, full_k, offsets)
+        if self.use_fused and offsets:
+            full_k, losses = self._client_phase_fused(params, batch, offsets)
+            with torch.no_grad():
+                self._apply_mean_delta_fused(params, full_k, offsets)
             del full_k
+        else:
+            delta, losses = self._client_phase(params, batch, offsets)
+            with torch.no_grad():
+                self._apply_mean_delta(params, delta, offsets)
+            del delta
+        with torch.no_grad():
             sm.project_l2(params, self.scfg.proj_radius)
         return params, {"loss": losses.mean(), "client_loss": losses}
 
@@ -188,11 +284,14 @@ def _scatter_update(params, dbar, axes, off0, sizes, server_lr):
 
 
 def build_window_fed(loss_fn, scfg, abstract, axes, device, client_opt=None,
+                     windowed_loss_fn=None,
                      fused_forward="auto") -> WindowFedAvg:
     scheme = make_scheme(scfg, collect_axis_dims(abstract, axes))
-    return WindowFedAvg(loss_fn=loss_fn, scfg=scfg, axes=axes,
-                        scheme=scheme, device=device,
-                        client_opt=client_opt, fused_forward=fused_forward)
+    return WindowFedAvg(loss_fn=loss_fn, scfg=scfg, abstract=abstract,
+                        axes=axes, scheme=scheme, device=device,
+                        client_opt=client_opt,
+                        windowed_loss_fn=windowed_loss_fn,
+                        fused_forward=fused_forward)
 
 
 # ---------------------------------------------------------------------------
@@ -410,3 +509,55 @@ def build_mask_fed(loss_fn, scfg, abstract, axes, capacities, device,
     return MaskFedAvg(loss_fn=loss_fn, scfg=scfg, abstract=abstract,
                       axes=axes, capacities=capacities, device=device,
                       client_opt=client_opt)
+
+
+# ---------------------------------------------------------------------------
+# Output model (hat-w): the paper's final one-step corrected output
+# ---------------------------------------------------------------------------
+
+
+def output_model(fed, params, batch, generator=None, lipschitz=1.0,
+                 round_idx=0, masks=None, offsets=None):
+    """``hat-w = P_W(w - (1/L) avg_i m_i * grad f_i(m_i * w))`` (the output
+    of Algorithms 1 and 2), on step 0 of ``batch`` (leaves ``[K, C,
+    ...]``); returns new params and leaves ``params`` as they are.
+
+    Mask mode evaluates the literal dense-mask formula, with the round's
+    masks drawn from ``generator`` (or ``masks`` injected).  Window mode
+    evaluates the same quantity in compact form: one gradient on each
+    client's compact sub-model, scattered back and averaged (shared window
+    or no windowed axis; ``offsets`` may replace the scheme's draw).
+    """
+    scfg = fed.scfg
+    mb = {k: _to_device(v, fed.device)[0] for k, v in batch.items()}
+    if isinstance(fed, MaskFedAvg):
+        masks = dense_client_masks(generator, fed.abstract, fed.axes, scfg,
+                                   fed.capacities, round_idx, fed.device,
+                                   masks=masks)
+        w_c = {k: v[None] * masks[k] for k, v in params.items()}
+        _, g = sm.masked_value_and_grad(fed.loss_fn)(w_c, masks, mb)
+        gbar = {k: (masks[k] * g[k]).mean(0) for k in params}
+    else:
+        offsets = (fed._client_offsets(round_idx) if offsets is None
+                   else fed._check_offsets(offsets))
+        sub0 = {k: v.requires_grad_() for k, v in
+                fed._extract_clients(params, offsets).items()}
+        loss, _ = fed.loss_fn(sub0, mb)
+        g = dict(zip(sub0, torch.autograd.grad(loss.sum(),
+                                               list(sub0.values()))))
+        gbar = fed._mean_delta_full(params, g, offsets)
+    with torch.no_grad():
+        new = {k: w - gbar[k].to(w.dtype) / lipschitz
+               for k, w in params.items()}
+        return sm.project_l2(new, scfg.proj_radius)
+
+
+def run_rounds(fed, params, batch_iter, n_rounds, rng=None, callback=None):
+    """Thin wrapper over :class:`repro_torch.core.trainer.Trainer` (kept for
+    the theory and stability harnesses): ``n_rounds`` rounds from
+    ``params`` (updated in place, as the Trainer does), the masks drawn
+    from a generator seeded by ``rng``.  Returns ``(params, history)``,
+    the per-round metric records."""
+    trainer = Trainer(fed, params, rng=rng,
+                      callbacks=(callback,) if callback else ())
+    return trainer.run(batch_iter, n_rounds)

@@ -1,7 +1,10 @@
-"""Synthetic language-model data, the port's own numpy copy.
+"""Synthetic data, the port's own numpy copy.
 
-Ports ``BigramLM`` and ``lm_batches`` of ``repro/data/synthetic.py`` line
-for line, so one seed gives the same tokens in both packages.
+Ports ``BigramLM``, ``lm_batches`` and ``SyntheticCIFAR`` of
+``repro/data/synthetic.py`` line for line, so one seed gives the same
+tokens and images in both packages: language-model token streams with a
+planted bigram structure, and CIFAR-like images from per-class gaussian
+prototypes (the paper's CIFAR-10 stand-in; nothing is downloaded).
 """
 from __future__ import annotations
 
@@ -39,3 +42,26 @@ def lm_batches(vocab, batch_shape, seq, seed=0):
     while True:
         toks = src.sample(rng, flat, seq).reshape(tuple(batch_shape) + (seq,))
         yield {"tokens": toks}
+
+
+class SyntheticCIFAR:
+    """Gaussian class prototypes + noise; image_size x image_size x 3."""
+
+    def __init__(self, n_classes=10, image_size=32, n_train=50_000,
+                 n_test=10_000, noise=0.6, seed=0):
+        rng = np.random.default_rng(seed)
+        self.protos = rng.standard_normal(
+            (n_classes, image_size, image_size, 3)).astype(np.float32)
+        self.n_classes = n_classes
+        self.image_size = image_size
+        self.noise = noise
+        self.train = self._make(rng, n_train)
+        self.test = self._make(rng, n_test)
+
+    def _make(self, rng, n):
+        labels = rng.integers(0, self.n_classes, size=n)
+        imgs = (self.protos[labels]
+                + self.noise * rng.standard_normal(
+                    (n, self.image_size, self.image_size, 3))
+                ).astype(np.float32)
+        return {"images": imgs, "labels": labels.astype(np.int32)}

@@ -15,9 +15,19 @@ import torch
 NEG_INF = -1e30
 
 
+def shared_offset(offsets):
+    """The one offset every client shares, or None."""
+    return offsets[0] if len(set(offsets)) == 1 else None
+
+
 def rolling_matmul_batched_ref(x, ws, offsets, win):
     """``ys[t][c] = x[c] @ ws[t][c][:, offsets[c] : offsets[c] + win]``
-    (the reference's ``rolling_matmul_ref`` per client, per weight)."""
+    (the reference's ``rolling_matmul_ref`` per client, per weight).  A
+    shared window is one ``bmm`` on the window views, the product the
+    extract client phase takes on its compact copies (the same bits)."""
+    o = shared_offset(offsets)
+    if o is not None:
+        return tuple(torch.bmm(x, w[:, :, o:o + win]) for w in ws)
     return tuple(
         torch.stack([x[c] @ w[c, :, o:o + win]
                      for c, o in enumerate(offsets)])
@@ -26,11 +36,16 @@ def rolling_matmul_batched_ref(x, ws, offsets, win):
 
 def rolling_matmul_batched_dx_ref(dys, ws, offsets, win):
     """``dx[c] = sum_t dys[t][c] @ ws[t][c][:, offsets[c] : offsets[c] +
-    win]^T``, summed over t in order (the reference's pairwise sum)."""
+    win]^T``, summed over t in order (the reference's pairwise sum); a
+    shared window as one ``bmm`` per weight, as the forward."""
+    o = shared_offset(offsets)
     out = None
     for dy, w in zip(dys, ws):
-        term = torch.stack([dy[c] @ w[c, :, o:o + win].mT
-                            for c, o in enumerate(offsets)])
+        if o is not None:
+            term = torch.bmm(dy, w[:, :, o:o + win].mT)
+        else:
+            term = torch.stack([dy[c] @ w[c, :, oc:oc + win].mT
+                                for c, oc in enumerate(offsets)])
         out = term if out is None else out + term
     return out
 

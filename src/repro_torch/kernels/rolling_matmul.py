@@ -168,11 +168,17 @@ class RollingMatmulBatched(torch.autograd.Function):
         dx = (rolling_mm_dx(dys, ws, offsets, win, name=ctx.dx_name)
               if ctx.needs_input_grad[0] else None)
         dws = []
+        o = ref.shared_offset(offsets.host)
         for w, dy in zip(ws, dys):
+            # the product writes straight into the window view of dW (no
+            # compact-shaped temporary): one batched product for a shared
+            # window, else one per client
             dw = torch.zeros_like(w)
-            for c, o in enumerate(offsets.host):
-                # the product writes straight into the window view of dW
-                dw[c, :, o:o + win].addmm_(x[c].mT, dy[c])
+            if o is not None:
+                dw[:, :, o:o + win].baddbmm_(x.mT, dy)
+            else:
+                for c, oc in enumerate(offsets.host):
+                    dw[c, :, oc:oc + win].addmm_(x[c].mT, dy[c])
             dws.append(dw)
         return (dx, None, None, None, *dws)
 

@@ -34,10 +34,13 @@ def client_sgd():
 
     def update(params, grads, state, lr, *, masks=None):
         for path, p in params.items():
+            # a grad through a permuted view (the ResNet's HWIO kernels)
+            # comes back strided; the kernels take contiguous operands
+            g = grads[path].contiguous()
             if masks is None:
-                sgd_(p, grads[path], lr)
+                sgd_(p, g, lr)
             else:
-                masked_sgd_(p, masks[path], grads[path], lr)
+                masked_sgd_(p, masks[path], g, lr)
         return params, state
 
     return ClientOpt("sgd", init, update)

@@ -167,7 +167,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 @pytest.mark.parametrize("kw", [
     dict(mode="mask", server_opt="adam"), dict(server_opt="adam"),
     dict(capacities=[0.5] * 4),
-    dict(mesh=object()), dict(fused_forward="off"),
+    dict(mesh=object()), dict(uplink_compression="bf16"),
     dict(client_opt="momentum")])
 def test_unported_options_raise_not_implemented(kw):
     model = build_model(get_reduced_config("tinyllama_1_1b"))
@@ -176,8 +176,8 @@ def test_unported_options_raise_not_implemented(kw):
 
 
 @pytest.mark.parametrize("over", [
-    dict(stagger=True), dict(scheme="random"), dict(scheme="full"),
-    dict(axes=("d_model",))])
+    dict(stagger=True), dict(scheme="random"), dict(shared_window=False),
+    dict(scheme="random", axes=("d_model",))])
 def test_unported_schemes_raise_not_implemented(over):
     model = build_model(get_reduced_config("tinyllama_1_1b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

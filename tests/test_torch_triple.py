@@ -5,10 +5,10 @@ The model is the reference's tiny MLP regression (``tests/test_api.py``
 ``_small_problem``): d_in 24, d_h 32, C = 4 clients, K = 2 local steps,
 batch ``{x: [K, C, 8, 24], y: [K, C, 8]}``.  Its loss takes ``window=`` and
 applies the ``d_ff`` window through each package's own ``WindowMap.get``,
-so the reference resolves its fused client phase and the port its only
-one.  Each loss follows its package's convention: the reference's is per
-client (vmapped by the round), the port's takes ``[C, ...]`` params and
-batch leaves and returns ``[C]`` losses.
+so both packages resolve their fused client phase.  Each loss follows
+its package's convention: the reference's is per client (vmapped by the
+round), the port's takes ``[C, ...]`` params and batch leaves and returns
+``[C]`` losses.
 
 Both packages start from the same params (numpy, through
 ``repro_torch.convert``), take the same batches, and the port gets the
@@ -184,14 +184,19 @@ def test_other_objects_raise_type_error(bad):
 
 
 def test_window_mode_needs_a_window_aware_loss():
-    """A loss without ``window=`` would take the reference's extract client
-    phase, which the port does not have yet; mask mode takes it."""
+    """Only a loss with ``window=`` gets the fused client phase: without it
+    window mode takes the extract phase, as the reference's does, and
+    ``fused_forward="on"`` raises; mask mode takes it."""
     def plain(w, b):
         return port_loss(w, b)
 
     scfg = SubmodelConfig(scheme="rolling", **BASE)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*extract client"):
-        api.fed_round(_port_triple(plain), scfg, device="cpu")
+    fed = api.fed_round(_port_triple(plain), scfg, device="cpu")
+    assert isinstance(fed, api.WindowFedAvg) and not fed.use_fused
+    assert api.fed_round(_port_triple(), scfg, device="cpu").use_fused
+    with pytest.raises(ValueError, match="no windowed forward"):
+        api.fed_round(_port_triple(plain), scfg, fused_forward="on",
+                      device="cpu")
     fed = api.fed_round(_port_triple(plain), scfg, mode="mask", device="cpu")
     assert isinstance(fed, api.MaskFedAvg)
 
