@@ -32,7 +32,13 @@ Phases, each of which fails the run when it fails:
    Mamba2 serving (prefill 2 x 64, 4 greedy steps) and its loss; the
    extract round (``fused_forward="off"``) and scheme ``full``; and a
    reduced ``PaperExperiment`` (ResNet, 2 rounds each of ``rolling`` and
-   ``random`` with CPU-drawn masks, and ``static``).
+   ``random`` with CPU-drawn masks, and ``static``); then this slice's
+   configurations: staggered rolling (fused and extract), ``random``,
+   ``importance`` (shared and staggered), client momentum and proximal,
+   server ``sgd`` and ``momentum`` (2 chained rounds each), and server
+   Adam, a mask round with client momentum and server Adam, and the bf16
+   uplink, each round from the CPU's params and server state and held per
+   coordinate at the bound of its step function.
 4. The window path: the shared-window federated round on full-width
    TinyLlama-1.1B (22 layers, f32, 4 clients x 2 local steps x 2 x 256
    tokens), through ``api.fed_round`` and ``api.Trainer``, 3 rounds, with
@@ -58,11 +64,25 @@ Phases, each of which fails the run when it fails:
    copy of the leaves its kernels read in place, the extract phase does);
    then 2 rounds of scheme ``full`` (FedAvg, every client on a full
    replica).  Seconds per round, peaks and row 10's launches.
+4f. The stagger path: the window path's configuration with staggered
+   rolling windows (each client its own window: rows 5-8 take one offset
+   per client, ``w_down``/``wo`` rows one gather), client momentum,
+   server Adam and the bf16 uplink, 3 rounds through ``api.fed_round`` and
+   ``api.Trainer``: the clients' offsets, seconds per round, peak, rows
+   5-8 and 10's launches, one profiled round, the "no W_sub copy" pin for
+   per-client windows (``[wsub stagger]``); then the same configuration
+   through ``python -m repro_torch.launch.train`` as a subprocess
+   (``[train cli]``, finite losses).
 4b. The mask path: the same configuration with ``scheme="bernoulli"``
    (Algorithm 1, mask mode chosen by ``api.fed_round`` itself) through
    ``api.Trainer(rng=0)``, 3 rounds, counted, checked and profiled the
    same way; then the peak memory of one client phase run with the model
    on ``w_c`` (what the round runs) and on the literal ``m * w_c``.
+4g. The mask path with the optimizers (``[mask opt]``): server Adam on
+   the masked mean delta at full width, 3 rounds (row 9); client momentum
+   on the plain round (rows 9 and 11) and with server Adam, 2 rounds each
+   at 11 of 22 layers (momentum's velocity and the literal client phase
+   do not fit beside the full width's masks).
 4c. Serving, after the mask path is freed: full-width Mamba2-130M (24
    layers, f32, random weights from seed 0) prefills 8 BigramLM prompts of
    32768 tokens and decodes 64 greedy tokens through ``serve.generate``
@@ -83,14 +103,15 @@ Phases, each of which fails the run when it fails:
    (``stability_finite`` and ``thm1_bound_holds`` held to 1).
 
 The update kernels (rows 9-11) are also held and timed at the shapes the
-extract and paper paths give them, and their rows carry each path's
-launches (``launches_by_path``).
+extract and paper paths give them, and rows 5-11 carry each path's
+launches (``launches_by_path``: extract, full, stagger, mask_opt, paper).
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  With no
 card, or without the repository beside it, the script fails and prints no
 result.
 """
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -329,6 +350,10 @@ def phase_kernels(dev):
         if row in (5, 6):      # the k/v projections: window 128 of 256
             rows[-1]["sub_rows"] = [product_timing(dev, g, kind, T, C, M,
                                                    256, 128, 128)]
+        # the stagger path's per-client windows: the grid's 2 windows, each
+        # taken by 2 of the 4 clients
+        rows[-1].setdefault("sub_rows", []).append(product_timing(
+            dev, g, kind, T, C, M, N, win, [0, off, 0, off]))
 
     # autograd through the Function at the gate/up shape against plain
     # autograd on the window views
@@ -399,12 +424,14 @@ def phase_kernels(dev):
 def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None):
     """One product kernel ("fwd" or "dx", T weights) at one shape: ``c``
     clients of ``m`` tokens, x [c, m, D], W [c, D, N], window ``win`` at
-    ``off``.  Held against its plain version within MM_RTOL, then timed
-    beside it, beside the library (``bmm``/``baddbmm`` on the window views;
-    ``mm``/``addmm`` for one model, ``scalar_name`` given, which also names
-    the launches) and beside its bound at the 3xTF32 rate; a second launch
-    must equal the first bit for bit.  Returns the kernel table's numbers
-    and the block tile the launch took."""
+    ``off`` (a list: one offset per client).  Held against its plain
+    version within MM_RTOL, then timed beside it, beside the library
+    (``bmm``/``baddbmm`` on the window views; ``mm``/``addmm`` for one
+    model, ``scalar_name`` given, which also names the launches; none for
+    per-client windows, which no one call reads in place) and beside its
+    bound at the 3xTF32 rate; a second launch must equal the first bit for
+    bit.  Returns the kernel table's numbers and the block tile the launch
+    took."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rolling_matmul import (block_tile, make_offsets,
                                                     rolling_mm_dx,
@@ -413,9 +440,10 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None):
     ws = [torch.randn((c, D, N), device=dev, generator=g) for _ in range(T)]
     dys = [torch.randn((c, m, win), device=dev, generator=g)
            for _ in range(T)]
-    offs = [off] * c
+    per_client = isinstance(off, list)
+    offs = off if per_client else [off] * c
     o = make_offsets(offs, dev)     # the device copy a model keeps
-    views = [w[:, :, off:off + win] for w in ws]
+    views = [] if per_client else [w[:, :, off:off + win] for w in ws]
     flops = 2 * c * T * m * D * win
     lead = [] if scalar_name else [c]
     if kind == "fwd":
@@ -458,11 +486,14 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None):
           f"{kind}<{T}> at {shape}: two launches differ")
     b_ms, b_by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
     k_ms = cuda_ms(kern)
+    if per_client:
+        shape["offsets"] = offs
     return dict(
         shape=shape, block_tile=list(block_tile(kind, T, c, m, D, win)),
         max_abs_err=e[0], max_rel_err=e[1], tolerance=MM_RTOL, ms=k_ms,
-        kernel_ms=k_ms, plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
-        library_calls=T, bound_ms=b_ms, bound_by=b_by,
+        kernel_ms=k_ms, plain_ms=cuda_ms(plain),
+        library_ms=None if per_client else cuda_ms(lib),
+        library_calls=0 if per_client else T, bound_ms=b_ms, bound_by=b_by,
         bound_rate="3xTF32: 2*M*N*K at 495/3 TFLOP/s")
 
 
@@ -1658,18 +1689,20 @@ def allocation_shapes(fn):
     return result, mode.shapes
 
 
-def phase_wsub_pin(dev, model, params, batch, offsets):
+def phase_wsub_pin(dev, model, params, batch, offsets, scfg=None,
+                   tag="wsub"):
     """"No per-client W_sub copy": the fused client phase allocates no
     tensor shaped like a stacked compact leaf (``[C, 2048, 2816]`` for
     ``w_gate``, ``[C, 2048, 16, 64]`` for ``wq``, ...), while the extract
-    phase allocates them; both from the same params, batch and offsets."""
+    phase allocates them; both from the same params, batch and offsets
+    (one shared window, or with ``scfg`` one window per client)."""
     from repro_torch import api
+    scfg = scfg or scfg_for("rolling")
     batch = {k: torch.as_tensor(v).to(dev, torch.long)
              for k, v in batch.items()}
     found = {}
     for ff in ("on", "off"):
-        fed = api.fed_round(model, scfg_for("rolling"), fused_forward=ff,
-                            device=dev)
+        fed = api.fed_round(model, scfg, fused_forward=ff, device=dev)
         compact = compact_shapes(fed, 4)
         pinned = {s for s, names in compact.items() if names <= set(PINNED)}
         other = {(4, *s) for s in fed.abstract.values()} | \
@@ -1685,10 +1718,11 @@ def phase_wsub_pin(dev, model, params, batch, offsets):
                      for s, n in shapes.items() if s in pinned}
         seen = {"/".join(sorted(compact[s])): n for s, n in shapes.items()
                 if s in compact and s not in pinned}
-        print(f"[wsub] {'fused' if ff == 'on' else 'extract'} client phase: "
+        print(f"[{tag}] {'fused' if ff == 'on' else 'extract'} client phase: "
               f"{sum(shapes.values())} allocations; stacked compact copies "
               f"of {PINNED}: {found[ff]}; other compact-shaped tensors "
-              f"(window-view gradients in the fused phase): {seen}")
+              f"(window rows of w_down/wo and their gradients in the fused "
+              f"phase): {seen}")
     check(not found["on"], f"the fused client phase allocated stacked "
           f"compact leaves: {found['on']}")
     check(any("w_gate" in k for k in found["off"]) and
@@ -1756,6 +1790,278 @@ def phase_extract_path(dev, _build, fused):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, f_launches
+
+
+# -- this slice: per-client windows, client and server optimizers, the uplink
+
+ADAM_LR, ADAM_B1, ADAM_B2, ADAM_EPS = 0.1, 0.9, 0.99, 1e-6
+CLI = ["--arch", "tinyllama_1_1b", "--stagger", "--client-opt", "momentum",
+       "--server-opt", "adam", "--uplink-compression", "bf16", "--clients",
+       "4", "--local-steps", "2", "--mb", "2", "--seq", "256", "--rounds",
+       "3", "--log-every", "1"]
+
+
+def stagger_scfg():
+    return dataclasses.replace(scfg_for("rolling"), stagger=True)
+
+
+def _to(tree, dev):
+    """A copy of a params dict or a server state on ``dev``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev, copy=True)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree
+
+
+def _injected(fed, mode, rounds):
+    """Each round's offsets or masks, drawn on the CPU."""
+    from repro_torch.core.fedavg import dense_client_masks
+    if mode == "mask":
+        return [{"masks": dense_client_masks(
+            torch.Generator().manual_seed(r), fed.abstract, fed.axes,
+            fed.scfg, fed.capacities, r, torch.device("cpu"))}
+            for r in range(rounds)]
+    if fed.scfg.scheme == "importance":
+        return [{} for _ in range(rounds)]   # read off each round's params
+    return [{"offsets": fed._client_offsets(r)} for r in range(rounds)]
+
+
+def _max_diff(a, b):
+    return max((a[k].cpu() - b[k]).abs().max().item() for k in b)
+
+
+def phase_small_agreement_opt(dev):
+    """This slice's configurations, reduced, on the card against the CPU
+    from the same params and the same injected offsets or masks (drawn on
+    the CPU; importance offsets read off each device's own params).  The
+    SGD-type ones run 2 chained rounds within ROUND_TOL.  Server Adam and
+    the bf16 uplink are step functions of the mean delta near eps and near
+    bfloat16 rounding midpoints, so each of their 2 rounds runs on both
+    from the CPU's params and server state before it, and is held per
+    coordinate: Adam within ``ROUND_TOL + 2 lr dd / (sqrt(v_hat) + eps)``
+    with ``dd`` the two mean deltas' difference (read back from the first
+    moment, itself within ROUND_TOL), the uplink within ``ROUND_TOL +
+    server_lr 2^-7 max_c |d_c|`` (one bfloat16 ulp of the largest client
+    change, from the CPU's client phase)."""
+    from repro_torch import api
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.core.trainer import _to_device
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    cfg = get_reduced_config("tinyllama_1_1b")
+    model = build_model(cfg)
+    batch = next(lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0))
+    p0 = model.init(0, device="cpu")
+    stag, roll = dict(stagger=True), {}
+    chained = [
+        ("staggered rolling, fused", "window", stag, {}),
+        ("staggered rolling, extract", "window", stag,
+         dict(fused_forward="off")),
+        ("random (CPU-drawn offsets)", "window", dict(scheme="random"), {}),
+        ("importance, shared", "window", dict(scheme="importance"), {}),
+        ("importance, staggered", "window",
+         dict(scheme="importance", stagger=True), {}),
+        ("client momentum", "window", roll, dict(client_opt="momentum")),
+        ("client proximal", "window", roll, dict(client_opt="proximal")),
+        ("server sgd", "window", roll, dict(server_opt="sgd")),
+        ("server momentum, staggered", "window", stag,
+         dict(server_opt="momentum")),
+    ]
+    for tag, mode, over, kw in chained:
+        scfg = dataclasses.replace(scfg_for("rolling"), **over)
+        outs = {}
+        for where in ("cpu", dev):
+            fed = api.fed_round(model, scfg, mode=mode, device=where, **kw)
+            trainer = api.Trainer(fed, _to(p0, where))
+            trainer.run(((batch, i) for i in _injected(fed, mode, 2)), 2)
+            outs[str(where)] = trainer
+        g, c = outs[str(dev)], outs["cpu"]
+        dl = max((a["client_loss"].cpu() - b["client_loss"]).abs().max()
+                 .item() for a, b in zip(g.history, c.history))
+        dp = _max_diff(g.params, c.params)
+        check(dl <= ROUND_TOL and dp <= ROUND_TOL,
+              f"reduced {tag} on the card disagrees with the CPU: loss "
+              f"{dl}, params {dp}")
+        print(f"[agree] reduced 2-round {tag} card vs CPU: max |d loss| "
+              f"{dl:.3g}, max |d param| {dp:.3g} (tolerance {ROUND_TOL})")
+
+    per_round = [
+        ("server adam", "window", roll, dict(server_opt="adam")),
+        ("mask round, client momentum + server adam", "mask",
+         dict(scheme="bernoulli"),
+         dict(client_opt="momentum", server_opt="adam")),
+        ("bf16 uplink, staggered", "window", stag,
+         dict(uplink_compression="bf16")),
+    ]
+    for tag, mode, over, kw in per_round:
+        scfg = dataclasses.replace(scfg_for("rolling"), **over)
+        feds = {str(w): api.fed_round(model, scfg, mode=mode, device=w, **kw)
+                for w in ("cpu", dev)}
+        fc, fg = feds["cpu"], feds[str(dev)]
+        injected = _injected(fc, mode, 2)
+        params = _to(p0, "cpu")
+        state = fc.server_opt.init(params) if fc.server_opt else None
+        worst = 0.0
+        for r, inj in enumerate(injected):
+            b_c = {k: _to_device(v, "cpu") for k, v in batch.items()}
+            b_g = {k: _to_device(v, dev) for k, v in batch.items()}
+            before, s_before = _to(params, "cpu"), _to(state, "cpu")
+            if fc.server_opt is None:
+                offs = inj["offsets"]
+                full_k, _ = fc._client_phase_fused(before, b_c, offs)
+                bound = {k: ROUND_TOL + scfg.server_lr * 2.0 ** -7
+                         * (full_k[k] - before[k][None]).abs().amax(0)
+                         for k in before}
+                del full_k
+                pg, mg = fg.round(_to(before, dev), b_g, r, **inj)
+                params, mc = fc.round(params, b_c, r, **inj)
+            else:
+                pg, sg, mg = fg.round_with_server_opt(
+                    _to(before, dev), _to(s_before, dev), b_g, r, **inj)
+                params, state, mc = fc.round_with_server_opt(
+                    params, state, b_c, r, **inj)
+                bound = {}
+                for k in params:
+                    dd = ((sg["m"][k].cpu() - state["m"][k]).abs()
+                          / (1 - ADAM_B1))
+                    check(dd.max().item() <= ROUND_TOL,
+                          f"{tag} round {r}: mean delta {k} card vs CPU "
+                          f"{dd.max().item()}")
+                    v_hat = state["v"][k] / (1 - ADAM_B2 ** (r + 1))
+                    bound[k] = ROUND_TOL + 2 * ADAM_LR * dd / (
+                        torch.sqrt(v_hat) + ADAM_EPS)
+            dl = (mg["client_loss"].cpu() - mc["client_loss"]).abs().max()
+            check(dl.item() <= ROUND_TOL, f"{tag} round {r}: losses {dl}")
+            for k in params:
+                over_b = (pg[k].cpu() - params[k]).abs() - bound[k]
+                check(over_b.max().item() <= 0, f"{tag} round {r}: {k} "
+                      f"beyond its bound by {over_b.max().item()}")
+            worst = max(worst, _max_diff(pg, params))
+        print(f"[agree] reduced {tag}, 2 rounds each from the CPU's params"
+              f"{' and state' if fc.server_opt else ''}, card vs CPU: max "
+              f"|d param| {worst:.3g}, every coordinate within its bound "
+              f"({'Adam' if fc.server_opt else 'bf16'} step function)")
+
+
+def phase_stagger_path(dev, _build):
+    """This slice's path at full width: staggered rolling windows (each
+    client its own window of every axis), client momentum, server Adam and
+    the bf16 uplink, 3 rounds through ``api.fed_round`` and
+    ``api.Trainer``; the per-client offsets; one profiled round; the "no
+    W_sub copy" pin for per-client windows; then the same configuration
+    through the training CLI, as a subprocess.  Returns the launches."""
+    from repro_torch import api
+    cfg, model, data = full_width(dev)
+    params = model.init(seed=0, device=dev)
+    fed = api.fed_round(model, stagger_scfg(), client_opt="momentum",
+                        server_opt="adam", uplink_compression="bf16",
+                        device=dev)
+    check(fed.use_fused and not fed.shared_window,
+          "the staggered round is not the per-client fused round")
+    offsets = [fed._client_offsets(r) for r in range(len(data))]
+    d_ff = offsets[0][("d_ff", cfg.d_ff)]
+    R = fed.scheme.n_windows
+    check(len(set(d_ff)) == min(R, 4) > 1 and
+          all(len(set(o[("d_ff", cfg.d_ff)])) > 1 for o in offsets),
+          f"the clients' d_ff offsets {d_ff} are not the staggered order "
+          f"over the grid's {R} windows")
+    print(f"[stagger] {cfg.name}: staggered rolling, client momentum, "
+          f"server adam, bf16 uplink; windows "
+          f"{ {f'{k[0]}/{k[1]}': w for k, w in fed.scheme.sizes.items()} }"
+          f"; the grid has {R} windows a axis, so the 4 clients take "
+          f"{len(set(d_ff))} distinct d_ff offsets a round: "
+          f"{[o[('d_ff', cfg.d_ff)] for o in offsets]}")
+    trainer = api.Trainer(fed, params)
+    launches, round_s = run_rounds("stagger", trainer, data, _build)
+    leaves, n = len(params), len(data)
+    want = {"rolling_mm_fwd<1>": 3 * cfg.n_layers * 2 * n,
+            "rolling_mm_dx<1>": 3 * cfg.n_layers * 2 * n,
+            "rolling_mm_fwd<2>": cfg.n_layers * 2 * n,
+            "rolling_mm_dx<2>": cfg.n_layers * 2 * n,
+            "sgd_inplace": 2 * leaves * n}
+    got = {k: launches.get(k, 0) for k in want}
+    check(got == want, f"stagger path launches {got}, expected {want}")
+    check(trainer.opt_state["t"] == n, "server Adam's step count")
+    print(f"[stagger] rows 5-8 and 10 a round: "
+          f"{ {k: v // n for k, v in got.items()} }")
+    phase_profile("stagger", trainer, (data[0], {}), round_s)
+    phase_wsub_pin(dev, model, trainer.params, data[0], offsets[0],
+                   scfg=stagger_scfg(), tag="wsub stagger")
+    del trainer, params, fed
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_cli()
+    return launches
+
+
+def phase_train_cli():
+    """``python -m repro_torch.launch.train`` with the stagger path's
+    configuration, as a subprocess on the card: its JSON losses finite."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                           *CLI], capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=600)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the training CLI failed "
+          f"({proc.returncode}): {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    check(set(out) == {"first_loss", "last_loss"} and
+          all(math.isfinite(v) for v in out.values()),
+          f"the training CLI printed {out}")
+    for line in lines:
+        print(f"[train cli] {line}")
+    print(f"[train cli] python -m repro_torch.launch.train {' '.join(CLI)}: "
+          f"{secs:.1f} s in all (process start, kernel load, init, 3 "
+          f"rounds); finite losses")
+
+
+MASK_OPT_LAYERS = 11      # client momentum at 11 of 22 layers: see PERF.md
+
+
+def phase_mask_opt_path(dev, _build):
+    """The mask round with the optimizers: (a) full width, server Adam on
+    the masked mean delta (``round_with_server_opt``), client SGD, 3
+    rounds; client momentum does not fit beside it at full width, so (b)
+    client momentum on the plain round (the masked steps, then the
+    fill-in) and (c) client momentum with server Adam run at
+    ``MASK_OPT_LAYERS`` layers, 2 rounds each.  Returns the launches of
+    all three."""
+    import collections
+
+    from repro_torch import api
+    from repro_torch.models import build_model
+    cfg, model, data = full_width(dev)
+    total = collections.Counter()
+    parts = [("mask opt", model, dict(server_opt="adam"), data),
+             (f"mask opt {MASK_OPT_LAYERS}L momentum",
+              build_model(dataclasses.replace(cfg,
+                                              n_layers=MASK_OPT_LAYERS)),
+              dict(client_opt="momentum"), data[:2]),
+             (f"mask opt {MASK_OPT_LAYERS}L momentum+adam",
+              build_model(dataclasses.replace(cfg,
+                                              n_layers=MASK_OPT_LAYERS)),
+              dict(client_opt="momentum", server_opt="adam"), data[:2])]
+    for tag, m, kw, part in parts:
+        params = m.init(seed=0, device=dev)
+        fed = api.fed_round(m, scfg_for("bernoulli"), device=dev, **kw)
+        check(isinstance(fed, api.MaskFedAvg), f"{tag}: not the mask round")
+        trainer = api.Trainer(fed, params, rng=0)
+        print(f"[{tag}] {m.cfg.n_layers} layers, {len(params)} leaves, "
+              f"{kw}")
+        launches, _ = run_rounds(tag, trainer, part, _build)
+        leaves, n = len(params), len(part)
+        want = {"masked_sgd_inplace": 2 * leaves * n,
+                "fillin_agg_inplace": 0 if fed.server_opt else leaves * n}
+        got = {k: launches.get(k, 0) for k in want}
+        check(got == want, f"{tag} launches {got}, expected {want}")
+        total.update(launches)
+        del trainer, params, fed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(total)
 
 
 # -- phase 4e: the paper's protocol ---------------------------------------------
@@ -1985,6 +2291,7 @@ def main():
     phase_small_agreement_ssm(dev)
     phase_small_agreement_extract(dev)
     phase_small_agreement_paper(dev)
+    phase_small_agreement_opt(dev)
     launches, trainer, batch, round_s, fused = phase_main_path(dev, _build)
     e_launches = phase_eval(dev, trainer, _build)
     phase_profile("window", trainer, batch, round_s)
@@ -1994,12 +2301,14 @@ def main():
     torch.cuda.empty_cache()
     x_launches, f_launches = phase_extract_path(dev, _build, fused)
     del fused
+    st_launches = phase_stagger_path(dev, _build)
     m_launches, trainer, batch, round_s = phase_mask_path(dev, _build)
     phase_profile("mask", trainer, batch, round_s)
     phase_client_phase_peaks(trainer, batch)
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
+    mo_launches = phase_mask_opt_path(dev, _build)
     model, params, prompts, s_launches, prefill_s = phase_serve_ssm(dev,
                                                                     _build)
     phase_eval_ssm(dev, model, params, _build)
@@ -2015,10 +2324,17 @@ def main():
     path.update({name: e_launches for name in (
         "flash_attention", "rolling_matmul", "rolling_matmul_multi",
         "rolling_matmul_dx", "rolling_matmul_dx_multi")})
-    # the launches of the extract, full and paper paths (rows 9-11)
-    more = {"sgd_inplace": {"extract": x_launches, "full": f_launches},
-            "masked_sgd_inplace": {"paper": p_launches},
-            "fillin_agg_inplace": {"paper": p_launches}}
+    # the launches of the extract, full, stagger, mask-opt and paper paths
+    # (rows 5-11)
+    more = {"sgd_inplace": {"extract": x_launches, "full": f_launches,
+                            "stagger": st_launches},
+            "masked_sgd_inplace": {"paper": p_launches,
+                                   "mask_opt": mo_launches},
+            "fillin_agg_inplace": {"paper": p_launches,
+                                   "mask_opt": mo_launches}}
+    more.update({name: {"stagger": st_launches} for name in (
+        "rolling_mm_fwd<1>", "rolling_mm_dx<1>", "rolling_mm_fwd<2>",
+        "rolling_mm_dx<2>")})
     for r in rows:
         r["launches"] = path.get(r["name"], launches).get(r["name"], 0)
         if r["name"] in more:

@@ -1,8 +1,10 @@
 """repro_torch.api — the port's public entry surface.
 
-Ports ``MODES``, ``resolve_mode``, ``fed_round`` (window mode with one
-shared window or none, through the fused or the extract client phase, and
-mask mode), ``Trainer`` and ``checkpoint_callback`` of ``repro/api.py``::
+Ports ``MODES``, ``resolve_mode``, ``_resolve_server_opt``, ``fed_round``
+(window mode with one shared window, per-client windows or none, through
+the fused or the extract client phase, and mask mode; client and server
+optimizers, the bf16 uplink), ``Trainer`` and ``checkpoint_callback`` of
+``repro/api.py``, with its re-exports of the optimizers::
 
     from repro_torch import api
     from repro_torch.configs.base import SubmodelConfig, get_config
@@ -25,6 +27,13 @@ mask mode), ``Trainer`` and ``checkpoint_callback`` of ``repro/api.py``::
     # the FedAvg baseline: every client trains a full replica
     fed = api.fed_round(model, SubmodelConfig(scheme="full", ...))
 
+    # per-client windows (staggered rolling; also "random", "importance"),
+    # client momentum, FedAdam on the server, a bf16 uplink
+    fed = api.fed_round(model, SubmodelConfig(stagger=True, ...),
+                        client_opt="momentum", server_opt="adam",
+                        uplink_compression="bf16")
+    params, history = api.Trainer(fed, params).run(batches, 3)
+
     # held-out loss each round, logged, with a checkpoint (reference layout)
     trainer = api.Trainer(
         fed, params, eval_every=1, log_every=1,
@@ -39,18 +48,24 @@ their ROADMAP.md item.
 from __future__ import annotations
 
 import inspect
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.configs.base import SubmodelConfig
 from repro_torch.core.fedavg import (MaskFedAvg, WindowFedAvg,
                                      build_mask_fed, build_window_fed)
+from repro_torch.core.server_opt import SERVER_OPTS, ServerOpt
 from repro_torch.core.trainer import Trainer, checkpoint_callback
 from repro_torch.device import resolve_device
+from repro_torch.optim.client import (CLIENT_OPTS, ClientOpt,
+                                      client_momentum, client_proximal,
+                                      client_sgd, resolve_client_opt)
 
 __all__ = ["fed_round", "Trainer", "checkpoint_callback", "WindowFedAvg",
-           "MaskFedAvg", "MODES", "resolve_mode"]
+           "MaskFedAvg", "MODES", "resolve_mode", "ClientOpt",
+           "CLIENT_OPTS", "client_sgd", "client_momentum", "client_proximal",
+           "ServerOpt", "SERVER_OPTS"]
 
 MODES = ("auto", "window", "mask")
 
@@ -97,13 +112,33 @@ def _windowed_loss(loss_fn):
     return None
 
 
+def _resolve_server_opt(server_opt, scfg: SubmodelConfig
+                        ) -> Optional[ServerOpt]:
+    """None or ``"none"``/``""`` -> None (the paper's plain average); a
+    registry name -> ``sgd``/``momentum`` at ``lr=scfg.server_lr`` (so
+    ``"sgd"`` is the paper's update), ``adam`` at its own defaults; a
+    ``ServerOpt`` -> itself."""
+    if server_opt is None or isinstance(server_opt, str) and \
+            server_opt in ("", "none"):
+        return None
+    if isinstance(server_opt, str):
+        if server_opt not in SERVER_OPTS:
+            raise ValueError(
+                f"unknown server optimizer {server_opt!r}; expected one of "
+                f"{sorted(SERVER_OPTS)} or 'none'")
+        if server_opt in ("sgd", "momentum"):
+            return SERVER_OPTS[server_opt](lr=scfg.server_lr)
+        return SERVER_OPTS[server_opt]()
+    return server_opt
+
+
 def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
               client_opt=None, server_opt=None, spmd_axis=None, mesh=None,
               capacities=None, fused_forward="auto",
               uplink_compression=None, device="cuda"):
     """Build one federated sub-model round: a :class:`WindowFedAvg`
-    (Algorithm 2, one shared window or none) or a :class:`MaskFedAvg`
-    (dense masks, Algorithm 1).
+    (Algorithm 2: one shared window, per-client windows or none) or a
+    :class:`MaskFedAvg` (dense masks, Algorithm 1).
 
     Args:
       model: a port ``Model`` (``.loss(params, batch, window=)``,
@@ -116,20 +151,31 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
       scfg: the :class:`SubmodelConfig`.
       mode: ``auto`` (``mask`` for ``bernoulli``, else ``window``),
         ``window`` or ``mask``.
-      client_opt: None or ``"sgd"`` (the paper's plain SGD).
+      client_opt: the local steps' optimizer: a :class:`ClientOpt`, a
+        registry name (``sgd``, ``momentum``, ``proximal``) or None (the
+        paper's plain SGD).
+      server_opt: a server optimizer on the mean client delta, which
+        :class:`Trainer` then steps (``round_with_server_opt``): a
+        :class:`ServerOpt`, a registry name (``sgd``/``momentum`` at
+        ``lr=scfg.server_lr``, ``adam`` at its defaults) or None (the
+        paper's plain average).
       capacities: mask mode: per-client ``[C]`` capacities (default
         ``scfg.capacity`` for every client).
       fused_forward: window mode: ``auto`` (the fused client phase where
         every windowed axis has a fused forward, else the extract phase),
         ``on``/True (the fused phase, or ValueError) or ``off``/False (the
         extract phase).
+      uplink_compression: window mode: None (the exact float32 uplink) or
+        ``"bf16"`` (each client's change rounded to bfloat16 and widened
+        back before the float32 mean; the fused client phase's
+        aggregation only, as in the reference).
       device: ``cuda`` (default; raises without a card) or ``cpu``.
     """
     loss_fn, abstract, axes = _model_parts(model)
     dev = resolve_device(device)
     resolved = resolve_mode(mode, scfg.scheme)
-    if server_opt not in (None, "", "none"):
-        _not_ported("server optimizers", "optimizers and the uplink")
+    client_opt = resolve_client_opt(client_opt)
+    server_opt = _resolve_server_opt(server_opt, scfg)
     if mesh is not None and resolved != "window":
         raise ValueError("mesh execution applies to window mode only "
                          "(mask mode is the dense-mask oracle)")
@@ -146,15 +192,14 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
             capacities = np.full(scfg.clients_per_round, scfg.capacity,
                                  np.float32)
         return build_mask_fed(loss_fn, scfg, abstract, axes, capacities, dev,
-                              client_opt=client_opt)
+                              client_opt=client_opt, server_opt=server_opt)
     if capacities is not None:
         _not_ported("heterogeneous window capacities",
                     "heterogeneous capacities")
     if mesh is not None or spmd_axis is not None:
         _not_ported("the mesh round", "mesh round")
-    if uplink_compression is not None:
-        _not_ported("uplink compression", "optimizers and the uplink")
     return build_window_fed(loss_fn, scfg, abstract, axes, dev,
-                            client_opt=client_opt,
+                            client_opt=client_opt, server_opt=server_opt,
                             windowed_loss_fn=_windowed_loss(loss_fn),
-                            fused_forward=fused_forward)
+                            fused_forward=fused_forward,
+                            uplink_compression=uplink_compression)

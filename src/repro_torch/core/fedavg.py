@@ -1,26 +1,35 @@
-"""The federated rounds: window mode with one shared window or none
-(Algorithm 2) and mask mode (Algorithm 1 and the paper's protocol round).
+"""The federated rounds: window mode (Algorithm 2) with one shared window,
+per-client windows or none, and mask mode (Algorithm 1 and the paper's
+protocol round), each with the plain server average or a server
+optimizer.
 
 Ports, from ``repro/core/fedavg.py``: ``resolve_shared_window``,
 ``WindowFedAvg`` (construction, ``_resolve_fused``, ``_client_offsets``,
 ``_fused_window``, ``_extract_clients``, ``_client_phase``,
-``_apply_mean_delta``, ``_mean_delta_full``, ``_client_phase_fused`` and
-``_apply_mean_delta_fused`` for the shared window, ``round``),
-``_scatter_update``, ``dense_client_masks``, ``MaskFedAvg``,
-``_build_mask_fed``, ``output_model`` and ``run_rounds``.
+``_client_phase_fused``, ``_apply_mean_delta``, ``_uplink``,
+``_apply_mean_delta_fused``, ``_mean_delta_full``,
+``_mean_delta_full_fused``, ``round`` and ``round_with_server_opt``),
+``_scatter_update``, ``dense_client_masks``, ``MaskFedAvg`` (with
+``round_with_server_opt``), ``_build_mask_fed``, ``output_model`` and
+``run_rounds``.  The heterogeneous-capacity buckets and the mesh round
+are not ported (ROADMAP.md queue A, items 5 and 12; ``api.fed_round``
+refuses them).
 
 Clients are an explicit leading dimension ``[C, ...]`` of every leaf (the
 reference vmaps them).  Window mode has two client phases, as the
 reference's.  The fused one trains each client's copy of the FULL model
-through the window-aware forward, so coordinates outside the window get
-exactly zero gradient, and the server adds the clients' mean change into
-the window in place.  The extract one (Algorithm 2 as written) gives each
-client a compact copy of its window (a full replica when no axis is
-windowed, as under scheme ``full``), trains it through the model's
-ordinary loss and sends back the change; the server averages the changes
-and scatters them into the window.  In mask mode each client's copy
-starts as ``w * m_c`` under a dense mask, its steps are masked, and the
-server takes the fill-in average.  Batch leaves are ``[K, C, ...]``.
+through the window-aware forward, so coordinates outside its window get
+exactly zero gradient; the server adds the clients' mean change into the
+shared window in place, or (per-client windows) sums the clients' full
+changes, which are already their scattered forms.  The extract one
+(Algorithm 2 as written) gives each client a compact copy of its own
+window (a full replica when no axis is windowed, as under scheme
+``full``), trains it through the model's ordinary loss and sends back
+the change; the server averages the changes and scatters them into the
+windows.  In mask mode each client's copy starts as ``w * m_c`` under a
+dense mask, its steps are masked, and the server takes the fill-in
+average.  A server optimizer takes the full-shaped float32 mean change
+instead, built one leaf at a time.  Batch leaves are ``[K, C, ...]``.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from repro_torch.core import submodel as sm
 from repro_torch.core.extract import extract, scatter_delta
 from repro_torch.core.masking import (WindowScheme, collect_axis_dims,
                                       make_scheme, seeded_generator)
+from repro_torch.core.server_opt import ServerOpt
 from repro_torch.core.trainer import Trainer, _to_device
 from repro_torch.models.layers import AxisWindow, WindowMap
 from repro_torch.optim.client import ClientOpt, resolve_client_opt
@@ -87,12 +97,21 @@ class WindowFedAvg:
     scheme: WindowScheme
     device: torch.device
     client_opt: Optional[ClientOpt] = None
+    server_opt: Optional[ServerOpt] = None    # the Trainer steps with it
     # loss_fn(params, batch, window=WindowMap): the fused client phase runs
     # it; None (a loss without window=) leaves the extract phase only
     windowed_loss_fn: Optional[Callable] = None
     fused_forward: Any = "auto"       # "auto" | True/"on" | False/"off"
+    # "bf16": each client's change crosses the simulated uplink as
+    # bfloat16 and is widened to float32 before the mean (the fused arms
+    # only, as in the reference); None: the exact float32 uplink
+    uplink_compression: Optional[str] = None
 
     def __post_init__(self):
+        if self.uplink_compression not in (None, "bf16"):
+            raise ValueError(
+                "uplink_compression must be None (exact f32 uplink) or "
+                f"'bf16'; got {self.uplink_compression!r}")
         self.shared_window = resolve_shared_window(self.scfg)
         self.client_opt = resolve_client_opt(self.client_opt)
         self.use_fused = self._resolve_fused()
@@ -100,19 +119,15 @@ class WindowFedAvg:
     def _resolve_fused(self) -> bool:
         """Whether the round takes the fused client phase (every properly
         windowed axis has a fused forward) or the extract one, as the
-        reference resolves it; per-client windows are not ported."""
+        reference resolves it, for shared and per-client windows alike."""
         want = self.fused_forward
         if want not in (True, "on", False, "off", "auto", None):
             raise ValueError(f"fused_forward must be 'auto', 'on'/True or "
                              f"'off'/False; got {want!r}")
-        # proper windows only (size < full dim): improper ones are no-ops
-        proper = {k: w for k, w in self.scheme.sizes.items() if w < k[1]}
-        if proper and not self.shared_window:
-            raise NotImplementedError(
-                "per-client (staggered or random) windows are not ported yet "
-                "(ROADMAP.md queue A, per-client windows)")
         if want in (False, "off"):
             return False
+        # proper windows only (size < full dim): improper ones are no-ops
+        proper = {k: w for k, w in self.scheme.sizes.items() if w < k[1]}
         reasons = []
         if self.windowed_loss_fn is None:
             reasons.append("the model exposes no windowed forward "
@@ -141,12 +156,20 @@ class WindowFedAvg:
 
     # -- round phases ---------------------------------------------------------
 
-    def _client_offsets(self, round_idx):
-        return self.scheme.offsets(round_idx, self.scfg.clients_per_round)
+    def _client_offsets(self, round_idx, params=None):
+        """The scheme's offsets ``{axis: [C] ints}`` for this round;
+        ``importance`` reads them off the live ``params``."""
+        C = self.scfg.clients_per_round
+        if self.scfg.scheme == "importance":
+            if params is None:
+                raise ValueError("importance offsets need the round's params")
+            return self.scheme.importance_offsets(params, self.axes, C)
+        return self.scheme.offsets(round_idx, C)
 
     def _check_offsets(self, offsets):
         """Injected offsets ``{axis: [C] ints}``: the scheme's axes, one
-        shared in-range offset per client."""
+        in-range window start per client, the same for every client when
+        the window is shared."""
         C = self.scfg.clients_per_round
         if set(offsets) != set(self.scheme.sizes):
             raise ValueError(f"offsets name axes {sorted(offsets)}; the "
@@ -154,10 +177,13 @@ class WindowFedAvg:
         out = {}
         for k, v in offsets.items():
             v = [int(o) for o in v]
-            if len(v) != C or len(set(v)) != 1 or not \
-                    0 <= v[0] <= k[1] - self.scheme.sizes[k]:
-                raise ValueError(f"offsets {v} for {k} are not one in-range "
-                                 f"window start shared by {C} clients")
+            if len(v) != C or any(not 0 <= o <= k[1] - self.scheme.sizes[k]
+                                  for o in v) or \
+                    (self.shared_window and len(set(v)) != 1):
+                raise ValueError(
+                    f"offsets {v} for {k} are not {C} in-range window starts"
+                    + (" shared by every client" if self.shared_window
+                       else ""))
             out[k] = v
         return out
 
@@ -165,15 +191,25 @@ class WindowFedAvg:
         return WindowMap({k: AxisWindow(offsets[k], w)
                           for k, w in self._fused_keys.items()})
 
+    @staticmethod
+    def _one(offsets, c):
+        """Client ``c``'s offsets ``{axis: int}``."""
+        return {k: v[c] for k, v in offsets.items()}
+
     def _extract_clients(self, params, offsets, count=None):
         """Per-client compact sub-models ``{path: [C, *sub shape]}``,
-        contiguous copies (the client steps update them in place); with no
-        offsets every client gets a full replica.  ``count`` overrides C."""
+        contiguous copies (the client steps update them in place): each
+        client's own window, or with no offsets a full replica each.
+        ``count`` overrides C."""
         C = self.scfg.clients_per_round if count is None else count
-        off0 = {k: v[0] for k, v in offsets.items()}
-        sub = extract(params, self.axes, off0, self.scheme.sizes)
-        return {k: v.unsqueeze(0).repeat(C, *([1] * v.dim()))
-                for k, v in sub.items()}
+        if self.shared_window or not offsets:
+            sub = extract(params, self.axes, self._one(offsets, 0),
+                          self.scheme.sizes)
+            return {k: v.unsqueeze(0).repeat(C, *([1] * v.dim()))
+                    for k, v in sub.items()}
+        subs = [extract(params, self.axes, self._one(offsets, c),
+                        self.scheme.sizes) for c in range(C)]
+        return {k: torch.stack([s[k] for s in subs]) for k in params}
 
     def _client_phase(self, params, batch, offsets):
         """extract -> K local steps through the ordinary ``loss_fn`` ->
@@ -184,50 +220,67 @@ class WindowFedAvg:
         sub = self._extract_clients(params, offsets, count=C)
         losses = _steps(sub, batch, self.loss_fn, self.client_opt,
                         self.scfg.client_lr)
-        off0 = {k: v[0] for k, v in offsets.items()}
-        sub_0 = extract(params, self.axes, off0, self.scheme.sizes)
         with torch.no_grad():
-            delta = {k: v.float().sub_(sub_0[k].float()[None])
-                     for k, v in sub.items()}
+            delta = {k: v.float() for k, v in sub.items()}
+            for c in range(C):
+                sub_0 = extract(params, self.axes, self._one(offsets, c),
+                                self.scheme.sizes)
+                for k, d in delta.items():
+                    d[c].sub_(sub_0[k].float())
         return delta, losses
 
     def _apply_mean_delta(self, params, delta, offsets):
         """Plain averaging (the paper's fill-in update, delta form), in
         place.  Shared window: the mean change over clients, then one
-        in-place scatter.  Otherwise (no windowed axis, where every
-        scatter is the identity) the float32 sum of the clients' scattered
-        changes, ``w + server_lr * sum / C``."""
+        in-place scatter.  Otherwise (per-client windows, or no windowed
+        axis, where every scatter is the identity) the float32 sum of the
+        clients' scattered changes in client order, ``w + server_lr * sum
+        / C``.  The extract arms take no uplink, as the reference's."""
         c = self.scfg
         if self.shared_window and offsets:
-            off0 = {k: v[0] for k, v in offsets.items()}
             dbar = {k: d.float().mean(0) for k, d in delta.items()}
-            return _scatter_update(params, dbar, self.axes, off0,
-                                   self.scheme.sizes, c.server_lr)
+            return _scatter_update(params, dbar, self.axes,
+                                   self._one(offsets, 0), self.scheme.sizes,
+                                   c.server_lr)
         C = next(iter(delta.values())).shape[0]
         for path, w in params.items():
             acc = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
             for ci in range(C):
-                off_c = {k: v[ci] for k, v in offsets.items()}
                 acc += scatter_delta({path: delta[path][ci]}, self.abstract,
-                                     self.axes, off_c,
+                                     self.axes, self._one(offsets, ci),
                                      self.scheme.sizes)[path]
             w.copy_((w.float() + c.server_lr * acc / C).to(w.dtype))
         return params
 
     def _mean_delta_full(self, params, delta, offsets):
-        """The full-shaped float32 mean client delta (``output_model``'s
-        averaged gradient): the clients' mean, scattered into the shared
-        window (no windowed axis: the mean itself)."""
-        dbar = {k: d.float().mean(0) for k, d in delta.items()}
+        """The full-shaped float32 mean client delta (a server optimizer's
+        pseudo-gradient, ``output_model``'s averaged gradient): the
+        clients' mean, scattered into the shared window (no windowed axis:
+        the mean itself); per-client windows: the sum of each client's
+        scattered change over C, in client order."""
         if not offsets:
-            return dbar
-        off0 = {k: v[0] for k, v in offsets.items()}
-        return scatter_delta(dbar, self.abstract, self.axes, off0,
-                             self.scheme.sizes)
+            return {k: d.float().mean(0) for k, d in delta.items()}
+        if self.shared_window:
+            dbar = {k: d.float().mean(0) for k, d in delta.items()}
+            return scatter_delta(dbar, self.abstract, self.axes,
+                                 self._one(offsets, 0), self.scheme.sizes)
+        out = {}
+        for path, d in delta.items():
+            C = d.shape[0]
+            acc = torch.zeros(tuple(self.abstract[path]), dtype=torch.float32,
+                              device=d.device)
+            for ci in range(C):
+                acc += scatter_delta({path: d[ci]}, self.abstract, self.axes,
+                                     self._one(offsets, ci),
+                                     self.scheme.sizes)[path] / C
+            out[path] = acc
+        return out
 
     def _client_phase_fused(self, params, batch, offsets):
-        """K SGD steps on per-client copies of the FULL model, through the
-        window-aware forward; no compact copy of any leaf.  Returns the
+        """K client steps on per-client copies of the FULL model, through
+        the window-aware forward; no compact copy of any leaf the kernels
+        read.  Every client trains its own window (one offset per client:
+        the windowed products take them all in one launch).  Returns the
         clients' params after K steps (``{path: [C, ...]}``) and the
         losses ``[K, C]``."""
         C = next(iter(batch.values())).shape[1]       # every leaf [K, C, ...]
@@ -239,26 +292,71 @@ class WindowFedAvg:
                         self.client_opt, self.scfg.client_lr)
         return full, losses
 
+    def _uplink(self, d):
+        """A float32 client change as the server receives it: itself, or
+        (``"bf16"``) rounded to bfloat16 and widened back to float32, one
+        rounding per change, never a bfloat16 sum."""
+        if self.uplink_compression is None:
+            return d
+        return d.to(torch.bfloat16).float()
+
     def _apply_mean_delta_fused(self, params, full_k, offsets):
         """Shared window: out-of-window coordinates of every client's change
         are exactly 0, so the server extracts each client's window, takes
-        the mean change over clients and adds it into its window once."""
-        off0 = {k: v[0] for k, v in offsets.items()}
-        sub_k = extract(full_k, self.axes, off0, self.scheme.sizes, lead=1)
-        sub_0 = extract(params, self.axes, off0, self.scheme.sizes)
-        dbar = {k: (sub_k[k].float() - sub_0[k].float()[None]).mean(0)
-                for k in params}
-        return _scatter_update(params, dbar, self.axes, off0,
-                               self.scheme.sizes, self.scfg.server_lr)
+        the mean change over clients and adds it into its window once.
+        Per-client windows: each client's full change already is its
+        scattered form, so the sum over clients in client order is the
+        extract arm's scatter-add, one leaf at a time (each leaf's client
+        copies are freed as it is done)."""
+        c = self.scfg
+        if self.shared_window:
+            off0 = self._one(offsets, 0)
+            sub_k = extract(full_k, self.axes, off0, self.scheme.sizes, lead=1)
+            sub_0 = extract(params, self.axes, off0, self.scheme.sizes)
+            dbar = {k: self._uplink(sub_k[k].float()
+                                    - sub_0[k].float()[None]).mean(0)
+                    for k in params}
+            return _scatter_update(params, dbar, self.axes, off0,
+                                   self.scheme.sizes, c.server_lr)
+        for path, w in params.items():
+            wk = full_k.pop(path)
+            acc = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+            for ci in range(wk.shape[0]):
+                acc += self._uplink(wk[ci].float() - w.float())
+            del wk
+            w.copy_((w.float() + c.server_lr * acc / c.clients_per_round)
+                    .to(w.dtype))
+        return params
+
+    def _mean_delta_full_fused(self, params, full_k):
+        """The server optimizer's pseudo-gradient from the fused phase,
+        built one leaf at a time (each leaf's client copies are freed as it
+        is done): the clients' changes, through the uplink, are full-shaped
+        with exact zeros outside each client's window; a shared window
+        takes their mean, per-client windows the sum of each change over C
+        in client order (the extract arm's scatter-average)."""
+        out = {}
+        for path, w in params.items():
+            d = self._uplink(full_k.pop(path).float() - w.float()[None])
+            if self.shared_window:
+                out[path] = d.mean(0)
+            else:
+                acc = torch.zeros(w.shape, dtype=torch.float32,
+                                  device=w.device)
+                for ci in range(d.shape[0]):
+                    acc += d[ci] / d.shape[0]
+                out[path] = acc
+            del d
+        return out
 
     def round(self, params, batch, round_idx, generator=None, offsets=None):
         """One communication round; updates ``params`` in place and returns
         ``(params, {"loss": mean, "client_loss": [K, C]})``.  ``offsets``
         (``{axis: [C] ints}``) replaces the scheme's own draw.
         ``generator`` is the round's random stream, as for
-        :meth:`MaskFedAvg.round`; the shared-window schemes draw nothing
-        from it (their order is seeded by ``scfg.seed``)."""
-        offsets = (self._client_offsets(round_idx) if offsets is None
+        :meth:`MaskFedAvg.round`; the window schemes draw nothing from it
+        (their draws are seeded by ``scfg.seed``)."""
+        offsets = (self._client_offsets(round_idx, params) if offsets is None
                    else self._check_offsets(offsets))
         if self.use_fused and offsets:
             full_k, losses = self._client_phase_fused(params, batch, offsets)
@@ -274,6 +372,37 @@ class WindowFedAvg:
             sm.project_l2(params, self.scfg.proj_radius)
         return params, {"loss": losses.mean(), "client_loss": losses}
 
+    def round_with_server_opt(self, params, opt_state, batch, round_idx,
+                              server_opt=None, generator=None, offsets=None):
+        """The same client phase as :meth:`round`; the server then steps
+        ``server_opt`` (default: the round's own) on the full-shaped
+        float32 mean client delta as a pseudo-gradient (FedAvgM, FedAdam),
+        then ``project_l2``.  Updates ``params`` and ``opt_state`` in place
+        and returns ``(params, opt_state, metrics)``."""
+        server_opt = server_opt if server_opt is not None else self.server_opt
+        if server_opt is None:
+            raise ValueError(
+                "no server optimizer attached; pass server_opt= or build "
+                "the round with api.fed_round(..., server_opt=...)")
+        offsets = (self._client_offsets(round_idx, params) if offsets is None
+                   else self._check_offsets(offsets))
+        if self.use_fused and offsets:
+            full_k, losses = self._client_phase_fused(params, batch, offsets)
+            with torch.no_grad():
+                dbar = self._mean_delta_full_fused(params, full_k)
+            del full_k
+        else:
+            delta, losses = self._client_phase(params, batch, offsets)
+            with torch.no_grad():
+                dbar = self._mean_delta_full(params, delta, offsets)
+            del delta
+        with torch.no_grad():
+            params, opt_state = server_opt.update(params, dbar, opt_state)
+            del dbar
+            sm.project_l2(params, self.scfg.proj_radius)
+        return params, opt_state, {"loss": losses.mean(),
+                                   "client_loss": losses}
+
 
 def _scatter_update(params, dbar, axes, off0, sizes, server_lr):
     """``w[window] += server_lr * dbar``, in place on a view of each leaf's
@@ -284,14 +413,16 @@ def _scatter_update(params, dbar, axes, off0, sizes, server_lr):
 
 
 def build_window_fed(loss_fn, scfg, abstract, axes, device, client_opt=None,
-                     windowed_loss_fn=None,
-                     fused_forward="auto") -> WindowFedAvg:
+                     server_opt=None, windowed_loss_fn=None,
+                     fused_forward="auto",
+                     uplink_compression=None) -> WindowFedAvg:
     scheme = make_scheme(scfg, collect_axis_dims(abstract, axes))
     return WindowFedAvg(loss_fn=loss_fn, scfg=scfg, abstract=abstract,
                         axes=axes, scheme=scheme, device=device,
-                        client_opt=client_opt,
+                        client_opt=client_opt, server_opt=server_opt,
                         windowed_loss_fn=windowed_loss_fn,
-                        fused_forward=fused_forward)
+                        fused_forward=fused_forward,
+                        uplink_compression=uplink_compression)
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +434,7 @@ def _round_generator(generator, scfg, round_idx, device):
     """``generator``, or (None) one seeded by ``(scfg.seed, round_idx)``."""
     if generator is not None:
         return generator
-    return seeded_generator(scfg.seed, round_idx, device)
+    return seeded_generator(scfg.seed, round_idx, device=device)
 
 
 def _window_sizes(caps, n, align):
@@ -424,6 +555,7 @@ class MaskFedAvg:
     capacities: Any                   # [C] floats
     device: torch.device
     client_opt: Optional[ClientOpt] = None
+    server_opt: Optional[ServerOpt] = None    # the Trainer steps with it
 
     def __post_init__(self):
         self.client_opt = resolve_client_opt(self.client_opt)
@@ -498,17 +630,43 @@ class MaskFedAvg:
             sm.project_l2(params, self.scfg.proj_radius)
         return params, {"loss": losses.mean(), "client_loss": losses}
 
-    def round_with_server_opt(self, *args, **kwargs):
-        raise NotImplementedError(
-            "server optimizers are not ported yet (ROADMAP.md queue A, "
-            "optimizers and the uplink)")
+    def round_with_server_opt(self, params, opt_state, batch, round_idx,
+                              server_opt=None, generator=None, masks=None,
+                              capacities=None):
+        """The same client phase as :meth:`round`; the server then steps
+        ``server_opt`` (default: the round's own) on the masked mean
+        delta ``mean_c m_c * (w_c - w)`` in float32 (built one leaf at a
+        time, each leaf's client copies and masks freed as it is done),
+        then ``project_l2``.  Returns ``(params, opt_state, metrics)``."""
+        server_opt = server_opt if server_opt is not None else self.server_opt
+        if server_opt is None:
+            raise ValueError(
+                "no server optimizer attached; pass server_opt= or build "
+                "the round with api.fed_round(..., server_opt=...)")
+        caps = (self.capacities if capacities is None
+                else self._check_capacities(capacities))
+        masks = dense_client_masks(generator, self.abstract, self.axes,
+                                   self.scfg, caps, round_idx, self.device,
+                                   masks=masks)
+        w_c, losses = self.client_phase(params, batch, masks)
+        with torch.no_grad():
+            dbar = {}
+            for k, w in params.items():
+                wk, m = w_c.pop(k), masks.pop(k)
+                dbar[k] = (m * (wk.float() - w.float()[None])).mean(0)
+                del wk, m
+            params, opt_state = server_opt.update(params, dbar, opt_state)
+            del dbar
+            sm.project_l2(params, self.scfg.proj_radius)
+        return params, opt_state, {"loss": losses.mean(),
+                                   "client_loss": losses}
 
 
 def build_mask_fed(loss_fn, scfg, abstract, axes, capacities, device,
-                   client_opt=None) -> MaskFedAvg:
+                   client_opt=None, server_opt=None) -> MaskFedAvg:
     return MaskFedAvg(loss_fn=loss_fn, scfg=scfg, abstract=abstract,
                       axes=axes, capacities=capacities, device=device,
-                      client_opt=client_opt)
+                      client_opt=client_opt, server_opt=server_opt)
 
 
 # ---------------------------------------------------------------------------
@@ -525,8 +683,8 @@ def output_model(fed, params, batch, generator=None, lipschitz=1.0,
     Mask mode evaluates the literal dense-mask formula, with the round's
     masks drawn from ``generator`` (or ``masks`` injected).  Window mode
     evaluates the same quantity in compact form: one gradient on each
-    client's compact sub-model, scattered back and averaged (shared window
-    or no windowed axis; ``offsets`` may replace the scheme's draw).
+    client's compact sub-model, scattered back and averaged (``offsets``
+    may replace the scheme's draw).
     """
     scfg = fed.scfg
     mb = {k: _to_device(v, fed.device)[0] for k, v in batch.items()}
@@ -538,7 +696,7 @@ def output_model(fed, params, batch, generator=None, lipschitz=1.0,
         _, g = sm.masked_value_and_grad(fed.loss_fn)(w_c, masks, mb)
         gbar = {k: (masks[k] * g[k]).mean(0) for k in params}
     else:
-        offsets = (fed._client_offsets(round_idx) if offsets is None
+        offsets = (fed._client_offsets(round_idx, params) if offsets is None
                    else fed._check_offsets(offsets))
         sub0 = {k: v.requires_grad_() for k, v in
                 fed._extract_clients(params, offsets).items()}

@@ -1,15 +1,19 @@
 """Sub-model window schemes.
 
 Ports ``collect_axis_dims``, ``capacity_size``, ``WindowScheme`` (sizes,
-grids, GQA-derived axes, ``grid_multiple``, ``offsets``) and ``make_scheme``
-of ``repro/core/masking.py`` for the ``full``, ``static`` and ``rolling``
-(shared or staggered) schemes.  Offsets are host integers, one per client.
+grids, GQA-derived axes, ``grid_multiple``, ``offsets``,
+``importance_offsets``) and ``make_scheme`` of ``repro/core/masking.py``
+for every scheme: ``full``, ``static``, ``rolling`` (shared or staggered),
+``random`` and ``importance`` (shared or staggered).  Offsets are host
+integers, one per client.
 
 The rolling permutation of epoch ``e`` comes from a ``torch.Generator``
-seeded by ``(cfg.seed, e)``; it is a different order from the reference's
-``jax.random.permutation`` (``masking.py:167``), so the round also accepts
-injected offsets, which is how the tests hold it against the reference.
-The grids, and so the set of windows an epoch visits, are the same.
+seeded by ``(cfg.seed, e)``, and the ``random`` offsets of axis ``i`` from
+one seeded by ``(cfg.seed, round, i)``; both are other draws than the
+reference's ``jax.random`` ones (``masking.py:167, 182-187``), so the round
+also accepts injected offsets, which is how the tests hold it against the
+reference.  The grids, and so the set of windows an epoch visits, are the
+same, and ``importance`` (no random draw) gives the reference's offsets.
 """
 from __future__ import annotations
 
@@ -54,11 +58,13 @@ def capacity_size(capacity: float, n: int, align: int) -> int:
     return min(w, n)
 
 
-def seeded_generator(seed: int, k: int, device="cpu") -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded by the pair ``(seed,
-    k)`` (an epoch, a round)."""
-    return torch.Generator(device).manual_seed(
-        (int(seed) * 1_000_003 + int(k)) % (1 << 63))
+def seeded_generator(seed: int, *ks: int, device="cpu") -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded by the tuple ``(seed,
+    *ks)`` (an epoch; a round; a round and an axis)."""
+    s = int(seed)
+    for k in ks:
+        s = (s * 1_000_003 + int(k)) % (1 << 63)
+    return torch.Generator(device).manual_seed(s)
 
 
 def _epoch_permutation(seed: int, epoch: int, n: int) -> List[int]:
@@ -75,6 +81,42 @@ class WindowScheme:
     derived: Dict[AxisKey, Tuple[AxisKey, int]]  # heads <- (kv_heads, group)
     n_windows: int                               # R
 
+    def importance_offsets(self, params, axes, n_clients
+                           ) -> Dict[AxisKey, List[int]]:
+        """Data-dependent offsets from the live ``params`` (``{path:
+        tensor}``): per primary axis, the grid window of the largest
+        squared-weight mass, shared by every client; with ``stagger`` the
+        grid windows ranked by mass (a stable sort, so client 0 keeps the
+        largest) and client ``i`` on the ``i``-th (mod R).  A unit's mass
+        sums over every leaf that carries its axis (the per-layer leaves
+        stand in for the reference's stacked ``layers`` axis), in
+        float32; derived ``heads`` follow ``kv_heads`` times the group."""
+        mass: Dict[AxisKey, torch.Tensor] = {}
+        for path, t in params.items():
+            for d, name in enumerate(axes[path]):
+                key = (name, int(t.shape[d]))
+                if key not in self.sizes or key in self.derived:
+                    continue
+                other = [i for i in range(t.dim()) if i != d]
+                contrib = torch.sum(torch.square(t.float()), dim=other)
+                mass[key] = contrib if key not in mass else mass[key] + contrib
+        out = {}
+        for key, m in mass.items():
+            w = self.sizes[key]
+            csum = torch.cat([m.new_zeros(1), torch.cumsum(m, 0)])
+            grid = torch.as_tensor(self.grids[key], device=m.device)
+            window_mass = (csum[w:] - csum[:-w])[grid]
+            if self.cfg.stagger:
+                order = torch.argsort(-window_mass, stable=True).tolist()
+                out[key] = [self.grids[key][order[i % len(order)]]
+                            for i in range(n_clients)]
+            else:
+                best = self.grids[key][int(torch.argmax(window_mass))]
+                out[key] = [best] * n_clients
+        for k, (src, group) in self.derived.items():
+            out[k] = [o * group for o in out[src]]
+        return out
+
     def grid_multiple(self, key: AxisKey) -> int:
         """The gcd of every offset the scheme can produce for ``key`` (0
         when it is always 0).  The CUDA kernels take any offset, so the
@@ -85,14 +127,19 @@ class WindowScheme:
             return self.grid_multiple(src) * group
         if self.cfg.scheme in ("full", "static"):
             return 0
+        if self.cfg.scheme == "random":
+            return max(self.cfg.align, 1)   # offsets are align multiples
         return int(np.gcd.reduce(np.asarray(self.grids[key])))
 
     def offsets(self, round_idx: int, n_clients: int
                 ) -> Dict[AxisKey, List[int]]:
-        """Per-client offsets ``{axis: [C] ints}`` for this round.  Window
-        mode runs only a shared window; dense rolling masks also take the
-        staggered order (``stagger``), as the reference's
-        ``perm[(r + c) % R]``."""
+        """Per-client offsets ``{axis: [C] ints}`` for this round: 0 for
+        ``full``/``static``; the epoch's permuted grid for ``rolling``
+        (staggered: client c on the epoch's ``(r + c)``-th window, the
+        reference's ``perm[(r + c) % R]``); the first grid window for
+        ``importance`` without params (the round passes them to
+        :meth:`importance_offsets`); ``randint(0, (n - w) // align + 1) *
+        align`` per client for ``random``."""
         c = self.cfg
         prim = [k for k in self.sizes if k not in self.derived]
         out = {}
@@ -108,9 +155,18 @@ class WindowScheme:
                    for i in range(n_clients)]
             for k in prim:
                 out[k] = [self.grids[k][j] for j in idx]
+        elif c.scheme == "importance":
+            for k in prim:
+                out[k] = [self.grids[k][0]] * n_clients
+        elif c.scheme == "random":
+            for i, k in enumerate(prim):
+                hi = max((k[1] - self.sizes[k]) // c.align + 1, 1)
+                draw = torch.randint(0, hi, (n_clients,),
+                                     generator=seeded_generator(
+                                         c.seed, round_idx, i))
+                out[k] = [int(o) * c.align for o in draw]
         else:
-            raise NotImplementedError(
-                f"scheme {c.scheme!r} is not ported yet (ROADMAP.md queue A)")
+            raise ValueError(c.scheme)
         for k, (src, group) in self.derived.items():
             out[k] = [o * group for o in out[src]]
         return out

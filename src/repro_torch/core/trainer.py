@@ -1,13 +1,13 @@
 """The training loop over federated rounds.
 
-Ports ``Trainer`` (``step``, ``run``, ``losses``; eval, logging, callbacks
-and ``start_round`` resume) and ``checkpoint_callback`` of
-``repro/core/trainer.py``; server optimizers are not ported yet.  Batch
-iterators yield a batch dict (numpy or torch leaves ``[K, C, ...]``) or a
-``(batch, round_kwargs)`` pair whose kwargs go to the round, e.g.
-``{"offsets": ...}`` to inject window offsets, ``{"masks": ...}`` to inject
-masks or ``{"capacities": [...]}`` for a mask round's participants (the
-paper's protocol passes them so).
+Ports ``Trainer`` (``step``, ``run``, ``losses``; the server-optimizer
+round with its state carried across rounds; eval, logging, callbacks and
+``start_round`` resume) and ``checkpoint_callback`` of
+``repro/core/trainer.py``.  Batch iterators yield a batch dict (numpy or
+torch leaves ``[K, C, ...]``) or a ``(batch, round_kwargs)`` pair whose
+kwargs go to the round, e.g. ``{"offsets": ...}`` to inject window
+offsets, ``{"masks": ...}`` to inject masks or ``{"capacities": [...]}``
+for a mask round's participants (the paper's protocol passes them so).
 """
 from __future__ import annotations
 
@@ -31,7 +31,11 @@ class Trainer:
         params, history = trainer.run(batches, n_rounds=3)
         trainer.run(batches, 3)           # resumes at round 3
 
-    The round updates ``params`` in place.  ``history`` keeps per-round
+    The round updates ``params`` in place.  With a server optimizer (a
+    ``ServerOpt`` passed here, or the round's own ``fed.server_opt``) the
+    trainer steps ``fed.round_with_server_opt`` and carries
+    ``opt_state`` (made by ``server_opt.init(params)``) across rounds.
+    ``history`` keeps per-round
     metric records as device tensors; :attr:`losses` reads them once.
     ``rng`` (an int seed; None is 0) seeds one ``torch.Generator`` on the
     round's device, which every round draws its masks from
@@ -52,7 +56,7 @@ class Trainer:
     fed: Any
     params: Dict[str, torch.Tensor]
     rng: Optional[int] = None
-    server_opt: Any = None
+    server_opt: Any = None                # overrides fed.server_opt
     callbacks: Sequence[Callable] = ()
     eval_fn: Optional[Callable] = None    # (params) -> {name: scalar}
     eval_every: int = 0                   # 0 = the last round only
@@ -63,12 +67,11 @@ class Trainer:
     round_idx: int = field(default=0, init=False)
     history: List[Dict] = field(default_factory=list, init=False)
     generator: Any = field(default=None, init=False)
+    opt_state: Any = field(default=None, init=False)
 
     def __post_init__(self):
-        if self.server_opt not in (None, "", "none"):
-            raise NotImplementedError(
-                "server optimizers are not ported yet (ROADMAP.md queue A, "
-                "optimizers and the uplink)")
+        if self.server_opt is None:
+            self.server_opt = getattr(self.fed, "server_opt", None)
         dev = self.fed.device
         wrong = [k for k, v in self.params.items() if v.device != dev]
         if wrong:
@@ -77,13 +80,21 @@ class Trainer:
         self.round_idx = self.start_round
         self.generator = torch.Generator(dev).manual_seed(
             0 if self.rng is None else int(self.rng))
+        if self.server_opt is not None:
+            self.opt_state = self.server_opt.init(self.params)
 
     def step(self, batch, round_kwargs=None):
         """Run exactly one round on ``batch``; returns the history record."""
         r, kw = self.round_idx, dict(round_kwargs or {})
         kw.setdefault("generator", self.generator)
         batch = {k: _to_device(v, self.fed.device) for k, v in batch.items()}
-        self.params, metrics = self.fed.round(self.params, batch, r, **kw)
+        if self.server_opt is None:
+            self.params, metrics = self.fed.round(self.params, batch, r, **kw)
+        else:
+            self.params, self.opt_state, metrics = \
+                self.fed.round_with_server_opt(self.params, self.opt_state,
+                                               batch, r, self.server_opt,
+                                               **kw)
         self.round_idx += 1
         return {"round": r, **metrics}
 

@@ -20,32 +20,32 @@ def shared_offset(offsets):
     return offsets[0] if len(set(offsets)) == 1 else None
 
 
-def rolling_matmul_batched_ref(x, ws, offsets, win):
-    """``ys[t][c] = x[c] @ ws[t][c][:, offsets[c] : offsets[c] + win]``
-    (the reference's ``rolling_matmul_ref`` per client, per weight).  A
-    shared window is one ``bmm`` on the window views, the product the
-    extract client phase takes on its compact copies (the same bits)."""
+def window_columns(w, offsets, win):
+    """``w [C, K, N]`` narrowed to each client's columns ``[offsets[c],
+    offsets[c] + win)``: a view for a shared window, else one contiguous
+    ``[C, K, win]`` stack, laid out as the extract client phase's compact
+    copies."""
     o = shared_offset(offsets)
     if o is not None:
-        return tuple(torch.bmm(x, w[:, :, o:o + win]) for w in ws)
-    return tuple(
-        torch.stack([x[c] @ w[c, :, o:o + win]
-                     for c, o in enumerate(offsets)])
-        for w in ws)
+        return w[:, :, o:o + win]
+    return torch.stack([w[c, :, oc:oc + win] for c, oc in enumerate(offsets)])
+
+
+def rolling_matmul_batched_ref(x, ws, offsets, win):
+    """``ys[t][c] = x[c] @ ws[t][c][:, offsets[c] : offsets[c] + win]``
+    (the reference's ``rolling_matmul_ref`` per client, per weight): one
+    ``bmm`` on the clients' windows, the product the extract client phase
+    takes on its compact copies (the same bits)."""
+    return tuple(torch.bmm(x, window_columns(w, offsets, win)) for w in ws)
 
 
 def rolling_matmul_batched_dx_ref(dys, ws, offsets, win):
     """``dx[c] = sum_t dys[t][c] @ ws[t][c][:, offsets[c] : offsets[c] +
-    win]^T``, summed over t in order (the reference's pairwise sum); a
-    shared window as one ``bmm`` per weight, as the forward."""
-    o = shared_offset(offsets)
+    win]^T``, summed over t in order (the reference's pairwise sum), one
+    ``bmm`` per weight, as the forward."""
     out = None
     for dy, w in zip(dys, ws):
-        if o is not None:
-            term = torch.bmm(dy, w[:, :, o:o + win].mT)
-        else:
-            term = torch.stack([dy[c] @ w[c, :, oc:oc + win].mT
-                                for c, oc in enumerate(offsets)])
+        term = torch.bmm(dy, window_columns(w, offsets, win).mT)
         out = term if out is None else out + term
     return out
 

@@ -170,12 +170,19 @@ class RollingMatmulBatched(torch.autograd.Function):
         dws = []
         o = ref.shared_offset(offsets.host)
         for w, dy in zip(ws, dys):
-            # the product writes straight into the window view of dW (no
-            # compact-shaped temporary): one batched product for a shared
-            # window, else one per client
+            # the product writes straight into the window of dW (no
+            # compact-shaped temporary on the card): one batched product
+            # for a shared window, one per client for per-client windows.
+            # On the CPU per-client windows take one bmm and a scatter,
+            # the extract client phase's product (one mm per client
+            # rounds otherwise past about 256 columns)
             dw = torch.zeros_like(w)
             if o is not None:
                 dw[:, :, o:o + win].baddbmm_(x.mT, dy)
+            elif w.device.type == "cpu":
+                g = torch.bmm(x.mT, dy)
+                for c, oc in enumerate(offsets.host):
+                    dw[c, :, oc:oc + win] = g[c]
             else:
                 for c, oc in enumerate(offsets.host):
                     dw[c, :, oc:oc + win].addmm_(x[c].mT, dy[c])

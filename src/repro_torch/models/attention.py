@@ -121,10 +121,10 @@ def gqa_train(p, x, cfg, positions, window=None):
     wo = p["wo"]
     hspec = window.get("heads", wo.shape[1]) if window else None
     if hspec is not None:
-        # the contraction runs over the active heads only: a view of the
-        # output projection's rows (grads land as exact zeros outside)
-        o = hspec.shared_offset()
-        wo = wo[:, o:o + hspec.win]
+        # the contraction runs over the active heads only: each client's
+        # window of the output projection's rows (a view for a shared
+        # window; grads land as exact zeros outside)
+        wo = hspec.take(wo)
     Hw, hd = wo.shape[1], wo.shape[2]
     out = torch.bmm(out.reshape(C, B * S, Hw * hd), wo.reshape(C, Hw * hd, D))
     return out.reshape(C, B, S, D)

@@ -42,6 +42,7 @@ class AxisWindow:
                         else tuple(int(o) for o in offsets))
         self.win = int(win)
         self._cols: Dict[Tuple[int, str], Offsets] = {}
+        self._rows: Dict[str, torch.Tensor] = {}
 
     def cols(self, scale: int, device) -> Offsets:
         """Offsets scaled to columns (a head window covers ``scale =
@@ -59,12 +60,28 @@ class AxisWindow:
         return SCALAR_NAMES[T] if self.scalar else None
 
     def shared_offset(self) -> int:
-        """The one offset every client shares (the shared-window round)."""
+        """The one offset every client shares (a shared window)."""
         if len(set(self.offsets)) != 1:
-            raise NotImplementedError(
-                "per-client (staggered) windows are not ported yet "
-                "(ROADMAP.md queue A, per-client windows)")
+            raise ValueError(f"the clients' windows differ ({self.offsets}):"
+                             " there is no one shared offset")
         return self.offsets[0]
+
+    def take(self, w):
+        """``w [C, n, ...]`` narrowed to each client's window on dim 1 (the
+        reference's ``dynamic_slice``, vmapped over clients for per-client
+        windows).  A shared window is a view, not a copy; per-client
+        windows are one indexed gather ``[C, win, ...]``, whose backward
+        writes into one full-shaped zero gradient."""
+        if len(set(self.offsets)) == 1:
+            o = self.offsets[0]
+            return w[:, o:o + self.win]
+        key = str(w.device)
+        if key not in self._rows:
+            self._rows[key] = (torch.tensor(self.offsets, device=w.device)
+                               [:, None] + torch.arange(self.win,
+                                                        device=w.device))
+        idx = self._rows[key]                                 # [C, win]
+        return w[torch.arange(idx.shape[0], device=w.device)[:, None], idx]
 
 
 class WindowMap:
@@ -196,13 +213,11 @@ def mlp_apply_rolling(p, x, spec: AxisWindow, act="silu"):
     """Gated MLP on the FULL weights reading only the active ``d_ff``
     window: the gate/up pair goes through one T = 2 windowed product (the
     ``rolling_mm_fwd<2>`` kernel on the card), and ``w_down``'s row
-    window is a view, not a copy (the reference's ``dynamic_slice``)."""
+    window is :meth:`AxisWindow.take` (a view for a shared window)."""
     gy, u = rolling_matmul_batched(
         _rows(x), (p["w_gate"], p["w_up"]), spec.cols(1, x.device),
         spec.win, names=spec.names(2))
-    o = spec.shared_offset()
-    w_down = p["w_down"][:, o:o + spec.win]
-    out = torch.bmm(act_fn(act)(gy) * u, w_down)
+    out = torch.bmm(act_fn(act)(gy) * u, spec.take(p["w_down"]))
     return out.reshape(x.shape)
 
 

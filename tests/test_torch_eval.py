@@ -55,6 +55,18 @@ SCFG = dict(scheme="rolling", capacity=0.5, local_steps=2,
             axes=("d_ff", "heads", "kv_heads"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's pool of a thread per core in
+    each of them oversubscribes the machine (its parallel regions then
+    wait on descheduled threads, hundreds of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
@@ -315,11 +327,25 @@ def test_trainer_eval_log_and_callbacks_match_reference():
                                    atol=2e-4)
 
 
-def test_trainer_refuses_server_optimizers():
+def test_trainer_steps_a_server_optimizer():
+    """A ``ServerOpt`` handed to the Trainer is stepped through
+    ``round_with_server_opt``, its state carried (server ``sgd`` is the
+    paper's update, so the params equal the plain round's)."""
+    from repro_torch.core.server_opt import server_sgd
     model = build_model(get_reduced_config("tinyllama_1_1b"))
     fed = api.fed_round(model, SubmodelConfig(**SCFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.Trainer(fed, model.init(0, device="cpu"), server_opt="adam")
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, 512, (2, 4, 2, 32))}
+    out = []
+    for opt in (None, server_sgd()):
+        trainer = api.Trainer(fed, model.init(0, device="cpu"),
+                              server_opt=opt)
+        assert (trainer.opt_state is None) == (opt is None)
+        trainer.run(iter([batch]), 1)
+        out.append(trainer.params)
+    for k in out[0]:
+        torch.testing.assert_close(out[0][k], out[1][k], atol=1e-6,
+                                   rtol=1e-6)
 
 
 # -- checkpoints -----------------------------------------------------------------

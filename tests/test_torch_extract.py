@@ -51,6 +51,18 @@ SCFG = dict(scheme="rolling", capacity=0.5, local_steps=2,
 SCHEMES = ("rolling", "full")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's pool of a thread per core in
+    each of them oversubscribes the machine (its parallel regions then
+    wait on descheduled threads, hundreds of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

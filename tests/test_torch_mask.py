@@ -41,6 +41,18 @@ RUNS = {"bernoulli": (dict(scheme="bernoulli"), [0.5] * C),
         "rolling_hetero": (dict(scheme="rolling"), HETERO)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's pool of a thread per core in
+    each of them oversubscribes the machine (its parallel regions then
+    wait on descheduled threads, hundreds of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
@@ -264,5 +276,6 @@ def test_importance_masks_and_server_opt_raise(port_model):
     batch = next(lm_batches(512, (2, C, 2), S, seed=0))
     with pytest.raises(ValueError, match="importance"):
         api.Trainer(fed, port_model.init(0, device="cpu")).step(batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fed.round_with_server_opt()
+    with pytest.raises(ValueError, match="no server optimizer"):
+        fed.round_with_server_opt(port_model.init(0, device="cpu"), None,
+                                  batch, 0)

@@ -47,6 +47,18 @@ ROUNDS = 3
 EXP = dict(n_clients=6, participate=3, n_train=240, n_test=48, mb=4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's pool of a thread per core in
+    each of them oversubscribes the machine (its parallel regions then
+    wait on descheduled threads, hundreds of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

@@ -1,0 +1,144 @@
+"""The port's training CLI, ``python -m repro_torch.launch.train``.
+
+Reduced TinyLlama (2 layers) on the CPU (``--reduced --device cpu``), 2
+rounds of C = 4 clients x K = 2 steps x 2 x 32 tokens: the final JSON
+(``first_loss``, ``last_loss``, finite) for the flag combinations this
+slice ports (per-client windows, client and server optimizers, the bf16
+uplink, both client phases, mask mode), the ``round N loss`` log lines,
+the checkpoint, one run equal to the same configuration driven through
+``api`` directly, and the refusals of what is not ported (the mesh and the
+fleet flags).  The ``gpu`` twin runs the CLI on the card and skips without
+one.  No JAX here: the card's machine runs the twin with
+``--noconftest``.
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import api  # noqa: E402
+from repro_torch.checkpoint.checkpoint import load  # noqa: E402
+from repro_torch.configs.base import (SubmodelConfig,  # noqa: E402
+                                      get_reduced_config)
+from repro_torch.data.synthetic import lm_batches  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+BASE = ["--arch", "tinyllama_1_1b", "--reduced", "--rounds", "2",
+        "--seq", "32", "--log-every", "1", "--lr", "0.1"]
+FLAGS = {
+    "stagger_momentum_adam_bf16": ["--stagger", "--client-opt", "momentum",
+                                   "--server-opt", "adam",
+                                   "--uplink-compression", "bf16"],
+    "random_proximal": ["--scheme", "random", "--client-opt", "proximal"],
+    "importance_stagger_extract": ["--scheme", "importance", "--stagger",
+                                   "--fused-forward", "off"],
+    "no_shared_window_server_momentum": ["--no-shared-window",
+                                         "--server-opt", "momentum"],
+    "mask_momentum_adam": ["--scheme", "bernoulli", "--client-opt",
+                           "momentum", "--server-opt", "adam"],
+    "axes_d_ff_sgd": ["--axes", "d_ff", "--server-opt", "sgd"],
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's pool of a thread per core in
+    each of them oversubscribes the machine (its parallel regions then
+    wait on descheduled threads, hundreds of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _check(out, text):
+    assert set(out) == {"first_loss", "last_loss"}
+    assert all(math.isfinite(v) for v in out.values())
+    assert json.loads(text.strip().splitlines()[-1]) == out
+    assert "round    0 loss" in text and "round    1 loss" in text
+    assert "s/round)" in text
+
+
+@pytest.mark.parametrize("name", list(FLAGS))
+def test_cli_flag_combinations_print_finite_losses(name, capsys):
+    out = train.main(BASE + FLAGS[name] + ["--device", "cpu"])
+    _check(out, capsys.readouterr().out)
+
+
+def test_cli_runs_as_a_module_and_checkpoints(tmp_path):
+    ckpt = tmp_path / "ck.npz"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    text = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *BASE,
+         *FLAGS["stagger_momentum_adam_bf16"], "--device", "cpu",
+         "--ckpt", str(ckpt)], capture_output=True, text=True, env=env,
+        timeout=300, check=True).stdout
+    out = json.loads(text.strip().splitlines()[-1])
+    _check(out, text)
+    params, meta = load(str(ckpt), device="cpu")
+    assert meta["rounds"] == 2 and meta["history"][0] == out["first_loss"]
+    assert all(torch.isfinite(v).all() for v in params.values())
+
+
+def test_cli_equals_the_same_round_through_api(capsys):
+    """The CLI's losses are those of ``api.fed_round`` + ``api.Trainer`` on
+    the same configuration, params (seed 0) and batches."""
+    out = train.main(BASE + FLAGS["random_proximal"] + ["--device", "cpu"])
+    capsys.readouterr()
+    cfg = get_reduced_config("tinyllama_1_1b")
+    model = build_model(cfg)
+    fed = api.fed_round(model, SubmodelConfig(
+        scheme="random", capacity=0.5, local_steps=2, clients_per_round=4,
+        client_lr=0.1, seed=0), client_opt="proximal", device="cpu")
+    trainer = api.Trainer(fed, model.init(0, device="cpu"), rng=1)
+    trainer.run(lm_batches(cfg.vocab, (2, 4, 2), 32, seed=0), 2)
+    assert trainer.losses == [out["first_loss"], out["last_loss"]]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh", "4"], ["--mesh-agg", "psum"], ["--async-buffer", "2"],
+    ["--fleet", "8"], ["--dropout", "0.1"],
+    ["--server-lr-schedule", "inv_sqrt"]],
+    ids=["mesh", "mesh_agg", "async", "fleet", "dropout", "lr_schedule"])
+def test_cli_refuses_what_is_not_ported(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.main(BASE + flags + ["--device", "cpu"])
+
+
+def test_cli_refuses_what_the_reference_refuses():
+    with pytest.raises(ValueError, match="uplink_compression"):
+        train.main(BASE + ["--scheme", "bernoulli", "--uplink-compression",
+                           "bf16", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        train.main(BASE + ["--client-opt", "adamw", "--device", "cpu"])
+
+
+def test_cli_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(BASE)
+
+
+@pytest.mark.gpu
+def test_gpu_cli_trains_on_the_card(capsys):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; none is present")
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    out = train.main(BASE + FLAGS["stagger_momentum_adam_bf16"])
+    _check(out, capsys.readouterr().out)
+    for name in ("rolling_mm_fwd<1>", "rolling_mm_fwd<2>",
+                 "rolling_mm_dx<1>", "rolling_mm_dx<2>", "sgd_inplace"):
+        assert _build.LAUNCHES.get(name, 0) > 0, name
+    assert np.isfinite(out["last_loss"])
