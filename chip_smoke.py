@@ -38,7 +38,11 @@ Phases, each of which fails the run when it fails:
    server ``sgd`` and ``momentum`` (2 chained rounds each), and server
    Adam, a mask round with client momentum and server Adam, and the bf16
    uplink, each round from the CPU's params and server state and held per
-   coordinate at the bound of its step function.
+   coordinate at the bound of its step function; then heterogeneous
+   capacities (2 rounds at capacities 1, 0.5, 0.5, 0.25 through the fused
+   and the extract buckets, and with server ``sgd``) and an
+   ``AsyncTrainer`` regime (a fleet of 8 with stragglers and jitter, N = 4,
+   M = 2, 4 aggregations: equal virtual times and staleness).
 4. The window path: the shared-window federated round on full-width
    TinyLlama-1.1B (22 layers, f32, 4 clients x 2 local steps x 2 x 256
    tokens), through ``api.fed_round`` and ``api.Trainer``, 3 rounds, with
@@ -73,6 +77,20 @@ Phases, each of which fails the run when it fails:
    per-client windows (``[wsub stagger]``); then the same configuration
    through ``python -m repro_torch.launch.train`` as a subprocess
    (``[train cli]``, finite losses).
+4h. The hetero path: the window path's configuration with capacities
+   1, 0.5, 0.25 and 0.125 (a bucket a client: a full replica on the
+   extract phase, fused buckets at three widths), 3 rounds through
+   ``api.fed_round`` and ``api.Trainer``: seconds per round, peak, rows 5-8
+   and 10's launches against the bucket arithmetic, one profiled round and
+   the "no W_sub copy" pin on the narrowest fused bucket.
+4i. The fleet path, from the same params and batches: the M = N anchor
+   (``AsyncTrainer`` == ``Trainer`` bit for bit on the card, 3 rounds); an
+   async regime (a fleet of 16, a quarter 10x slower, jitter 0.5, N = 4,
+   M = 2, 6 aggregations: host seconds per aggregation, virtual time, mean
+   staleness, the aggregations on the per-client arm, peak); the hetero
+   fleet (M = N, 2 rounds, within 1e-5 of the sync hetero rounds); the
+   training CLI with ``--async-buffer 2 --fleet 8 --straggler-frac 0.25``
+   as a subprocess.
 4b. The mask path: the same configuration with ``scheme="bernoulli"``
    (Algorithm 1, mask mode chosen by ``api.fed_round`` itself) through
    ``api.Trainer(rng=0)``, 3 rounds, counted, checked and profiled the
@@ -104,7 +122,9 @@ Phases, each of which fails the run when it fails:
 
 The update kernels (rows 9-11) are also held and timed at the shapes the
 extract and paper paths give them, and rows 5-11 carry each path's
-launches (``launches_by_path``: extract, full, stagger, mask_opt, paper).
+launches (``launches_by_path``: extract, full, stagger, hetero, fleet,
+mask_opt, paper); rows 5-8 and 10 are also timed at the hetero path's
+narrowest bucket (one client, windows 512 and 704 columns).
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  With no
 card, or without the repository beside it, the script fails and prints no
@@ -354,6 +374,12 @@ def phase_kernels(dev):
         # taken by 2 of the 4 clients
         rows[-1].setdefault("sub_rows", []).append(product_timing(
             dev, g, kind, T, C, M, N, win, [0, off, 0, off]))
+        # the hetero path's narrowest bucket (capacity 0.125, one client):
+        # the q window 512 of 2048 columns (kv_heads 1 of 4) and the gate/up
+        # window 704 of 5632, at one of its grid offsets
+        h_win, h_off = (512, 1024) if T == 1 else (704, 2816)
+        rows[-1]["sub_rows"].append(product_timing(dev, g, kind, T, 1, M, N,
+                                                   h_win, h_off))
 
     # autograd through the Function at the gate/up shape against plain
     # autograd on the window views
@@ -568,10 +594,11 @@ def mask_kernels(dev, g):
 
 
 def path_update_rows(dev, g, rows):
-    """The update kernels also at the shapes the extract and paper paths
-    give them, bit for bit against their plain versions and timed (a
+    """The update kernels also at the shapes the extract, hetero and paper
+    paths give them, bit for bit against their plain versions and timed (a
     ``sub_rows`` entry each): row 10 on the extract round's stacked compact
-    ``w_gate`` [4, 2048, 2816]; rows 9 and 11 on ResNet18's largest leaf
+    ``w_gate`` [4, 2048, 2816] and on one hetero bucket client's full
+    ``w_gate`` [1, 2048, 5632]; rows 9 and 11 on ResNet18's largest leaf
     (stage 3's ``conv2``, [3, 3, 512, 512]) at the paper round's 10
     clients."""
     from repro_torch.kernels import ref
@@ -588,13 +615,17 @@ def path_update_rows(dev, g, rows):
             library_ms=None if lib is None else cuda_ms(lib),
             bound_ms=b_ms, bound_by=b_by))
 
-    n = C * D * 2816
-    w = torch.randn(n, device=dev, generator=g)
-    gr = torch.randn(n, device=dev, generator=g)
-    sub("sgd_inplace", {"w": [C, D, 2816]},
-        bits_equal(sgd_(w.clone(), gr, 0.1), ref.sgd_ref(w.clone(), gr, 0.1)),
-        2 * n, 12 * n, lambda: sgd_(w, gr, 1e-6),
-        lambda: ref.sgd_ref(w, gr, 1e-6), lambda: w.add_(gr, alpha=-1e-6))
+    for c, width in ((C, 2816), (1, 5632)):
+        # the extract round's stacked compact w_gate; a hetero bucket's one
+        # client stepping its full-width copy
+        n = c * D * width
+        w = torch.randn(n, device=dev, generator=g)
+        gr = torch.randn(n, device=dev, generator=g)
+        sub("sgd_inplace", {"w": [c, D, width]},
+            bits_equal(sgd_(w.clone(), gr, 0.1),
+                       ref.sgd_ref(w.clone(), gr, 0.1)),
+            2 * n, 12 * n, lambda: sgd_(w, gr, 1e-6),
+            lambda: ref.sgd_ref(w, gr, 1e-6), lambda: w.add_(gr, alpha=-1e-6))
     cp, leaf = 10, [3, 3, 512, 512]
     ns = math.prod(leaf)
     n = cp * ns
@@ -1695,17 +1726,19 @@ def phase_wsub_pin(dev, model, params, batch, offsets, scfg=None,
     tensor shaped like a stacked compact leaf (``[C, 2048, 2816]`` for
     ``w_gate``, ``[C, 2048, 16, 64]`` for ``wq``, ...), while the extract
     phase allocates them; both from the same params, batch and offsets
-    (one shared window, or with ``scfg`` one window per client)."""
+    (one shared window, or with ``scfg`` one window per client, or a
+    hetero bucket's configuration and clients)."""
     from repro_torch import api
     scfg = scfg or scfg_for("rolling")
+    nc = scfg.clients_per_round
     batch = {k: torch.as_tensor(v).to(dev, torch.long)
              for k, v in batch.items()}
     found = {}
     for ff in ("on", "off"):
         fed = api.fed_round(model, scfg, fused_forward=ff, device=dev)
-        compact = compact_shapes(fed, 4)
+        compact = compact_shapes(fed, nc)
         pinned = {s for s, names in compact.items() if names <= set(PINNED)}
-        other = {(4, *s) for s in fed.abstract.values()} | \
+        other = {(nc, *s) for s in fed.abstract.values()} | \
             (set(compact) - pinned)
         check(pinned and not pinned & other, f"stacked compact shapes "
               f"{sorted(pinned & other)} are also other tensors' shapes: "
@@ -2064,6 +2097,266 @@ def phase_mask_opt_path(dev, _build):
     return dict(total)
 
 
+# -- this slice: heterogeneous capacities and the asynchronous fleet -----------
+
+AGREE_CAPS = (1.0, 0.5, 0.5, 0.25)
+FLEET_CLI = ["--arch", "tinyllama_1_1b", "--async-buffer", "2", "--fleet",
+             "8", "--straggler-frac", "0.25", "--clients", "4",
+             "--local-steps", "2", "--mb", "2", "--seq", "256", "--rounds",
+             "3", "--log-every", "1"]
+ASYNC_KEYS = {"first_loss", "last_loss", "virtual_time", "rounds_per_vsec",
+              "mean_staleness"}
+
+
+def phase_small_agreement_hetero(dev):
+    """This slice's configurations, reduced, on the card against the CPU
+    from the same params, offsets (drawn on the CPU) and batches: 2 hetero
+    rounds at capacities ``AGREE_CAPS`` through the fused and the extract
+    buckets, 2 with server ``sgd``, and an ``AsyncTrainer`` regime (a fleet
+    of 8, N = 4 in flight, M = 2, a quarter of it 10x slower, lognormal
+    jitter 0.5, 4 aggregations) whose virtual times and staleness must be
+    equal and whose params agree within ROUND_TOL."""
+    from repro_torch import api
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    cfg = get_reduced_config("tinyllama_1_1b")
+    model = build_model(cfg)
+    batch = next(lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0))
+    p0 = model.init(0, device="cpu")
+    for tag, kw in (("hetero, fused buckets", {}),
+                    ("hetero, extract buckets", dict(fused_forward="off")),
+                    ("hetero, server sgd", dict(server_opt="sgd"))):
+        outs = {}
+        for where in ("cpu", dev):
+            fed = api.fed_round(model, scfg_for("rolling"), device=where,
+                                capacities=AGREE_CAPS, **kw)
+            check(fed.hetero is not None and
+                  [b.fed.use_fused for b in fed.hetero] ==
+                  [False] + [kw.get("fused_forward") != "off"] * 2,
+                  f"{tag}: buckets {fed.hetero}")
+            trainer = api.Trainer(fed, _to(p0, where))
+            trainer.run(((batch, {"offsets": fed._client_offsets(r)})
+                         for r in range(2)), 2)
+            outs[str(where)] = trainer
+        g, c = outs[str(dev)], outs["cpu"]
+        dl = max((a["client_loss"].cpu() - b["client_loss"]).abs().max()
+                 .item() for a, b in zip(g.history, c.history))
+        dp = _max_diff(g.params, c.params)
+        check(dl <= ROUND_TOL and dp <= ROUND_TOL,
+              f"reduced {tag} on the card disagrees with the CPU: loss "
+              f"{dl}, params {dp}")
+        print(f"[agree] reduced 2-round {tag} (capacities {AGREE_CAPS}) "
+              f"card vs CPU: max |d loss| {dl:.3g}, max |d param| {dp:.3g} "
+              f"(tolerance {ROUND_TOL})")
+
+    outs = {}
+    for where in ("cpu", dev):
+        fed = api.fed_round(model, scfg_for("rolling"), device=where)
+        at = api.AsyncTrainer(
+            fed, _to(p0, where), buffer_size=2,
+            fleet=api.FleetSimulator(8, api.LatencyModel(
+                straggler_frac=0.25, jitter_sigma=0.5, seed=0)))
+        at.run(lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0), 4)
+        outs[str(where)] = at
+    g, c = outs[str(dev)], outs["cpu"]
+    sched = [(h["virtual_time"], h["staleness"]) for h in g.history]
+    check(sched == [(h["virtual_time"], h["staleness"]) for h in c.history],
+          f"async virtual times and staleness differ: card {sched}")
+    dl = max((a["client_loss"].cpu() - b["client_loss"]).abs().max().item()
+             for a, b in zip(g.history, c.history))
+    dp = _max_diff(g.params, c.params)
+    check(dl <= ROUND_TOL and dp <= ROUND_TOL,
+          f"reduced async regime on the card disagrees with the CPU: loss "
+          f"{dl}, params {dp}")
+    print(f"[agree] reduced AsyncTrainer (fleet 8, N = 4, M = 2, stragglers "
+          f"0.25 x 10, jitter 0.5), 4 aggregations card vs CPU: (virtual "
+          f"time, staleness) equal {sched}; max |d loss| {dl:.3g}, max |d "
+          f"param| {dp:.3g} (tolerance {ROUND_TOL})")
+
+
+def _hetero_launches(cfg, leaves, buckets, n):
+    """Rows 5-8 and 10's launches over ``n`` hetero rounds: every fused
+    bucket (capacity < 1) runs the windowed products, 3 (q, k, v) and 1
+    (gate/up) forward and dx a layer a step, whatever its client count;
+    every bucket steps its clients' leaves K = 2 times through row 10."""
+    fused = sum(b.fed.use_fused for b in buckets)
+    return {"rolling_mm_fwd<1>": 3 * cfg.n_layers * 2 * fused * n,
+            "rolling_mm_dx<1>": 3 * cfg.n_layers * 2 * fused * n,
+            "rolling_mm_fwd<2>": cfg.n_layers * 2 * fused * n,
+            "rolling_mm_dx<2>": cfg.n_layers * 2 * fused * n,
+            "sgd_inplace": 2 * leaves * len(buckets) * n}
+
+
+def phase_hetero_path(dev, _build):
+    """Heterogeneous capacities at full width: the window path's
+    configuration with ``capacities=HETERO`` (one client a bucket: a full
+    replica on the extract phase, and fused buckets at 0.5, 0.25 and 0.125
+    of d_ff / kv_heads), 3 rounds through ``api.fed_round`` and
+    ``api.Trainer``; the buckets' windows, seconds per round, peak, rows
+    5-8 and 10's launches a round, one profiled round, and the "no W_sub
+    copy" pin on the narrowest fused bucket.  Returns the launches."""
+    from repro_torch import api
+    cfg, model, data = full_width(dev)
+    params = model.init(seed=0, device=dev)
+    fed = api.fed_round(model, scfg_for("rolling"), capacities=HETERO,
+                        device=dev)
+    check([(b.beta, b.idx) for b in fed.hetero] ==
+          [(c, (i,)) for i, c in enumerate(HETERO)],
+          f"hetero buckets {[(b.beta, b.idx) for b in fed.hetero]}")
+    for b in fed.hetero:
+        print(f"[hetero] bucket {b.beta}: lanes {list(b.idx)}, "
+              f"{'fused' if b.fed.use_fused else 'extract'} phase, windows "
+              f"{ {f'{k[0]}/{k[1]}': w for k, w in b.fed.scheme.sizes.items()} }")
+    offsets = [fed._client_offsets(r) for r in range(len(data))]
+    print(f"[hetero] union offsets a round {offsets}")
+    trainer = api.Trainer(fed, params)
+    launches, round_s = run_rounds("hetero", trainer, data, _build)
+    n = len(data)
+    want = _hetero_launches(cfg, len(params), fed.hetero, n)
+    got = {k: launches.get(k, 0) for k in want}
+    check(got == want, f"hetero path launches {got}, expected {want}")
+    print(f"[hetero] rows 5-8 and 10 a round: "
+          f"{ {k: v // n for k, v in got.items()} }")
+    phase_profile("hetero", trainer, (data[0], {}), round_s)
+    b = fed.hetero[-1]
+    lanes = list(b.idx)
+    phase_wsub_pin(dev, model, trainer.params,
+                   {k: v[:, lanes] for k, v in data[0].items()},
+                   b.fed._client_offsets(0), scfg=b.fed.scfg,
+                   tag="wsub hetero")
+    del trainer, params, fed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fleet_path(dev, _build):
+    """The asynchronous fleet at full width, from the same initial params
+    (seed 0) and batches: (a) the M = N anchor, 3 rounds of
+    ``AsyncTrainer(buffer_size=None)`` against 3 of ``api.Trainer``, params
+    and losses bit-equal on the card; (b) an async regime (a fleet of 16,
+    a quarter 10x slower, lognormal jitter 0.5; N = 4 in flight, M = 2,
+    ``inverse_sqrt`` staleness, 6 aggregations) with its launches counted,
+    host seconds per aggregation, virtual time, mean staleness, the
+    aggregations that took the per-client arm and the peak; (c) the hetero
+    fleet (``capacities=HETERO``, ``FleetSimulator(capacities=)``), M = N,
+    2 rounds, within 1e-5 of the largest magnitude of each param of the
+    sync hetero rounds; (d) the training CLI with ``--async-buffer 2
+    --fleet 8 --straggler-frac 0.25`` as a subprocess.  Returns (b)'s
+    launches."""
+    from repro_torch import api
+    from repro_torch.data.synthetic import lm_batches
+    cfg, model, data = full_width(dev)
+    scfg = scfg_for("rolling")
+
+    # (a) the anchor
+    fed = api.fed_round(model, scfg, device=dev)
+    sync = api.Trainer(fed, model.init(seed=0, device=dev))
+    sync.run(iter(data), len(data))
+    at = api.AsyncTrainer(fed, model.init(seed=0, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    at.run(iter(data), len(data))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    same = all(bits_equal(at.params[k], sync.params[k]) for k in sync.params)
+    same_loss = all(bits_equal(a["client_loss"], b["client_loss"])
+                    for a, b in zip(at.history, sync.history))
+    check(at._fused and same and same_loss,
+          f"[fleet] M = N anchor: params bit-equal {same}, losses "
+          f"{same_loss}, fused {at._fused}")
+    print(f"[fleet] (a) M = N anchor, {len(data)} rounds: AsyncTrainer "
+          f"(zero-spread fleet of 4, M = N = 4) == Trainer bit for bit, "
+          f"params and client losses; async {secs:.3f} s in all; losses "
+          f"{at.losses}")
+    del sync, at
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the async regime
+    fleet = api.FleetSimulator(16, api.LatencyModel(
+        straggler_frac=0.25, straggler_mult=10, jitter_sigma=0.5, seed=0))
+    at = api.AsyncTrainer(fed, model.init(seed=0, device=dev),
+                          buffer_size=2, fleet=fleet,
+                          staleness="inverse_sqrt")
+    stream = lm_batches(cfg.vocab, (2, 4, 2), seq=256, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    at.run(stream, 6)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    h = at.history
+    stale = float(np.mean([r["staleness"] for r in h]))
+    check(len(h) == 6 and all(math.isfinite(v) for v in at.losses) and
+          all(torch.isfinite(v).all() for v in at.params.values()),
+          f"[fleet] async regime: losses {at.losses}")
+    check(stale > 0, "[fleet] async regime saw no staleness")
+    check(all(launches.get(k, 0) > 0 for k in (
+        "rolling_mm_fwd<1>", "rolling_mm_dx<1>", "rolling_mm_fwd<2>",
+        "rolling_mm_dx<2>", "sgd_inplace")),
+        f"[fleet] async regime launches {launches}")
+    print(f"[fleet] (b) async regime: fleet 16 (stragglers "
+          f"{sorted(fleet.stragglers)} x 10, jitter 0.5), N = 4, M = 2, "
+          f"inverse_sqrt, 6 aggregations from {at._seq} dispatched clients: "
+          f"{secs / 6:.3f} host s per aggregation; virtual time "
+          f"{h[-1]['virtual_time']:.4f}; mean staleness {stale:.4f} "
+          f"(per aggregation {[r['staleness'] for r in h]}); "
+          f"{at.scatter_aggregations} of 6 aggregations on the per-client "
+          f"arm (mixed windows); peak {peak / 2**30:.2f} GiB; losses "
+          f"{at.losses}")
+    print(f"[fleet] (b) kernel launches {launches}")
+    del at
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the hetero fleet against the sync hetero rounds
+    fed = api.fed_round(model, scfg, capacities=HETERO, device=dev)
+    sync = api.Trainer(fed, model.init(seed=0, device=dev))
+    sync.run(iter(data[:2]), 2)
+    at = api.AsyncTrainer(fed, model.init(seed=0, device=dev),
+                          fleet=api.FleetSimulator(4, capacities=HETERO))
+    at.run(iter(data[:2]), 2)
+    rel = max(((at.params[k] - v).abs().max()
+               / v.abs().max().clamp_min(1e-30)).item()
+              for k, v in sync.params.items())
+    dl = max(abs(a - b) for a, b in zip(at.losses, sync.losses))
+    check(at._fused and rel <= 1e-5 and dl <= ROUND_TOL,
+          f"[fleet] hetero anchor: params rel {rel}, losses {dl}")
+    print(f"[fleet] (c) hetero fleet (capacities {HETERO}, the fleet's "
+          f"rank-paired), M = N, 2 rounds vs the sync hetero rounds: max "
+          f"|d param| / max|param| {rel:.3g} (tolerance 1e-5: arrival-order "
+          f"sums), max |d loss| {dl:.3g}")
+    del sync, at, fed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the CLI
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                           *FLEET_CLI], capture_output=True, text=True,
+                          env=env, cwd=str(ROOT), timeout=600)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the async training CLI failed "
+          f"({proc.returncode}): {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    check(set(out) == ASYNC_KEYS and math.isfinite(out["first_loss"]) and
+          math.isfinite(out["last_loss"]),
+          f"the async training CLI printed {out}")
+    for line in lines:
+        print(f"[fleet cli] {line}")
+    print(f"[fleet cli] python -m repro_torch.launch.train "
+          f"{' '.join(FLEET_CLI)}: {secs:.1f} s in all; finite losses, the "
+          "async record")
+    return launches
+
+
 # -- phase 4e: the paper's protocol ---------------------------------------------
 
 PAPER_SCHEMES = ("rolling", "random", "static", "full")
@@ -2292,6 +2585,7 @@ def main():
     phase_small_agreement_extract(dev)
     phase_small_agreement_paper(dev)
     phase_small_agreement_opt(dev)
+    phase_small_agreement_hetero(dev)
     launches, trainer, batch, round_s, fused = phase_main_path(dev, _build)
     e_launches = phase_eval(dev, trainer, _build)
     phase_profile("window", trainer, batch, round_s)
@@ -2302,6 +2596,8 @@ def main():
     x_launches, f_launches = phase_extract_path(dev, _build, fused)
     del fused
     st_launches = phase_stagger_path(dev, _build)
+    h_launches = phase_hetero_path(dev, _build)
+    fl_launches = phase_fleet_path(dev, _build)
     m_launches, trainer, batch, round_s = phase_mask_path(dev, _build)
     phase_profile("mask", trainer, batch, round_s)
     phase_client_phase_peaks(trainer, batch)
@@ -2324,15 +2620,17 @@ def main():
     path.update({name: e_launches for name in (
         "flash_attention", "rolling_matmul", "rolling_matmul_multi",
         "rolling_matmul_dx", "rolling_matmul_dx_multi")})
-    # the launches of the extract, full, stagger, mask-opt and paper paths
-    # (rows 5-11)
+    # the launches of the extract, full, stagger, hetero, fleet, mask-opt
+    # and paper paths (rows 5-11)
     more = {"sgd_inplace": {"extract": x_launches, "full": f_launches,
-                            "stagger": st_launches},
+                            "stagger": st_launches, "hetero": h_launches,
+                            "fleet": fl_launches},
             "masked_sgd_inplace": {"paper": p_launches,
                                    "mask_opt": mo_launches},
             "fillin_agg_inplace": {"paper": p_launches,
                                    "mask_opt": mo_launches}}
-    more.update({name: {"stagger": st_launches} for name in (
+    more.update({name: {"stagger": st_launches, "hetero": h_launches,
+                        "fleet": fl_launches} for name in (
         "rolling_mm_fwd<1>", "rolling_mm_dx<1>", "rolling_mm_fwd<2>",
         "rolling_mm_dx<2>")})
     for r in rows:

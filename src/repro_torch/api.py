@@ -2,9 +2,10 @@
 
 Ports ``MODES``, ``resolve_mode``, ``_resolve_server_opt``, ``fed_round``
 (window mode with one shared window, per-client windows or none, through
-the fused or the extract client phase, and mask mode; client and server
-optimizers, the bf16 uplink), ``Trainer`` and ``checkpoint_callback`` of
-``repro/api.py``, with its re-exports of the optimizers::
+the fused or the extract client phase, heterogeneous capacities, and mask
+mode; client and server optimizers, the bf16 uplink), ``Trainer``,
+``checkpoint_callback`` and ``AsyncTrainer`` of ``repro/api.py``, with its
+re-exports of the optimizers and the fleet::
 
     from repro_torch import api
     from repro_torch.configs.base import SubmodelConfig, get_config
@@ -34,6 +35,15 @@ optimizers, the bf16 uplink), ``Trainer`` and ``checkpoint_callback`` of
                         uplink_compression="bf16")
     params, history = api.Trainer(fed, params).run(batches, 3)
 
+    # heterogeneous capacities: one homogeneous bucket round per width
+    fed = api.fed_round(model, scfg, capacities=[1.0, 0.5, 0.5, 0.25])
+
+    # the asynchronous fleet: 8 clients, a quarter of them 10x slower,
+    # 4 in flight, aggregating every 2 reports
+    fleet = api.FleetSimulator(8, api.LatencyModel(straggler_frac=0.25))
+    params, history = api.AsyncTrainer(fed, params, buffer_size=2,
+                                       fleet=fleet).run(batches, 3)
+
     # held-out loss each round, logged, with a checkpoint (reference layout)
     trainer = api.Trainer(
         fed, params, eval_every=1, log_every=1,
@@ -53,19 +63,25 @@ from typing import Any, Optional, Tuple
 import numpy as np
 
 from repro_torch.configs.base import SubmodelConfig
-from repro_torch.core.fedavg import (MaskFedAvg, WindowFedAvg,
-                                     build_mask_fed, build_window_fed)
+from repro_torch.core.fedavg import (CapacityBucket, MaskFedAvg,
+                                     WindowFedAvg, build_mask_fed,
+                                     build_window_fed)
 from repro_torch.core.server_opt import SERVER_OPTS, ServerOpt
 from repro_torch.core.trainer import Trainer, checkpoint_callback
 from repro_torch.device import resolve_device
+from repro_torch.fleet import (SERVER_LR_SCHEDULES, STALENESS_POLICIES,
+                               AsyncTrainer, EpochPermutationSampler,
+                               FleetSimulator, LatencyModel)
 from repro_torch.optim.client import (CLIENT_OPTS, ClientOpt,
                                       client_momentum, client_proximal,
                                       client_sgd, resolve_client_opt)
 
 __all__ = ["fed_round", "Trainer", "checkpoint_callback", "WindowFedAvg",
-           "MaskFedAvg", "MODES", "resolve_mode", "ClientOpt",
-           "CLIENT_OPTS", "client_sgd", "client_momentum", "client_proximal",
-           "ServerOpt", "SERVER_OPTS"]
+           "MaskFedAvg", "CapacityBucket", "MODES", "resolve_mode",
+           "ClientOpt", "CLIENT_OPTS", "client_sgd", "client_momentum",
+           "client_proximal", "ServerOpt", "SERVER_OPTS", "AsyncTrainer",
+           "FleetSimulator", "LatencyModel", "EpochPermutationSampler",
+           "STALENESS_POLICIES", "SERVER_LR_SCHEDULES"]
 
 MODES = ("auto", "window", "mask")
 
@@ -159,8 +175,17 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
         :class:`ServerOpt`, a registry name (``sgd``/``momentum`` at
         ``lr=scfg.server_lr``, ``adam`` at its defaults) or None (the
         paper's plain average).
-      capacities: mask mode: per-client ``[C]`` capacities (default
-        ``scfg.capacity`` for every client).
+      capacities: per-client ``[C]`` capacity fractions in ``(0, 1]``.
+        Mask mode draws each client's dense mask at its own fraction
+        (default ``scfg.capacity`` for every client).  Window mode derives
+        each client's window width from its fraction and buckets the
+        clients by width (:class:`CapacityBucket`, descending): each
+        bucket runs the ordinary homogeneous client phase at its own width
+        with per-client aggregation, and the buckets' float32 change sums
+        are added in bucket order, so the round composes bit for bit from
+        homogeneous rounds.  Not with ``mesh=``, scheme ``full`` or
+        ``shared_window=True``; uniform capacities at ``scfg.capacity``
+        keep the plain round.
       fused_forward: window mode: ``auto`` (the fused client phase where
         every windowed axis has a fused forward, else the extract phase),
         ``on``/True (the fused phase, or ValueError) or ``off``/False (the
@@ -193,13 +218,17 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
                                  np.float32)
         return build_mask_fed(loss_fn, scfg, abstract, axes, capacities, dev,
                               client_opt=client_opt, server_opt=server_opt)
-    if capacities is not None:
-        _not_ported("heterogeneous window capacities",
-                    "heterogeneous capacities")
+    if capacities is not None and mesh is not None:
+        raise ValueError(
+            "capacities= (heterogeneous windows) and mesh= are mutually "
+            "exclusive: bucket batch slices break the static per-shard "
+            "client count; drive heterogeneous fleets through "
+            "AsyncTrainer/FleetSimulator instead")
     if mesh is not None or spmd_axis is not None:
         _not_ported("the mesh round", "mesh round")
     return build_window_fed(loss_fn, scfg, abstract, axes, dev,
                             client_opt=client_opt, server_opt=server_opt,
                             windowed_loss_fn=_windowed_loss(loss_fn),
                             fused_forward=fused_forward,
+                            capacities=capacities,
                             uplink_compression=uplink_compression)

@@ -9,11 +9,14 @@ Ports, from ``repro/core/fedavg.py``: ``resolve_shared_window``,
 ``_client_phase_fused``, ``_apply_mean_delta``, ``_uplink``,
 ``_apply_mean_delta_fused``, ``_mean_delta_full``,
 ``_mean_delta_full_fused``, ``round`` and ``round_with_server_opt``),
-``_scatter_update``, ``dense_client_masks``, ``MaskFedAvg`` (with
-``round_with_server_opt``), ``_build_mask_fed``, ``output_model`` and
-``run_rounds``.  The heterogeneous-capacity buckets and the mesh round
-are not ported (ROADMAP.md queue A, items 5 and 12; ``api.fed_round``
-refuses them).
+the heterogeneous-capacity buckets (``CapacityBucket``, ``capacities``,
+``_resolve_hetero``, ``_hetero_offsets``, ``_local_delta_sum``,
+``_hetero_delta_sum``, ``_round_hetero`` and ``_hetero_phase_for``, the
+cohort phase of the asynchronous fleet), ``_scatter_update``,
+``dense_client_masks``, ``MaskFedAvg`` (with ``round_with_server_opt``),
+``_build_mask_fed``, ``output_model`` and ``run_rounds``.  The mesh round
+is not ported (ROADMAP.md queue A, item 12; ``api.fed_round`` refuses
+it).
 
 Clients are an explicit leading dimension ``[C, ...]`` of every leaf (the
 reference vmaps them).  Window mode has two client phases, as the
@@ -26,14 +29,17 @@ changes, which are already their scattered forms.  The extract one
 window (a full replica when no axis is windowed, as under scheme
 ``full``), trains it through the model's ordinary loss and sends back
 the change; the server averages the changes and scatters them into the
-windows.  In mask mode each client's copy starts as ``w * m_c`` under a
-dense mask, its steps are masked, and the server takes the fill-in
-average.  A server optimizer takes the full-shaped float32 mean change
+windows.  Both phases hand the server the clients' float32 changes.
+Heterogeneous capacities split the clients into width buckets, each a
+homogeneous round of its own (per-client arms), whose change sums are
+added in bucket order before the one division by C.  In mask mode each
+client's copy starts as ``w * m_c`` under a dense mask, its steps are
+masked, and the server takes the fill-in average.  A server optimizer takes the full-shaped float32 mean change
 instead, built one leaf at a time.  Batch leaves are ``[K, C, ...]``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -88,6 +94,20 @@ def _steps(params, batch, loss_fn, opt, lr):
     return torch.stack(losses)
 
 
+@dataclass(frozen=True)
+class CapacityBucket:
+    """One width class of a heterogeneous-capacity round: the clients whose
+    capacity is ``beta`` (``idx``, their lanes in the round's client axis,
+    ascending) and ``fed``, a homogeneous :class:`WindowFedAvg` clone at
+    ``scfg.capacity = beta`` with ``clients_per_round = len(idx)`` and
+    per-client aggregation.  Each bucket's computation is that of an
+    independently built homogeneous round at ``beta``."""
+
+    beta: float
+    idx: Any            # tuple of C_b client lanes, ascending
+    fed: Any            # homogeneous WindowFedAvg at this beta
+
+
 @dataclass
 class WindowFedAvg:
     loss_fn: Callable                 # (params, batch) -> ([C], aux)
@@ -102,19 +122,74 @@ class WindowFedAvg:
     # it; None (a loss without window=) leaves the extract phase only
     windowed_loss_fn: Optional[Callable] = None
     fused_forward: Any = "auto"       # "auto" | True/"on" | False/"off"
+    # per-client window fractions beta_c in (0, 1], [clients_per_round];
+    # None (or every beta_c == scfg.capacity): the homogeneous round.
+    # Otherwise the clients are bucketed by beta (CapacityBucket), each
+    # bucket runs its own homogeneous client phase, and the float32 sums of
+    # the buckets' changes are added in bucket order before the one / C
+    capacities: Any = None
     # "bf16": each client's change crosses the simulated uplink as
     # bfloat16 and is widened to float32 before the mean (the fused arms
     # only, as in the reference); None: the exact float32 uplink
     uplink_compression: Optional[str] = None
 
     def __post_init__(self):
+        self.hetero = None
         if self.uplink_compression not in (None, "bf16"):
             raise ValueError(
                 "uplink_compression must be None (exact f32 uplink) or "
                 f"'bf16'; got {self.uplink_compression!r}")
-        self.shared_window = resolve_shared_window(self.scfg)
         self.client_opt = resolve_client_opt(self.client_opt)
+        if self.capacities is not None:
+            self._resolve_hetero()
+        if self.hetero is None:
+            self.shared_window = resolve_shared_window(self.scfg)
         self.use_fused = self._resolve_fused()
+
+    def _resolve_hetero(self):
+        """Check ``capacities`` and build the width buckets, in descending
+        beta, with the reference's errors.  Uniform capacities at
+        ``scfg.capacity`` keep the plain round (``hetero`` stays None)."""
+        c = self.scfg
+        caps = np.asarray(self.capacities, np.float64).reshape(-1)
+        if caps.shape[0] != c.clients_per_round:
+            raise ValueError(
+                f"capacities must have length clients_per_round="
+                f"{c.clients_per_round}; got {caps.shape[0]}")
+        if np.any(caps <= 0.0) or np.any(caps > 1.0):
+            raise ValueError(
+                "window-mode capacities are per-client window fractions "
+                f"in (0, 1]; got {np.asarray(self.capacities)}")
+        if c.scheme == "full":
+            raise ValueError(
+                "capacities have no effect under scheme='full' (every "
+                "client trains the full model); drop capacities= or pick "
+                "a windowed scheme")
+        self.capacities = tuple(float(b) for b in caps)
+        if np.all(caps == c.capacity):
+            return
+        if c.shared_window:
+            raise ValueError(
+                "shared_window=True is incompatible with heterogeneous "
+                "capacities (clients train different window *sizes*, so "
+                "no single window is shared); leave shared_window unset")
+        self.shared_window = False    # per-client aggregation only
+        dims = collect_axis_dims(self.abstract, self.axes)
+        buckets = []
+        for beta in sorted(set(self.capacities), reverse=True):
+            idx = tuple(int(i) for i in np.nonzero(caps == beta)[0])
+            bscfg = replace(c, capacity=float(beta),
+                            clients_per_round=len(idx), shared_window=False)
+            # beta = 1.0 windows nothing, which fused_forward="on" would
+            # refuse: such a bucket resolves "auto" (the extract phase on a
+            # full replica)
+            bfed = replace(
+                self, scfg=bscfg, scheme=make_scheme(bscfg, dims),
+                capacities=None,
+                fused_forward=self.fused_forward if beta < 1.0 else "auto")
+            buckets.append(CapacityBucket(beta=float(beta), idx=idx,
+                                          fed=bfed))
+        self.hetero = buckets
 
     def _resolve_fused(self) -> bool:
         """Whether the round takes the fused client phase (every properly
@@ -158,8 +233,11 @@ class WindowFedAvg:
 
     def _client_offsets(self, round_idx, params=None):
         """The scheme's offsets ``{axis: [C] ints}`` for this round;
-        ``importance`` reads them off the live ``params``."""
+        ``importance`` reads them off the live ``params``; heterogeneous
+        rounds give the union of their buckets' draws."""
         C = self.scfg.clients_per_round
+        if self.hetero is not None:
+            return self._hetero_offsets(round_idx, params)
         if self.scfg.scheme == "importance":
             if params is None:
                 raise ValueError("importance offsets need the round's params")
@@ -169,17 +247,25 @@ class WindowFedAvg:
     def _check_offsets(self, offsets):
         """Injected offsets ``{axis: [C] ints}``: the scheme's axes, one
         in-range window start per client, the same for every client when
-        the window is shared."""
+        the window is shared.  Heterogeneous rounds take the union vector:
+        each lane holds its own bucket's window start, and 0 on an axis its
+        bucket does not window."""
         C = self.scfg.clients_per_round
-        if set(offsets) != set(self.scheme.sizes):
+        if self.hetero is None:
+            plan = [(range(C), self.scheme.sizes)]
+        else:
+            plan = [(b.idx, b.fed.scheme.sizes) for b in self.hetero]
+        names = set().union(*(sizes for _, sizes in plan))
+        if set(offsets) != names:
             raise ValueError(f"offsets name axes {sorted(offsets)}; the "
-                             f"scheme windows {sorted(self.scheme.sizes)}")
+                             f"scheme windows {sorted(names)}")
         out = {}
         for k, v in offsets.items():
             v = [int(o) for o in v]
-            if len(v) != C or any(not 0 <= o <= k[1] - self.scheme.sizes[k]
-                                  for o in v) or \
-                    (self.shared_window and len(set(v)) != 1):
+            ok = len(v) == C and all(
+                (0 <= v[i] <= k[1] - sizes[k]) if k in sizes else v[i] == 0
+                for lanes, sizes in plan for i in lanes)
+            if not ok or (self.shared_window and len(set(v)) != 1):
                 raise ValueError(
                     f"offsets {v} for {k} are not {C} in-range window starts"
                     + (" shared by every client" if self.shared_window
@@ -195,6 +281,142 @@ class WindowFedAvg:
     def _one(offsets, c):
         """Client ``c``'s offsets ``{axis: int}``."""
         return {k: v[c] for k, v in offsets.items()}
+
+    # -- heterogeneous capacities: the bucket loop ----------------------------
+
+    def _hetero_offsets(self, round_idx, params=None):
+        """The union offset vectors ``{axis: [C]}`` of the buckets' draws:
+        each lane its own bucket's window start (a bucket's draw is that of
+        an independently built homogeneous round at its beta), 0 on the
+        axes its bucket does not window (beta = 1.0)."""
+        C = self.scfg.clients_per_round
+        out = {}
+        for b in self.hetero:
+            for k, v in b.fed._client_offsets(round_idx, params).items():
+                base = out.setdefault(k, [0] * C)
+                for lane, o in zip(b.idx, v):
+                    base[lane] = int(o)
+        return out
+
+    def _bucket_parts(self, params, batch, lanes_of, offsets, round_idx):
+        """Each bucket's client phase on its lanes of ``batch`` (``lanes_of
+        (b)``: the batch columns, in the bucket's lane order): yields
+        ``(bucket, columns, delta, losses, offsets, fused)``.  Offsets come
+        from ``offsets`` (the union vector, indexed by the same columns) or
+        from the bucket's own draw."""
+        for b in self.hetero:
+            cols = lanes_of(b)
+            if not cols:
+                continue
+            index = torch.as_tensor(cols, device=self.device)
+            bb = {k: v.index_select(1, index.to(v.device))
+                  for k, v in batch.items()}
+            if offsets is None:
+                boff = b.fed._client_offsets(round_idx, params)
+            else:
+                boff = {k: [offsets[k][j] for j in cols]
+                        for k in b.fed.scheme.sizes}
+            fused = b.fed.use_fused and bool(boff)
+            phase = b.fed._client_phase_fused if fused else b.fed._client_phase
+            delta, losses = phase(params, bb, boff)
+            yield b, cols, delta, losses, boff, fused
+
+    def _local_delta_sum(self, delta, offsets, fused):
+        """The float32 sum over clients of their scattered changes (no / C),
+        in client order, one leaf at a time (each leaf's client changes are
+        freed as it is done): fused changes are already full-shaped, with
+        zeros outside each window; extract ones are scattered first."""
+        out = {}
+        for path in list(delta):
+            d = delta.pop(path)
+            acc = torch.zeros(tuple(self.abstract[path]), dtype=torch.float32,
+                              device=d.device)
+            for ci in range(d.shape[0]):
+                acc += d[ci] if fused else scatter_delta(
+                    {path: d[ci]}, self.abstract, self.axes,
+                    self._one(offsets, ci), self.scheme.sizes)[path]
+            del d
+            out[path] = acc
+        return out
+
+    def _hetero_delta_sum(self, params, batch, round_idx, offsets=None):
+        """The float32 sum of every client's scattered change (no / C),
+        accumulated bucket by bucket in descending beta, and the losses
+        ``[K, C]`` put back in client order.  Each bucket runs its own
+        homogeneous client phase on its lanes and adds its
+        :meth:`_local_delta_sum`."""
+        acc = {k: torch.zeros(tuple(s), dtype=torch.float32,
+                              device=self.device)
+               for k, s in self.abstract.items()}
+        parts, order = [], []
+        for b, cols, delta, losses, boff, fused in self._bucket_parts(
+                params, batch, lambda b: list(b.idx), offsets, round_idx):
+            for k, p in b.fed._local_delta_sum(delta, boff, fused).items():
+                acc[k] += p
+            del delta
+            parts.append(losses)
+            order += cols
+        inv = torch.as_tensor(np.argsort(order), device=parts[0].device)
+        return acc, torch.cat(parts, 1).index_select(1, inv)
+
+    def _round_hetero(self, params, batch, round_idx, offsets=None):
+        """One heterogeneous-capacity round: the bucket loop, then the
+        per-client arm's update ``w + server_lr * (sum of the clients'
+        scattered changes) / C``, in place, and the projection."""
+        c = self.scfg
+        acc, losses = self._hetero_delta_sum(params, batch, round_idx,
+                                             offsets)
+        with torch.no_grad():
+            for path, w in params.items():
+                d = acc.pop(path)
+                w.copy_((w.float() + c.server_lr * d / c.clients_per_round)
+                        .to(w.dtype))
+                del d
+            sm.project_l2(params, c.proj_radius)
+        return params, {"loss": losses.mean(), "client_loss": losses}
+
+    def _hetero_phase_for(self, slots):
+        """The client phase of a lane subset of a heterogeneous cohort (the
+        asynchronous fleet's dispatch).  ``slots`` are client lanes; the
+        returned ``phase(params, batch, offsets)`` takes batch leaves ``[K,
+        m, ...]`` and the union offsets sliced to the cohort ``{axis: [m]}``
+        (both in slot order) and returns full-shaped float32 client changes
+        ``{path: [m, ...]}`` (zeros outside each client's window; extract
+        buckets' changes scattered per client) and the losses ``[K, m]``,
+        in slot order."""
+        slots = tuple(int(s) for s in slots)
+        pos = {s: j for j, s in enumerate(slots)}
+
+        def lanes_of(b):
+            return [pos[lane] for lane in b.idx if lane in pos]
+
+        def phase(params, batch, offsets):
+            m = len(slots)
+            out = {k: torch.empty((m, *s), dtype=torch.float32,
+                                  device=self.device)
+                   for k, s in self.abstract.items()}
+            parts, order = [], []
+            for b, cols, delta, losses, boff, fused in self._bucket_parts(
+                    params, batch, lanes_of, offsets, None):
+                index = torch.as_tensor(cols, device=self.device)
+                for path in list(delta):
+                    d = delta.pop(path)
+                    if not fused and boff:
+                        d = torch.stack([scatter_delta(
+                            {path: d[i]}, self.abstract, self.axes,
+                            b.fed._one(boff, i), b.fed.scheme.sizes)[path]
+                            for i in range(len(cols))])
+                    out[path].index_copy_(0, index, d)
+                    del d
+                parts.append(losses)
+                order += cols
+            inv = torch.as_tensor(np.argsort(order),
+                                  device=parts[0].device)
+            return out, torch.cat(parts, 1).index_select(1, inv)
+
+        return phase
+
+    # -- homogeneous phases and aggregation arms -------------------------------
 
     def _extract_clients(self, params, offsets, count=None):
         """Per-client compact sub-models ``{path: [C, *sub shape]}``,
@@ -231,25 +453,28 @@ class WindowFedAvg:
 
     def _apply_mean_delta(self, params, delta, offsets):
         """Plain averaging (the paper's fill-in update, delta form), in
-        place.  Shared window: the mean change over clients, then one
-        in-place scatter.  Otherwise (per-client windows, or no windowed
-        axis, where every scatter is the identity) the float32 sum of the
-        clients' scattered changes in client order, ``w + server_lr * sum
-        / C``.  The extract arms take no uplink, as the reference's."""
+        place.  Shared window: the mean change over the delta's clients,
+        then one in-place scatter.  Otherwise (per-client windows, or no
+        windowed axis, where every scatter is the identity) the float32
+        sum of the clients' scattered changes in client order, ``w +
+        server_lr * sum / C`` with C the round's ``clients_per_round``
+        (however many changes were handed in).  The extract arms take no
+        uplink, as the reference's."""
         c = self.scfg
         if self.shared_window and offsets:
             dbar = {k: d.float().mean(0) for k, d in delta.items()}
             return _scatter_update(params, dbar, self.axes,
                                    self._one(offsets, 0), self.scheme.sizes,
                                    c.server_lr)
-        C = next(iter(delta.values())).shape[0]
         for path, w in params.items():
+            d = delta[path]
             acc = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-            for ci in range(C):
-                acc += scatter_delta({path: delta[path][ci]}, self.abstract,
+            for ci in range(d.shape[0]):
+                acc += scatter_delta({path: d[ci]}, self.abstract,
                                      self.axes, self._one(offsets, ci),
                                      self.scheme.sizes)[path]
-            w.copy_((w.float() + c.server_lr * acc / C).to(w.dtype))
+            w.copy_((w.float() + c.server_lr * acc / c.clients_per_round)
+                    .to(w.dtype))
         return params
 
     def _mean_delta_full(self, params, delta, offsets):
@@ -257,19 +482,19 @@ class WindowFedAvg:
         pseudo-gradient, ``output_model``'s averaged gradient): the
         clients' mean, scattered into the shared window (no windowed axis:
         the mean itself); per-client windows: the sum of each client's
-        scattered change over C, in client order."""
+        scattered change over the round's C, in client order."""
         if not offsets:
             return {k: d.float().mean(0) for k, d in delta.items()}
         if self.shared_window:
             dbar = {k: d.float().mean(0) for k, d in delta.items()}
             return scatter_delta(dbar, self.abstract, self.axes,
                                  self._one(offsets, 0), self.scheme.sizes)
+        C = self.scfg.clients_per_round
         out = {}
         for path, d in delta.items():
-            C = d.shape[0]
             acc = torch.zeros(tuple(self.abstract[path]), dtype=torch.float32,
                               device=d.device)
-            for ci in range(C):
+            for ci in range(d.shape[0]):
                 acc += scatter_delta({path: d[ci]}, self.abstract, self.axes,
                                      self._one(offsets, ci),
                                      self.scheme.sizes)[path] / C
@@ -281,7 +506,9 @@ class WindowFedAvg:
         the window-aware forward; no compact copy of any leaf the kernels
         read.  Every client trains its own window (one offset per client:
         the windowed products take them all in one launch).  Returns the
-        clients' params after K steps (``{path: [C, ...]}``) and the
+        clients' full-shaped float32 changes ``{path: [C, ...]}``, exactly
+        0 outside each client's window (float32 leaves subtract in place of
+        the trained copies; others into a new float32 tensor), and the
         losses ``[K, C]``."""
         C = next(iter(batch.values())).shape[1]       # every leaf [K, C, ...]
         full = {k: v.unsqueeze(0).repeat(C, *([1] * v.dim()))
@@ -290,6 +517,12 @@ class WindowFedAvg:
         wloss = self.windowed_loss_fn
         losses = _steps(full, batch, lambda p, mb: wloss(p, mb, window=window),
                         self.client_opt, self.scfg.client_lr)
+        with torch.no_grad():
+            for k, w in params.items():
+                if full[k].dtype == torch.float32:
+                    full[k].sub_(w[None])
+                else:
+                    full[k] = full[k].float() - w.float()[None]
         return full, losses
 
     def _uplink(self, d):
@@ -300,51 +533,51 @@ class WindowFedAvg:
             return d
         return d.to(torch.bfloat16).float()
 
-    def _apply_mean_delta_fused(self, params, full_k, offsets):
-        """Shared window: out-of-window coordinates of every client's change
-        are exactly 0, so the server extracts each client's window, takes
-        the mean change over clients and adds it into its window once.
-        Per-client windows: each client's full change already is its
-        scattered form, so the sum over clients in client order is the
+    def _apply_mean_delta_fused(self, params, delta_full, offsets):
+        """Aggregation of the fused phase's full-shaped changes, in place.
+        Shared window: out-of-window coordinates of every change are exactly
+        0, so the server extracts each client's window, takes the mean over
+        the delta's clients and adds it into its window once.  Per-client
+        windows: each client's full change already is its scattered form,
+        so the sum over clients in client order, over the round's C, is the
         extract arm's scatter-add, one leaf at a time (each leaf's client
-        copies are freed as it is done)."""
+        changes are freed as it is done)."""
         c = self.scfg
         if self.shared_window:
             off0 = self._one(offsets, 0)
-            sub_k = extract(full_k, self.axes, off0, self.scheme.sizes, lead=1)
-            sub_0 = extract(params, self.axes, off0, self.scheme.sizes)
-            dbar = {k: self._uplink(sub_k[k].float()
-                                    - sub_0[k].float()[None]).mean(0)
-                    for k in params}
+            sub = extract(delta_full, self.axes, off0, self.scheme.sizes,
+                          lead=1)
+            dbar = {k: self._uplink(sub[k]).mean(0) for k in params}
             return _scatter_update(params, dbar, self.axes, off0,
                                    self.scheme.sizes, c.server_lr)
         for path, w in params.items():
-            wk = full_k.pop(path)
+            d = delta_full.pop(path)
             acc = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-            for ci in range(wk.shape[0]):
-                acc += self._uplink(wk[ci].float() - w.float())
-            del wk
+            for ci in range(d.shape[0]):
+                acc += self._uplink(d[ci])
+            del d
             w.copy_((w.float() + c.server_lr * acc / c.clients_per_round)
                     .to(w.dtype))
         return params
 
-    def _mean_delta_full_fused(self, params, full_k):
+    def _mean_delta_full_fused(self, delta_full):
         """The server optimizer's pseudo-gradient from the fused phase,
-        built one leaf at a time (each leaf's client copies are freed as it
-        is done): the clients' changes, through the uplink, are full-shaped
-        with exact zeros outside each client's window; a shared window
-        takes their mean, per-client windows the sum of each change over C
-        in client order (the extract arm's scatter-average)."""
+        built one leaf at a time (each leaf's client changes are freed as
+        it is done): the changes, through the uplink, are full-shaped with
+        exact zeros outside each client's window; a shared window takes
+        their mean, per-client windows the sum of each change over the
+        round's C in client order (the extract arm's scatter-average)."""
+        C = self.scfg.clients_per_round
         out = {}
-        for path, w in params.items():
-            d = self._uplink(full_k.pop(path).float() - w.float()[None])
+        for path in list(delta_full):
+            d = self._uplink(delta_full.pop(path))
             if self.shared_window:
                 out[path] = d.mean(0)
             else:
-                acc = torch.zeros(w.shape, dtype=torch.float32,
-                                  device=w.device)
+                acc = torch.zeros(d.shape[1:], dtype=torch.float32,
+                                  device=d.device)
                 for ci in range(d.shape[0]):
-                    acc += d[ci] / d.shape[0]
+                    acc += d[ci] / C
                 out[path] = acc
             del d
         return out
@@ -352,22 +585,24 @@ class WindowFedAvg:
     def round(self, params, batch, round_idx, generator=None, offsets=None):
         """One communication round; updates ``params`` in place and returns
         ``(params, {"loss": mean, "client_loss": [K, C]})``.  ``offsets``
-        (``{axis: [C] ints}``) replaces the scheme's own draw.
-        ``generator`` is the round's random stream, as for
-        :meth:`MaskFedAvg.round`; the window schemes draw nothing from it
-        (their draws are seeded by ``scfg.seed``)."""
-        offsets = (self._client_offsets(round_idx, params) if offsets is None
-                   else self._check_offsets(offsets))
+        (``{axis: [C] ints}``; the union vector of a heterogeneous round)
+        replaces the scheme's own draw.  ``generator`` is the round's
+        random stream, as for :meth:`MaskFedAvg.round`; the window schemes
+        draw nothing from it (their draws are seeded by ``scfg.seed``)."""
+        offsets = None if offsets is None else self._check_offsets(offsets)
+        if self.hetero is not None:
+            return self._round_hetero(params, batch, round_idx, offsets)
+        if offsets is None:
+            offsets = self._client_offsets(round_idx, params)
         if self.use_fused and offsets:
-            full_k, losses = self._client_phase_fused(params, batch, offsets)
+            delta, losses = self._client_phase_fused(params, batch, offsets)
             with torch.no_grad():
-                self._apply_mean_delta_fused(params, full_k, offsets)
-            del full_k
+                self._apply_mean_delta_fused(params, delta, offsets)
         else:
             delta, losses = self._client_phase(params, batch, offsets)
             with torch.no_grad():
                 self._apply_mean_delta(params, delta, offsets)
-            del delta
+        del delta
         with torch.no_grad():
             sm.project_l2(params, self.scfg.proj_radius)
         return params, {"loss": losses.mean(), "client_loss": losses}
@@ -384,17 +619,25 @@ class WindowFedAvg:
             raise ValueError(
                 "no server optimizer attached; pass server_opt= or build "
                 "the round with api.fed_round(..., server_opt=...)")
-        offsets = (self._client_offsets(round_idx, params) if offsets is None
-                   else self._check_offsets(offsets))
-        if self.use_fused and offsets:
-            full_k, losses = self._client_phase_fused(params, batch, offsets)
+        offsets = None if offsets is None else self._check_offsets(offsets)
+        if self.hetero is not None:
+            acc, losses = self._hetero_delta_sum(params, batch, round_idx,
+                                                 offsets)
             with torch.no_grad():
-                dbar = self._mean_delta_full_fused(params, full_k)
-            del full_k
+                dbar = {k: acc.pop(k) / self.scfg.clients_per_round
+                        for k in list(acc)}
         else:
-            delta, losses = self._client_phase(params, batch, offsets)
-            with torch.no_grad():
-                dbar = self._mean_delta_full(params, delta, offsets)
+            if offsets is None:
+                offsets = self._client_offsets(round_idx, params)
+            if self.use_fused and offsets:
+                delta, losses = self._client_phase_fused(params, batch,
+                                                         offsets)
+                with torch.no_grad():
+                    dbar = self._mean_delta_full_fused(delta)
+            else:
+                delta, losses = self._client_phase(params, batch, offsets)
+                with torch.no_grad():
+                    dbar = self._mean_delta_full(params, delta, offsets)
             del delta
         with torch.no_grad():
             params, opt_state = server_opt.update(params, dbar, opt_state)
@@ -414,7 +657,7 @@ def _scatter_update(params, dbar, axes, off0, sizes, server_lr):
 
 def build_window_fed(loss_fn, scfg, abstract, axes, device, client_opt=None,
                      server_opt=None, windowed_loss_fn=None,
-                     fused_forward="auto",
+                     fused_forward="auto", capacities=None,
                      uplink_compression=None) -> WindowFedAvg:
     scheme = make_scheme(scfg, collect_axis_dims(abstract, axes))
     return WindowFedAvg(loss_fn=loss_fn, scfg=scfg, abstract=abstract,
@@ -422,6 +665,7 @@ def build_window_fed(loss_fn, scfg, abstract, axes, device, client_opt=None,
                         client_opt=client_opt, server_opt=server_opt,
                         windowed_loss_fn=windowed_loss_fn,
                         fused_forward=fused_forward,
+                        capacities=capacities,
                         uplink_compression=uplink_compression)
 
 

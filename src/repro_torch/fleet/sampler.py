@@ -1,12 +1,15 @@
-"""Client sampling without replacement across rounds, the port's own
-numpy copy.
+"""Client sampling without replacement across rounds, and the server's
+stepsize schedules: the port's own numpy copy of ``repro/fleet/sampler.py``.
 
-Ports ``EpochPermutationSampler`` of ``repro/fleet/sampler.py`` line for
-line (random reshuffling of the client set, arXiv 2201.11066), so one seed
-draws the same participants in both packages.  The rest of the fleet is
-not ported yet (ROADMAP.md queue A, the fleet).
+Ports ``EpochPermutationSampler`` (random reshuffling of the client set,
+arXiv 2201.11066), ``constant``, ``inv_sqrt``, ``step_decay``,
+``SERVER_LR_SCHEDULES`` and ``resolve_server_lr_schedule`` line for line,
+so one seed draws the same participants in both packages.
 """
 from __future__ import annotations
+
+import math
+from typing import Callable, Union
 
 import numpy as np
 
@@ -48,3 +51,44 @@ class EpochPermutationSampler:
             self.epoch += 1
         take, self._pool = self._pool[:n], self._pool[n:]
         return np.array(take, np.int64)
+
+
+# Server stepsize schedules: a multiplier on scfg.server_lr per server
+# round, folded into the buffered aggregation's per-entry scale.
+# "constant" is exactly 1.0, so the M = N anchor stays bit-equal.
+
+
+def constant() -> Callable[[int], float]:
+    return lambda r: 1.0
+
+
+def inv_sqrt(t0: float = 1.0) -> Callable[[int], float]:
+    """``1 / sqrt(1 + r / t0)``, the classic diminishing server stepsize."""
+    return lambda r: 1.0 / math.sqrt(1.0 + r / t0)
+
+
+def step_decay(gamma: float = 0.5, every: int = 100) -> Callable[[int], float]:
+    return lambda r: gamma ** (r // every)
+
+
+SERVER_LR_SCHEDULES = {
+    "constant": constant,
+    "inv_sqrt": inv_sqrt,
+    "step": step_decay,
+}
+
+
+def resolve_server_lr_schedule(
+        spec: Union[None, str, Callable[[int], float]]
+) -> Callable[[int], float]:
+    """None -> constant 1.0; a registry name -> its default factory; a
+    callable ``round -> multiplier`` passes through."""
+    if spec is None:
+        return constant()
+    if callable(spec):
+        return spec
+    if spec not in SERVER_LR_SCHEDULES:
+        raise ValueError(
+            f"unknown server-lr schedule {spec!r}; expected one of "
+            f"{sorted(SERVER_LR_SCHEDULES)} or a callable round -> float")
+    return SERVER_LR_SCHEDULES[spec]()

@@ -3,17 +3,21 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \\
         --reduced --rounds 3 --scheme rolling --capacity 0.5 --device cpu \\
         [--stagger --client-opt momentum --server-opt adam \\
-         --uplink-compression bf16]
+         --uplink-compression bf16] [--async-buffer 2 --fleet 8 \\
+         --straggler-frac 0.25]
 
 Ports the single-device flags of ``repro/launch/train.py``: it builds the
 model (random weights from ``--seed``), the round (``api.fed_round``) and
-``api.Trainer``, trains on the port's ``data.synthetic.lm_batches``
+``api.Trainer`` (or, with ``--async-buffer M``, ``api.AsyncTrainer`` over
+a ``FleetSimulator`` of ``--fleet`` clients with the latency flags),
+trains on the port's ``data.synthetic.lm_batches``
 (``--local-steps`` x ``--clients`` x ``--mb`` sequences of ``--seq``
 tokens a round), logs ``round N loss ...`` with the seconds per round
 every ``--log-every`` rounds, optionally saves a checkpoint in the
 reference's layout (``--ckpt``), and prints the reference's final JSON,
-``{"first_loss": ..., "last_loss": ...}``.  Runs on the card unless
-``--device cpu`` is given.  The mesh and fleet flags raise
+``{"first_loss": ..., "last_loss": ...}`` (the async run adds
+``virtual_time``, ``rounds_per_vsec`` and ``mean_staleness``).  Runs on
+the card unless ``--device cpu`` is given.  The mesh flags raise
 ``NotImplementedError`` naming their ROADMAP.md item; the reference's
 ``--kernel-backend``, ``--kernel-block``, ``--layer-unroll`` and
 ``--devices`` have no counterpart (the port has no backend knob, its
@@ -36,13 +40,7 @@ from repro_torch.models import build_model
 # flags of the reference's CLI that need parts not ported yet, with their
 # ROADMAP.md queue-A item: (flag, default, item)
 _UNPORTED = (("mesh", None, "mesh round"),
-             ("mesh_agg", "gather", "mesh round"),
-             ("async_buffer", 0, "the fleet"), ("fleet", 0, "the fleet"),
-             ("straggler_frac", 0.0, "the fleet"),
-             ("straggler_mult", 10.0, "the fleet"),
-             ("dropout", 0.0, "the fleet"), ("timeout", None, "the fleet"),
-             ("staleness_policy", "inverse_sqrt", "the fleet"),
-             ("server_lr_schedule", "constant", "the fleet"))
+             ("mesh_agg", "gather", "mesh round"))
 
 
 def parser():
@@ -92,18 +90,33 @@ def parser():
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
-    # the mesh round and the async fleet: not ported, each raises when set
+    # the mesh round: not ported, raises when set
     ap.add_argument("--mesh", default=None, metavar="DATA[xMODEL]")
     ap.add_argument("--mesh-agg", default="gather",
                     choices=["gather", "psum"])
-    ap.add_argument("--async-buffer", type=int, default=0, metavar="M")
-    ap.add_argument("--fleet", type=int, default=0)
-    ap.add_argument("--straggler-frac", type=float, default=0.0)
+    ap.add_argument("--async-buffer", type=int, default=0, metavar="M",
+                    help="run the async FedBuff server (api.AsyncTrainer), "
+                         "aggregating every M client reports; 0 = the "
+                         "synchronous Trainer")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="virtual fleet size for --async-buffer (0 = "
+                         "--clients)")
+    ap.add_argument("--straggler-frac", type=float, default=0.0,
+                    help="fraction of the fleet running "
+                         "--straggler-mult x slower")
     ap.add_argument("--straggler-mult", type=float, default=10.0)
-    ap.add_argument("--dropout", type=float, default=0.0)
-    ap.add_argument("--timeout", type=float, default=None)
-    ap.add_argument("--staleness-policy", default="inverse_sqrt")
-    ap.add_argument("--server-lr-schedule", default="constant")
+    ap.add_argument("--dropout", type=float, default=0.0,
+                    help="per-dispatch client fault probability")
+    ap.add_argument("--timeout", type=float, default=None,
+                    help="virtual seconds before a slot abandons its "
+                         "client and redispatches")
+    ap.add_argument("--staleness-policy", default="inverse_sqrt",
+                    choices=sorted(api.STALENESS_POLICIES),
+                    help="weight w(tau) on a delta computed tau rounds "
+                         "ago (w(0)=1)")
+    ap.add_argument("--server-lr-schedule", default="constant",
+                    choices=sorted(api.SERVER_LR_SCHEDULES),
+                    help="server stepsize multiplier per round")
     return ap
 
 
@@ -137,12 +150,27 @@ def main(argv=None):
     it = lm_batches(cfg.vocab, (args.local_steps, args.clients, args.mb),
                     args.seq, seed=args.seed)
     t0 = time.time()
-    trainer = api.Trainer(
-        fed, params, rng=args.seed + 1, log_every=args.log_every,
-        log_fn=lambda s: print(
-            f"{s} ({(time.time() - t0) / (trainer.round_idx or 1):.2f}"
-            "s/round)", flush=True))
-    params, _ = trainer.run(it, args.rounds)
+
+    def log(s):
+        print(f"{s} ({(time.time() - t0) / (trainer.round_idx or 1):.2f}"
+              "s/round)", flush=True)
+
+    if args.async_buffer:
+        fleet = api.FleetSimulator(
+            args.fleet or args.clients,
+            api.LatencyModel(straggler_frac=args.straggler_frac,
+                             straggler_mult=args.straggler_mult,
+                             dropout=args.dropout, timeout=args.timeout,
+                             seed=args.seed))
+        trainer = api.AsyncTrainer(
+            fed, params, rng=args.seed + 1, buffer_size=args.async_buffer,
+            fleet=fleet, staleness=args.staleness_policy,
+            server_lr_schedule=args.server_lr_schedule,
+            log_every=args.log_every, log_fn=log)
+    else:
+        trainer = api.Trainer(fed, params, rng=args.seed + 1,
+                              log_every=args.log_every, log_fn=log)
+    params, history = trainer.run(it, args.rounds)
     losses = trainer.losses
     if args.ckpt:
         ckpt_save(args.ckpt, params,
@@ -150,6 +178,13 @@ def main(argv=None):
                    "scheme": args.scheme, "history": losses})
         print("checkpoint ->", args.ckpt)
     out = {"first_loss": losses[0], "last_loss": losses[-1]}
+    if args.async_buffer:
+        vt = history[-1]["virtual_time"]
+        out.update(virtual_time=vt,
+                   rounds_per_vsec=round(args.rounds / vt, 4) if vt else None,
+                   mean_staleness=round(
+                       sum(h["staleness"] for h in history) / len(history),
+                       3))
     print(json.dumps(out))
     return out
 

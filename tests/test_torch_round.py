@@ -176,15 +176,33 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         convert.from_reference({"w": np.zeros(2, np.float32)})
 
 
-@pytest.mark.parametrize("kw", [
-    dict(capacities=[0.5] * 4), dict(mesh=object()),
-    dict(spmd_axis="clients")])
+@pytest.mark.parametrize("kw", [dict(mesh=object()),
+                                dict(spmd_axis="clients")])
 def test_unported_options_raise_not_implemented(kw):
-    """Window-mode capacities (A4) and the mesh round (A12) are still to
-    be ported."""
+    """The mesh round (A12) is still to be ported."""
     model = build_model(get_reduced_config("tinyllama_1_1b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.fed_round(model, SubmodelConfig(**SCFG), device="cpu", **kw)
+
+
+def test_window_capacities_run_a_hetero_round():
+    """Window-mode capacities build the width buckets and train: one round
+    of reduced TinyLlama with a full-width, two half-width and a
+    quarter-width client, each client on its bucket's window."""
+    model = build_model(get_reduced_config("tinyllama_1_1b"))
+    fed = api.fed_round(model, SubmodelConfig(**SCFG), device="cpu",
+                        capacities=[1.0, 0.5, 0.5, 0.25])
+    assert [(b.beta, b.idx) for b in fed.hetero] == \
+        [(1.0, (0,)), (0.5, (1, 2)), (0.25, (3,))]
+    assert [b.fed.use_fused for b in fed.hetero] == [False, True, True]
+    params = model.init(0, device="cpu")
+    before = {k: v.clone() for k, v in params.items()}
+    tokens = next(lm_batches(512, (2, 4, 2), S, seed=0))["tokens"]
+    _, metrics = fed.round(params, {"tokens": torch.as_tensor(
+        tokens, dtype=torch.long)}, 0)
+    assert metrics["client_loss"].shape == (2, 4)
+    assert torch.isfinite(metrics["client_loss"]).all()
+    assert all(not torch.equal(params[k], before[k]) for k in params)
 
 
 @pytest.mark.parametrize("over", [

@@ -6,8 +6,10 @@ rounds of C = 4 clients x K = 2 steps x 2 x 32 tokens: the final JSON
 slice ports (per-client windows, client and server optimizers, the bf16
 uplink, both client phases, mask mode), the ``round N loss`` log lines,
 the checkpoint, one run equal to the same configuration driven through
-``api`` directly, and the refusals of what is not ported (the mesh and the
-fleet flags).  The ``gpu`` twin runs the CLI on the card and skips without
+``api`` directly, the async fleet's flags (``--async-buffer`` with the
+fleet, dropout and server-lr-schedule flags; the async record carries the
+reference CLI's keys), and the refusals of what is not ported (the mesh
+flags).  The ``gpu`` twin runs the CLI on the card and skips without
 one.  No JAX here: the card's machine runs the twin with
 ``--noconftest``.
 """
@@ -106,14 +108,36 @@ def test_cli_equals_the_same_round_through_api(capsys):
     assert trainer.losses == [out["first_loss"], out["last_loss"]]
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mesh", "4"], ["--mesh-agg", "psum"], ["--async-buffer", "2"],
-    ["--fleet", "8"], ["--dropout", "0.1"],
-    ["--server-lr-schedule", "inv_sqrt"]],
-    ids=["mesh", "mesh_agg", "async", "fleet", "dropout", "lr_schedule"])
+@pytest.mark.parametrize("flags", [["--mesh", "4"], ["--mesh-agg", "psum"]],
+                         ids=["mesh", "mesh_agg"])
 def test_cli_refuses_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(BASE + flags + ["--device", "cpu"])
+
+
+# the keys of the reference CLI's final record with --async-buffer
+# (repro/launch/train.py: first/last loss, then the async extras)
+ASYNC_KEYS = {"first_loss", "last_loss", "virtual_time", "rounds_per_vsec",
+              "mean_staleness"}
+
+
+@pytest.mark.parametrize("flags", [
+    ["--async-buffer", "2"], ["--async-buffer", "2", "--fleet", "8"],
+    ["--async-buffer", "2", "--dropout", "0.1"],
+    ["--async-buffer", "2", "--server-lr-schedule", "inv_sqrt"]],
+    ids=["async", "fleet", "dropout", "lr_schedule"])
+def test_cli_async_flags_run(flags, capsys):
+    """The async FedBuff server through the CLI: finite losses, the round
+    lines with the async extras, and the reference CLI's async record."""
+    out = train.main(BASE + flags + ["--device", "cpu"])
+    text = capsys.readouterr().out
+    assert set(out) == ASYNC_KEYS
+    assert json.loads(text.strip().splitlines()[-1]) == out
+    assert math.isfinite(out["first_loss"]) and \
+        math.isfinite(out["last_loss"])
+    assert out["virtual_time"] > 0 and out["mean_staleness"] >= 0
+    assert out["rounds_per_vsec"] == round(2 / out["virtual_time"], 4)
+    assert "round    1 loss" in text and "virtual_time" in text
 
 
 def test_cli_refuses_what_the_reference_refuses():
