@@ -42,7 +42,10 @@ Phases, each of which fails the run when it fails:
    capacities (2 rounds at capacities 1, 0.5, 0.5, 0.25 through the fused
    and the extract buckets, and with server ``sgd``) and an
    ``AsyncTrainer`` regime (a fleet of 8 with stragglers and jitter, N = 4,
-   M = 2, 4 aggregations: equal virtual times and staleness).
+   M = 2, 4 aggregations: equal virtual times and staleness); then
+   reduced Mamba2 (``[agree ssm]``: 3 fused rounds, 1 extract, 1 Bernoulli
+   mask and 1 staggered-rolling round) and reduced Hymba (``[agree
+   hybrid]``: 3 fused rounds, 1 extract) on the default axes.
 4. The window path: the shared-window federated round on full-width
    TinyLlama-1.1B (22 layers, f32, 4 clients x 2 local steps x 2 x 256
    tokens), through ``api.fed_round`` and ``api.Trainer``, 3 rounds, with
@@ -119,12 +122,32 @@ Phases, each of which fails the run when it fails:
    generalization gap, peak, rows 9 and 11's launches a round); then
    ``python -m repro_torch.launch.experiment --rounds 3`` on the card
    (``stability_finite`` and ``thm1_bound_holds`` held to 1).
+4j. SSM training and the hybrid block, after TinyLlama serving.  ``[ssm
+   eval]`` adds to the Mamba2 serving block one full-width loss gradient in
+   the clients' form (the differentiable chunked SSD, 4 x 2048 tokens).
+   ``[ssm round]``: full-width Mamba2-130M, 4 clients x 2 steps x 2 x 1024
+   tokens (four chunks of 256), rolling at 0.5 on the default axes
+   (``ssm_heads`` 12 of 24), client lr ROUND_LR, 3 fused rounds (seconds,
+   peak, finite losses and params, rows 5, 6 and 10's launches against the
+   layer arithmetic), one profiled round (``[profile ssm round]``, with the
+   chunked SSD's forward and backward device time in it), then 3 extract
+   rounds from the same params and offsets, their client losses and params
+   within EXTRACT_TOL of the fused ones.  ``[hybrid round]``: the same
+   for full-width Hymba-1.5B (32 layers, 2 x 256 tokens; ``d_ff``,
+   ``heads``, ``kv_heads`` and ``ssm_heads`` at 0.5: rows 5-8 and 10).
+   ``[hybrid eval]``: its loss on 4 x 2048 tokens with and without
+   ``REPRO_USE_FLASH`` (rows 12 and 13); ``[hybrid serve]``: a 4 x 2048
+   prefill and 64 greedy steps, and prefill 1536 + 512 teacher-forced decode
+   steps against one prefill of 2048.
 
 The update kernels (rows 9-11) are also held and timed at the shapes the
-extract and paper paths give them, and rows 5-11 carry each path's
+extract and paper paths give them, and rows 5-13 carry each path's
 launches (``launches_by_path``: extract, full, stagger, hetero, fleet,
-mask_opt, paper); rows 5-8 and 10 are also timed at the hetero path's
-narrowest bucket (one client, windows 512 and 704 columns).
+mask_opt, paper, ssm_round, ssm_extract, hybrid_round, hybrid_extract,
+hybrid_eval, hybrid_serve); rows 5-8 and 10 are also timed at the hetero
+path's narrowest bucket (one client, windows 512 and 704 columns), rows
+5-8 at the SSM and hybrid rounds' shapes (``SLICE_ROWS``) and row 13 at
+Hymba's eval shape (25 query heads on 5 kv heads, window 1024).
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  With no
 card, or without the repository beside it, the script fails and prints no
@@ -173,6 +196,11 @@ WARM_MS = 25.0            # kernel timing: warm-up wall time before counting
 
 C, M, D = 4, 512, 2048    # clients, tokens per client (2 x 256), d_model
 EB, ES = 4, 2048          # eval batch: 4 sequences of TinyLlama's context
+# Hymba's eval and serving: 4 x 2048 (past its window of 1024), 64 greedy
+# steps; the teacher-forced check prefills 1536 (a whole number of
+# blockwise attention's 512-query chunks and of the SSD's 128-token chunks)
+# and decodes the last 512
+HB, HS, HG, HSPLIT = 4, 2048, 64, 1536
 SRC = "src/repro_torch/kernels/csrc/"
 TPU = "src/repro/kernels/"
 
@@ -321,6 +349,21 @@ ROLLING = [
     ("rolling_mm_dx<2>", 8, "rolling_matmul_batched.py:219", 2, 5632, 2816,
      2816, "dx"),
 ]
+# the SSM and hybrid rounds' shapes of rows 5-8, C = 4 (tag, T, tokens a
+# client, K, N, win, offset): Mamba2's z/x and dt projections (2 x 1024
+# tokens, d_model 768, ssm_heads 12 of 24 heads of 64) and Hymba's (2 x 256
+# tokens, d_model 1600): z/x 25 of 50 heads, dt 25 of 50 columns (a row
+# stride and window that are not multiples of 4: the kernels' scalar copy
+# path), q 10 of 25 heads, k/v 2 of 5, the gate/up pair 2752 of 5504
+SLICE_ROWS = [
+    ("mamba2 z/x", 1, 2048, 768, 1536, 768, 768),
+    ("mamba2 dt", 1, 2048, 768, 24, 12, 12),
+    ("hymba z/x", 1, 512, 1600, 3200, 1600, 1600),
+    ("hymba dt", 1, 512, 1600, 50, 25, 25),
+    ("hymba q", 1, 512, 1600, 1600, 640, 960),
+    ("hymba k/v", 1, 512, 1600, 320, 128, 192),
+    ("hymba gate/up", 2, 512, 1600, 5504, 2752, 2752),
+]
 # further correctness cases (C, M, K, N, win, per-client offsets): the k/v
 # projections, unaligned and per-client offsets, ragged shapes
 EXTRA = [
@@ -380,6 +423,11 @@ def phase_kernels(dev):
         h_win, h_off = (512, 1024) if T == 1 else (704, 2816)
         rows[-1]["sub_rows"].append(product_timing(dev, g, kind, T, 1, M, N,
                                                    h_win, h_off))
+        # the SSM round's and the hybrid round's shapes
+        for tag, T_, m, K, N_, w, o in SLICE_ROWS:
+            if T_ == T:
+                rows[-1]["sub_rows"].append({"tag": tag, **product_timing(
+                    dev, g, kind, T, C, m, N_, w, o, K=K)})
 
     # autograd through the Function at the gate/up shape against plain
     # autograd on the window views
@@ -440,16 +488,18 @@ def phase_kernels(dev):
                    else f"{sub['library_ms']:.4f} ms")
             tile = ("" if "block_tile" not in sub else
                     " tile {}x{}".format(*sub["block_tile"]))
-            print(f"[kernels] {r['name']:23s} {json.dumps(sub['shape'])} "
+            tag = f"{sub['tag']}: " if "tag" in sub else ""
+            print(f"[kernels] {r['name']:23s} {tag}{json.dumps(sub['shape'])} "
                   f"err {sub['max_abs_err']:.3g} kernel {sub['ms']:.4f} ms"
                   f"  plain {sub['plain_ms']:.4f} ms  library {lib}  bound "
                   f"{sub['bound_ms']:.4f} ms ({sub['bound_by']}){tile}")
     return rows
 
 
-def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None):
+def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
+                   K=D):
     """One product kernel ("fwd" or "dx", T weights) at one shape: ``c``
-    clients of ``m`` tokens, x [c, m, D], W [c, D, N], window ``win`` at
+    clients of ``m`` tokens, x [c, m, K], W [c, K, N], window ``win`` at
     ``off`` (a list: one offset per client).  Held against its plain
     version within MM_RTOL, then timed beside it, beside the library
     (``bmm``/``baddbmm`` on the window views; ``mm``/``addmm`` for one
@@ -462,15 +512,15 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None):
     from repro_torch.kernels.rolling_matmul import (block_tile, make_offsets,
                                                     rolling_mm_dx,
                                                     rolling_mm_fwd)
-    x = torch.randn((c, m, D), device=dev, generator=g)
-    ws = [torch.randn((c, D, N), device=dev, generator=g) for _ in range(T)]
+    x = torch.randn((c, m, K), device=dev, generator=g)
+    ws = [torch.randn((c, K, N), device=dev, generator=g) for _ in range(T)]
     dys = [torch.randn((c, m, win), device=dev, generator=g)
            for _ in range(T)]
     per_client = isinstance(off, list)
     offs = off if per_client else [off] * c
     o = make_offsets(offs, dev)     # the device copy a model keeps
     views = [] if per_client else [w[:, :, off:off + win] for w in ws]
-    flops = 2 * c * T * m * D * win
+    flops = 2 * c * T * m * K * win
     lead = [] if scalar_name else [c]
     if kind == "fwd":
         kern = lambda: rolling_mm_fwd(x, ws, o, win, name=scalar_name)  # noqa
@@ -483,8 +533,8 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None):
         out = kern()
         e = max((err(a, b) for a, b in zip(out, plain())),
                 key=lambda t: t[1])
-        nbytes = 4 * (c * m * D + T * c * D * win + T * c * m * win)
-        shape = {"x": lead + [m, D], "W": [T] + lead + [D, N], "win": win}
+        nbytes = 4 * (c * m * K + T * c * K * win + T * c * m * win)
+        shape = {"x": lead + [m, K], "W": [T] + lead + [K, N], "win": win}
     else:
         kern = lambda: rolling_mm_dx(dys, ws, o, win, name=scalar_name)  # noqa
         plain = lambda: ref.rolling_matmul_batched_dx_ref(  # noqa
@@ -502,8 +552,8 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None):
             return acc
         out = [kern()]
         e = err(out[0], plain())
-        nbytes = 4 * (T * c * m * win + T * c * D * win + c * m * D)
-        shape = {"dy": [T] + lead + [m, win], "W": [T] + lead + [D, N],
+        nbytes = 4 * (T * c * m * win + T * c * K * win + c * m * K)
+        shape = {"dy": [T] + lead + [m, win], "W": [T] + lead + [K, N],
                  "win": win}
     check(e[1] <= MM_RTOL, f"{kind}<{T}> at {shape}: {e}")
     again = kern()
@@ -515,7 +565,7 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None):
     if per_client:
         shape["offsets"] = offs
     return dict(
-        shape=shape, block_tile=list(block_tile(kind, T, c, m, D, win)),
+        shape=shape, block_tile=list(block_tile(kind, T, c, m, K, win)),
         max_abs_err=e[0], max_rel_err=e[1], tolerance=MM_RTOL, ms=k_ms,
         kernel_ms=k_ms, plain_ms=cuda_ms(plain),
         library_ms=None if per_client else cuda_ms(lib),
@@ -762,33 +812,44 @@ def flash_kernels(dev, g):
                source=SRC + "flash_attn.cu",
                replaces=TPU + "flash_attention.py:88", tpu_row=13,
                **flash_timing(dev, g, EB, ES, 32, 4, 64))
-    row["sub_rows"] = [flash_timing(dev, g, EB, ES, 32, 8, 128)]
+    row["sub_rows"] = [flash_timing(dev, g, EB, ES, 32, 8, 128),
+                       {"tag": "hymba eval", **flash_timing(
+                           dev, g, HB, HS, 25, 5, 64, window=1024)}]
     return [row]
 
 
-def flash_timing(dev, g, B, S, H, KV, hd):
-    """The flash kernel at one causal shape: held against its plain version
-    within MM_RTOL, a second launch bit-equal to the first, timed beside it,
-    beside one f32 ``scaled_dot_product_attention`` (timed only; the port
-    never calls it) and beside its bound at the 3xTF32 rate."""
+def flash_timing(dev, g, B, S, H, KV, hd, window=0):
+    """The flash kernel at one causal (``window`` > 0: sliding-window)
+    shape: held against its plain version within MM_RTOL, a second launch
+    bit-equal to the first, timed beside it, beside one f32
+    ``scaled_dot_product_attention`` (timed only; the port never calls it;
+    a sliding window takes it a boolean mask) and beside its bound at the
+    3xTF32 rate."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     q = torch.randn((B, S, H, hd), device=dev, generator=g)
     k = torch.randn((B, S, KV, hd), device=dev, generator=g)
     v = torch.randn((B, S, KV, hd), device=dev, generator=g)
-    kern = lambda: flash_attention(q, k, v)                          # noqa
-    plain = lambda: ref.flash_attention_ref(q, k, v)                 # noqa
+    kern = lambda: flash_attention(q, k, v, window=window)           # noqa
+    plain = lambda: ref.flash_attention_ref(q, k, v, window=window)  # noqa
     out = kern()
     e = err(out, plain())
     shape = {"q": [B, S, H, hd], "kv": [B, S, KV, hd], "causal": True,
-             "window": 0}
+             "window": window}
     check(e[1] <= MM_RTOL, f"flash at {shape}: {e}")
     check(bits_equal(out, kern()), f"flash at {shape}: two launches differ")
     del out
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    flops = 4 * B * H * hd * visible_pairs(S, 0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window:
+        i = torch.arange(S, device=dev)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+        lib = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                           enable_gqa=True)
+    else:
+        lib = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
+                           enable_gqa=True)
+    flops = 4 * B * H * hd * visible_pairs(S, window)
     nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
     b_ms, b_by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
     k_ms = cuda_ms(kern)
@@ -1416,15 +1477,18 @@ def layer_states_vs_recurrence(model, params, prompts, split):
     cfg = model.cfg
     pre = "ssm_layers/0/ssm/"
     p = {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+    p1 = {k: v[None] for k, v in p.items()}        # one model: C = 1 views
     with torch.no_grad():
         u = rms_norm_plain(torch.nn.functional.embedding(prompts,
                                                          params["embed"]),
-                           params["ssm_layers/0/ln1"], cfg.norm_eps)
-        _, whole = ssm.ssm_train(p, u, cfg, return_state=True)
-        _, cache = ssm.ssm_train(p, u[:, :split], cfg, return_state=True)
-        for t in range(split, u.shape[1]):
-            _, cache = ssm.ssm_decode(p, u[:, t:t + 1], cfg, cache, t)
-    return err(cache["h"], whole["h"])
+                           params["ssm_layers/0/ln1"], cfg.norm_eps)[None]
+        _, whole = ssm.ssm_train(p1, u, cfg, return_state=True, kernel=True)
+        _, cache = ssm.ssm_train(p1, u[:, :, :split], cfg, return_state=True,
+                                 kernel=True)
+        cache = {k: v[0] for k, v in cache.items()}
+        for t in range(split, u.shape[2]):
+            _, cache = ssm.ssm_decode(p, u[0, :, t:t + 1], cfg, cache, t)
+    return err(cache["h"], whole["h"][0])
 
 
 def phase_eval_ssm(dev, model, params, _build):
@@ -2357,6 +2421,315 @@ def phase_fleet_path(dev, _build):
     return launches
 
 
+# -- this slice: SSM training (Mamba2) and the hybrid block (Hymba) ------------
+
+SSM_SEQ, HYB_SEQ = 1024, 256      # tokens a sequence; 2 sequences a step
+# The full-width rounds' client step size.  At lr 0.1 these rounds amplify
+# any rounding difference far past EXTRACT_TOL (3 fused rounds from params
+# scaled by 1 + 1e-7 N(0, 1), about one ulp, end about 0.02 from the
+# unscaled run), so no two arms that round differently (the fused rounds'
+# 3xTF32 products, the extract rounds' cuBLAS f32) could be held within it.
+# At 0.003 rounding stays under a twentieth of EXTRACT_TOL while the rounds
+# move the params by about ten times it; the perturbed run is repeated in
+# every run and printed, and tools/round_lr_probe.py runs other rates.
+ROUND_LR, PERTURB = 0.003, 1e-7
+
+
+def slice_scfg(**over):
+    """The SSM and hybrid rounds' sub-model configuration: rolling at
+    capacity 0.5 on the default axes (each family's own windowed axes),
+    C = 4 clients, K = 2 steps, lr 0.1."""
+    from repro_torch.configs.base import SubmodelConfig
+    return SubmodelConfig(**{**dict(scheme="rolling", capacity=0.5,
+                                    local_steps=2, clients_per_round=4,
+                                    client_lr=0.1), **over})
+
+
+def phase_small_agreement_slice(dev):
+    """Reduced Mamba2 and reduced Hymba rounds on the card against the
+    same rounds on the CPU, from the same params, tokens (2 x 64 a client
+    step) and CPU-drawn offsets or masks, within ROUND_TOL: 3 fused rounds
+    and 1 extract round of each; for Mamba2 also 1 Bernoulli mask round
+    (rows 9 and 11) and 1 staggered-rolling round."""
+    from repro_torch import api
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    window, mask = "window", "mask"
+    cases = {
+        "ssm": ("mamba2_130m", [
+            ("fused", window, {}, {}, 3),
+            ("extract", window, {}, dict(fused_forward="off"), 1),
+            ("Bernoulli mask", mask, dict(scheme="bernoulli"), {}, 1),
+            ("staggered rolling", window, dict(stagger=True), {}, 1)]),
+        "hybrid": ("hymba_1_5b", [
+            ("fused", window, {}, {}, 3),
+            ("extract", window, {}, dict(fused_forward="off"), 1)])}
+    for tag, (arch, runs) in cases.items():
+        model = build_model(get_reduced_config(arch))
+        it = lm_batches(model.cfg.vocab, (2, 4, 2), 64, seed=0)
+        data = [next(it) for _ in range(3)]
+        p0 = model.init(0, device="cpu")
+        for name, mode, over, kw, n in runs:
+            outs = {}
+            for where in ("cpu", dev):
+                fed = api.fed_round(model, slice_scfg(**over), mode=mode,
+                                    device=where, **kw)
+                check(isinstance(fed, api.MaskFedAvg) if mode == mask else
+                      fed.use_fused == (name != "extract"),
+                      f"[agree {tag}] {name} resolved to another phase")
+                trainer = api.Trainer(fed, _to(p0, where))
+                trainer.run(zip(data[:n], _injected(fed, mode, n)), n)
+                outs[str(where)] = trainer
+            g, c = outs[str(dev)], outs["cpu"]
+            dl = max((a["client_loss"].cpu() - b["client_loss"]).abs().max()
+                     .item() for a, b in zip(g.history, c.history))
+            dp = _max_diff(g.params, c.params)
+            check(dl <= ROUND_TOL and dp <= ROUND_TOL,
+                  f"reduced {arch} {name} on the card disagrees with the "
+                  f"CPU: loss {dl}, params {dp}")
+            print(f"[agree {tag}] reduced {arch} {name}, {n} round(s) card "
+                  f"vs CPU: max |d loss| {dl:.3g}, max |d param| {dp:.3g} "
+                  f"(tolerance {ROUND_TOL})")
+
+
+def _slice_launches(cfg, leaves, n, fused):
+    """Rows 5-8 and 10's launches over ``n`` rounds (K = 2 steps each):
+    the fused phase runs the windowed products forward and dx once a layer
+    a step each (z, x and dt of every SSM mixer; q, k and v of every
+    attention; the gate/up pair of every MLP); every step steps each leaf
+    through row 10."""
+    t1 = 3 * (cfg.ssm is not None) + 3 * (cfg.family != "ssm")
+    t2 = int(cfg.family != "ssm")
+    per = 2 * cfg.n_layers * n * int(fused)
+    return {"rolling_mm_fwd<1>": t1 * per, "rolling_mm_dx<1>": t1 * per,
+            "rolling_mm_fwd<2>": t2 * per, "rolling_mm_dx<2>": t2 * per,
+            "sgd_inplace": 2 * leaves * n}
+
+
+def phase_slice_rounds(dev, _build, tag, arch, seq):
+    """Full-width rounds of this slice's families: C = 4 clients x K = 2
+    steps x 2 x ``seq`` tokens, rolling at capacity 0.5 on the default
+    axes, client lr ROUND_LR, 3 fused rounds through ``api.fed_round`` and
+    ``api.Trainer`` (seconds, peak, finite losses and params, rows 5-8 and
+    10's launches against the layer arithmetic), one profiled round with
+    the differentiable chunked SSD's share of it; the same 3 fused rounds
+    from params scaled by (1 + PERTURB N(0, 1)), for the rounds' own
+    sensitivity; then 3 extract rounds from the same params and offsets,
+    every client step's loss and the params after the 3 rounds within
+    EXTRACT_TOL of the fused ones, which moved the params by more than
+    EXTRACT_TOL.  Returns the launches of both."""
+    from repro_torch import api
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.models.ssm import SSD_CHUNKED
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    it = lm_batches(cfg.vocab, (2, 4, 2), seq=seq)
+    data = [next(it) for _ in range(3)]
+    scfg = slice_scfg(client_lr=ROUND_LR)
+    fed = api.fed_round(model, scfg, device=dev)
+    check(fed.use_fused, f"[{tag}] the default axes took the extract phase")
+    offsets = [fed._client_offsets(r) for r in range(len(data))]
+    items = [(b, {"offsets": o}) for b, o in zip(data, offsets)]
+    params = model.init(seed=0, device=dev)
+    p0 = {k: v.to("cpu", copy=True) for k, v in params.items()}
+    leaves, n_params = len(params), sum(v.numel() for v in params.values())
+    windows = {f"{k[0]}/{k[1]}": w for k, w in fed.scheme.sizes.items()}
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, {n_params:,} params "
+          f"({leaves} leaves), f32; 4 clients x 2 steps x 2 x {seq} tokens, "
+          f"client lr {ROUND_LR}; windows {windows}; offsets {offsets}")
+    trainer = api.Trainer(fed, params)
+    launches, round_s = run_rounds(tag, trainer, items, _build)
+    want = _slice_launches(cfg, leaves, len(data), True)
+    got = {k: launches.get(k, 0) for k in want}
+    check(got == want, f"[{tag}] launches {got}, expected {want}")
+    print(f"[{tag}] rows 5-8 and 10 a round: "
+          f"{ {k: v // len(data) for k, v in got.items()} }")
+    fused = ({k: v.to("cpu", copy=True) for k, v in trainer.params.items()},
+             _client_losses(trainer))
+    moved = _max_diff(fused[0], p0)
+    del p0
+    phase_profile(tag, trainer, items[0], round_s, ranges=(SSD_CHUNKED,))
+    del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same fused rounds from params scaled by (1 + PERTURB N(0, 1))
+    params = model.init(seed=0, device=dev)
+    g = torch.Generator(dev).manual_seed(5)
+    with torch.no_grad():
+        for v in params.values():
+            v.mul_(1 + PERTURB * torch.randn(v.shape, device=dev,
+                                             generator=g))
+    trainer = api.Trainer(fed, params)
+    trainer.run(iter(items), len(items))
+    l_pert = (_client_losses(trainer) - fused[1]).abs().max().item()
+    d_pert = _max_diff(trainer.params, fused[0])
+    del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fed = api.fed_round(model, scfg, fused_forward="off", device=dev)
+    check(not fed.use_fused, f"[{tag} extract] took the fused phase")
+    trainer = api.Trainer(fed, model.init(seed=0, device=dev))
+    x_launches, x_round_s = run_rounds(f"{tag} extract", trainer, items,
+                                       _build)
+    want = _slice_launches(cfg, leaves, len(data), False)
+    got = {k: x_launches.get(k, 0) for k in want}
+    check(got == want, f"[{tag} extract] launches {got}, expected {want}")
+    dl = (_client_losses(trainer) - fused[1]).abs().max().item()
+    dp = _max_diff(trainer.params, fused[0])
+    said = (f"[{tag} extract] vs the fused rounds after {len(data)} rounds: "
+            f"max |d client loss| {dl:.3g}, max |d param| {dp:.3g} "
+            f"(tolerance {EXTRACT_TOL}: 3xTF32 hand kernels vs cuBLAS f32), "
+            f"where the rounds moved the params by up to {moved:.3g}; the "
+            f"fused rounds from params scaled by 1 + {PERTURB} N(0, 1) end "
+            f"max |d client loss| {l_pert:.3g}, max |d param| {d_pert:.3g} "
+            f"from them; row 10 a round "
+            f"{x_launches.get('sgd_inplace', 0) // len(data)}; seconds per "
+            f"round after the first {x_round_s:.3f}")
+    check(moved > EXTRACT_TOL and dl <= EXTRACT_TOL and dp <= EXTRACT_TOL,
+          said)
+    print(said)
+    del trainer, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, x_launches
+
+
+def _client_losses(trainer):
+    """Every client step's loss of a trainer's rounds, ``[rounds, K, C]``
+    on the host."""
+    return torch.stack([h["client_loss"].to("cpu", copy=True)
+                        for h in trainer.history])
+
+
+def phase_ssm_grad(dev, model, params, _build):
+    """One full-width Mamba2 loss gradient in the clients' form (C = 1) on
+    the eval tokens (4 x 2048), through the differentiable chunked SSD:
+    finite, timed (mean of 2 after a warm-up), its peak, and no launch of
+    the SSD chunk kernel."""
+    from repro_torch.data.synthetic import lm_batches
+    tokens = torch.as_tensor(next(lm_batches(model.cfg.vocab, (EB,), ES,
+                                             seed=999))["tokens"],
+                             dtype=torch.long).to(dev)[None]
+    p1 = {k: v.detach()[None].requires_grad_() for k, v in params.items()}
+
+    def grad():
+        loss, _ = model.loss(p1, {"tokens": tokens})
+        return loss, torch.autograd.grad(loss.sum(), list(p1.values()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    loss, grads = grad()
+    loss = float(loss.detach())
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    bad = [k for k, t in zip(p1, grads) if not torch.isfinite(t).all()]
+    check(math.isfinite(loss) and not bad,
+          f"[ssm eval] the gradient is not finite: {bad[:5]}")
+    check(not launches.get("ssd_chunk_intra"),
+          f"[ssm eval] the clients' form launched row 12: {launches}")
+    del grads
+    secs, _ = timed(lambda: grad()[0], 2)
+    print(f"[ssm eval] {model.cfg.name} loss gradient on {EB}x{ES} tokens "
+          f"(clients' form, C = 1: the differentiable chunked SSD): loss "
+          f"{loss:.6f}, every gradient finite, "
+          f"{float(np.mean(secs)):.4f} s (mean of 2 after a warm-up: "
+          f"{[round(t, 4) for t in secs]}), peak {peak / 2**30:.2f} GiB, "
+          f"launches {launches}")
+
+
+def phase_hybrid_serve(dev, _build):
+    """Full-width Hymba-1.5B (random weights, seed 0, f32) eval and
+    serving.  ``[hybrid eval]``: ``Model.loss`` on 4 x 2048 held-out tokens
+    with and without ``REPRO_USE_FLASH`` (each counted once, then timed 3
+    times; rows 12 and 13), the two within EVAL_RTOL, one profiled flash
+    eval.  ``[hybrid serve]``: 4 prompts of 2048 tokens prefilled and 64
+    greedy steps through ``serve.generate`` (launches, peak, prefill s,
+    ms/token), then prefill 1536 + 512 teacher-forced decode steps against
+    one prefill of 2048 (the last logits within MM_RTOL).  Returns the
+    launches of the eval (with flash) and of the generation."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.specs import sample_prompts
+    from repro_torch.models import build_model
+    cfg = get_config("hymba_1_5b")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (HB,), HS,
+                                             seed=999))["tokens"],
+                             dtype=torch.long).to(dev)
+    out = {}
+    for flash in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        loss = eval_loss(model, params, tokens, flash=flash)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        secs, again = timed(lambda: eval_loss(model, params, tokens,
+                                              flash=flash), 3)
+        peak = torch.cuda.max_memory_allocated()
+        want = {"ssd_chunk_intra": cfg.n_layers}
+        if flash:
+            want["flash_attention"] = cfg.n_layers
+        check(math.isfinite(loss) and math.isfinite(again)
+              and launches == want,
+              f"[hybrid eval] flash={flash}: loss {loss}, {again}, "
+              f"launches {launches}, expected {want}")
+        out[flash] = (loss, launches)
+        print(f"[hybrid eval] {cfg.name} loss on {HB}x{HS} held-out tokens "
+              f"(seed 999), REPRO_USE_FLASH {'set' if flash else 'unset'}: "
+              f"{loss:.6f}  {float(np.mean(secs)):.4f} s (mean of 3 after a "
+              f"warm-up: {[round(t, 4) for t in secs]})  peak "
+              f"{peak / 2**30:.2f} GiB  launches {launches}")
+    d = abs(out[True][0] - out[False][0])
+    check(d <= EVAL_RTOL * abs(out[False][0]),
+          f"[hybrid eval] flash vs blockwise: {d}")
+    print(f"[hybrid eval] flash vs blockwise |d| {d:.3g} (tolerance "
+          f"{EVAL_RTOL} relative)")
+    phase_profile_eval("hybrid flash eval", lambda: eval_loss(
+        model, params, tokens, flash=True))
+    del tokens
+
+    prompts = torch.as_tensor(sample_prompts(cfg, HB, HS, seed=0)[0],
+                              dtype=torch.long).to(dev)
+    generate(model, params, prompts[:, :256], 4)            # a warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    gen = generate(model, params, prompts, HG)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == {"ssd_chunk_intra": cfg.n_layers},
+          f"[hybrid serve] launches {launches}")
+    print(f"[hybrid serve] {cfg.name}: prefill {HB}x{HS}: "
+          f"{gen['prefill_s']:.4f} s; decode {1e3 * gen['decode_s'] / HG:.3f}"
+          f" ms/token ({HG} greedy steps, batch {HB}); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB; kernel launches {launches}; first row "
+          f"{gen['tokens'][0, :12].tolist()}")
+    with torch.no_grad():
+        want, _ = model.prefill(params, prompts)
+    got, _ = teacher_forced(model, params, prompts, HSPLIT)
+    e = err(got, want)
+    check(bool(torch.isfinite(want).all()) and e[1] <= MM_RTOL,
+          f"[hybrid serve] prefill {HSPLIT} + {HS - HSPLIT} decode steps vs "
+          f"prefill {HS}: {e}")
+    print(f"[hybrid serve] prefill {HSPLIT} + {HS - HSPLIT} teacher-forced "
+          f"decode steps (the ring of {cfg.sliding_window} wraps) vs prefill "
+          f"{HS}: logits max abs diff {e[0]:.3g} (rel {e[1]:.3g}, tolerance "
+          f"{MM_RTOL})")
+    del model, params, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out[True][1], launches
+
+
 # -- phase 4e: the paper's protocol ---------------------------------------------
 
 PAPER_SCHEMES = ("rolling", "random", "static", "full")
@@ -2504,11 +2877,43 @@ def _kernel_group(name):
     return "other"
 
 
-def phase_profile(tag, trainer, batch, round_s):
+def range_kernels(prof, name):
+    """The device kernels of the profiler range ``name``, in ms by kernel
+    group: ``{"forward": those launched inside it, "backward": those of the
+    autograd nodes its forward ops recorded}`` (a node's
+    ``evaluate_function`` event carries the sequence number of the forward
+    op that made it), and the range's count of calls."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def tree(e):
+        yield e
+        for c in e.cpu_children:
+            yield from tree(c)
+
+    def groups(events):
+        out = {}
+        for e in events:
+            for k in e.kernels:
+                g = _kernel_group(k.name)
+                out[g] = out.get(g, 0.0) + k.duration / 1e3
+        return out
+    calls = [e for e in events if e.name == name]
+    fwd = [d for e in calls for d in tree(e)]
+    seqs = {d.sequence_nr for d in fwd if d.sequence_nr >= 0}
+    bwd = [d for e in events
+           if e.name.startswith("autograd::engine::evaluate_function")
+           and e.sequence_nr in seqs for d in tree(e)]
+    return len(calls), {"forward": groups(fwd), "backward": groups(bwd)}
+
+
+def phase_profile(tag, trainer, batch, round_s, ranges=()):
     """One more round (after the counted ones) under torch.profiler:
     device time by kernel group, and its share of an unprofiled round's
     wall time ``round_s`` (the profiled round's own wall time carries the
-    profiler's host cost, so it is printed but not divided by); the client
+    profiler's host cost, so it is printed but not divided by); the device
+    time of each profiler range of ``ranges``, its forward and its
+    backward, by kernel group (``range_kernels``); the client
     steps' update group beside its byte bound for the round, from the
     leaves' sizes."""
     from torch.profiler import ProfilerActivity, profile
@@ -2521,7 +2926,8 @@ def phase_profile(tag, trainer, batch, round_s):
         trainer.run(iter([batch]), 1)
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    kern, groups = device_kernels(prof)
+    # a range shows up on the device too, as an annotation: not a kernel
+    kern, groups = device_kernels(prof, skip=ranges)
     if not kern:
         print(f"[profile {tag}] the trace holds no device time: not "
               "measured")
@@ -2534,6 +2940,20 @@ def phase_profile(tag, trainer, batch, round_s):
         print(f"[profile {tag}] {g:26s} {t:9.2f} ms {100 * t / total:5.1f}%")
     for name, t, n in sorted(kern, key=lambda r: -r[1])[:12]:
         print(f"[profile {tag}]   {t:9.2f} ms x{n:<5d} {name[:100]}")
+    for name in ranges:
+        calls, parts = range_kernels(prof, name)
+        fb = {g: parts["forward"].get(g, 0.0) + parts["backward"].get(g, 0.0)
+              for g in {**parts["forward"], **parts["backward"]}}
+        ms = {k: sum(v.values()) for k, v in parts.items()}
+        both = ms["forward"] + ms["backward"]
+        print(f"[profile {tag}] range {name} ({calls} calls): forward "
+              f"{ms['forward']:.2f} ms + backward {ms['backward']:.2f} ms on "
+              f"the device = {both:.2f} ms = {100 * both / total:.1f}% of the "
+              f"round's device time, {100 * both / (1e3 * round_s):.1f}% of "
+              "an unprofiled round")
+        for g, t in sorted(fb.items(), key=lambda kv: -kv[1]):
+            print(f"[profile {tag}] range {name} {g:26s} {t:9.2f} ms "
+                  f"{100 * t / total:5.1f}%")
     # the client steps' update group against its byte bound for the round:
     # K steps x C clients x every element of every leaf they step (compact
     # in the extract round), reading w and g (and m) and writing w once
@@ -2586,6 +3006,7 @@ def main():
     phase_small_agreement_paper(dev)
     phase_small_agreement_opt(dev)
     phase_small_agreement_hetero(dev)
+    phase_small_agreement_slice(dev)
     launches, trainer, batch, round_s, fused = phase_main_path(dev, _build)
     e_launches = phase_eval(dev, trainer, _build)
     phase_profile("window", trainer, batch, round_s)
@@ -2609,10 +3030,17 @@ def main():
                                                                     _build)
     phase_eval_ssm(dev, model, params, _build)
     phase_profile_serve_ssm(model, params, prompts, prefill_s)
-    del model, params, prompts
+    del prompts
+    phase_ssm_grad(dev, model, params, _build)
+    del model, params
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_dense(dev, _build)
+    sr_launches, sx_launches = phase_slice_rounds(
+        dev, _build, "ssm round", "mamba2_130m", SSM_SEQ)
+    hr_launches, hx_launches = phase_slice_rounds(
+        dev, _build, "hybrid round", "hymba_1_5b", HYB_SEQ)
+    he_launches, hs_launches = phase_hybrid_serve(dev, _build)
     p_launches = phase_paper_path(dev, _build)
     phase_experiment_cli(dev)
     path = {"masked_sgd_inplace": m_launches, "fillin_agg_inplace": m_launches,
@@ -2633,6 +3061,19 @@ def main():
                         "fleet": fl_launches} for name in (
         "rolling_mm_fwd<1>", "rolling_mm_dx<1>", "rolling_mm_fwd<2>",
         "rolling_mm_dx<2>")})
+    # the SSM and hybrid rounds (rows 5-8, 10; the extract rounds row 10
+    # alone), the hybrid eval (rows 12, 13) and serving (row 12)
+    for name in ("rolling_mm_fwd<1>", "rolling_mm_dx<1>"):
+        more[name].update(ssm_round=sr_launches, hybrid_round=hr_launches)
+    for name in ("rolling_mm_fwd<2>", "rolling_mm_dx<2>"):
+        more[name]["hybrid_round"] = hr_launches
+    more["sgd_inplace"].update(ssm_round=sr_launches,
+                               ssm_extract=sx_launches,
+                               hybrid_round=hr_launches,
+                               hybrid_extract=hx_launches)
+    more["ssd_chunk_intra"] = {"hybrid_eval": he_launches,
+                               "hybrid_serve": hs_launches}
+    more["flash_attention"] = {"hybrid_eval": he_launches}
     for r in rows:
         r["launches"] = path.get(r["name"], launches).get(r["name"], 0)
         if r["name"] in more:

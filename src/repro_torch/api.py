@@ -5,7 +5,8 @@ Ports ``MODES``, ``resolve_mode``, ``_resolve_server_opt``, ``fed_round``
 the fused or the extract client phase, heterogeneous capacities, and mask
 mode; client and server optimizers, the bf16 uplink), ``Trainer``,
 ``checkpoint_callback`` and ``AsyncTrainer`` of ``repro/api.py``, with its
-re-exports of the optimizers and the fleet::
+re-exports of ``output_model``, ``run_rounds``, the optimizers and the
+fleet (the same ``__all__``)::
 
     from repro_torch import api
     from repro_torch.configs.base import SubmodelConfig, get_config
@@ -65,7 +66,8 @@ import numpy as np
 from repro_torch.configs.base import SubmodelConfig
 from repro_torch.core.fedavg import (CapacityBucket, MaskFedAvg,
                                      WindowFedAvg, build_mask_fed,
-                                     build_window_fed)
+                                     build_window_fed, output_model,
+                                     run_rounds)
 from repro_torch.core.server_opt import SERVER_OPTS, ServerOpt
 from repro_torch.core.trainer import Trainer, checkpoint_callback
 from repro_torch.device import resolve_device
@@ -76,7 +78,8 @@ from repro_torch.optim.client import (CLIENT_OPTS, ClientOpt,
                                       client_momentum, client_proximal,
                                       client_sgd, resolve_client_opt)
 
-__all__ = ["fed_round", "Trainer", "checkpoint_callback", "WindowFedAvg",
+__all__ = ["fed_round", "Trainer", "checkpoint_callback", "output_model",
+           "run_rounds", "WindowFedAvg",
            "MaskFedAvg", "CapacityBucket", "MODES", "resolve_mode",
            "ClientOpt", "CLIENT_OPTS", "client_sgd", "client_momentum",
            "client_proximal", "ServerOpt", "SERVER_OPTS", "AsyncTrainer",
@@ -150,7 +153,7 @@ def _resolve_server_opt(server_opt, scfg: SubmodelConfig
 
 def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
               client_opt=None, server_opt=None, spmd_axis=None, mesh=None,
-              capacities=None, fused_forward="auto",
+              mesh_agg: str = "gather", capacities=None, fused_forward="auto",
               uplink_compression=None, device="cuda"):
     """Build one federated sub-model round: a :class:`WindowFedAvg`
     (Algorithm 2: one shared window, per-client windows or none) or a
@@ -175,6 +178,9 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
         :class:`ServerOpt`, a registry name (``sgd``/``momentum`` at
         ``lr=scfg.server_lr``, ``adam`` at its defaults) or None (the
         paper's plain average).
+      spmd_axis, mesh, mesh_agg: the mesh round's arguments; only their
+        defaults (None, None, ``"gather"``) are taken: anything else raises
+        ``NotImplementedError`` (ROADMAP.md queue A, the mesh round).
       capacities: per-client ``[C]`` capacity fractions in ``(0, 1]``.
         Mask mode draws each client's dense mask at its own fraction
         (default ``scfg.capacity`` for every client).  Window mode derives
@@ -201,6 +207,9 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
     resolved = resolve_mode(mode, scfg.scheme)
     client_opt = resolve_client_opt(client_opt)
     server_opt = _resolve_server_opt(server_opt, scfg)
+    if mesh_agg != "gather":
+        _not_ported(f"mesh_agg={mesh_agg!r} (the mesh round's aggregation)",
+                    "mesh round")
     if mesh is not None and resolved != "window":
         raise ValueError("mesh execution applies to window mode only "
                          "(mask mode is the dense-mask oracle)")

@@ -6,7 +6,7 @@ defaults are the reference's, so one config means the same model in both
 packages.  The registry holds only the architectures the port can run; the
 family extensions (``moe``, ``mla``, ...) keep their fields, and the model
 refuses them until they are ported.  ``SSMConfig`` is the reference's, for
-the attention-free family.
+the attention-free family and the hybrid block.
 """
 from __future__ import annotations
 
@@ -84,7 +84,7 @@ class SubmodelConfig:
     shared_window: Optional[bool] = None
 
 
-ARCHS = ["tinyllama_1_1b", "mamba2_130m"]
+ARCHS = ["tinyllama_1_1b", "mamba2_130m", "hymba_1_5b"]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}
 
@@ -93,8 +93,8 @@ def _module(arch: str):
     arch = _ALIAS.get(arch, arch).replace("-", "_")
     if arch not in ARCHS:
         raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (ROADMAP.md queue A); "
-            f"the port runs {ARCHS}")
+            f"architecture {arch!r} is not ported yet (ROADMAP.md queue A, "
+            f"the rest of the model zoo); the port runs {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

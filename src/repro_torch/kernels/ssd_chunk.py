@@ -13,7 +13,10 @@ version, ``kernels.ref.ssd_chunk_intra_ref``, a transcription of the Pallas
 body.  The TPU's head block (``nh_block``) and its rule that a window's
 offset be a multiple of it were its tiling: any ``head_offset`` works.
 float32 only.  There is no backward, as the reference kernel has none:
-with autograd recording, inputs that require a gradient are refused.
+with autograd recording, inputs that require a gradient are refused, and
+the message points to ``models.ssm.ssd_chunked``, the differentiable
+transcription the federated round trains through (a backward kernel is
+ROADMAP.md queue B, beta 1).
 
 :func:`ssd_chunk_scan` is the kernel plus the inter-chunk recurrence in
 plain torch (a loop over chunks, as the reference's ``lax.scan``), with the
@@ -61,8 +64,9 @@ def _check(x, dt, A, B, C, head_offset, head_win):
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
             "the SSD chunk kernel has no backward (the reference kernel has "
-            "none either): call it under torch.no_grad() (ROADMAP.md queue "
-            "A, SSM training)")
+            "none either): call it under torch.no_grad(), or train through "
+            "the differentiable models.ssm.ssd_chunked, as the federated "
+            "round's [C, ...] form does")
     return off, win
 
 

@@ -88,7 +88,7 @@ class WindowMap:
     """Per-axis windows for the fused forward, keyed by ``(axis name, full
     size)`` like the reference's ``WindowScheme`` keys."""
 
-    SUPPORTED = ("d_ff", "heads", "kv_heads")
+    SUPPORTED = ("d_ff", "heads", "kv_heads", "ssm_heads")
 
     def __init__(self, windows: Dict[Tuple[str, int], AxisWindow]):
         self.windows = {}

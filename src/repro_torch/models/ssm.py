@@ -1,27 +1,42 @@
-"""Mamba-2 (SSD, state-space duality) mixer, for one model.
+"""Mamba-2 (SSD, state-space duality) mixer.
 
-Ports ``ssm_params``, ``_causal_conv``, ``_projections``, ``ssd_chunked``,
-``ssm_train`` (without its ``ssm_heads`` window), ``xr_raw_tail`` and
-``ssm_decode`` of ``repro/models/ssm.py``.  Params carry no client
-dimension here and activations are ``[B, S, ...]``; the transformer strips
-the C = 1 views of one model before it calls in.
+Ports ``ssm_params``, ``_causal_conv``, ``_projections``,
+``_projections_windowed``, ``ssd_chunked``, ``ssm_train`` (with its
+``ssm_heads`` window), ``xr_raw_tail`` and ``ssm_decode`` of
+``repro/models/ssm.py``.  Params carry the leading client dimension
+``[C, ...]`` and activations are ``[C, B, S, ...]`` (one model is C = 1),
+except in ``ssm_decode``, which takes one model's ``[B, 1, D]``.
 
-Prefill and one model's loss run the chunked SSD block decomposition
-through ``kernels.ssd_chunk.ssd_chunk_scan``: the intra-chunk block in the
-SSD chunk kernel (TPU row 12), the inter-chunk recurrence in plain torch.
-The reference's own model path runs the jnp form of the same block
-(``ssd_chunked``); its tests pin the kernel form equal to it.  Decode is one
-step of the elementwise recurrence, plain torch as it is plain jnp there.
-The SSD kernel has no backward, so this module cannot train (ROADMAP.md
-queue A, SSM training).
+The chunked SSD block decomposition has two routes, and the caller names
+one (``ssm_train(kernel=...)``):
+
+- the clients' form (the federated round, which trains) runs
+  :func:`ssd_chunked`, a plain-torch transcription of the reference's
+  ``ssd_chunked`` that autograd differentiates, as the reference trains
+  through its jnp form.  It masks the intra-chunk decay's exponent with
+  ``-inf`` above the diagonal *before* the ``exp``: the reference selects
+  0 after it, and at a chunk of 256 that ``exp`` overflows, so its
+  gradient is NaN (0 * inf) where this one is finite; the forward values
+  and every finite gradient are the same;
+- one model's prefill and loss run ``kernels.ssd_chunk.ssd_chunk_scan``:
+  the intra-chunk block in the SSD chunk kernel (TPU row 12), which has
+  no backward, and the inter-chunk recurrence in plain torch.
+
+Decode is one step of the elementwise recurrence, plain torch as it is
+plain jnp there.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rolling_matmul import rolling_matmul_batched
 from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
-from repro_torch.models.layers import ParamBuilder, rms_norm_plain
+from repro_torch.models.layers import (ParamBuilder, _rows, head_proj,
+                                       rms_norm_plain)
+
+#: the profiler range around :func:`ssd_chunked`'s forward
+SSD_CHUNKED = "ssd_chunked"
 
 
 def n_heads(cfg) -> int:
@@ -53,92 +68,183 @@ def ssm_params(b: ParamBuilder, prefix, cfg):
 
 
 def _causal_conv(x, w):
-    """x ``[B, S, ch]``; w ``[cw, ch]``: depthwise causal conv, ``cw - 1``
-    zeros on the left.  JAX's conv and ``conv1d`` are both
+    """x ``[C, B, S, ch]``; w ``[C, cw, ch]``: each client's depthwise
+    causal conv, ``cw - 1`` zeros on the left, as one grouped ``conv1d``
+    over the ``C * ch`` channels.  JAX's conv and ``conv1d`` are both
     cross-correlations, so the weight is transposed, not flipped."""
-    cw, ch = w.shape
-    out = F.conv1d(F.pad(x.transpose(1, 2), (cw - 1, 0)), w.t()[:, None, :],
-                   groups=ch)
-    return out.transpose(1, 2).contiguous()
+    C, B, S, ch = x.shape
+    cw = w.shape[1]
+    xi = x.permute(1, 0, 3, 2).reshape(B, C * ch, S)
+    wi = w.permute(0, 2, 1).reshape(C * ch, 1, cw)
+    out = F.conv1d(F.pad(xi, (cw - 1, 0)), wi, groups=C * ch)
+    return out.reshape(B, C, ch, S).permute(1, 0, 3, 2).contiguous()
 
 
-def _heads(x, w):
-    """``einsum("bsd,dhe->bshe", x, w)`` as one product."""
-    D, nh, hd = w.shape
-    return (x @ w.reshape(D, nh * hd)).reshape(*x.shape[:-1], nh, hd)
+def _per_client(x, w):
+    """``x [C, B, S, D] @ w [C, D, n]`` -> ``[C, B, S, n]``."""
+    return torch.bmm(_rows(x), w).reshape(*x.shape[:-1], w.shape[-1])
 
 
-def _projections(p, x):
-    z = _heads(x, p["w_z"])
-    xr = _heads(x, p["w_x"])
-    Br = x @ p["w_B"]
-    Cr = x @ p["w_C"]
-    dt_raw = x @ p["w_dt"] + p["dt_bias"]
-    return z, xr, Br, Cr, dt_raw
+def _projections(p, x, spec=None):
+    """z, x ``[C, B, S, nh, hd]``, B, C ``[C, B, S, N]`` and dt (before its
+    softplus) ``[C, B, S, nh]``.  With an ``ssm_heads`` window ``spec``
+    (the reference's ``_projections_windowed``): z and x through the
+    head-flattened windowed product (``head_proj``), dt through the same
+    window on the 2-D ``[D, nh]`` layout, so the inactive heads' columns
+    are never read and get exact zero gradients; B and C (shared across
+    heads) stay full."""
+    z = head_proj(x, p["w_z"], spec)
+    xr = head_proj(x, p["w_x"], spec)
+    Br = _per_client(x, p["w_B"])
+    Cr = _per_client(x, p["w_C"])
+    if spec is None:
+        dt, dt_bias = _per_client(x, p["w_dt"]), p["dt_bias"]
+    else:
+        (dt,) = rolling_matmul_batched(_rows(x), (p["w_dt"],),
+                                       spec.cols(1, x.device), spec.win,
+                                       names=spec.names(1))
+        dt = dt.reshape(*x.shape[:-1], spec.win)
+        dt_bias = spec.take(p["dt_bias"])
+    return z, xr, Br, Cr, dt + dt_bias[:, None, None]
 
 
 def _out(y, w_out):
-    """``einsum("bshe,hed->bsd", y, w_out)`` as one product."""
-    nh, hd, D = w_out.shape
-    return y.reshape(*y.shape[:-2], nh * hd) @ w_out.reshape(nh * hd, D)
+    """``einsum("cbshe,ched->cbsd", y, w_out)`` as one batched product."""
+    C, nh, hd, D = w_out.shape
+    return torch.bmm(y.reshape(C, -1, nh * hd),
+                     w_out.reshape(C, nh * hd, D)).reshape(*y.shape[:-2], D)
 
 
-#: the reference's chunked SSD (``ssm.py:92``), with its contract: xr ``[B,
-#: S, nh, hd]``, dt ``[B, S, nh]``, A ``[nh]``, Br and Cr ``[B, S, N]`` ->
-#: ``(y [B, S, nh, hd], final state [B, nh, hd, N])``; ``ValueError`` where
-#: the reference's reshape fails (``S > chunk`` and ``S % chunk != 0``)
-ssd_chunked = ssd_chunk_scan
+def ssd_chunked(xr, dt, A, Br, Cr, chunk):
+    """The reference's chunked SSD (``ssm.py:92-140``) in plain torch,
+    differentiable: xr ``[B, S, nh, hd]``, dt ``[B, S, nh]``, A ``[nh]`` or
+    one row per sequence ``[B, nh]``, Br and Cr ``[B, S, N]`` -> ``(y [B,
+    S, nh, hd], final state [B, nh, hd, N])``.  The chunk is ``min(chunk,
+    S)``; ``S`` must be a multiple of it (the reference's reshape fails
+    otherwise).  The reference's ops in its order, except that the
+    intra-chunk decay's exponent is masked to ``-inf`` above the diagonal
+    before the ``exp`` (see the module docstring)."""
+    Bsz, S, nh, hd = xr.shape
+    N = Br.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"a sequence of {S} is not a whole number of "
+                         f"chunks of {Q}")
+    nc = S // Q
+    with torch.profiler.record_function(SSD_CHUNKED):
+        xs = xr.reshape(Bsz, nc, Q, nh, hd)
+        dts = dt.reshape(Bsz, nc, Q, nh)
+        Bs = Br.reshape(Bsz, nc, Q, N)
+        Cs = Cr.reshape(Bsz, nc, Q, N)
+        dA = dts * A.reshape(-1, 1, 1, nh)                # [B, nc, Q, nh]
+        L = torch.cumsum(dA, dim=2)                       # inclusive
+        # -- intra-chunk (quadratic within the chunk) --
+        CB = torch.einsum("bcqn,bctn->bcqt", Cs, Bs)      # [B, nc, Q, Q]
+        Lh = L.transpose(2, 3)                            # [B, nc, nh, Q]
+        diff = Lh[..., :, None] - Lh[..., None, :]        # [B, nc, nh, Q, Q]
+        causal = torch.ones((Q, Q), dtype=torch.bool,
+                            device=xr.device).tril()
+        decay = torch.exp(diff.masked_fill(~causal, float("-inf")))
+        M = CB[:, :, None] * decay * dts.transpose(2, 3)[:, :, :, None, :]
+        y_intra = torch.einsum("bchqt,bcthp->bcqhp", M, xs)
+        # -- chunk states --
+        Llast = Lh[..., -1:]                              # [B, nc, nh, 1]
+        sdecay = torch.exp(Llast - Lh) * dts.transpose(2, 3)
+        states = torch.einsum("bcthp,bctn,bcht->bchpn", xs, Bs, sdecay)
+        # -- inter-chunk recurrence: a loop over chunks (the reference's
+        # lax.scan), emitting the state at each chunk's entry --
+        dtot = torch.exp(dA.sum(2))                       # [B, nc, nh]
+        h = torch.zeros((Bsz, nh, hd, N), dtype=torch.float32,
+                        device=xr.device)
+        entries = []
+        for c in range(nc):
+            entries.append(h)
+            h = h * dtot[:, c, :, None, None] + states[:, c]
+        h_entry = torch.stack(entries, dim=1)             # [B, nc, nh, hd, N]
+        y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cs, h_entry)
+        y_inter = y_inter * torch.exp(L)[..., None]
+        y = (y_intra + y_inter).reshape(Bsz, S, nh, hd)
+    return y.to(xr.dtype), h
 
 
-def ssm_train(p, x, cfg, return_state=False, window=None):
-    """x ``[B, S, D]`` -> ``[B, S, D]`` (with ``return_state``, also the
-    decode cache ``{h, conv_x, conv_B, conv_C}``)."""
-    if window is not None:
-        raise NotImplementedError(
-            "ssm_heads windows are not ported yet (ROADMAP.md queue A, SSM "
-            "training)")
+def ssm_train(p, x, cfg, return_state=False, window=None, kernel=False):
+    """x ``[C, B, S, D]`` with per-client params ``[C, ...]`` -> ``[C, B, S,
+    D]`` (with ``return_state``, also the decode cache ``{h, conv_x,
+    conv_B, conv_C}``, each ``[C, B, ...]``).
+
+    ``window`` (a ``WindowMap`` or None) applies an ``ssm_heads`` window
+    on the FULL weights (the reference's windowed ``ssm_train``): the
+    windowed projections, the per-head conv, ``A_log``, ``D_skip``,
+    ``y_norm`` and ``w_out`` narrowed to each client's heads
+    (``AxisWindow.take``: a view for a shared window, a gather for
+    per-client ones), and the chunked SSD on the ``win`` active heads, the
+    ops of the extracted compact model.  ``kernel`` is one model's form
+    (C = 1): the chunked SSD through the row-12 kernel, which refuses a
+    gradient; otherwise the differentiable :func:`ssd_chunked`."""
     s = cfg.ssm
-    z, xr_raw, Br, Cr, dt_raw = _projections(p, x)
-    B, S, nh, hd = xr_raw.shape
+    spec = window.get("ssm_heads", p["A_log"].shape[-1]) if window else None
+    if spec is not None and return_state:
+        raise ValueError("ssm_heads windows are a training-path feature; "
+                         "prefill and decode use full heads")
+    z, xr_raw, Br, Cr, dt_raw = _projections(p, x, spec)
+    conv_x, A_log, D_skip, y_norm, w_out = (
+        p[k] for k in ("conv_x", "A_log", "D_skip", "y_norm", "w_out"))
+    if spec is not None:
+        conv_x = spec.take(conv_x.transpose(1, 2)).transpose(1, 2)
+        A_log, D_skip, y_norm, w_out = (spec.take(w) for w in
+                                        (A_log, D_skip, y_norm, w_out))
+    C, B, S, nh, hd = xr_raw.shape
     cw = s.conv_width
     tail = xr_raw_tail(xr_raw, cw) if return_state else None
-    xr = F.silu(_causal_conv(xr_raw.reshape(B, S, nh * hd),
-                             p["conv_x"].reshape(cw, nh * hd))
-                ).reshape(B, S, nh, hd)
+    xr = F.silu(_causal_conv(xr_raw.reshape(C, B, S, nh * hd),
+                             conv_x.reshape(C, cw, nh * hd))
+                ).reshape(C, B, S, nh, hd)
     del xr_raw
     Brc = F.silu(_causal_conv(Br, p["conv_B"]))
     Crc = F.silu(_causal_conv(Cr, p["conv_C"]))
     dt = F.softplus(dt_raw)
-    A = -torch.exp(p["A_log"].float())
-    y, hT = ssd_chunked(xr, dt, A, Brc, Crc, s.chunk)
-    y = y + p["D_skip"][:, None] * xr
-    y = rms_norm_plain(y * F.silu(z), p["y_norm"], cfg.norm_eps)
-    out = _out(y, p["w_out"])
+    A = -torch.exp(A_log.float())                         # [C, nh]
+    fold = (lambda t: t.reshape(C * B, *t.shape[2:]))     # noqa: E731
+    if kernel:
+        if C != 1:
+            raise ValueError(f"the SSD chunk kernel runs one model (C = 1); "
+                             f"got {C} clients")
+        y, hT = ssd_chunk_scan(fold(xr), fold(dt), A[0], fold(Brc),
+                               fold(Crc), s.chunk)
+    else:
+        y, hT = ssd_chunked(fold(xr), fold(dt), A.repeat_interleave(B, 0),
+                            fold(Brc), fold(Crc), s.chunk)
+    y = y.reshape(C, B, S, nh, hd) + D_skip[:, None, None, :, None] * xr
+    y = rms_norm_plain(y * F.silu(z), y_norm[:, None, None], cfg.norm_eps)
+    out = _out(y, w_out)
     if not return_state:
         return out
     cache = {
-        "h": hT,                                          # [B, nh, hd, N]
+        "h": hT.reshape(C, B, nh, hd, -1),                # [C, B, nh, hd, N]
         "conv_x": tail,
-        "conv_B": Br[:, -(cw - 1):].clone(),          # not a view of Br
-        "conv_C": Cr[:, -(cw - 1):].clone(),
+        "conv_B": Br[:, :, -(cw - 1):].clone(),       # not a view of Br
+        "conv_C": Cr[:, :, -(cw - 1):].clone(),
     }
     return out, cache
 
 
 def xr_raw_tail(xr_raw, cw):
-    """The last ``cw - 1`` positions of the x projection ``[B, S, nh, hd]``
-    before its conv, flattened to ``[B, cw - 1, nh * hd]``: the decode
-    cache's ``conv_x`` (a copy, not a view of the whole projection)."""
-    B, _, nh, hd = xr_raw.shape
-    return xr_raw[:, -(cw - 1):].reshape(B, cw - 1, nh * hd).clone()
+    """The last ``cw - 1`` positions of the x projection ``[C, B, S, nh,
+    hd]`` before its conv, flattened to ``[C, B, cw - 1, nh * hd]``: the
+    decode cache's ``conv_x`` (a copy, not a view of the whole
+    projection)."""
+    C, B, _, nh, hd = xr_raw.shape
+    return xr_raw[:, :, -(cw - 1):].reshape(C, B, cw - 1, nh * hd).clone()
 
 
 def ssm_decode(p, x, cfg, cache, pos):
-    """x ``[B, 1, D]``; cache ``{h, conv_x, conv_B, conv_C}``.  Returns
-    ``(out [B, 1, D], new cache)``; the cache passed in is not changed."""
+    """One model: x ``[B, 1, D]``; params without the client dimension;
+    cache ``{h, conv_x, conv_B, conv_C}``.  Returns ``(out [B, 1, D], new
+    cache)``; the cache passed in is not changed."""
     s = cfg.ssm
     del pos
-    z, xr, Br, Cr, dt_raw = _projections(p, x)            # seq dim = 1
+    z, xr, Br, Cr, dt_raw = (t[0] for t in _projections(
+        {k: v[None] for k, v in p.items()}, x[None]))     # seq dim = 1
     B = x.shape[0]
     nh, hd = xr.shape[2], xr.shape[3]
     cw = s.conv_width
@@ -164,6 +270,6 @@ def ssm_decode(p, x, cfg, cache, pos):
     y = torch.einsum("bhpn,bn->bhp", h, Cr_f.float())
     y = y.to(x.dtype) + p["D_skip"][:, None] * xr_f
     y = rms_norm_plain(y[:, None] * F.silu(z), p["y_norm"], cfg.norm_eps)
-    out = _out(y, p["w_out"])
+    out = _out(y[None], p["w_out"][None])[0]
     return out, {"h": h, "conv_x": conv_x, "conv_B": conv_B,
                   "conv_C": conv_C}

@@ -1,4 +1,5 @@
-"""Model assembly for the dense GQA family and the SSM family.
+"""Model assembly for the dense GQA family, the SSM family and the hybrid
+block.
 
 Ports ``build_params``, ``block_apply``, ``Model.forward``, ``Model.loss``
 (with ``window=``), ``Model.prefill``, ``Model._pad_caches``,
@@ -6,7 +7,9 @@ Ports ``build_params``, ``block_apply``, ``Model.forward``, ``Model.loss``
 ``repro/models/transformer.py``.  The reference scans each stacked layer
 axis (``_layer_kind``: ``layers``, or ``ssm_layers`` for the SSM family)
 under ``remat``; here the layers are separate leaves and a plain Python
-loop runs them.
+loop runs them.  The hybrid block (``hymba_1_5b``) runs the attention and
+the SSM branch on the same input and joins them as ``0.5 *
+(rms_norm(a, fuse_a) + rms_norm(s, fuse_s))`` before the MLP.
 
 :meth:`Model.forward` and :meth:`Model.loss` take two forms, told apart by
 the tokens' rank:
@@ -14,17 +17,20 @@ the tokens' rank:
 - one model, the reference's signature: params without a client
   dimension, tokens ``[B, S]``; ``loss`` returns ``(scalar, metrics)``.
   It runs as C = 1 views, and its ``window=`` (scalar offsets) counts
-  its window products as the reference's scalar-offset kernels;
+  its window products as the reference's scalar-offset kernels.  Its SSM
+  mixers run the SSD chunk kernel (TPU row 12), which has no backward:
+  one model's SSM loss evaluates, it does not train;
 - C clients, the round's form: every leaf carries a leading client
   dimension ``[C, ...]``, tokens are ``[C, B, S]``, and ``loss`` returns
-  one loss per client (the dense family only: the SSM family cannot
-  train yet, ROADMAP.md queue A, SSM training).
+  one loss per client.  Its SSM mixers run the differentiable
+  ``models.ssm.ssd_chunked``, so every family trains.
 
 Serving (``prefill``, ``decode_step``, ``init_cache``) is one model's, in
 the reference's signatures.  Caches are a flat ``{path: tensor}`` dict with
 one leaf per layer (``layers/3/k`` ``[B, Sc, KV, hd]``, ``ssm_layers/3/h``
-``[B, nh, hd, N]``), which ``repro_torch.convert`` carries to and from the
-reference's stacked ``{stack: {name: [L, B, ...]}}``.
+``[B, nh, hd, N]``; a hybrid layer holds ``k``, ``v``, ``h`` and the conv
+tails), which ``repro_torch.convert`` carries to and from the reference's
+stacked ``{stack: {name: [L, B, ...]}}``.
 
 :meth:`Model.init` makes one (server) model without the client dimension.
 """
@@ -49,19 +55,22 @@ from repro_torch.models.ssm import n_heads, ssm_decode, ssm_params, ssm_train
 
 def _check_supported(cfg: ModelConfig):
     ssm = cfg.family == "ssm"
+    hybrid = cfg.family == "hybrid"
     extras = {"moe": cfg.moe is not None,
-              "ssm": cfg.ssm is not None and not ssm,
-              "mla": cfg.mla is not None, "hybrid": cfg.hybrid,
+              "ssm": cfg.ssm is not None and not (ssm or hybrid),
+              "no ssm": cfg.ssm is None and (ssm or hybrid),
+              "mla": cfg.mla is not None, "hybrid": cfg.hybrid != hybrid,
               "mtp": cfg.mtp, "codebooks": bool(cfg.n_codebooks),
               "vision": cfg.vision_stub, "qk_norm": cfg.qk_norm,
               f"{cfg.pos_embed} positions":
                   cfg.pos_embed != ("none" if ssm else "rope")}
     missing = [k for k, v in extras.items() if v]
-    if cfg.family not in ("dense", "ssm") or missing:
+    if cfg.family not in ("dense", "ssm", "hybrid") or missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense GQA family with rope and "
-            f"the attention-free SSM family; {missing or cfg.family} is not "
-            "ported yet (ROADMAP.md queue A)")
+            f"{cfg.name}: the port runs the dense GQA family with rope, "
+            f"the attention-free SSM family and the hybrid block; "
+            f"{missing or cfg.family} is not ported yet (ROADMAP.md queue "
+            "A, the rest of the model zoo)")
 
 
 def _layer_kind(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -84,6 +93,10 @@ def build_params(cfg: ModelConfig, seed=0, device="cuda"
                 ssm_params(b, f"{pre}/ssm", cfg)
                 continue
             attn_params(b, f"{pre}/attn", cfg)
+            if cfg.hybrid:
+                ssm_params(b, f"{pre}/ssm", cfg)
+                b.const(f"{pre}/fuse_a", (D,), ("d_model",), 1.0)
+                b.const(f"{pre}/fuse_s", (D,), ("d_model",), 1.0)
             b.const(f"{pre}/ln2", (D,), ("d_model",), 1.0)
             mlp_params(b, f"{pre}/mlp", D, cfg.d_ff)
     b.const("final_norm", (D,), ("d_model",), 1.0)
@@ -108,35 +121,37 @@ def _by_layer(tree, prefixes):
     return out
 
 
-def _ssm_block(p, x, cfg, mode, cache, pos, window):
-    """The SSM mixer on the C = 1 views of one model: strips the client
-    dimension for ``models.ssm`` and puts it back on what comes out."""
-    if x.shape[0] != 1:
-        raise NotImplementedError(
-            "the SSM family runs one model (C = 1); its federated round "
-            "needs the SSD block's backward (ROADMAP.md queue A, SSM "
-            "training)")
-    p1 = {k: v[0] for k, v in p.items()}
+#: the SSM mixer's decode cache (a hybrid layer's cache holds k and v too)
+SSM_CACHE = ("h", "conv_x", "conv_B", "conv_C")
+
+
+def _ssm_block(p, x, cfg, mode, cache, pos, window, one):
+    """The SSM mixer on ``x [C, B, S, D]``: ``train`` runs the clients'
+    differentiable chunked SSD, or with ``one`` (one model's form) the SSD
+    chunk kernel; ``prefill`` (one model) the kernel, returning the decode
+    cache; ``decode`` (one model) one recurrent step on the C = 1 views."""
     if mode == "train":
-        out, c = ssm_train(p1, x[0], cfg, window=window), {}
-    elif mode == "prefill":
-        out, c = ssm_train(p1, x[0], cfg, return_state=True)
-    else:
-        out, c = ssm_decode(p1, x[0], cfg, {k: v[0] for k, v in cache.items()},
-                            pos)
+        return ssm_train(p, x, cfg, window=window, kernel=one), {}
+    if mode == "prefill":
+        return ssm_train(p, x, cfg, return_state=True, kernel=True)
+    out, c = ssm_decode({k: v[0] for k, v in p.items()}, x[0], cfg,
+                        {k: cache[k][0] for k in SSM_CACHE}, pos)
     return out[None], {k: v[None] for k, v in c.items()}
 
 
 def block_apply(p, h, cfg, positions, window=None, mode="train", cache=None,
-                pos=None, valid=None, rope_pos=None):
+                pos=None, valid=None, rope_pos=None, one=False):
     """One layer on ``h [C, B, S, D]``; returns ``(h, new cache)`` (the
     cache is empty in ``train`` mode).  ``window`` (a :class:`WindowMap`
     or None) routes the windowed products through the fused sub-model
-    forward on the full weights; ``mode`` is ``train``, ``prefill`` or
-    ``decode`` (one token against ``cache``, at position ``pos``)."""
+    forward on the full weights (attention, MLP and SSM mixer alike);
+    ``mode`` is ``train``, ``prefill`` or ``decode`` (one token against
+    ``cache``, at position ``pos``); ``one`` marks one model's form (its
+    SSM mixers run the SSD chunk kernel)."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
-        out, c = _ssm_block(_sub(p, "ssm"), x, cfg, mode, cache, pos, window)
+        out, c = _ssm_block(_sub(p, "ssm"), x, cfg, mode, cache, pos, window,
+                            one)
         return h + out, c
     attn = _sub(p, "attn")
     if mode == "train":
@@ -148,6 +163,12 @@ def block_apply(p, h, cfg, positions, window=None, mode="train", cache=None,
     else:
         a, c = gqa_decode(attn, x, cfg, cache, pos, valid_override=valid,
                           rope_pos=rope_pos)
+    if cfg.hybrid:
+        s, sc = _ssm_block(_sub(p, "ssm"), x, cfg, mode, cache, pos, window,
+                           one)
+        c = {**c, **sc}
+        a = 0.5 * (rms_norm(a, p["fuse_a"], cfg.norm_eps)
+                   + rms_norm(s, p["fuse_s"], cfg.norm_eps))
     h = h + a
     x2 = rms_norm(h, p["ln2"], cfg.norm_eps)
     mlp = _sub(p, "mlp")
@@ -211,7 +232,7 @@ class Model:
         hidden state."""
         if tokens.dim() == 2:
             params, window = self._one_model(params, window)
-            logits, h = self._forward(params, tokens[None], window)
+            logits, h = self._forward(params, tokens[None], window, one=True)
             return logits[0], h[0]
         return self._forward(params, tokens, window)
 
@@ -237,7 +258,7 @@ class Model:
         return torch.bmm(h.reshape(C, B * S, D), w).reshape(C, B, S, -1)
 
     def _run(self, params, h, positions, mode, window=None, caches=None,
-             pos=None, valid=None, rope_pos=None):
+             pos=None, valid=None, rope_pos=None, one=False):
         """Every layer in order; returns ``h`` and the new caches (flat,
         keyed ``{stack}/{i}/{name}``)."""
         prefixes = self._prefixes()
@@ -248,15 +269,16 @@ class Model:
         for pre in prefixes:
             h, c = block_apply(layers[pre], h, self.cfg, positions, window,
                                mode, layer_caches.get(pre), pos, valid,
-                               rope_pos)
+                               rope_pos, one)
             new.update({f"{pre}/{k}": v for k, v in c.items()})
         return h, new
 
-    def _forward(self, params, tokens, window: Optional[WindowMap]):
+    def _forward(self, params, tokens, window: Optional[WindowMap],
+                 one=False):
         S = tokens.shape[2]
         h = self._embed(params, tokens)
         positions = torch.arange(S, device=tokens.device)
-        h, _ = self._run(params, h, positions, "train", window)
+        h, _ = self._run(params, h, positions, "train", window, one=one)
         h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
         return self._head(params, h), h
 
@@ -271,7 +293,7 @@ class Model:
         if one:
             params, window = self._one_model(params, window)
             tokens = tokens[None]
-        logits, _ = self._forward(params, tokens, window)
+        logits, _ = self._forward(params, tokens, window, one=one)
         lm = softmax_xent(logits[:, :, :-1], tokens[:, :, 1:])
         if not one:
             return lm, {"lm_loss": lm}
@@ -339,7 +361,14 @@ class Model:
         dev = resolve_device(device)
         caches = {}
         for pre in self._prefixes():
-            if cfg.family == "ssm":
+            if cfg.family != "ssm":
+                Sc = (min(seq_len, cfg.sliding_window) if cfg.sliding_window
+                      else seq_len)
+                for name in ("k", "v"):
+                    caches[f"{pre}/{name}"] = torch.zeros(
+                        (batch, Sc, cfg.n_kv_heads, cfg.head_dim),
+                        dtype=dtype, device=dev)
+            if cfg.ssm is not None:
                 s = cfg.ssm
                 nh = n_heads(cfg)
                 caches[f"{pre}/h"] = torch.zeros(
@@ -350,13 +379,6 @@ class Model:
                     caches[f"{pre}/{name}"] = torch.zeros(
                         (batch, s.conv_width - 1, ch), dtype=dtype,
                         device=dev)
-                continue
-            Sc = (min(seq_len, cfg.sliding_window) if cfg.sliding_window
-                  else seq_len)
-            for name in ("k", "v"):
-                caches[f"{pre}/{name}"] = torch.zeros(
-                    (batch, Sc, cfg.n_kv_heads, cfg.head_dim), dtype=dtype,
-                    device=dev)
         return caches
 
 

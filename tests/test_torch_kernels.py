@@ -428,6 +428,11 @@ GPU_SHAPES = [
     (4, 512, 2048, 2048, 1024, [1024, 3, 1024, 1020]),
     (1, 512, 2048, 5632, 2816, [2816]),
     (1, 8192, 2048, 5632, 2816, [1]),
+    # the SSM rounds' dt projections: Mamba2's 12 of 24 columns, and
+    # Hymba's 25 of 50 (a row stride and window that are not multiples of
+    # 4: the scalar copy path), at shared and per-client offsets
+    (4, 2048, 768, 24, 12, [12, 12, 12, 12]),
+    (4, 512, 1600, 50, 25, [25, 0, 25, 13]),
 ]
 
 

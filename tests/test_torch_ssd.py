@@ -9,7 +9,8 @@ body); it is held against:
   its head-window arm at the reference's block-aligned ``(off, win)``;
 - through ``ssd_chunk_scan`` (the kernel plus the plain inter-chunk
   recurrence), the reference's ``ops.ssd_chunk_scan`` and
-  ``models.ssm.ssd_chunked`` at the shapes of ``tests/test_kernels.py``,
+  ``models.ssm.ssd_chunked`` at the shapes of ``tests/test_kernels.py``
+  (the port's differentiable ``models.ssm.ssd_chunked`` too),
   and one unaligned head window against the reference's ``ssd_chunked``
   on host-sliced heads;
 - the sequential oracle ``ssd_chunk_ref`` (both packages').
@@ -139,9 +140,12 @@ def test_chunk_scan_matches_reference(jx, shape):
                          jx.ssd_chunked(*ja, Q)):
         _close(y, y_ref)
         _close(h, h_ref)
-    # the model's entry point is the same function
+    # the round's differentiable transcription holds to the same
+    # reference and to the kernel route
     y2, h2 = port_ssm.ssd_chunked(*_torch(*args), Q)
-    assert torch.equal(y, y2) and torch.equal(h, h2)
+    for y_ref, h_ref in ((y, h), jx.ssd_chunked(*ja, Q)):
+        _close(y2, y_ref)
+        _close(h2, h_ref)
 
 
 @pytest.mark.parametrize("off,win,nh_block", [(2, 4, 2), (4, 4, 0),
@@ -210,7 +214,7 @@ def test_ragged_sequence_raises_as_the_reference_does(jx):
 def test_grad_requiring_inputs_are_refused():
     x, dt, A, B, C = _torch(*_inputs((1, 1), 8, 2, 8, 16))
     x.requires_grad_()
-    with pytest.raises(NotImplementedError, match="SSM training"):
+    with pytest.raises(NotImplementedError, match="models.ssm.ssd_chunked"):
         ssd_chunk_intra(x, dt, A, B, C)
     with pytest.raises(NotImplementedError, match="no backward"):
         ssd_chunk_scan(x.reshape(1, 8, 2, 8), dt.reshape(1, 8, 2), A,

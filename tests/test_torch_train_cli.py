@@ -166,3 +166,24 @@ def test_gpu_cli_trains_on_the_card(capsys):
                  "rolling_mm_dx<1>", "rolling_mm_dx<2>", "sgd_inplace"):
         assert _build.LAUNCHES.get(name, 0) > 0, name
     assert np.isfinite(out["last_loss"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,rows", [
+    ("mamba2_130m", ("rolling_mm_fwd<1>", "rolling_mm_dx<1>")),
+    ("hymba_1_5b", ("rolling_mm_fwd<1>", "rolling_mm_dx<1>",
+                    "rolling_mm_fwd<2>", "rolling_mm_dx<2>"))])
+def test_gpu_cli_trains_the_ssm_and_hybrid_families(capsys, arch, rows):
+    """The SSM family and the hybrid block train on the card through the
+    differentiable chunked SSD: the windowed products of their default
+    axes and the client step launch, and the SSD chunk kernel does not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; none is present")
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    out = train.main(["--arch", arch, "--reduced", "--rounds", "2", "--seq",
+                      "64", "--log-every", "1", "--lr", "0.1"])
+    _check(out, capsys.readouterr().out)
+    for name in (*rows, "sgd_inplace"):
+        assert _build.LAUNCHES.get(name, 0) > 0, name
+    assert not _build.LAUNCHES.get("ssd_chunk_intra")
