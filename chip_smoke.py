@@ -45,7 +45,9 @@ Phases, each of which fails the run when it fails:
    M = 2, 4 aggregations: equal virtual times and staleness); then
    reduced Mamba2 (``[agree ssm]``: 3 fused rounds, 1 extract, 1 Bernoulli
    mask and 1 staggered-rolling round) and reduced Hymba (``[agree
-   hybrid]``: 3 fused rounds, 1 extract) on the default axes.
+   hybrid]``: 3 fused rounds, 1 extract) on the default axes; then
+   reduced DeepSeek-7B, Qwen3-14B and Mixtral (``[agree zoo]``: 2 fused
+   rounds each, and one continuous batcher run, its logits and tokens).
 4. The window path: the shared-window federated round on full-width
    TinyLlama-1.1B (22 layers, f32, 4 clients x 2 local steps x 2 x 256
    tokens), through ``api.fed_round`` and ``api.Trainer``, 3 rounds, with
@@ -139,15 +141,49 @@ Phases, each of which fails the run when it fails:
    ``REPRO_USE_FLASH`` (rows 12 and 13); ``[hybrid serve]``: a 4 x 2048
    prefill and 64 greedy steps, and prefill 1536 + 512 teacher-forced decode
    steps against one prefill of 2048.
+4k. The dense and MoE model zoo and the continuous batcher, after the
+   hybrid block, each at its published widths from random weights (seed
+   0), f32.  ``[deepseek round]``: DeepSeek-7B cut to 4 of 30 layers, 4
+   clients x 2 steps x 2 x 256 tokens, rolling at 0.5 on the default axes
+   (d_ff, heads, kv_heads), client lr 0.1: 3 fused rounds (seconds, peak
+   beside (1 + 2 C) x the params, rows 5-8 and 10's launches against the
+   layer arithmetic, a profiled round), 1 extract round held within
+   EXTRACT_TOL of the fused rounds' first, and the "no W_sub copy" pin
+   (``[wsub zoo]``); ``[qwen3 round]``: Qwen3-14B at 2 of 40 layers and 2
+   clients (``qk_norm`` under a heads window), 1 fused and 1 extract
+   round; ``[mixtral round]``: Mixtral-8x22B at 1 of 56 layers and 2
+   clients (experts 4 of 8, moe_d_ff 8192 of 16384, heads 24 of 48 on
+   kv_heads 4 of 8; the ``dropping`` path), 2 fused and 2 extract rounds.
+   ``[zoo eval]``: full DeepSeek-7B's loss on 4 x 2048 tokens with and
+   without flash (row 13 at G = 1), its windowed sub-model's (rows 1-2,
+   13) and that sub-model's backward at 2 x 256 (rows 1-4), each held
+   against the compact sub-model (the extracted windows, no kernel): the
+   losses within EVAL_RTOL, three gradients within MM_RTOL; Mixtral at 4
+   layers on one sequence of 8192 tokens, flash (G = 6 under the window
+   of 4096) and not.  ``[serve continuous]``: full-size Qwen3-14B (40
+   layers, 14.77 B params): its loss on 2 x 2048 tokens, flash (G = 5
+   under ``qk_norm``) and not; 12 requests from ``request_queue``
+   (prompts of 64-256 tokens, 16-64 new) through ``ContinuousBatcher`` (4
+   slots, a timeline of 4096): requests, tokens, prefills, ticks, ticks
+   per second, launches per tick, seconds and peak; then the same queue
+   again recording every logit handed out, the tokens equal to the timed
+   run's, each request's logits held against a single-request prefill and
+   teacher-forced decode within MM_RTOL; one decode tick profiled; then
+   Mixtral at 4 layers, the same queue on ``dropping`` and, held the same
+   way, on ``dense``.
 
 The update kernels (rows 9-11) are also held and timed at the shapes the
 extract and paper paths give them, and rows 5-13 carry each path's
 launches (``launches_by_path``: extract, full, stagger, hetero, fleet,
 mask_opt, paper, ssm_round, ssm_extract, hybrid_round, hybrid_extract,
-hybrid_eval, hybrid_serve); rows 5-8 and 10 are also timed at the hetero
-path's narrowest bucket (one client, windows 512 and 704 columns), rows
-5-8 at the SSM and hybrid rounds' shapes (``SLICE_ROWS``) and row 13 at
-Hymba's eval shape (25 query heads on 5 kv heads, window 1024).
+hybrid_eval, hybrid_serve, and the zoo's deepseek_round, deepseek_extract,
+qwen3_round, qwen3_extract, mixtral_round, mixtral_extract, zoo_eval and
+qwen3_eval; rows 1-4 carry zoo_eval); rows 5-8 and 10 are also timed at
+the hetero path's narrowest bucket (one client, windows 512 and 704
+columns), rows 5-8 at the SSM and hybrid rounds' shapes (``SLICE_ROWS``)
+and the zoo rounds' (``ZOO_ROWS``), and row 13 at Hymba's eval shape (25
+query heads on 5 kv heads, window 1024) and the zoo evals' (head_dim
+128: G = 1, G = 5, and G = 6 under a window of 4096).
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  With no
 card, or without the repository beside it, the script fails and prints no
@@ -364,6 +400,22 @@ SLICE_ROWS = [
     ("hymba k/v", 1, 512, 1600, 320, 128, 192),
     ("hymba gate/up", 2, 512, 1600, 5504, 2752, 2752),
 ]
+# this slice's zoo rounds' shapes of rows 5-8 (tag, T, clients, tokens a
+# client, K, N, win, offset): DeepSeek-7B's q/k/v (MHA: one shape), Qwen3-
+# 14B's and Mixtral-8x22B's q and k/v (heads and kv_heads at half), the
+# dense gate/up pairs (d_ff at half); Mixtral's experts: the launch its
+# round makes, one client's window of 4 of 8 experts at capacity 320
+# (2 x 256 tokens, top-2, capacity factor 1.25) with moe_d_ff 8192 of 16384
+ZOO_ROWS = [
+    ("deepseek q/k/v", 1, 4, 512, 4096, 4096, 2048, 2048),
+    ("qwen3 q", 1, 2, 512, 5120, 5120, 2560, 2560),
+    ("qwen3 k/v", 1, 2, 512, 5120, 1024, 512, 512),
+    ("mixtral q", 1, 2, 512, 6144, 6144, 3072, 3072),
+    ("mixtral k/v", 1, 2, 512, 6144, 1024, 512, 512),
+    ("deepseek gate/up", 2, 4, 512, 4096, 11008, 5504, 5504),
+    ("qwen3 gate/up", 2, 2, 512, 5120, 17408, 8704, 8704),
+    ("mixtral experts, a client", 2, 4, 320, 6144, 16384, 8192, 8192),
+]
 # further correctness cases (C, M, K, N, win, per-client offsets): the k/v
 # projections, unaligned and per-client offsets, ragged shapes
 EXTRA = [
@@ -428,6 +480,11 @@ def phase_kernels(dev):
             if T_ == T:
                 rows[-1]["sub_rows"].append({"tag": tag, **product_timing(
                     dev, g, kind, T, C, m, N_, w, o, K=K)})
+        # the zoo rounds' shapes
+        for tag, T_, c, m, K, N_, w, o in ZOO_ROWS:
+            if T_ == T:
+                rows[-1]["sub_rows"].append({"tag": tag, **product_timing(
+                    dev, g, kind, T, c, m, N_, w, o, K=K)})
 
     # autograd through the Function at the gate/up shape against plain
     # autograd on the window views
@@ -713,13 +770,24 @@ SCALAR = [
     ("rolling_matmul_dx_multi", 4, "rolling_matmul_bwd.py:104", 2, M, 5632,
      2816, 2816, "dx"),
 ]
+# the same rows on DeepSeek-7B's windowed sub-model (``[zoo eval]``), by
+# TPU row: (tag, M, K, N, win, offset); d_model 4096, the q/k/v window 2048
+# of 4096 columns and the gate/up pair's 5504 of 11008, at offset 0 as the
+# eval takes them; rows 1-2 on 4 x 2048 tokens, rows 3-4 on 2 x 256
+SCALAR_ZOO = {
+    1: ("deepseek q/k/v", EB * ES, 4096, 4096, 2048, 0),
+    2: ("deepseek gate/up", EB * ES, 4096, 11008, 5504, 0),
+    3: ("deepseek q/k/v", M, 4096, 4096, 2048, 0),
+    4: ("deepseek gate/up", M, 4096, 11008, 5504, 0),
+}
 
 
 def scalar_kernels(dev, g):
     """TPU rows 1-4: C = 1 launches of the product kernels, counted under
     the scalar-offset names as one model's window counts them, against
     their plain versions (a product on the window view), at ragged shapes
-    and misaligned offsets, then timed."""
+    and misaligned offsets, then held and timed at TinyLlama's eval shapes
+    (SCALAR) and DeepSeek-7B's sub-model's (SCALAR_ZOO)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rolling_matmul import (SCALAR_NAMES,
                                                     make_offsets,
@@ -771,6 +839,9 @@ def scalar_kernels(dev, g):
         rows.append(dict(name=name, route="cuda",
                          source=SRC + "rolling_mm.cu",
                          replaces=TPU + tpu_fn, tpu_row=row, **r))
+        tag, m, K, N, win, off = SCALAR_ZOO[row]
+        rows[-1]["sub_rows"] = [{"tag": tag, **product_timing(
+            dev, g, kind, T, 1, m, N, win, off, scalar_name=name, K=K)}]
     return rows
 
 
@@ -814,7 +885,14 @@ def flash_kernels(dev, g):
                **flash_timing(dev, g, EB, ES, 32, 4, 64))
     row["sub_rows"] = [flash_timing(dev, g, EB, ES, 32, 8, 128),
                        {"tag": "hymba eval", **flash_timing(
-                           dev, g, HB, HS, 25, 5, 64, window=1024)}]
+                           dev, g, HB, HS, 25, 5, 64, window=1024)},
+                       {"tag": "deepseek eval (G = 1)", **flash_timing(
+                           dev, g, EB, ES, 32, 32, 128)},
+                       {"tag": "qwen3 eval (G = 5, qk_norm)", **flash_timing(
+                           dev, g, QWEN_EB, ES, 40, 8, 128)},
+                       {"tag": "mixtral eval (G = 6, window 4096)",
+                        **flash_timing(dev, g, MOE_EB, MOE_ES, 48, 8, 128,
+                                       window=4096)}]
     return [row]
 
 
@@ -1097,37 +1175,42 @@ def phase_small_agreement_ssm(dev):
 # -- phase 4 ------------------------------------------------------------------
 
 
-def run_rounds(tag, trainer, data, _build):
+def run_rounds(tag, trainer, data, _build, clients=4, after=None):
     """``len(data)`` rounds, each timed to a synchronize, with the kernel
     launches counted from 0 and the peak memory from a reset; checks what
-    comes out and returns ``(launches, seconds per round after the
-    first)``."""
+    comes out (``clients`` clients a round) and returns ``(launches,
+    seconds per round after the first)`` (a single round: its own).
+    ``after(i)`` runs after round i, outside the timing."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     secs = []
-    for item in data:
+    for i, item in enumerate(data):
         t0 = time.perf_counter()
         trainer.run(iter([item]), 1)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        if after is not None:
+            after(i)
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     losses = trainer.losses
     client = [h["client_loss"].cpu().tolist() for h in trainer.history]
     print(f"[{tag}] round losses {losses}")
     print(f"[{tag}] client losses [K, C] per round {client}")
+    later = secs[1:] or secs
     print(f"[{tag}] seconds per round {secs}; after the first "
-          f"{float(np.mean(secs[1:])):.3f} s")
+          f"{float(np.mean(later)):.3f} s")
     print(f"[{tag}] peak memory allocated {peak / 2**30:.2f} GiB")
     print(f"[{tag}] kernel launches {launches}")
     check(all(math.isfinite(v) for v in losses), f"{tag} losses {losses}")
-    check(all(h["client_loss"].shape == (2, 4) for h in trainer.history),
-          f"{tag} client_loss is not [K=2, C=4]")
+    check(all(h["client_loss"].shape == (2, clients)
+              for h in trainer.history),
+          f"{tag} client_loss is not [K=2, C={clients}]")
     bad = [k for k, v in trainer.params.items()
            if not torch.isfinite(v).all()]
     check(not bad, f"{tag} non-finite params {bad[:5]}")
-    return launches, float(np.mean(secs[1:]))
+    return launches, float(np.mean(later))
 
 
 def full_width(dev):
@@ -2730,6 +2813,614 @@ def phase_hybrid_serve(dev, _build):
     return out[True][1], launches
 
 
+# -- phase 4k: the dense and MoE model zoo, the continuous batcher ---------------
+
+# (tag, arch, layers kept, clients, fused rounds, extract rounds): full widths;
+# the depth and the clients are cut so that a fused round, about (1 + 2 C)
+# times the f32 params, fits the card
+ZOO_ROUNDS = [("deepseek round", "deepseek_7b", 4, 4, 3, 1),
+              ("qwen3 round", "qwen3_14b", 2, 2, 1, 1),
+              ("mixtral round", "mixtral_8x22b", 1, 2, 2, 2)]
+ZOO_SEQ = 256             # tokens a sequence; 2 sequences a client step
+MOE_EVAL_LAYERS = 4       # Mixtral's eval and serving: 4 of 56 layers
+MOE_EB, MOE_ES = 1, 8192  # one sequence past Mixtral's window of 4096
+QWEN_EB = 2               # Qwen3-14B's eval: 2 x 2048 beside its 59 GB
+SERVE_SLOTS, SERVE_LEN, SERVE_REQS = 4, 4096, 12
+SERVE_PROMPTS, SERVE_NEW = (64, 128, 192, 256), (16, 32, 48, 64)
+
+
+def zoo_config(arch, layers=None):
+    """A zoo config at its published widths, cut to ``layers`` layers."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _zoo_launches(cfg, leaves, n, clients, fused):
+    """Rows 5-8 and 10's launches over ``n`` rounds (K = 2 steps each):
+    the fused phase runs q, k and v through rows 5-6 and the gate/up pair
+    through rows 7-8 once a layer a step (an MoE layer: once a client, its
+    window of experts in the kernel's leading dimension); every step steps
+    each leaf through row 10."""
+    per = 2 * cfg.n_layers * n * int(fused)
+    t2 = clients if cfg.moe is not None else 1
+    return {"rolling_mm_fwd<1>": 3 * per, "rolling_mm_dx<1>": 3 * per,
+            "rolling_mm_fwd<2>": t2 * per, "rolling_mm_dx<2>": t2 * per,
+            "sgd_inplace": 2 * leaves * n}
+
+
+def phase_zoo_round(dev, _build, tag, arch, layers, clients, n_fused,
+                    n_extract):
+    """A zoo config's fused rounds at full width (cut to ``layers``
+    layers): ``clients`` clients x K = 2 steps x 2 x ZOO_SEQ tokens,
+    rolling at capacity 0.5 on the default axes, client lr 0.1, through
+    ``api.fed_round`` and ``api.Trainer`` (seconds, peak beside its
+    reckoning, finite losses and params, rows 5-8 and 10's launches
+    against the layer arithmetic), one profiled round; then ``n_extract``
+    extract rounds from the same params and offsets, every client loss and
+    the params within EXTRACT_TOL of the fused rounds' after as many
+    rounds (which moved the params by more than EXTRACT_TOL); DeepSeek
+    also pins "no per-client W_sub copy".  Returns the launches of both."""
+    from repro_torch import api
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    cfg = zoo_config(arch, layers)
+    full = zoo_config(arch)
+    model = build_model(cfg)
+    it = lm_batches(cfg.vocab, (2, clients, 2), seq=ZOO_SEQ)
+    data = [next(it) for _ in range(n_fused)]
+    scfg = slice_scfg(clients_per_round=clients)
+    fed = api.fed_round(model, scfg, device=dev)
+    check(fed.use_fused, f"[{tag}] the default axes took the extract phase")
+    offsets = [fed._client_offsets(r) for r in range(n_fused)]
+    items = [(b, {"offsets": o}) for b, o in zip(data, offsets)]
+    params = model.init(seed=0, device=dev)
+    leaves, n_params = len(params), sum(v.numel() for v in params.values())
+    windows = {f"{k[0]}/{k[1]}": w for k, w in fed.scheme.sizes.items()}
+    reckon = (1 + 2 * clients) * 4 * n_params
+    print(f"[{tag}] {cfg.name}: {layers} of {full.n_layers} layers (cut: "
+          f"depth{', clients ' + str(clients) if clients < 4 else ''}), "
+          f"d_model {cfg.d_model}, {n_params:,} params ({leaves} leaves), "
+          f"f32; {clients} clients x 2 steps x 2 x {ZOO_SEQ} tokens, client "
+          f"lr {scfg.client_lr}; windows {windows}; offsets {offsets}; "
+          f"peak reckoned (1 + 2 C) x params = {reckon / 2**30:.2f} GiB plus "
+          "activations")
+    trainer = api.Trainer(fed, params)
+    kept = {}
+
+    def keep(i):
+        if i + 1 == n_extract:
+            kept["params"] = {k: v.to("cpu", copy=True)
+                              for k, v in trainer.params.items()}
+            kept["losses"] = _client_losses(trainer)
+    launches, round_s = run_rounds(tag, trainer, items, _build,
+                                   clients=clients, after=keep)
+    want = _zoo_launches(cfg, leaves, n_fused, clients, True)
+    got = {k: launches.get(k, 0) for k in want}
+    check(got == want, f"[{tag}] launches {got}, expected {want}")
+    print(f"[{tag}] rows 5-8 and 10 a round: "
+          f"{ {k: v // n_fused for k, v in got.items()} }")
+    if tag != "qwen3 round":
+        phase_profile(tag, trainer, items[0], round_s)
+    del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fed = api.fed_round(model, scfg, fused_forward="off", device=dev)
+    check(not fed.use_fused, f"[{tag} extract] took the fused phase")
+    trainer = api.Trainer(fed, model.init(seed=0, device=dev))
+    # the initial params again (seed 0): how far the fused rounds moved
+    moved = _max_diff(trainer.params, kept["params"])
+    x_launches, x_round_s = run_rounds(f"{tag} extract", trainer,
+                                       items[:n_extract], _build,
+                                       clients=clients)
+    want = _zoo_launches(cfg, leaves, n_extract, clients, False)
+    got = {k: x_launches.get(k, 0) for k in want}
+    check(got == want, f"[{tag} extract] launches {got}, expected {want}")
+    dl = (_client_losses(trainer) - kept["losses"]).abs().max().item()
+    dp = _max_diff(trainer.params, kept["params"])
+    said = (f"[{tag} extract] vs the fused rounds after {n_extract} "
+            f"round(s): max |d client loss| {dl:.3g}, max |d param| "
+            f"{dp:.3g} (tolerance {EXTRACT_TOL}: 3xTF32 hand kernels vs "
+            f"cuBLAS f32), where the rounds moved the params by up to "
+            f"{moved:.3g}; seconds per round {x_round_s:.3f}")
+    check(moved > EXTRACT_TOL and dl <= EXTRACT_TOL and dp <= EXTRACT_TOL,
+          said)
+    print(said)
+    del trainer, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    if arch == "deepseek_7b":
+        phase_wsub_pin(dev, model, model.init(seed=0, device=dev), data[0],
+                       offsets[0], scfg=scfg, tag="wsub zoo")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, x_launches
+
+
+def _eval_parts(tag, parts, _build):
+    """Each part driven once, timed to a synchronize, with the launch
+    counts set to 0 just before and read just after and the peak from a
+    reset; returns ``{tag: (loss, launches)}``."""
+    out = {}
+    for name, fn in parts:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        loss = res[0] if isinstance(res, tuple) else res
+        check(math.isfinite(loss), f"[{tag}] {name}: loss {loss}")
+        print(f"[{tag}] {name:26s} loss {loss:.6f}  {secs:.4f} s  peak "
+              f"{peak / 2**30:.2f} GiB  launches {launches}")
+        out[name] = (res, launches)
+    return out
+
+
+def _flash_agrees(tag, parts, a, b):
+    la, lb = parts[a][0], parts[b][0]
+    la, lb = (la[0] if isinstance(la, tuple) else la,
+              lb[0] if isinstance(lb, tuple) else lb)
+    rel = abs(la - lb) / abs(lb)
+    check(rel <= EVAL_RTOL, f"[{tag}] {a} {la} vs {b} {lb}: {rel:.3g}")
+    print(f"[{tag}] {a} vs {b}: relative difference {rel:.3g} (tolerance "
+          f"{EVAL_RTOL})")
+
+
+def phase_zoo_eval(dev, _build):
+    """``[zoo eval]``: full DeepSeek-7B (30 layers, f32, random weights from
+    seed 0): ``Model.loss`` on 4 x 2048 held-out tokens with and without
+    ``REPRO_USE_FLASH`` (row 13 at G = 1, head_dim 128), the windowed
+    sub-model's loss with it (rows 1-2 and 13) and one backward pass of the
+    sub-model's loss at 2 x 256 without it (rows 1-4; every gradient
+    finite, exactly 0 outside the d_ff window); then Mixtral-8x22B at 4 of
+    56 layers, its loss on one sequence of 8192 tokens with and without
+    flash (G = 6 under its window of 4096; the MoE layers on ``dropping``).
+    Returns the launches, summed over the parts."""
+    from repro_torch import api
+    from repro_torch.core.extract import extract
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    cfg = zoo_config("deepseek_7b")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (EB,), ES,
+                                             seed=999))["tokens"],
+                             dtype=torch.long).to(dev)
+    fed = api.fed_round(model, slice_scfg(), device=dev)
+    offs = fed.scheme.offsets(0, fed.scfg.clients_per_round)
+    window = {k: (offs[k][0], w) for k, w in fed.scheme.sizes.items()
+              if w < k[1]}
+    small = tokens[:2, :256]
+    print(f"[zoo eval] {cfg.name}: {cfg.n_layers} layers, "
+          f"{sum(v.numel() for v in params.values()):,} params, f32; "
+          f"held-out {list(tokens.shape)} (seed 999); sub-model window "
+          f"{window}")
+
+    # the plain run of the same window: the compact sub-model (views of
+    # each leaf's window, as the extract phase cuts them) through the
+    # model's ordinary products, no kernel; the gradients held are the
+    # embedding's (the dx of every layer's products flows into it) and
+    # the windows of the first layer's w_gate and the last layer's wq
+    sub = extract(params, fed.axes, {k: o for k, (o, _) in window.items()},
+                  fed.scheme.sizes)
+    held = ("embed", "layers/0/mlp/w_gate",
+            f"layers/{cfg.n_layers - 1}/attn/wq")
+
+    def grad_pass():
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with flash_switch(False):
+            loss, _ = model.loss(p, {"tokens": small}, window=window)
+            grads = torch.autograd.grad(loss, list(p.values()))
+        grads = dict(zip(p, grads))
+        g = grads["layers/0/mlp/w_gate"]
+        o, w = window[("d_ff", cfg.d_ff)]
+        outside = (torch.count_nonzero(g[:, :o])
+                   + torch.count_nonzero(g[:, o + w:])).item()
+        finite = all(bool(torch.isfinite(t).all()) for t in grads.values())
+        kept = extract({k: grads[k] for k in held}, fed.axes,
+                       {k: o for k, (o, _) in window.items()},
+                       fed.scheme.sizes)
+        return (float(loss.detach()), outside, finite,
+                {k: v.clone() for k, v in kept.items()})
+
+    parts = _eval_parts("zoo eval", [
+        ("deepseek server, flash", lambda: eval_loss(model, params, tokens,
+                                                     flash=True)),
+        ("deepseek server, blockwise", lambda: eval_loss(model, params,
+                                                         tokens)),
+        ("deepseek sub-model, flash", lambda: eval_loss(
+            model, params, tokens, window, flash=True)),
+        ("deepseek sub-model grad", grad_pass)], _build)
+    L = cfg.n_layers
+    for name, want in (
+            ("deepseek server, flash", {"flash_attention": L}),
+            ("deepseek server, blockwise", {}),
+            ("deepseek sub-model, flash", {"flash_attention": L,
+                                           "rolling_matmul": 3 * L,
+                                           "rolling_matmul_multi": L}),
+            ("deepseek sub-model grad", {
+                "rolling_matmul": 3 * L, "rolling_matmul_multi": L,
+                "rolling_matmul_dx": 3 * L, "rolling_matmul_dx_multi": L})):
+        check(parts[name][1] == want, f"[zoo eval] {name}: launches "
+              f"{parts[name][1]}, expected {want}")
+    res = parts["deepseek sub-model grad"][0]
+    check(res[1] == 0 and res[2], f"[zoo eval] sub-model grad: {res[1]} "
+          f"nonzero w_gate grads outside the window, finite {res[2]}")
+    plain = eval_loss(model, sub, tokens)
+    p = {k: v.detach().requires_grad_() for k, v in sub.items()}
+    with flash_switch(False):
+        loss = model.loss(p, {"tokens": small})[0]
+        want = dict(zip(held, torch.autograd.grad(loss,
+                                                  [p[k] for k in held])))
+    # the graph's leaves are views of the params: let it go with them
+    plain_grad, p, loss = float(loss.detach()), None, None
+    for name, got, ref_loss in (
+            ("sub-model, flash", parts["deepseek sub-model, flash"][0],
+             plain),
+            ("sub-model grad", res[0], plain_grad)):
+        rel = abs(got - ref_loss) / abs(ref_loss)
+        check(rel <= EVAL_RTOL, f"[zoo eval] deepseek {name} {got} vs the "
+              f"compact sub-model's {ref_loss}: {rel:.3g}")
+        print(f"[zoo eval] deepseek {name} loss vs the compact sub-model's "
+              f"(no kernel) {ref_loss:.6f}: relative difference {rel:.3g} "
+              f"(tolerance {EVAL_RTOL})")
+    for name in held:
+        e = err(res[3][name], want[name])
+        check(e[1] <= MM_RTOL, f"[zoo eval] sub-model grad {name}: {e}")
+        print(f"[zoo eval] deepseek sub-model grad {name} "
+              f"{list(want[name].shape)} vs the compact sub-model's: max abs "
+              f"err {e[0]:.3g} (rel {e[1]:.3g}, tolerance {MM_RTOL})")
+    res[3].clear()
+    del sub, want, res
+    _flash_agrees("zoo eval", parts, "deepseek server, flash",
+                  "deepseek server, blockwise")
+    phase_profile_eval("deepseek server, flash", lambda: eval_loss(
+        model, params, tokens, flash=True))
+    del model, params, tokens, small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = zoo_config("mixtral_8x22b", MOE_EVAL_LAYERS)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (MOE_EB,), MOE_ES,
+                                             seed=999))["tokens"],
+                             dtype=torch.long).to(dev)
+    n = sum(v.numel() for v in params.values())
+    print(f"[zoo eval] {cfg.name}: {MOE_EVAL_LAYERS} of 56 layers (cut: "
+          f"depth), {n:,} params ({4 * n / 1e9:.1f} GB f32); held-out "
+          f"{list(tokens.shape)} (seed 999), window {cfg.sliding_window}, "
+          f"MoE path {model.moe_path}")
+    more = _eval_parts("zoo eval", [
+        ("mixtral, flash", lambda: eval_loss(model, params, tokens,
+                                             flash=True)),
+        ("mixtral, blockwise", lambda: eval_loss(model, params, tokens))],
+        _build)
+    check(more["mixtral, flash"][1] == {"flash_attention": MOE_EVAL_LAYERS}
+          and more["mixtral, blockwise"][1] == {},
+          f"[zoo eval] mixtral launches {more}")
+    _flash_agrees("zoo eval", more, "mixtral, flash", "mixtral, blockwise")
+    del model, params, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {}
+    for _, launches in [*parts.values(), *more.values()]:
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    print(f"[zoo eval] kernel launches on the eval path {total}")
+    return total
+
+
+class _Recorder:
+    """A model as the continuous batcher sees it, keeping the logits each
+    request is handed: the prefill's row at the request's last prompt
+    token (filed by :meth:`admitted` after the step) and its slot's row of
+    every decode step (read off the batcher's slots as the step runs)."""
+
+    def __init__(self, model):
+        self.model, self.cfg = model, model.cfg
+        self.eng, self.last_prefill, self.rows = None, None, {}
+
+    def init_cache(self, *args, **kw):
+        return self.model.init_cache(*args, **kw)
+
+    def prefill(self, *args, **kw):
+        logits, cache = self.model.prefill(*args, **kw)
+        self.last_prefill = logits
+        return logits, cache
+
+    def decode_step(self, *args, **kw):
+        logits, cache = self.model.decode_step(*args, **kw)
+        host = logits.to("cpu", copy=True)
+        for i, r in enumerate(self.eng._slot_req):
+            if r is not None:
+                self.rows.setdefault(r.rid, []).append(host[i])
+        return logits, cache
+
+    def admitted(self, before):
+        """File the prefill rows of the requests the last step admitted
+        (in a slot now, and not before it)."""
+        for slot, r in enumerate(self.eng._slot_req):
+            if r is not None and id(r) not in before:
+                row = self.last_prefill[slot, len(r.prompt) - 1]
+                self.rows.setdefault(r.rid, []).insert(
+                    0, row.to("cpu", copy=True))
+
+
+def _serve_queue(cfg):
+    """SERVE_REQS requests from ``request_queue``: prompts cycling through
+    SERVE_PROMPTS tokens, ``max_new`` through SERVE_NEW."""
+    from repro_torch.launch.specs import request_queue
+    reqs = request_queue(cfg, [SERVE_PROMPTS[i % 4]
+                               for i in range(SERVE_REQS)], seed=0)
+    for i, r in enumerate(reqs):
+        r.max_new = SERVE_NEW[i % 4]
+    return reqs
+
+
+def drive(eng, rec=None):
+    """Step ``eng`` by hand (``ContinuousBatcher.run``'s loop) until its
+    queue and slots are empty, each step timed to a synchronize; with
+    ``rec``, file each request's logits in it.  Returns the seconds of the
+    steps that admitted a cohort (its prefill and the tick) and of the
+    others (one decode tick each)."""
+    if rec is not None:
+        rec.eng = eng
+    admit, ticks = [], []
+    while eng._queue or any(r is not None for r in eng._slot_req):
+        before = {id(r) for r in eng._slot_req if r is not None}
+        n = eng.stats.prefills
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(eng.step(), "the continuous batcher stalled")
+        torch.cuda.synchronize()
+        (admit if eng.stats.prefills > n else ticks).append(
+            time.perf_counter() - t0)
+        if rec is not None:
+            rec.admitted(before)
+    return admit, ticks
+
+
+def serve_continuous(tag, model, params, _build, record=False):
+    """The queue through ``ContinuousBatcher`` (SERVE_SLOTS slots, a
+    timeline of SERVE_LEN), stepped by :func:`drive`; prints the requests
+    completed, tokens, prefills, decode ticks, ticks per second, the
+    seconds of the admitting steps and the ms of a tick without one,
+    launches per tick, seconds and peak.  With ``record``, the model is
+    wrapped in a :class:`_Recorder`; returns the requests, the recorder
+    and the launches."""
+    from repro_torch.launch.batching import ContinuousBatcher
+    reqs = _serve_queue(model.cfg)
+    rec = _Recorder(model) if record else None
+    eng = ContinuousBatcher(rec or model, params, batch_slots=SERVE_SLOTS,
+                            max_len=SERVE_LEN)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    admit, ticks = drive(eng, rec)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats
+    check(st.completed == len(reqs) and all(r.done for r in reqs)
+          and all(len(r.out) == r.max_new + 1 for r in reqs),
+          f"[{tag}] {st}: not every request completed")
+    path = f", MoE path {model.moe_path}" if model.cfg.moe else ""
+    print(f"[{tag}] {model.cfg.name} ({model.cfg.n_layers} layers{path})"
+          f"{' (recording logits)' if record else ''}: "
+          f"{st.completed} requests, {st.tokens_generated} tokens, "
+          f"{st.prefills} prefills, {st.decode_steps} decode ticks in "
+          f"{secs:.3f} s ({st.decode_steps / secs:.2f} ticks/s; the "
+          f"{len(admit)} admitting steps {sum(admit):.3f} s, "
+          f"{[round(t, 4) for t in admit]}; the other {len(ticks)} ticks "
+          f"{1e3 * float(np.mean(ticks)):.2f} ms each), launches "
+          f"{launches} ({sum(launches.values()) / st.decode_steps:.2f} a "
+          f"tick), peak memory allocated {peak / 2**30:.2f} GiB; slots "
+          f"{SERVE_SLOTS}, timeline {SERVE_LEN}, prompts {SERVE_PROMPTS}, "
+          f"max_new {SERVE_NEW}")
+    del eng
+    return reqs, rec, launches
+
+
+def check_single_requests(tag, model, params, reqs, rec):
+    """Each request's batcher logits against a single-request prefill of
+    its prompt and teacher-forced decode steps fed the batcher's own
+    tokens: every step within MM_RTOL of the request's largest logit, and
+    the batcher's token equal to the single request's argmax wherever the
+    latter's top-2 margin exceeds that tolerance."""
+    worst, ties = 0.0, 0
+    for r in reqs:
+        got = torch.stack(rec.rows[r.rid])
+        check(got.shape[0] == len(r.out), f"[{tag}] request {r.rid}: "
+              f"{got.shape[0]} logit rows for {len(r.out)} tokens")
+        prompt = torch.as_tensor(r.prompt, dtype=torch.long,
+                                 device=params["embed"].device)[None]
+        plen, rows = len(r.prompt), []
+        with torch.no_grad():
+            logits, cache = model.prefill(params, prompt,
+                                          max_len=plen + len(r.out))
+            rows.append(logits[0].cpu())
+            for i, t in enumerate(r.out[:-1]):
+                logits, cache = model.decode_step(
+                    params, torch.tensor([t], device=prompt.device), cache,
+                    plen + i)
+                rows.append(logits[0].cpu())
+        want = torch.stack(rows)
+        scale = want.abs().max().item()
+        e = (got - want).abs().max().item() / scale
+        top2 = torch.topk(want, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > MM_RTOL * scale
+        toks = torch.tensor(r.out)
+        bad = (sure & (toks != want.argmax(-1))).nonzero().flatten().tolist()
+        check(e <= MM_RTOL and not bad, f"[{tag}] request {r.rid}: logits "
+              f"{e:.3g} of the largest, tokens differ at steps {bad}")
+        worst, ties = max(worst, e), ties + int((~sure).sum())
+    print(f"[{tag}] every request vs its single-request prefill + "
+          f"teacher-forced decode: logits within {worst:.3g} of each "
+          f"request's largest (tolerance {MM_RTOL}), tokens equal at every "
+          f"step whose top-2 margin exceeds it ({ties} steps under it)")
+
+
+def phase_serve_continuous(dev, _build):
+    """``[serve continuous]``: full-size Qwen3-14B (40 layers, 14.77 B
+    params, f32, random weights from seed 0): first its eval (``[zoo
+    eval]``, 2 x 2048 tokens, with and without flash: row 13 at G = 5
+    under ``qk_norm``); then SERVE_REQS requests through the continuous
+    batcher, timed, and again while it records every request's logits (a
+    copy of the tick's [4, V] logits to the host, so that run's ticks are
+    not the engine's time), which are held against single-request
+    decoding; one decode tick profiled; then Mixtral-8x22B
+    at 4 of 56 layers: the same queue on ``dropping`` (timed), and on
+    ``dense`` held against single-request decoding.  Returns the eval's
+    launches."""
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    cfg = zoo_config("qwen3_14b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n = sum(v.numel() for v in params.values())
+    print(f"[serve continuous] {cfg.name}: {cfg.n_layers} layers, {n:,} "
+          f"params ({4 * n / 1e9:.1f} GB f32), made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (QWEN_EB,), ES,
+                                             seed=999))["tokens"],
+                             dtype=torch.long).to(dev)
+    parts = _eval_parts("zoo eval", [
+        ("qwen3 server, flash", lambda: eval_loss(model, params, tokens,
+                                                  flash=True)),
+        ("qwen3 server, blockwise", lambda: eval_loss(model, params,
+                                                      tokens))], _build)
+    check(parts["qwen3 server, flash"][1] == {"flash_attention":
+                                              cfg.n_layers},
+          f"[zoo eval] qwen3 launches {parts}")
+    _flash_agrees("zoo eval", parts, "qwen3 server, flash",
+                  "qwen3 server, blockwise")
+    del tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    tag = "serve continuous"
+    timed, _, launches = serve_continuous(tag, model, params, _build)
+    check(launches == {}, f"[{tag}] kernel launches {launches}")
+    reqs, rec, launches = serve_continuous(tag, model, params, _build,
+                                           record=True)
+    check(launches == {}, f"[{tag}] kernel launches {launches}")
+    check([r.out for r in timed] == [r.out for r in reqs],
+          f"[{tag}] the timed and the recorded runs handed out different "
+          f"tokens")
+    check_single_requests(tag, model, params, reqs, rec)
+    del rec
+    # one decode tick at the pool's shape: 4 slots, a timeline of 4096,
+    # 1024 positions valid each
+    cache = model.init_cache(SERVE_SLOTS, SERVE_LEN, torch.float32,
+                             device=dev)
+    valid = torch.zeros((SERVE_SLOTS, SERVE_LEN), dtype=torch.bool,
+                        device=dev)
+    valid[:, :1024] = True
+    tok = torch.arange(SERVE_SLOTS, device=dev)
+    rope = torch.full((SERVE_SLOTS,), 1023, device=dev)
+    with torch.no_grad():
+        profile_decode_step(tag, lambda: model.decode_step(
+            params, tok, cache, 1023, valid=valid, rope_pos=rope))
+    del model, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = zoo_config("mixtral_8x22b", MOE_EVAL_LAYERS)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    serve_continuous(tag, model, params, _build)
+    dense = build_model(cfg, moe_path="dense")
+    reqs, rec, _ = serve_continuous(tag, dense, params, _build, record=True)
+    check_single_requests(tag, dense, params, reqs, rec)
+    del model, dense, params, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {}
+    for _, launches in parts.values():
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_small_agreement_zoo(dev):
+    """``[agree zoo]``: reduced DeepSeek-7B, Qwen3-14B and Mixtral-8x22B
+    (``dropping``), 2 fused rounds each on the card and on the CPU from
+    the same params, tokens (2 x 64 a client step) and CPU-drawn offsets,
+    within ROUND_TOL; then one continuous batcher run of each (2 slots,
+    prompts of 5-12 tokens, 4 new tokens each): every logit the batcher
+    hands out within ROUND_TOL of the CPU's, relative to the largest, the
+    tokens equal wherever the CPU's top-2 margin exceeds that, and the
+    stats equal."""
+    from repro_torch import api
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.batching import ContinuousBatcher
+    from repro_torch.launch.specs import request_queue
+    from repro_torch.models import build_model
+    for arch in ("deepseek_7b", "qwen3_14b", "mixtral_8x22b"):
+        model = build_model(get_reduced_config(arch))
+        it = lm_batches(model.cfg.vocab, (2, 4, 2), 64, seed=0)
+        data = [next(it) for _ in range(2)]
+        p0 = model.init(0, device="cpu")
+        outs = {}
+        for where in ("cpu", dev):
+            fed = api.fed_round(model, slice_scfg(), device=where)
+            check(fed.use_fused, f"[agree zoo] {arch} took the extract "
+                  "phase")
+            trainer = api.Trainer(fed, _to(p0, where))
+            trainer.run(zip(data, _injected(fed, "window", 2)), 2)
+            outs[str(where)] = trainer
+        g, c = outs[str(dev)], outs["cpu"]
+        dl = max((a["client_loss"].cpu() - b["client_loss"]).abs().max()
+                 .item() for a, b in zip(g.history, c.history))
+        dp = _max_diff(g.params, c.params)
+        check(dl <= ROUND_TOL and dp <= ROUND_TOL,
+              f"[agree zoo] reduced {arch} on the card disagrees with the "
+              f"CPU: loss {dl}, params {dp}")
+        served = {}
+        for where in ("cpu", dev):
+            reqs = request_queue(model.cfg, (5, 9, 7, 12, 3), max_new=4)
+            rec = _Recorder(model)
+            eng = ContinuousBatcher(rec, _to(p0, where), batch_slots=2,
+                                    max_len=60)
+            for r in reqs:
+                eng.submit(r)
+            drive(eng, rec)
+            served[str(where)] = (reqs, rec, eng.stats)
+        (cr, crec, cst), (gr, grec, gst) = served["cpu"], served[str(dev)]
+        want = torch.cat([torch.stack(crec.rows[r.rid]) for r in cr])
+        got = torch.cat([torch.stack(grec.rows[r.rid]) for r in gr])
+        scale = want.abs().max().item()
+        e = (got - want).abs().max().item() / scale
+        top2 = torch.topk(want, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > ROUND_TOL * scale
+        toks = [torch.tensor(r.out) for r in gr]
+        same = torch.cat(toks) == torch.cat([torch.tensor(r.out)
+                                             for r in cr])
+        check(e <= ROUND_TOL and bool(same[sure].all()) and gst == cst,
+              f"[agree zoo] reduced {arch} batcher, card vs CPU: logits "
+              f"{e:.3g}, tokens {same.tolist()}, stats {gst} vs {cst}")
+        path = f" (MoE path {model.moe_path})" if model.cfg.moe else ""
+        print(f"[agree zoo] reduced {arch}{path}, 2 fused rounds card vs "
+              f"CPU: max |d loss| {dl:.3g}, max |d param| {dp:.3g} "
+              f"(tolerance {ROUND_TOL}); the batcher's "
+              f"logits within {e:.3g} of the largest, tokens equal at "
+              f"{int(same.sum())} of {same.numel()} steps "
+              f"({int((~sure).sum())} under the margin), stats {gst}")
+
+
 # -- phase 4e: the paper's protocol ---------------------------------------------
 
 PAPER_SCHEMES = ("rolling", "random", "static", "full")
@@ -3007,6 +3698,7 @@ def main():
     phase_small_agreement_opt(dev)
     phase_small_agreement_hetero(dev)
     phase_small_agreement_slice(dev)
+    phase_small_agreement_zoo(dev)
     launches, trainer, batch, round_s, fused = phase_main_path(dev, _build)
     e_launches = phase_eval(dev, trainer, _build)
     phase_profile("window", trainer, batch, round_s)
@@ -3041,6 +3733,13 @@ def main():
     hr_launches, hx_launches = phase_slice_rounds(
         dev, _build, "hybrid round", "hymba_1_5b", HYB_SEQ)
     he_launches, hs_launches = phase_hybrid_serve(dev, _build)
+    zoo = {}
+    for tag, arch, layers, clients, n_fused, n_extract in ZOO_ROUNDS:
+        key = tag.split()[0]
+        zoo[f"{key}_round"], zoo[f"{key}_extract"] = phase_zoo_round(
+            dev, _build, tag, arch, layers, clients, n_fused, n_extract)
+    ze_launches = phase_zoo_eval(dev, _build)
+    qe_launches = phase_serve_continuous(dev, _build)
     p_launches = phase_paper_path(dev, _build)
     phase_experiment_cli(dev)
     path = {"masked_sgd_inplace": m_launches, "fillin_agg_inplace": m_launches,
@@ -3073,7 +3772,19 @@ def main():
                                hybrid_extract=hx_launches)
     more["ssd_chunk_intra"] = {"hybrid_eval": he_launches,
                                "hybrid_serve": hs_launches}
-    more["flash_attention"] = {"hybrid_eval": he_launches}
+    more["flash_attention"] = {"hybrid_eval": he_launches,
+                               "zoo_eval": ze_launches,
+                               "qwen3_eval": qe_launches}
+    # this slice's zoo: the rounds (rows 5-8, 10; the extract rounds row 10
+    # alone) and the evals (rows 1-4 and 13)
+    for name in ("rolling_mm_fwd<1>", "rolling_mm_dx<1>",
+                 "rolling_mm_fwd<2>", "rolling_mm_dx<2>"):
+        more[name].update({k: v for k, v in zoo.items()
+                           if k.endswith("_round")})
+    more["sgd_inplace"].update(zoo)
+    for name in ("rolling_matmul", "rolling_matmul_multi",
+                 "rolling_matmul_dx", "rolling_matmul_dx_multi"):
+        more[name] = {"zoo_eval": ze_launches}
     for r in rows:
         r["launches"] = path.get(r["name"], launches).get(r["name"], 0)
         if r["name"] in more:

@@ -1,18 +1,30 @@
 """Model and sub-model configuration, the port's own copy.
 
-Ports ``ModelConfig``, ``SubmodelConfig``, ``_shrink``, ``get_config`` and
-``get_reduced_config`` of ``repro/configs/base.py``.  Field names and
-defaults are the reference's, so one config means the same model in both
-packages.  The registry holds only the architectures the port can run; the
-family extensions (``moe``, ``mla``, ...) keep their fields, and the model
-refuses them until they are ported.  ``SSMConfig`` is the reference's, for
-the attention-free family and the hybrid block.
+Ports ``MoEConfig``, ``SSMConfig``, ``ModelConfig`` (with ``n_params`` and
+``n_active_params``), ``SubmodelConfig``, ``list_archs``, ``_shrink``,
+``get_config`` and ``get_reduced_config`` of ``repro/configs/base.py``.
+Field names and defaults are the reference's, so one config means the same
+model in both packages.  The registry holds only the architectures the port
+can run; the family extensions it does not run yet (``mla``, ``mtp``,
+codebooks, the vision stub) keep their fields, and the model refuses them
+until they are ported.
 """
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
 from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                      # per-expert hidden width
+    n_shared: int = 0              # shared (always-on) experts
+    router: str = "softmax"        # "softmax" (mixtral) | "sigmoid"
+    capacity_factor: float = 1.25  # dispatch capacity factor
+    aux_loss_weight: float = 0.01  # load-balance loss weight
 
 
 @dataclass(frozen=True)
@@ -59,6 +71,61 @@ class ModelConfig:
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
+    def n_params(self) -> int:
+        """Approximate parameter count (embedding + blocks), the
+        reference's formula."""
+        D, F, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
+        hd = self.head_dim
+        n = V * D * (1 if self.tie_embeddings else 2)
+        if self.n_codebooks:
+            n += self.n_codebooks * V * D  # extra heads
+        per = 0
+        if not self.attn_free:
+            if self.mla is not None:
+                m = self.mla
+                qh = m.nope_head_dim + m.rope_head_dim
+                per += D * m.q_lora_rank + m.q_lora_rank * self.n_heads * qh
+                per += D * (m.kv_lora_rank + m.rope_head_dim)
+                per += m.kv_lora_rank * self.n_heads * (m.nope_head_dim
+                                                        + m.v_head_dim)
+                per += self.n_heads * m.v_head_dim * D
+            else:
+                per += D * self.n_heads * hd + 2 * D * self.n_kv_heads * hd
+                per += self.n_heads * hd * D
+        if self.ssm is not None:
+            s = self.ssm
+            nh = s.n_heads or (s.expand * D) // s.head_dim
+            d_in = nh * s.head_dim
+            per += D * (2 * d_in + 2 * s.d_state * nh + nh) + d_in * D
+            per += s.conv_width * (d_in + 2 * s.d_state * nh)
+        if self.moe is not None:
+            mo = self.moe
+            n_moe = L - self.n_dense_layers
+            per_moe = ((mo.n_experts + mo.n_shared) * 3 * D * mo.d_ff
+                       + D * mo.n_experts)
+            n += n_moe * per_moe + self.n_dense_layers * 3 * D * F
+            n += L * per + 2 * L * D
+            return n
+        if F:
+            per += 3 * D * F
+        n += L * per + 2 * L * D
+        return n
+
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.n_params()
+        mo = self.moe
+        full = self.n_params()
+        n_moe = self.n_layers - self.n_dense_layers
+        all_e = (mo.n_experts + mo.n_shared) * 3 * self.d_model * mo.d_ff
+        act_e = (mo.top_k + mo.n_shared) * 3 * self.d_model * mo.d_ff
+        return full - n_moe * (all_e - act_e)
+
 
 @dataclass(frozen=True)
 class SubmodelConfig:
@@ -84,7 +151,8 @@ class SubmodelConfig:
     shared_window: Optional[bool] = None
 
 
-ARCHS = ["tinyllama_1_1b", "mamba2_130m", "hymba_1_5b"]
+ARCHS = ["tinyllama_1_1b", "mamba2_130m", "qwen3_14b", "deepseek_7b",
+         "mixtral_8x22b", "qwen3_32b", "hymba_1_5b"]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}
 
@@ -103,13 +171,17 @@ def get_config(arch: str) -> ModelConfig:
 
 
 def get_reduced_config(arch: str) -> ModelConfig:
-    """CPU smoke-test variant: <=2 layers, d_model<=256."""
+    """CPU smoke-test variant: <=2 layers, d_model<=256, <=4 experts."""
     return _module(arch).reduced()
+
+
+def list_archs():
+    return [a for a in ARCHS if a != "resnet18_cifar"]
 
 
 def _shrink(cfg: ModelConfig, **over) -> ModelConfig:
     """Generic reduction preserving the family structure (the reference's
-    rule for the dense and SSM families)."""
+    rule for the dense, MoE and SSM families)."""
     base = dict(
         n_layers=2,
         d_model=min(cfg.d_model, 256),
@@ -121,6 +193,11 @@ def _shrink(cfg: ModelConfig, **over) -> ModelConfig:
         vision_patches=min(cfg.vision_patches, 16),
         vision_d=min(cfg.vision_d, 64),
     )
+    if cfg.moe is not None:
+        base["moe"] = replace(cfg.moe, n_experts=min(cfg.moe.n_experts, 4),
+                              top_k=min(cfg.moe.top_k, 2),
+                              d_ff=min(cfg.moe.d_ff, 256))
+        base["n_dense_layers"] = min(cfg.n_dense_layers, 1)
     if cfg.ssm is not None:
         base["ssm"] = replace(cfg.ssm, d_state=min(cfg.ssm.d_state, 16),
                               head_dim=32, chunk=32)

@@ -141,6 +141,37 @@ def block_tile(kind, T, C, M, K, win):
     return code >> 16, code & 0xFFFF
 
 
+def _lanes(x, ws, offsets, experts):
+    """The launches of one product: ``(x, ws, offsets, at)`` each, ``at``
+    the index of the launch's weights in the full ``ws`` (and so of its
+    share of ``dW``).  Without ``experts``, one launch of every client;
+    with them, one a client on its window of experts."""
+    if experts is None:
+        return [(x, ws, offsets, ())]
+    G = x.shape[1]
+    return [(x[c], [w[c, e:e + G] for w in ws], offsets[c],
+             (c, slice(e, e + G))) for c, e in enumerate(experts)]
+
+
+def _window_grad(dw, x, dy, offsets, win):
+    """``dw[c][:, window_c] = x[c]^T @ dy[c]`` into zeros: the product writes
+    straight into the window of ``dw`` (no compact-shaped temporary on the
+    card), one batched product for a shared window, one per client for
+    per-client windows.  On the CPU per-client windows take one bmm and a
+    scatter, the extract client phase's product (one mm per client rounds
+    otherwise past about 256 columns)."""
+    o = ref.shared_offset(offsets.host)
+    if o is not None:
+        dw[:, :, o:o + win].baddbmm_(x.mT, dy)
+    elif dw.device.type == "cpu":
+        g = torch.bmm(x.mT, dy)
+        for c, oc in enumerate(offsets.host):
+            dw[c, :, oc:oc + win] = g[c]
+    else:
+        for c, oc in enumerate(offsets.host):
+            dw[c, :, oc:oc + win].addmm_(x[c].mT, dy[c])
+
+
 class RollingMatmulBatched(torch.autograd.Function):
     """Differentiable ``rolling_mm_fwd``, with the reference's VJP split
     (``dispatch.py:486-503`` and ``:662-683``): ``dx`` through the
@@ -148,51 +179,52 @@ class RollingMatmulBatched(torch.autograd.Function):
     ``x[c]^T @ dy_t[c]`` into a full-shaped zero gradient, so coordinates
     outside the window get exactly 0.
 
-    ``RollingMatmulBatched.apply(x, offsets, win, names, *ws)`` returns a
-    tuple of T outputs; ``names`` is the (forward, dx) pair of launch-count
-    names, or None for the kernels' own."""
+    ``RollingMatmulBatched.apply(x, offsets, win, names, experts, *ws)``
+    returns a tuple of T outputs; ``names`` is the (forward, dx) pair of
+    launch-count names, or None for the kernels' own.
+
+    ``experts`` (None, or host offsets ``[C]``) reads each client's window
+    of a leading expert axis in place: x ``[C, G, M, K]``, each ``ws[t]
+    [C, E, K, N]`` and ``offsets`` a list of C :class:`Offsets`, client
+    c's column offset repeated G times.  Client c's experts ``ws[t][c, e_c
+    : e_c + G]`` (a view: the kernels take one batch stride, and two
+    clients' windows lie at another) go through one launch a client, the
+    experts in the kernel's leading dimension."""
 
     @staticmethod
-    def forward(ctx, x, offsets, win, names, *ws):
+    def forward(ctx, x, offsets, win, names, experts, *ws):
         fwd_name, ctx.dx_name = names or (None, None)
-        ys = rolling_mm_fwd(x, ws, offsets, win, name=fwd_name)
+        ys = [rolling_mm_fwd(xl, wl, ol, win, name=fwd_name)
+              for xl, wl, ol, _ in _lanes(x, ws, offsets, experts)]
         ctx.save_for_backward(x, *ws)
-        ctx.offsets, ctx.win = offsets, win
-        return ys
+        ctx.offsets, ctx.win, ctx.experts = offsets, win, experts
+        if experts is None:
+            return ys[0]
+        return tuple(torch.stack(y) for y in zip(*ys))
 
     @staticmethod
     def backward(ctx, *dys):
         x, *ws = ctx.saved_tensors
-        offsets, win = ctx.offsets, ctx.win
+        win, experts = ctx.win, ctx.experts
+        lanes = _lanes(x, ws, ctx.offsets, experts)
         dys = [d.contiguous() for d in dys]
-        dx = (rolling_mm_dx(dys, ws, offsets, win, name=ctx.dx_name)
-              if ctx.needs_input_grad[0] else None)
-        dws = []
-        o = ref.shared_offset(offsets.host)
-        for w, dy in zip(ws, dys):
-            # the product writes straight into the window of dW (no
-            # compact-shaped temporary on the card): one batched product
-            # for a shared window, one per client for per-client windows.
-            # On the CPU per-client windows take one bmm and a scatter,
-            # the extract client phase's product (one mm per client
-            # rounds otherwise past about 256 columns)
-            dw = torch.zeros_like(w)
-            if o is not None:
-                dw[:, :, o:o + win].baddbmm_(x.mT, dy)
-            elif w.device.type == "cpu":
-                g = torch.bmm(x.mT, dy)
-                for c, oc in enumerate(offsets.host):
-                    dw[c, :, oc:oc + win] = g[c]
-            else:
-                for c, oc in enumerate(offsets.host):
-                    dw[c, :, oc:oc + win].addmm_(x[c].mT, dy[c])
-            dws.append(dw)
-        return (dx, None, None, None, *dws)
+        lane_dys = ([dys] if experts is None else
+                    [[d[c] for d in dys] for c in range(len(experts))])
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dxs = [rolling_mm_dx(d, wl, ol, win, name=ctx.dx_name)
+                   for d, (_, wl, ol, _) in zip(lane_dys, lanes)]
+            dx = dxs[0] if experts is None else torch.stack(dxs)
+        dws = [torch.zeros_like(w) for w in ws]
+        for d, (xl, _, ol, at) in zip(lane_dys, lanes):
+            for dw, dy in zip(dws, d):
+                _window_grad(dw[at], xl, dy, ol, win)
+        return (dx, None, None, None, None, *dws)
 
 
-def rolling_matmul_batched(x, ws, offsets: Offsets, win, names=None):
+def rolling_matmul_batched(x, ws, offsets, win, names=None, experts=None):
     """Differentiable windowed product; see :class:`RollingMatmulBatched`."""
-    return RollingMatmulBatched.apply(x, offsets, win, names, *ws)
+    return RollingMatmulBatched.apply(x, offsets, win, names, experts, *ws)
 
 
 # -- one model: a scalar offset, C = 1 launches --------------------------------

@@ -8,9 +8,13 @@ prompts (``launch.specs.sample_prompts``), then decode greedily, one
 ``Model.decode_step`` per token, and print the prefill's time, the time per
 decoded token and two rows of the generations.  There is no ``jit``: the
 same prefill, argmax and decode loop run eagerly, timed to a
-``torch.cuda.synchronize()`` on the card.  Runs on the card unless
-``--device cpu`` is given.  ``--engine continuous`` (the slot-pool batcher,
-``repro/launch/batching.py``) is not ported yet.
+``torch.cuda.synchronize()`` on the card.  ``--engine continuous`` routes
+a ragged request queue (``launch.specs.request_queue``) through the
+slot-pool batcher (``launch.batching.ContinuousBatcher``, attention
+families only), as the reference's ``_serve_continuous`` does.  Reduced
+configs serve their MoE layers on the ``dense`` path, full ones on
+``dropping``, as in the reference.  Runs on the card unless ``--device
+cpu`` is given.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import torch
 
 from repro_torch.configs.base import get_config, get_reduced_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.specs import sample_prompts
+from repro_torch.launch.specs import request_queue, sample_prompts
 from repro_torch.models import build_model
 
 
@@ -66,6 +70,26 @@ def generate(model, params, prompts, gen, return_logits=False):
     return out
 
 
+def _serve_continuous(model, params, args):
+    from repro_torch.launch.batching import ContinuousBatcher
+    lengths = [max(args.prompt_len + (i % 3) - 1, 1)
+               for i in range(args.batch)]
+    reqs = request_queue(model.cfg, lengths, max_new=args.gen,
+                         seed=args.seed)
+    eng = ContinuousBatcher(model, params, batch_slots=min(args.batch, 4),
+                            max_len=max(lengths) + args.gen * args.batch + 8)
+    for r in reqs:
+        eng.submit(r)
+    secs = eng.run()
+    print(f"continuous: {eng.stats.completed} requests, "
+          f"{eng.stats.tokens_generated} tokens in {secs * 1e3:.1f} ms "
+          f"({eng.stats.prefills} prefills, {eng.stats.decode_steps} "
+          "decode steps)")
+    print("sample generations (first 2 requests):")
+    print([r.out for r in reqs[:2]])
+    return eng
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -73,23 +97,22 @@ def main(argv=None):
     ap.add_argument("--engine", default="batch",
                     choices=["batch", "continuous"],
                     help="batch: one generation-level batch; continuous: "
-                         "the slot-pool engine (not ported yet)")
+                         "the slot-pool engine (attention families only)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.engine == "continuous":
-        raise NotImplementedError(
-            "the continuous batcher (launch/batching.py) is not ported yet "
-            "(ROADMAP.md queue A, the continuous batcher)")
 
     device = resolve_device(args.device)
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
-    model = build_model(cfg)
+    model = build_model(cfg, moe_path="dense" if args.reduced
+                        else "dropping")
     params = model.init(args.seed, device=device)
+    if args.engine == "continuous":
+        return _serve_continuous(model, params, args)
     B, S, G = args.batch, args.prompt_len, args.gen
     prompts, _ = sample_prompts(cfg, B, S, seed=args.seed)
     prompts = torch.as_tensor(prompts, dtype=torch.long, device=device)

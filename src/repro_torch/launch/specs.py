@@ -1,9 +1,9 @@
 """Serving inputs, the port's own copy.
 
-Ports ``sample_prompts`` of ``repro/launch/specs.py`` on the port's
-``data.synthetic.BigramLM``, so one seed gives the same prompts in both
-packages.  The rest of the reference's ``specs.py`` is its JAX dry-run
-contract and is not ported.
+Ports ``sample_prompts`` and ``request_queue`` of
+``repro/launch/specs.py`` on the port's ``data.synthetic.BigramLM``, so
+one seed gives the same prompts in both packages.  The rest of the
+reference's ``specs.py`` is its JAX dry-run contract and is not ported.
 """
 from __future__ import annotations
 
@@ -31,3 +31,21 @@ def sample_prompts(cfg: ModelConfig, batch: int, prompt_len: int,
         extra = {"patches": rng.standard_normal(
             (batch, cfg.vision_patches, cfg.vision_d)).astype("float32")}
     return prompts.astype("int32"), extra
+
+
+def request_queue(cfg: ModelConfig, lengths, max_new: int = 16,
+                  seed: int = 0):
+    """Variable-length :class:`repro_torch.launch.batching.Request` queue:
+    one BigramLM draw at the longest length, trimmed per request (the
+    continuous batcher's admission and retirement need ragged prompts).
+    Plain token streams only: the slot-pool engine takes no ``extra``
+    inputs."""
+    from repro_torch.launch.batching import Request
+    if cfg.n_codebooks or cfg.vision_stub:
+        raise ValueError(
+            "request_queue feeds the continuous-batching engine, which "
+            "serves plain token prompts only (no codebook/vision extras)")
+    lengths = list(lengths)
+    prompts, _ = sample_prompts(cfg, len(lengths), max(lengths), seed=seed)
+    return [Request(i, prompts[i, :n], max_new=max_new)
+            for i, n in enumerate(lengths)]

@@ -16,7 +16,9 @@ tokens a round), logs ``round N loss ...`` with the seconds per round
 every ``--log-every`` rounds, optionally saves a checkpoint in the
 reference's layout (``--ckpt``), and prints the reference's final JSON,
 ``{"first_loss": ..., "last_loss": ...}`` (the async run adds
-``virtual_time``, ``rounds_per_vsec`` and ``mean_staleness``).  Runs on
+``virtual_time``, ``rounds_per_vsec`` and ``mean_staleness``).  MoE
+layers take the ``dense`` path on reduced configs and ``dropping`` on
+full ones, as in the reference.  Runs on
 the card unless ``--device cpu`` is given.  The mesh flags raise
 ``NotImplementedError`` naming their ROADMAP.md item; the reference's
 ``--kernel-backend``, ``--kernel-block``, ``--layer-unroll`` and
@@ -131,7 +133,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
-    model = build_model(cfg)
+    model = build_model(cfg, moe_path="dense" if args.reduced
+                        else "dropping")
     params = model.init(args.seed, device=device)
     axes_kw = {"axes": tuple(args.axes)} if args.axes else {}
     scfg = SubmodelConfig(scheme=args.scheme, capacity=args.capacity,

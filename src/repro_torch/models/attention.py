@@ -1,8 +1,9 @@
 """GQA attention: training, prefill and decode.
 
-Ports ``attn_params``, ``_qkv``, ``blockwise_attention``, ``gqa_train``,
-``gqa_prefill``, ``gqa_decode`` (without context parallelism) and
-``decode_attention`` of ``repro/models/attention.py``.
+Ports ``attn_params`` (with the ``qk_norm`` leaves), ``_qkv``,
+``blockwise_attention``, ``gqa_train``, ``gqa_prefill``, ``gqa_decode``
+(without context parallelism) and ``decode_attention`` of
+``repro/models/attention.py``.
 ``blockwise_attention`` is plain jnp in the reference, so it is plain torch
 here: the same online softmax over kv chunks, with the same chunk bounds
 for causal and sliding-window masks.  Under ``REPRO_USE_FLASH`` training
@@ -19,7 +20,8 @@ import os
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import ParamBuilder, apply_rope, head_proj
+from repro_torch.models.layers import (ParamBuilder, apply_rope, head_proj,
+                                       rms_norm)
 
 NEG_INF = -1e30
 
@@ -31,6 +33,9 @@ def attn_params(b: ParamBuilder, prefix, cfg):
     b.dense(f"{prefix}/wv", (D, KV, hd), ("d_model", "kv_heads", "head_dim"))
     b.dense(f"{prefix}/wo", (H, hd, D), ("heads", "head_dim", "d_model"),
             scale=0.02 / math.sqrt(2 * max(cfg.n_layers, 1)))
+    if cfg.qk_norm:
+        b.const(f"{prefix}/q_norm", (hd,), ("head_dim",), 1.0)
+        b.const(f"{prefix}/k_norm", (hd,), ("head_dim",), 1.0)
 
 
 def blockwise_attention(q, k, v, *, causal=True, window=0, q_chunk=512,
@@ -88,12 +93,18 @@ def blockwise_attention(q, k, v, *, causal=True, window=0, q_chunk=512,
 
 def _qkv(p, x, cfg, positions, window=None):
     """q/k/v projections; ``window`` (a ``WindowMap`` or None) windows the
-    q heads and the k/v kv-heads (GQA-coupled upstream by the scheme)."""
+    q heads and the k/v kv-heads (GQA-coupled upstream by the scheme).
+    With ``cfg.qk_norm`` q and k are RMS-normalised per head before RoPE,
+    in training, prefill and decode alike."""
     hspec = window.get("heads", p["wq"].shape[2]) if window else None
     kvspec = window.get("kv_heads", p["wk"].shape[2]) if window else None
     q = head_proj(x, p["wq"], hspec)
     k = head_proj(x, p["wk"], kvspec)
     v = head_proj(x, p["wv"], kvspec)
+    if cfg.qk_norm:
+        # per-head RMS norm over head_dim (Qwen3), before the rotation
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -43,6 +43,7 @@ class AxisWindow:
         self.win = int(win)
         self._cols: Dict[Tuple[int, str], Offsets] = {}
         self._rows: Dict[str, torch.Tensor] = {}
+        self._rep: Dict[tuple, "AxisWindow"] = {}
 
     def cols(self, scale: int, device) -> Offsets:
         """Offsets scaled to columns (a head window covers ``scale =
@@ -59,6 +60,15 @@ class AxisWindow:
         kernels' own (None) for per-client ones."""
         return SCALAR_NAMES[T] if self.scalar else None
 
+    def repeated(self, n: int, client: int) -> "AxisWindow":
+        """``client``'s window over ``n`` stacked units (its experts, in a
+        product's leading dimension): its offset repeated ``n`` times;
+        made once per window."""
+        key = (int(n), int(client))
+        if key not in self._rep:
+            self._rep[key] = AxisWindow([self.offsets[client]] * n, self.win)
+        return self._rep[key]
+
     def shared_offset(self) -> int:
         """The one offset every client shares (a shared window)."""
         if len(set(self.offsets)) != 1:
@@ -66,29 +76,31 @@ class AxisWindow:
                              " there is no one shared offset")
         return self.offsets[0]
 
-    def take(self, w):
-        """``w [C, n, ...]`` narrowed to each client's window on dim 1 (the
+    def take(self, w, dim=1):
+        """``w [C, ...]`` narrowed to each client's window on ``dim`` (the
         reference's ``dynamic_slice``, vmapped over clients for per-client
         windows).  A shared window is a view, not a copy; per-client
-        windows are one indexed gather ``[C, win, ...]``, whose backward
-        writes into one full-shaped zero gradient."""
+        windows are one indexed gather, whose backward writes into one
+        full-shaped zero gradient."""
         if len(set(self.offsets)) == 1:
-            o = self.offsets[0]
-            return w[:, o:o + self.win]
+            return w.narrow(dim, self.offsets[0], self.win)
         key = str(w.device)
         if key not in self._rows:
             self._rows[key] = (torch.tensor(self.offsets, device=w.device)
                                [:, None] + torch.arange(self.win,
                                                         device=w.device))
         idx = self._rows[key]                                 # [C, win]
-        return w[torch.arange(idx.shape[0], device=w.device)[:, None], idx]
+        out = w.movedim(dim, 1)[torch.arange(idx.shape[0],
+                                             device=w.device)[:, None], idx]
+        return out.movedim(1, dim)
 
 
 class WindowMap:
     """Per-axis windows for the fused forward, keyed by ``(axis name, full
     size)`` like the reference's ``WindowScheme`` keys."""
 
-    SUPPORTED = ("d_ff", "heads", "kv_heads", "ssm_heads")
+    SUPPORTED = ("d_ff", "heads", "kv_heads", "experts", "moe_d_ff",
+                 "ssm_heads")
 
     def __init__(self, windows: Dict[Tuple[str, int], AxisWindow]):
         self.windows = {}

@@ -1,15 +1,19 @@
-"""Model assembly for the dense GQA family, the SSM family and the hybrid
-block.
+"""Model assembly for the dense GQA family (with ``qk_norm``), the MoE
+family, the SSM family and the hybrid block.
 
 Ports ``build_params``, ``block_apply``, ``Model.forward``, ``Model.loss``
 (with ``window=``), ``Model.prefill``, ``Model._pad_caches``,
 ``Model.decode_step``, ``Model.init_cache`` and ``build_model`` of
 ``repro/models/transformer.py``.  The reference scans each stacked layer
-axis (``_layer_kind``: ``layers``, or ``ssm_layers`` for the SSM family)
-under ``remat``; here the layers are separate leaves and a plain Python
-loop runs them.  The hybrid block (``hymba_1_5b``) runs the attention and
-the SSM branch on the same input and joins them as ``0.5 *
-(rms_norm(a, fuse_a) + rms_norm(s, fuse_s))`` before the MLP.
+axis (``_layer_kind``: ``layers``, ``moe_layers`` for the MoE family, or
+``ssm_layers`` for the SSM family) under ``remat``; here the layers are
+separate leaves and a plain Python loop runs them.  An MoE layer's
+load-balance loss is summed over the layers into the loss, as the
+reference's scan carries it; ``Model.moe_path`` picks the MoE path
+(``dropping`` or ``dense``, ``models/moe.py``).  The hybrid block
+(``hymba_1_5b``) runs the attention and the SSM branch on the same input
+and joins them as ``0.5 * (rms_norm(a, fuse_a) + rms_norm(s, fuse_s))``
+before the MLP.
 
 :meth:`Model.forward` and :meth:`Model.loss` take two forms, told apart by
 the tokens' rank:
@@ -50,32 +54,38 @@ from repro_torch.models.attention import (attn_params, gqa_decode,
 from repro_torch.models.layers import (AxisWindow, ParamBuilder, WindowMap,
                                        mlp_apply, mlp_apply_rolling,
                                        mlp_params, rms_norm, softmax_xent)
+from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.models.ssm import n_heads, ssm_decode, ssm_params, ssm_train
 
 
 def _check_supported(cfg: ModelConfig):
     ssm = cfg.family == "ssm"
     hybrid = cfg.family == "hybrid"
-    extras = {"moe": cfg.moe is not None,
+    extras = {"moe": (cfg.moe is not None) != (cfg.family == "moe"),
               "ssm": cfg.ssm is not None and not (ssm or hybrid),
               "no ssm": cfg.ssm is None and (ssm or hybrid),
               "mla": cfg.mla is not None, "hybrid": cfg.hybrid != hybrid,
               "mtp": cfg.mtp, "codebooks": bool(cfg.n_codebooks),
-              "vision": cfg.vision_stub, "qk_norm": cfg.qk_norm,
+              "vision": cfg.vision_stub,
+              "leading dense layers": bool(cfg.moe and cfg.n_dense_layers),
               f"{cfg.pos_embed} positions":
                   cfg.pos_embed != ("none" if ssm else "rope")}
     missing = [k for k, v in extras.items() if v]
-    if cfg.family not in ("dense", "ssm", "hybrid") or missing:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense GQA family with rope, "
-            f"the attention-free SSM family and the hybrid block; "
-            f"{missing or cfg.family} is not ported yet (ROADMAP.md queue "
-            "A, the rest of the model zoo)")
+            f"{cfg.name}: the port runs the dense GQA family with rope "
+            f"(and qk_norm), the MoE family, the attention-free SSM family "
+            f"and the hybrid block; {missing or cfg.family} is not ported "
+            "yet (ROADMAP.md queue A, the rest of the model zoo: MLA and "
+            "MTP, audio, VLM)")
 
 
 def _layer_kind(cfg: ModelConfig) -> Tuple[str, ...]:
-    """Stack names in execution order."""
-    return ("ssm_layers",) if cfg.family == "ssm" else ("layers",)
+    """Stack names in execution order (the MoE family's leading
+    ``dense_layers`` come with MLA, and are refused until then)."""
+    if cfg.family == "ssm":
+        return ("ssm_layers",)
+    return ("moe_layers",) if cfg.moe is not None else ("layers",)
 
 
 def build_params(cfg: ModelConfig, seed=0, device="cuda"
@@ -98,7 +108,10 @@ def build_params(cfg: ModelConfig, seed=0, device="cuda"
                 b.const(f"{pre}/fuse_a", (D,), ("d_model",), 1.0)
                 b.const(f"{pre}/fuse_s", (D,), ("d_model",), 1.0)
             b.const(f"{pre}/ln2", (D,), ("d_model",), 1.0)
-            mlp_params(b, f"{pre}/mlp", D, cfg.d_ff)
+            if stack == "moe_layers":
+                moe_params(b, f"{pre}/moe", cfg)
+            else:
+                mlp_params(b, f"{pre}/mlp", D, cfg.d_ff)
     b.const("final_norm", (D,), ("d_model",), 1.0)
     return b.params, b.axes
 
@@ -140,19 +153,22 @@ def _ssm_block(p, x, cfg, mode, cache, pos, window, one):
 
 
 def block_apply(p, h, cfg, positions, window=None, mode="train", cache=None,
-                pos=None, valid=None, rope_pos=None, one=False):
-    """One layer on ``h [C, B, S, D]``; returns ``(h, new cache)`` (the
-    cache is empty in ``train`` mode).  ``window`` (a :class:`WindowMap`
-    or None) routes the windowed products through the fused sub-model
-    forward on the full weights (attention, MLP and SSM mixer alike);
-    ``mode`` is ``train``, ``prefill`` or ``decode`` (one token against
-    ``cache``, at position ``pos``); ``one`` marks one model's form (its
-    SSM mixers run the SSD chunk kernel)."""
+                pos=None, valid=None, rope_pos=None, one=False,
+                moe_path="dropping"):
+    """One layer on ``h [C, B, S, D]``; returns ``(h, aux [C] or None, new
+    cache)``: ``aux`` is an MoE layer's load-balance loss per client (None
+    for other layers), and the cache is empty in ``train`` mode.
+    ``window`` (a :class:`WindowMap` or None) routes the windowed products
+    through the fused sub-model forward on the full weights (attention,
+    MLP, MoE experts and SSM mixer alike); ``mode`` is ``train``,
+    ``prefill`` or ``decode`` (one token against ``cache``, at position
+    ``pos``); ``one`` marks one model's form (its SSM mixers run the SSD
+    chunk kernel)."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         out, c = _ssm_block(_sub(p, "ssm"), x, cfg, mode, cache, pos, window,
                             one)
-        return h + out, c
+        return h + out, None, c
     attn = _sub(p, "attn")
     if mode == "train":
         a, c = gqa_train(attn, x, cfg, positions, window=window), {}
@@ -171,21 +187,29 @@ def block_apply(p, h, cfg, positions, window=None, mode="train", cache=None,
                    + rms_norm(s, p["fuse_s"], cfg.norm_eps))
     h = h + a
     x2 = rms_norm(h, p["ln2"], cfg.norm_eps)
+    if "moe/router" in p:
+        out, aux = moe_apply(_sub(p, "moe"), x2, cfg, path=moe_path,
+                             window=window)
+        return h + out, aux, c
     mlp = _sub(p, "mlp")
     spec = window.get("d_ff", mlp["w_gate"].shape[-1]) if window else None
     if spec is not None:
         out = mlp_apply_rolling(mlp, x2, spec, cfg.act)
     else:
         out = mlp_apply(mlp, x2, cfg.act)
-    return h + out, c
+    return h + out, None, c
 
 
 @dataclass
 class Model:
     cfg: ModelConfig
+    moe_path: str = "dropping"     # MoE layers: "dropping" or "dense"
 
     def __post_init__(self):
         _check_supported(self.cfg)
+        if self.moe_path not in ("dropping", "dense"):
+            raise ValueError(f"moe_path must be 'dropping' or 'dense'; got "
+                             f"{self.moe_path!r}")
 
     def init(self, seed=0, device="cuda") -> Dict[str, torch.Tensor]:
         """Random server params, drawn from ``seed`` on ``device``."""
@@ -232,9 +256,11 @@ class Model:
         hidden state."""
         if tokens.dim() == 2:
             params, window = self._one_model(params, window)
-            logits, h = self._forward(params, tokens[None], window, one=True)
+            logits, _, h = self._forward(params, tokens[None], window,
+                                         one=True)
             return logits[0], h[0]
-        return self._forward(params, tokens, window)
+        logits, _, h = self._forward(params, tokens, window)
+        return logits, h
 
     def _prefixes(self):
         return [f"{stack}/{i}" for stack in _layer_kind(self.cfg)
@@ -259,47 +285,53 @@ class Model:
 
     def _run(self, params, h, positions, mode, window=None, caches=None,
              pos=None, valid=None, rope_pos=None, one=False):
-        """Every layer in order; returns ``h`` and the new caches (flat,
-        keyed ``{stack}/{i}/{name}``)."""
+        """Every layer in order; returns ``h``, the load-balance loss
+        summed over the layers (``[C]``, zeros without MoE layers) and the
+        new caches (flat, keyed ``{stack}/{i}/{name}``)."""
         prefixes = self._prefixes()
         layers = _by_layer(params, prefixes)
         layer_caches = (_by_layer(caches, prefixes) if caches is not None
                         else {})
+        aux_total = torch.zeros(h.shape[0], device=h.device)
         new = {}
         for pre in prefixes:
-            h, c = block_apply(layers[pre], h, self.cfg, positions, window,
-                               mode, layer_caches.get(pre), pos, valid,
-                               rope_pos, one)
+            h, aux, c = block_apply(layers[pre], h, self.cfg, positions,
+                                    window, mode, layer_caches.get(pre), pos,
+                                    valid, rope_pos, one, self.moe_path)
+            if aux is not None:
+                aux_total = aux_total + aux
             new.update({f"{pre}/{k}": v for k, v in c.items()})
-        return h, new
+        return h, aux_total, new
 
     def _forward(self, params, tokens, window: Optional[WindowMap],
                  one=False):
+        """Logits, the layers' summed load-balance loss ``[C]`` and the
+        final hidden state."""
         S = tokens.shape[2]
         h = self._embed(params, tokens)
         positions = torch.arange(S, device=tokens.device)
-        h, _ = self._run(params, h, positions, "train", window, one=one)
+        h, aux, _ = self._run(params, h, positions, "train", window, one=one)
         h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
-        return self._head(params, h), h
+        return self._head(params, h), aux, h
 
     def loss(self, params, batch, window=None):
         """batch ``{"tokens": [B, S]}`` (one model): returns ``(loss,
-        metrics)`` with the mean next-token cross-entropy and the
-        reference's ``lm_loss``, ``aux_loss`` (0 for the dense family) and
-        ``loss``.  batch ``{"tokens": [C, B, S]}``: returns ``(loss [C],
-        {"lm_loss": loss})``, each client's own."""
+        metrics)``: the mean next-token cross-entropy plus the MoE layers'
+        load-balance loss, with the reference's ``lm_loss``, ``aux_loss``
+        (0 without MoE layers) and ``loss``.  batch ``{"tokens": [C, B,
+        S]}``: returns ``(loss [C], metrics [C])``, each client's own."""
         tokens = batch["tokens"]
         one = tokens.dim() == 2
         if one:
             params, window = self._one_model(params, window)
             tokens = tokens[None]
-        logits, _ = self._forward(params, tokens, window, one=one)
+        logits, aux, _ = self._forward(params, tokens, window, one=one)
         lm = softmax_xent(logits[:, :, :-1], tokens[:, :, 1:])
+        total = lm + aux
+        metrics = {"lm_loss": lm, "aux_loss": aux, "loss": total}
         if not one:
-            return lm, {"lm_loss": lm}
-        lm = lm[0]
-        return lm, {"lm_loss": lm, "aux_loss": torch.zeros_like(lm),
-                    "loss": lm}
+            return total, metrics
+        return total[0], {k: v[0] for k, v in metrics.items()}
 
 
     # -- serving (one model) -------------------------------------------------
@@ -315,7 +347,7 @@ class Model:
         S = tokens.shape[1]
         h = self._embed(p1, tokens[None])
         positions = pos_offset + torch.arange(S, device=tokens.device)
-        h, caches = self._run(p1, h, positions, "prefill")
+        h, _, caches = self._run(p1, h, positions, "prefill")
         h = rms_norm(h, p1["final_norm"], self.cfg.norm_eps)
         logits = self._head(p1, h if return_all_logits else h[:, :, -1:])[0]
         caches = {k: v[0] for k, v in caches.items()}
@@ -348,8 +380,8 @@ class Model:
         p1, _ = self._one_model(params, None)
         h = self._embed(p1, tokens[None, :, None])
         c1 = {k: v[None] for k, v in caches.items()}
-        h, new = self._run(p1, h, None, "decode", caches=c1, pos=pos,
-                           valid=valid, rope_pos=rope_pos)
+        h, _, new = self._run(p1, h, None, "decode", caches=c1, pos=pos,
+                              valid=valid, rope_pos=rope_pos)
         h = rms_norm(h, p1["final_norm"], self.cfg.norm_eps)
         return self._head(p1, h)[0, :, 0], {k: v[0] for k, v in new.items()}
 
@@ -382,6 +414,6 @@ class Model:
         return caches
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ModelConfig, moe_path: str = "dropping") -> Model:
+    return Model(cfg, moe_path=moe_path)
 

@@ -192,6 +192,9 @@ GPU_RTOL = 1e-4
     (1, 200, 200, 8, 2, 96, True, 0),        # hd 96 (phi_3_vision_4_2b)
     (1, 70, 300, 8, 2, 64, False, 0),        # Skv past the last key tile
     (1, 150, 150, 4, 1, 128, True, 50),      # hd 128, window, ragged Skv
+    (1, 512, 512, 8, 8, 128, True, 0),       # G = 1 at hd 128 (deepseek_7b)
+    (1, 512, 512, 10, 2, 128, True, 0),      # G = 5 at hd 128 (qwen3_14b)
+    (1, 700, 700, 12, 2, 128, True, 256),    # G = 6, window (mixtral)
 ], ids=str)
 def test_gpu_flash_kernel_matches_plain(cuda, case):
     B, Sq, Skv, H, KV, hd, causal, win = case
@@ -233,3 +236,35 @@ def test_gpu_flash_kernel_is_deterministic(cuda, hd):
     a = flash_attention(q, k, v, window=300)
     b = flash_attention(q, k, v, window=300)
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek_7b", "qwen3_14b",
+                                  "mixtral_8x22b"])
+def test_gpu_zoo_eval_with_flash_matches_blockwise(cuda, arch):
+    """One model's loss of the reduced zoo configs (MHA-like G = 2,
+    ``qk_norm`` and a sliding window with MoE layers) on the card with
+    ``REPRO_USE_FLASH`` set equals the blockwise loss within 1e-5
+    relative, and launches the flash kernel once a layer."""
+    import os
+
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.models import build_model
+    model = build_model(get_reduced_config(arch))
+    params = model.init(0, device=cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    toks = torch.randint(0, model.cfg.vocab, (2, 128), device=cuda,
+                         generator=g)
+    old = os.environ.pop("REPRO_USE_FLASH", None)
+    try:
+        with torch.no_grad():
+            plain = float(model.loss(params, {"tokens": toks})[0])
+            n = _build.LAUNCHES["flash_attention"]
+            os.environ["REPRO_USE_FLASH"] = "1"
+            flash = float(model.loss(params, {"tokens": toks})[0])
+    finally:
+        os.environ.pop("REPRO_USE_FLASH", None)
+        if old is not None:
+            os.environ["REPRO_USE_FLASH"] = old
+    assert _build.LAUNCHES["flash_attention"] == n + model.cfg.n_layers
+    assert abs(flash - plain) <= 1e-5 * abs(plain)

@@ -647,3 +647,132 @@ def test_gpu_scalar_products_match_plain(cuda, T, shape):
     want = torch.autograd.grad(want_y, [x, *ws], dys)
     for a, b in zip([*ys, *got], [*want_y, *want]):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max().clamp_min(1.0)
+
+
+# each client's window of experts read in place from the full stacks (the
+# MoE layer's gate/up under experts and moe_d_ff windows): (C, E, G, M, K,
+# N, win, expert offsets, column offsets), each client's G experts from its
+# own offset at its own column window; a small one, and reduced-width
+# Mixtral's (C = 2, 4 of 8 experts, capacity 320, d_model 1024, window 2048
+# of 4096)
+EXPERT_SHAPES = [(2, 4, 2, 24, 40, 96, 32, [1, 2], [5, 64]),
+                 (2, 8, 4, 320, 1024, 4096, 2048, [4, 0], [2048, 1024])]
+
+
+def _expert_data(T, shape, device, seed):
+    Cc, E, G, m, k, n, win, eo, fo = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((Cc, G, m, k)).astype(np.float32)
+    ws = [rng.standard_normal((Cc, E, k, n)).astype(np.float32)
+          for _ in range(T)]
+    dys = [rng.standard_normal((Cc, G, m, win)).astype(np.float32)
+           for _ in range(T)]
+    xt = torch.tensor(x, device=device, requires_grad=True)
+    wts = [torch.tensor(w, device=device, requires_grad=True) for w in ws]
+    cols = [make_offsets([o] * G, device) for o in fo]
+    ys = rolling_matmul_batched(xt, wts, cols, win, experts=eo)
+    grads = torch.autograd.grad(ys, [xt, *wts],
+                                [torch.tensor(d, device=device)
+                                 for d in dys])
+    return (x, ws, dys), [y.detach() for y in ys], grads
+
+
+@pytest.mark.parametrize("T", [1, 2])
+def test_rolling_expert_windows_match_dispatch(jx, T):
+    """``rolling_matmul_batched(..., experts=)`` on the CPU: each client's
+    window of experts against ``dispatch.rolling_matmul`` (T = 1) /
+    ``rolling_matmul_multi`` (T = 2) vmapped over that client's experts
+    of the full stacks, values and VJP; the weight gradient exactly zero
+    outside every client's window of experts and columns."""
+    shape = EXPERT_SHAPES[0]
+    Cc, E, G, m, k, n, win, eo, fo = shape
+    (x, ws, dys), ys, grads = _expert_data(T, shape, "cpu", seed=40 + T)
+    jax, jnp = jx.jax, jx.jnp
+
+    def one(a, *w_, off):
+        if len(w_) == 1:
+            return (jx.dispatch.rolling_matmul(a, w_[0], off, win,
+                                               backend="jnp"),)
+        return jx.dispatch.rolling_matmul_multi(a, w_, off, win,
+                                                backend="jnp")
+
+    def f(x_, *w_):
+        per = [jax.vmap(lambda a, *b, off=fo[c]: one(a, *b, off=off))(
+            x_[c], *(w[c, eo[c]:eo[c] + G] for w in w_)) for c in range(Cc)]
+        return tuple(jnp.stack([p[t] for p in per]) for t in range(T))
+
+    ys_ref, vjp = jax.vjp(f, jnp.asarray(x), *map(jnp.asarray, ws))
+    grads_ref = vjp(tuple(map(jnp.asarray, dys)))
+    for a, b in zip([*ys, *grads], [*ys_ref, *grads_ref]):
+        _close(a, b)
+    for dw in grads[1:]:
+        for c in range(Cc):
+            inside = dw[c, eo[c]:eo[c] + G, :, fo[c]:fo[c] + win].clone()
+            dw[c, eo[c]:eo[c] + G, :, fo[c]:fo[c] + win] = 0
+            assert torch.count_nonzero(inside) > 0
+        assert torch.count_nonzero(dw) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("shape", EXPERT_SHAPES)
+def test_gpu_rolling_kernels_match_plain_at_expert_windows(cuda, T, shape):
+    """TPU rows 5-8 at the MoE layer's launches, one a client on its
+    window of experts of the full stacks: values and the VJP against the
+    same Function on the CPU (the plain versions), one launch a client,
+    and two launches bit-equal."""
+    Cc = shape[0]
+    n = _build.LAUNCHES[f"rolling_mm_fwd<{T}>"]
+    _, ys, grads = _expert_data(T, shape, cuda, seed=30 + T)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"rolling_mm_fwd<{T}>"] == n + Cc
+    _, ys_cpu, grads_cpu = _expert_data(T, shape, "cpu", seed=30 + T)
+    for a, b in zip([*ys, *grads], [*ys_cpu, *grads_cpu]):
+        _gpu_close(a.cpu(), b)
+    _, again, grads_again = _expert_data(T, shape, cuda, seed=30 + T)
+    for a, b in zip([*ys, *grads], [*again, *grads_again]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stagger", [False, True], ids=["shared", "stagger"])
+def test_gpu_moe_dropping_is_deterministic(cuda, stagger):
+    """One MoE layer of reduced Mixtral on the card, 2 clients on the
+    ``dropping`` path under ``experts`` and ``moe_d_ff`` windows: the
+    output and every weight's gradient are bit-equal across two runs (the
+    combine gathers a token's k contributions and sums them in order; no
+    slot is read twice), the expert products go through rows 7 and 8 (one
+    launch a client, its window of experts in the kernel's leading
+    dimension), and the values agree with the same layer on the CPU."""
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import AxisWindow, WindowMap
+    cfg = get_reduced_config("mixtral_8x22b")
+    g = torch.Generator().manual_seed(3)
+    E, D, Fe = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff
+    p_cpu = {"router": torch.randn(2, D, E, generator=g) / 16,
+             "w_gate": torch.randn(2, E, D, Fe, generator=g) / 16,
+             "w_up": torch.randn(2, E, D, Fe, generator=g) / 16,
+             "w_down": torch.randn(2, E, Fe, D, generator=g) / 16}
+    x_cpu = torch.randn(2, 2, 64, D, generator=g)
+    offs = ([0, 2], [0, 128]) if stagger else ([1, 1], [64, 64])
+    window = WindowMap({("experts", E): AxisWindow(offs[0], 2),
+                        ("moe_d_ff", Fe): AxisWindow(offs[1], 128)})
+
+    def run(device):
+        p = {k: v.to(device, copy=True).requires_grad_()
+             for k, v in p_cpu.items()}
+        out, aux = moe.moe_apply(p, x_cpu.to(device), cfg, "dropping",
+                                 window)
+        grads = torch.autograd.grad((out.square().sum() + aux.sum()),
+                                    list(p.values()))
+        return [out.detach(), *grads]
+    n = _build.LAUNCHES["rolling_mm_fwd<2>"]
+    first = run(cuda)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["rolling_mm_fwd<2>"] == n + 2
+    second = run(cuda)
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for a, b in zip(first, run("cpu")):
+        _gpu_close(a.cpu(), b)
