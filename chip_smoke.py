@@ -108,14 +108,14 @@ Phases, each of which fails the run when it fails:
    do not fit beside the full width's masks).
 4c. Serving, after the mask path is freed: full-width Mamba2-130M (24
    layers, f32, random weights from seed 0) prefills 8 BigramLM prompts of
-   32768 tokens and decodes 64 greedy tokens through ``serve.generate``
+   32768 tokens and decodes 32 greedy tokens through ``serve.generate``
    (launches counted, peak from a reset, prefill and ms per token timed);
    teacher-forced decode of the last 256 tokens against one prefill of all
    of them, on the logits and every layer's state; its loss on 4 x 2048
    held-out tokens; one prefill under ``torch.profiler``.  Then
-   full-width TinyLlama-1.1B prefills 4 x 1536 tokens and decodes 512
-   greedy tokens, checked by teacher-forced decode against one prefill of
-   all 2048.
+   full-width TinyLlama-1.1B prefills 4 x 1536 tokens and decodes 128
+   greedy tokens; teacher-forced decode of the last 512 of 2048 prompt
+   tokens against one prefill of all 2048.
 4e. The paper's protocol (§5) on full-width pre-act ResNet18: 100 clients
    with 2 labels each, 10 a round, the HeteroFL capacity mix, K = 2 x 32
    images, SyntheticCIFAR 50 000 + 10 000; 5 rounds each of ``rolling``,
@@ -135,7 +135,7 @@ Phases, each of which fails the run when it fails:
    chunked SSD's forward and backward device time in it), then 3 extract
    rounds from the same params and offsets, their client losses and params
    within EXTRACT_TOL of the fused ones.  ``[hybrid round]``: the same
-   for full-width Hymba-1.5B (32 layers, 2 x 256 tokens; ``d_ff``,
+   for full-width Hymba-1.5B (16 of its 32 layers, 2 x 256 tokens; ``d_ff``,
    ``heads``, ``kv_heads`` and ``ssm_heads`` at 0.5: rows 5-8 and 10).
    ``[hybrid eval]``: its loss on 4 x 2048 tokens with and without
    ``REPRO_USE_FLASH`` (rows 12 and 13); ``[hybrid serve]``: a 4 x 2048
@@ -162,8 +162,8 @@ Phases, each of which fails the run when it fails:
    layers on one sequence of 8192 tokens, flash (G = 6 under the window
    of 4096) and not.  ``[serve continuous]``: full-size Qwen3-14B (40
    layers, 14.77 B params): its loss on 2 x 2048 tokens, flash (G = 5
-   under ``qk_norm``) and not; 12 requests from ``request_queue``
-   (prompts of 64-256 tokens, 16-64 new) through ``ContinuousBatcher`` (4
+   under ``qk_norm``) and not; 8 requests from ``request_queue``
+   (prompts of 64-256 tokens, 8-32 new) through ``ContinuousBatcher`` (4
    slots, a timeline of 4096): requests, tokens, prefills, ticks, ticks
    per second, launches per tick, seconds and peak; then the same queue
    again recording every logit handed out, the tokens equal to the timed
@@ -171,19 +171,47 @@ Phases, each of which fails the run when it fails:
    teacher-forced decode within MM_RTOL; one decode tick profiled; then
    Mixtral at 4 layers, the same queue on ``dropping`` and, held the same
    way, on ``dense``.
+4l. The rest of the zoo, each at its published widths from random
+   weights (seed 0), f32, after ``[serve continuous]``.  ``[mla round]``,
+   ``[audio round]``, ``[vlm round]``: 2 clients x 2 steps x 2 x 256
+   tokens (MusicGen's with 4 codebook streams, Phi-3-vision's behind 256
+   patches), rolling at 0.5 on the default axes (MLA's standalone
+   ``heads``, ``d_ff``; GQA's coupled ``heads``/``kv_heads``), client lr
+   0.1: 3 fused rounds (seconds, peak beside (1 + 2 C) x the params, rows
+   5-8 and 10's launches against the block arithmetic, a profiled round)
+   and 1 extract round within EXTRACT_TOL of the fused rounds' first, on
+   DeepSeek-V3 cut to its first (dense) layer and the MTP block,
+   MusicGen-large whole (48 layers) and Phi-3-vision at 24 of 32 layers.
+   ``[mla eval]``: DeepSeek-V3 at 1 dense + 1 MoE layer of all 256
+   experts + MTP (14.5 B params; ``dropping``): its loss (``lm_loss``,
+   ``mtp_loss``) on 1 x 2048 tokens, the ``heads`` + ``d_ff`` sub-model's
+   loss (rows 1-2) and backward at 2 x 256 (rows 3-4), held against the
+   compact sub-model; ``[mla serve]``: 32 greedy steps after 2 x 256
+   through the absorbed decode, teacher-forced decode vs prefill and 4
+   requests through the continuous batcher (every logit held against
+   single-request decoding) at a capacity that holds every choice.
+   ``[audio eval]``, ``[vlm eval]``: MusicGen-large and Phi-3-vision
+   whole on 4 x 2048 positions with and without flash (row 13 at
+   head_dim 64 and 96); ``[audio serve]``, ``[vlm serve]``: 64 greedy
+   steps after 4 x 1536 positions, teacher-forced decode of the last 32
+   of 512 positions vs one prefill.
 
 The update kernels (rows 9-11) are also held and timed at the shapes the
 extract and paper paths give them, and rows 5-13 carry each path's
 launches (``launches_by_path``: extract, full, stagger, hetero, fleet,
 mask_opt, paper, ssm_round, ssm_extract, hybrid_round, hybrid_extract,
-hybrid_eval, hybrid_serve, and the zoo's deepseek_round, deepseek_extract,
+hybrid_eval, hybrid_serve, the zoo's deepseek_round, deepseek_extract,
 qwen3_round, qwen3_extract, mixtral_round, mixtral_extract, zoo_eval and
-qwen3_eval; rows 1-4 carry zoo_eval); rows 5-8 and 10 are also timed at
-the hetero path's narrowest bucket (one client, windows 512 and 704
-columns), rows 5-8 at the SSM and hybrid rounds' shapes (``SLICE_ROWS``)
-and the zoo rounds' (``ZOO_ROWS``), and row 13 at Hymba's eval shape (25
-query heads on 5 kv heads, window 1024) and the zoo evals' (head_dim
-128: G = 1, G = 5, and G = 6 under a window of 4096).
+qwen3_eval, and the rest of the zoo's mla_round, mla_extract,
+audio_round, audio_extract, vlm_round, vlm_extract, audio_eval and
+vlm_eval; rows 1-4 carry zoo_eval and mla_eval); rows 5-8 and 10 are also
+timed at the hetero path's narrowest bucket (one client, windows 512 and
+704 columns), rows 5-8 at the SSM and hybrid rounds' shapes (``SLICE_ROWS``)
+and the zoo rounds' (``ZOO_ROWS``: also MLA's up-projections, DeepSeek-
+V3's, MusicGen's and Phi-3-vision's), and row 13 at Hymba's eval shape
+(25 query heads on 5 kv heads, window 1024) and the zoo evals' (head_dim
+128: G = 1, G = 5, and G = 6 under a window of 4096; G = 1 at head_dim 64
+and 96).
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  With no
 card, or without the repository beside it, the script fails and prints no
@@ -262,8 +290,15 @@ def flash_switch(on):
 
 def eval_loss(model, params, tokens, window=None, flash=False):
     """One model's held-out loss (``Model.loss`` under no_grad), a float."""
+    return batch_loss(model, params, {"tokens": tokens}, window, flash)[0]
+
+
+def batch_loss(model, params, batch, window=None, flash=False):
+    """One model's held-out loss on a batch (with its extras: codebook
+    tokens, patches) and its metrics, as floats (under no_grad)."""
     with flash_switch(flash), torch.no_grad():
-        return float(model.loss(params, {"tokens": tokens}, window=window)[0])
+        loss, m = model.loss(params, batch, window=window)
+    return float(loss), {k: float(v) for k, v in m.items()}
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -415,6 +450,19 @@ ZOO_ROWS = [
     ("deepseek gate/up", 2, 4, 512, 4096, 11008, 5504, 5504),
     ("qwen3 gate/up", 2, 2, 512, 5120, 17408, 8704, 8704),
     ("mixtral experts, a client", 2, 4, 320, 6144, 16384, 8192, 8192),
+    # the rest of the zoo's rounds, C = 2 x 2 x 256 tokens: DeepSeek-V3's
+    # MLA up-projections (heads 64 of 128: w_uq's 192 columns a head from
+    # q_lora 1536, w_uk's and w_uv's 128 from kv_lora 512) and its dense
+    # gate/up (d_ff 9216 of 18432); MusicGen-large's q/k/v (1024 of 2048)
+    # and gate/up (4096 of 8192); Phi-3-vision's, on 256 patches + 256
+    # tokens a sequence (q/k/v 1536 of 3072, gate/up 4096 of 8192)
+    ("mla w_uq", 1, 2, 512, 1536, 24576, 12288, 12288),
+    ("mla w_uk/w_uv", 1, 2, 512, 512, 16384, 8192, 8192),
+    ("deepseek-v3 gate/up", 2, 2, 512, 7168, 18432, 9216, 9216),
+    ("musicgen q/k/v", 1, 2, 512, 2048, 2048, 1024, 1024),
+    ("musicgen gate/up", 2, 2, 512, 2048, 8192, 4096, 4096),
+    ("phi-3-v q/k/v", 1, 2, 1024, 3072, 3072, 1536, 1536),
+    ("phi-3-v gate/up", 2, 2, 1024, 3072, 8192, 4096, 4096),
 ]
 # further correctness cases (C, M, K, N, win, per-client offsets): the k/v
 # projections, unaligned and per-client offsets, ragged shapes
@@ -892,7 +940,11 @@ def flash_kernels(dev, g):
                            dev, g, QWEN_EB, ES, 40, 8, 128)},
                        {"tag": "mixtral eval (G = 6, window 4096)",
                         **flash_timing(dev, g, MOE_EB, MOE_ES, 48, 8, 128,
-                                       window=4096)}]
+                                       window=4096)},
+                       {"tag": "musicgen eval (G = 1, hd 64)", **flash_timing(
+                           dev, g, EB, ES, 32, 32, 64)},
+                       {"tag": "phi-3-v eval (G = 1, hd 96)", **flash_timing(
+                           dev, g, EB, ES, 32, 32, 96)}]
     return [row]
 
 
@@ -1444,8 +1496,10 @@ def phase_client_phase_peaks(trainer, batch):
               f"{secs:.3f} s")
 
 
-SB, SS, SG = 8, 32768, 64    # Mamba2 serving: batch, prompt, greedy steps
-DB, DS, DG = 4, 1536, 512    # TinyLlama serving: 2048 positions in all
+SB, SS, SG = 8, 32768, 32    # Mamba2 serving: batch, prompt, greedy steps
+# TinyLlama serving: 4 prompts of 1536, 128 greedy steps; the
+# teacher-forced check decodes the last 512 of 2048 prompt tokens
+DB, DS, DG, DT = 4, 1536, 128, 512
 
 
 def timed(fn, n):
@@ -1461,21 +1515,25 @@ def timed(fn, n):
     return secs, out
 
 
-def teacher_forced(model, params, seq, split):
-    """Prefill ``seq[:, :split]``, then feed ``seq[:, split:]`` through
-    ``decode_step`` one token at a time; returns the last logits and the
+def teacher_forced(model, params, seq, split, extra=None):
+    """Prefill ``seq[:, :split]`` (behind ``extra``'s patches, P of them),
+    then feed ``seq[:, split:]`` through ``decode_step`` one token at a
+    time, at positions ``P + i``; returns the last logits and the
     caches."""
+    P = extra["patches"].shape[1] if extra else 0
     S = seq.shape[1]
     with torch.no_grad():
-        logits, cache = model.prefill(params, seq[:, :split], max_len=S)
+        logits, cache = model.prefill(params, seq[:, :split], extra,
+                                      max_len=P + S)
         for pos in range(split, S):
-            logits, cache = model.decode_step(params, seq[:, pos], cache, pos)
+            logits, cache = model.decode_step(params, seq[:, pos], cache,
+                                              P + pos)
     return logits, cache
 
 
 def phase_serve_ssm(dev, _build):
     """Full-width Mamba2-130M serving (random weights, seed 0, f32): 8
-    BigramLM prompts of 32768 tokens, prefill and 64 greedy decode steps
+    BigramLM prompts of 32768 tokens, prefill and 32 greedy decode steps
     through ``serve.generate``.  The first run is counted (launches from 0,
     peak from a reset) and is the warm-up; two more are timed.  Then the
     kernel's chunk states against the recurrence: prefill 32512 tokens and
@@ -1672,11 +1730,11 @@ def profile_decode_step(tag, fn):
 
 
 def phase_serve_dense(dev, _build):
-    """Full-width TinyLlama-1.1B serving: 4 prompts of 1536 tokens, 512
-    greedy steps (2048 positions, its context).  A short warm-up, two
-    timed prefills, then the full generation timed with the peak from a
-    reset; then prefill 1536 + the 512 generated tokens teacher-forced
-    against one prefill of all 2048."""
+    """Full-width TinyLlama-1.1B serving: 4 prompts of 1536 tokens, 128
+    greedy steps.  A short warm-up, two timed prefills, then the
+    generation timed with the peak from a reset; then prefill 1536 of 2048
+    prompt tokens + the other 512 teacher-forced against one prefill of
+    all 2048 (its context)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.launch.specs import sample_prompts
@@ -1684,8 +1742,9 @@ def phase_serve_dense(dev, _build):
     cfg = get_config("tinyllama_1_1b")
     model = build_model(cfg)
     params = model.init(seed=0, device=dev)
-    prompts = torch.as_tensor(sample_prompts(cfg, DB, DS, seed=0)[0],
-                              dtype=torch.long).to(dev)
+    seq = torch.as_tensor(sample_prompts(cfg, DB, DS + DT, seed=0)[0],
+                          dtype=torch.long).to(dev)
+    prompts = seq[:, :DS]
     generate(model, params, prompts, 8)
     with torch.no_grad():
         pre, (logits, cache) = timed(lambda: model.prefill(
@@ -1707,15 +1766,14 @@ def phase_serve_dense(dev, _build):
     print(f"[serve dense] decode: {1e3 * out['decode_s'] / DG:.3f} ms/token "
           f"({DG} greedy steps, batch {DB}); peak memory allocated "
           f"{peak / 2**30:.2f} GiB; kernel launches {launches}")
-    seq = torch.cat([prompts, out["tokens"]], dim=1)
     with torch.no_grad():
         want, _ = model.prefill(params, seq)
     got, _ = teacher_forced(model, params, seq, DS)
     e = err(got, want)
     check(bool(torch.isfinite(want).all()) and e[1] <= MM_RTOL,
-          f"dense prefill {DS} + {DG} decode steps vs prefill {DS + DG}: {e}")
-    print(f"[serve dense] prefill {DS} + {DG} teacher-forced decode steps vs "
-          f"prefill {DS + DG}: logits max abs diff {e[0]:.3g} (rel "
+          f"dense prefill {DS} + {DT} decode steps vs prefill {DS + DT}: {e}")
+    print(f"[serve dense] prefill {DS} + {DT} teacher-forced decode steps vs "
+          f"prefill {DS + DT}: logits max abs diff {e[0]:.3g} (rel "
           f"{e[1]:.3g}, tolerance {MM_RTOL})")
 
 
@@ -2507,6 +2565,10 @@ def phase_fleet_path(dev, _build):
 # -- this slice: SSM training (Mamba2) and the hybrid block (Hymba) ------------
 
 SSM_SEQ, HYB_SEQ = 1024, 256      # tokens a sequence; 2 sequences a step
+# Hymba-1.5B's round, eval and serving keep 16 of its 32 layers (cut:
+# depth): its host-bound eager steps would otherwise take the script past
+# its time limit on a slow host
+HYB_LAYERS = 16
 # The full-width rounds' client step size.  At lr 0.1 these rounds amplify
 # any rounding difference far past EXTRACT_TOL (3 fused rounds from params
 # scaled by 1 + 1e-7 N(0, 1), about one ulp, end about 0.02 from the
@@ -2590,7 +2652,7 @@ def _slice_launches(cfg, leaves, n, fused):
             "sgd_inplace": 2 * leaves * n}
 
 
-def phase_slice_rounds(dev, _build, tag, arch, seq):
+def phase_slice_rounds(dev, _build, tag, arch, seq, layers=None):
     """Full-width rounds of this slice's families: C = 4 clients x K = 2
     steps x 2 x ``seq`` tokens, rolling at capacity 0.5 on the default
     axes, client lr ROUND_LR, 3 fused rounds through ``api.fed_round`` and
@@ -2601,13 +2663,13 @@ def phase_slice_rounds(dev, _build, tag, arch, seq):
     sensitivity; then 3 extract rounds from the same params and offsets,
     every client step's loss and the params after the 3 rounds within
     EXTRACT_TOL of the fused ones, which moved the params by more than
-    EXTRACT_TOL.  Returns the launches of both."""
+    EXTRACT_TOL.  ``layers`` cuts the depth.  Returns the launches of
+    both."""
     from repro_torch import api
-    from repro_torch.configs.base import get_config
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     from repro_torch.models.ssm import SSD_CHUNKED
-    cfg = get_config(arch)
+    cfg = zoo_config(arch, layers)
     model = build_model(cfg)
     it = lm_batches(cfg.vocab, (2, 4, 2), seq=seq)
     data = [next(it) for _ in range(3)]
@@ -2727,8 +2789,8 @@ def phase_ssm_grad(dev, model, params, _build):
 
 
 def phase_hybrid_serve(dev, _build):
-    """Full-width Hymba-1.5B (random weights, seed 0, f32) eval and
-    serving.  ``[hybrid eval]``: ``Model.loss`` on 4 x 2048 held-out tokens
+    """Full-width Hymba-1.5B at HYB_LAYERS of its 32 layers (random
+    weights, seed 0, f32) eval and serving.  ``[hybrid eval]``: ``Model.loss`` on 4 x 2048 held-out tokens
     with and without ``REPRO_USE_FLASH`` (each counted once, then timed 3
     times; rows 12 and 13), the two within EVAL_RTOL, one profiled flash
     eval.  ``[hybrid serve]``: 4 prompts of 2048 tokens prefilled and 64
@@ -2736,12 +2798,11 @@ def phase_hybrid_serve(dev, _build):
     ms/token), then prefill 1536 + 512 teacher-forced decode steps against
     one prefill of 2048 (the last logits within MM_RTOL).  Returns the
     launches of the eval (with flash) and of the generation."""
-    from repro_torch.configs.base import get_config
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.launch.serve import generate
     from repro_torch.launch.specs import sample_prompts
     from repro_torch.models import build_model
-    cfg = get_config("hymba_1_5b")
+    cfg = zoo_config("hymba_1_5b", HYB_LAYERS)
     model = build_model(cfg)
     params = model.init(seed=0, device=dev)
     tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (HB,), HS,
@@ -2825,50 +2886,63 @@ ZOO_SEQ = 256             # tokens a sequence; 2 sequences a client step
 MOE_EVAL_LAYERS = 4       # Mixtral's eval and serving: 4 of 56 layers
 MOE_EB, MOE_ES = 1, 8192  # one sequence past Mixtral's window of 4096
 QWEN_EB = 2               # Qwen3-14B's eval: 2 x 2048 beside its 59 GB
-SERVE_SLOTS, SERVE_LEN, SERVE_REQS = 4, 4096, 12
-SERVE_PROMPTS, SERVE_NEW = (64, 128, 192, 256), (16, 32, 48, 64)
+SERVE_SLOTS, SERVE_LEN, SERVE_REQS = 4, 4096, 8
+# max_new cut from (16, 32, 48, 64) to its half: eager decode is host-bound,
+# and the script must end within its time limit on a slow host
+SERVE_PROMPTS, SERVE_NEW = (64, 128, 192, 256), (8, 16, 24, 32)
 
 
-def zoo_config(arch, layers=None):
-    """A zoo config at its published widths, cut to ``layers`` layers."""
+def zoo_config(arch, layers=None, **over):
+    """A zoo config at its published widths, cut to ``layers`` layers
+    (and ``over``'s other fields)."""
     from repro_torch.configs.base import get_config
     cfg = get_config(arch)
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          n_layers=layers)
+    if layers is not None:
+        over["n_layers"] = layers
+    return dataclasses.replace(cfg, **over) if over else cfg
 
 
 def _zoo_launches(cfg, leaves, n, clients, fused):
     """Rows 5-8 and 10's launches over ``n`` rounds (K = 2 steps each):
-    the fused phase runs q, k and v through rows 5-6 and the gate/up pair
-    through rows 7-8 once a layer a step (an MoE layer: once a client, its
-    window of experts in the kernel's leading dimension); every step steps
-    each leaf through row 10."""
-    per = 2 * cfg.n_layers * n * int(fused)
-    t2 = clients if cfg.moe is not None else 1
-    return {"rolling_mm_fwd<1>": 3 * per, "rolling_mm_dx<1>": 3 * per,
+    the fused phase runs each attention block's three windowed head
+    products (GQA's q, k and v; MLA's per-head up-projections w_uq, w_uk
+    and w_uv) through rows 5-6 and each gate/up pair through rows 7-8
+    once a block a step (the MTP block is one more; an MoE layer's experts
+    once a client, its window of experts in the kernel's leading
+    dimension); every step steps each leaf through row 10."""
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.moe is not None else 0
+    blocks = cfg.n_layers + int(cfg.mtp)
+    per = 2 * n * int(fused)
+    t2 = blocks - n_moe + clients * n_moe
+    return {"rolling_mm_fwd<1>": 3 * blocks * per,
+            "rolling_mm_dx<1>": 3 * blocks * per,
             "rolling_mm_fwd<2>": t2 * per, "rolling_mm_dx<2>": t2 * per,
             "sgd_inplace": 2 * leaves * n}
 
 
 def phase_zoo_round(dev, _build, tag, arch, layers, clients, n_fused,
-                    n_extract):
+                    n_extract, over=None):
     """A zoo config's fused rounds at full width (cut to ``layers``
-    layers): ``clients`` clients x K = 2 steps x 2 x ZOO_SEQ tokens,
-    rolling at capacity 0.5 on the default axes, client lr 0.1, through
-    ``api.fed_round`` and ``api.Trainer`` (seconds, peak beside its
-    reckoning, finite losses and params, rows 5-8 and 10's launches
-    against the layer arithmetic), one profiled round; then ``n_extract``
-    extract rounds from the same params and offsets, every client loss and
-    the params within EXTRACT_TOL of the fused rounds' after as many
-    rounds (which moved the params by more than EXTRACT_TOL); DeepSeek
-    also pins "no per-client W_sub copy".  Returns the launches of both."""
+    layers, and ``over``'s other fields): ``clients`` clients x K = 2 steps
+    x 2 x ZOO_SEQ tokens (with the codebook streams and the vision stub's
+    patches of the families that take them), rolling at capacity 0.5 on
+    the default axes, client lr 0.1, through ``api.fed_round`` and
+    ``api.Trainer`` (seconds, peak beside its reckoning, finite losses and
+    params, rows 5-8 and 10's launches against the layer arithmetic), one
+    profiled round; then ``n_extract`` extract rounds from the same params
+    and offsets, every client loss and the params within EXTRACT_TOL of
+    the fused rounds' after as many rounds (which moved the params by more
+    than EXTRACT_TOL); DeepSeek-7B also pins "no per-client W_sub copy".
+    Returns the launches of both."""
     from repro_torch import api
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
-    cfg = zoo_config(arch, layers)
+    cfg = zoo_config(arch, layers, **(over or {}))
     full = zoo_config(arch)
     model = build_model(cfg)
-    it = lm_batches(cfg.vocab, (2, clients, 2), seq=ZOO_SEQ)
+    vision = (cfg.vision_patches, cfg.vision_d) if cfg.vision_stub else None
+    it = lm_batches(cfg.vocab, (2, clients, 2), seq=ZOO_SEQ,
+                    codebooks=cfg.n_codebooks, vision=vision)
     data = [next(it) for _ in range(n_fused)]
     scfg = slice_scfg(clients_per_round=clients)
     fed = api.fed_round(model, scfg, device=dev)
@@ -2879,8 +2953,11 @@ def phase_zoo_round(dev, _build, tag, arch, layers, clients, n_fused,
     leaves, n_params = len(params), sum(v.numel() for v in params.values())
     windows = {f"{k[0]}/{k[1]}": w for k, w in fed.scheme.sizes.items()}
     reckon = (1 + 2 * clients) * 4 * n_params
+    cuts = ([f"depth ({over})" if over else "depth"]
+            if layers < full.n_layers else []) + (
+        [f"clients {clients}"] if clients < 4 else [])
     print(f"[{tag}] {cfg.name}: {layers} of {full.n_layers} layers (cut: "
-          f"depth{', clients ' + str(clients) if clients < 4 else ''}), "
+          f"{', '.join(cuts) or 'none'}), "
           f"d_model {cfg.d_model}, {n_params:,} params ({leaves} leaves), "
           f"f32; {clients} clients x 2 steps x 2 x {ZOO_SEQ} tokens, client "
           f"lr {scfg.client_lr}; windows {windows}; offsets {offsets}; "
@@ -3153,12 +3230,11 @@ class _Recorder:
                     0, row.to("cpu", copy=True))
 
 
-def _serve_queue(cfg):
-    """SERVE_REQS requests from ``request_queue``: prompts cycling through
-    SERVE_PROMPTS tokens, ``max_new`` through SERVE_NEW."""
+def _serve_queue(cfg, n=SERVE_REQS, prompts=SERVE_PROMPTS):
+    """``n`` requests from ``request_queue``: prompts cycling through
+    ``prompts`` tokens, ``max_new`` through SERVE_NEW."""
     from repro_torch.launch.specs import request_queue
-    reqs = request_queue(cfg, [SERVE_PROMPTS[i % 4]
-                               for i in range(SERVE_REQS)], seed=0)
+    reqs = request_queue(cfg, [prompts[i % 4] for i in range(n)], seed=0)
     for i, r in enumerate(reqs):
         r.max_new = SERVE_NEW[i % 4]
     return reqs
@@ -3187,8 +3263,9 @@ def drive(eng, rec=None):
     return admit, ticks
 
 
-def serve_continuous(tag, model, params, _build, record=False):
-    """The queue through ``ContinuousBatcher`` (SERVE_SLOTS slots, a
+def serve_continuous(tag, model, params, _build, record=False,
+                     n=SERVE_REQS, prompts=SERVE_PROMPTS):
+    """``n`` requests through ``ContinuousBatcher`` (SERVE_SLOTS slots, a
     timeline of SERVE_LEN), stepped by :func:`drive`; prints the requests
     completed, tokens, prefills, decode ticks, ticks per second, the
     seconds of the admitting steps and the ms of a tick without one,
@@ -3196,7 +3273,7 @@ def serve_continuous(tag, model, params, _build, record=False):
     wrapped in a :class:`_Recorder`; returns the requests, the recorder
     and the launches."""
     from repro_torch.launch.batching import ContinuousBatcher
-    reqs = _serve_queue(model.cfg)
+    reqs = _serve_queue(model.cfg, n, prompts)
     rec = _Recorder(model) if record else None
     eng = ContinuousBatcher(rec or model, params, batch_slots=SERVE_SLOTS,
                             max_len=SERVE_LEN)
@@ -3215,7 +3292,9 @@ def serve_continuous(tag, model, params, _build, record=False):
     check(st.completed == len(reqs) and all(r.done for r in reqs)
           and all(len(r.out) == r.max_new + 1 for r in reqs),
           f"[{tag}] {st}: not every request completed")
-    path = f", MoE path {model.moe_path}" if model.cfg.moe else ""
+    mo = model.cfg.moe
+    path = (f", MoE path {model.moe_path}, capacity factor "
+            f"{mo.capacity_factor}" if mo else "")
     print(f"[{tag}] {model.cfg.name} ({model.cfg.n_layers} layers{path})"
           f"{' (recording logits)' if record else ''}: "
           f"{st.completed} requests, {st.tokens_generated} tokens, "
@@ -3226,7 +3305,7 @@ def serve_continuous(tag, model, params, _build, record=False):
           f"{1e3 * float(np.mean(ticks)):.2f} ms each), launches "
           f"{launches} ({sum(launches.values()) / st.decode_steps:.2f} a "
           f"tick), peak memory allocated {peak / 2**30:.2f} GiB; slots "
-          f"{SERVE_SLOTS}, timeline {SERVE_LEN}, prompts {SERVE_PROMPTS}, "
+          f"{SERVE_SLOTS}, timeline {SERVE_LEN}, prompts {prompts}, "
           f"max_new {SERVE_NEW}")
     del eng
     return reqs, rec, launches
@@ -3355,23 +3434,30 @@ def phase_serve_continuous(dev, _build):
 
 
 def phase_small_agreement_zoo(dev):
-    """``[agree zoo]``: reduced DeepSeek-7B, Qwen3-14B and Mixtral-8x22B
-    (``dropping``), 2 fused rounds each on the card and on the CPU from
-    the same params, tokens (2 x 64 a client step) and CPU-drawn offsets,
-    within ROUND_TOL; then one continuous batcher run of each (2 slots,
-    prompts of 5-12 tokens, 4 new tokens each): every logit the batcher
-    hands out within ROUND_TOL of the CPU's, relative to the largest, the
-    tokens equal wherever the CPU's top-2 margin exceeds that, and the
-    stats equal."""
+    """``[agree zoo]``: reduced DeepSeek-7B, Qwen3-14B, Mixtral-8x22B,
+    DeepSeek-V3 (MLA, a leading dense layer, an MoE layer, MTP; the MoE
+    layers on ``dropping``), MusicGen-large (codebooks) and Phi-3-vision
+    (patches), 2 fused rounds each on the card and on the CPU from the
+    same params, tokens (2 x 64 a client step) and CPU-drawn offsets,
+    within ROUND_TOL; then one continuous batcher run of each token-prompt
+    model (2 slots, prompts of 5-12 tokens, 4 new tokens each): every
+    logit the batcher hands out within ROUND_TOL of the CPU's, relative to
+    the largest, the tokens equal wherever the CPU's top-2 margin exceeds
+    that, and the stats equal."""
     from repro_torch import api
     from repro_torch.configs.base import get_reduced_config
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.launch.batching import ContinuousBatcher
     from repro_torch.launch.specs import request_queue
     from repro_torch.models import build_model
-    for arch in ("deepseek_7b", "qwen3_14b", "mixtral_8x22b"):
+    for arch in ("deepseek_7b", "qwen3_14b", "mixtral_8x22b",
+                 "deepseek_v3_671b", "musicgen_large", "phi_3_vision_4_2b"):
         model = build_model(get_reduced_config(arch))
-        it = lm_batches(model.cfg.vocab, (2, 4, 2), 64, seed=0)
+        cfg = model.cfg
+        vision = ((cfg.vision_patches, cfg.vision_d) if cfg.vision_stub
+                  else None)
+        it = lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0,
+                        codebooks=cfg.n_codebooks, vision=vision)
         data = [next(it) for _ in range(2)]
         p0 = model.init(0, device="cpu")
         outs = {}
@@ -3389,6 +3475,13 @@ def phase_small_agreement_zoo(dev):
         check(dl <= ROUND_TOL and dp <= ROUND_TOL,
               f"[agree zoo] reduced {arch} on the card disagrees with the "
               f"CPU: loss {dl}, params {dp}")
+        path = f" (MoE path {model.moe_path})" if cfg.moe else ""
+        if cfg.n_codebooks or cfg.vision_stub:
+            # the continuous batcher serves plain token prompts only
+            print(f"[agree zoo] reduced {arch}{path}, 2 fused rounds card "
+                  f"vs CPU: max |d loss| {dl:.3g}, max |d param| {dp:.3g} "
+                  f"(tolerance {ROUND_TOL})")
+            continue
         served = {}
         for where in ("cpu", dev):
             reqs = request_queue(model.cfg, (5, 9, 7, 12, 3), max_new=4)
@@ -3412,13 +3505,293 @@ def phase_small_agreement_zoo(dev):
         check(e <= ROUND_TOL and bool(same[sure].all()) and gst == cst,
               f"[agree zoo] reduced {arch} batcher, card vs CPU: logits "
               f"{e:.3g}, tokens {same.tolist()}, stats {gst} vs {cst}")
-        path = f" (MoE path {model.moe_path})" if model.cfg.moe else ""
         print(f"[agree zoo] reduced {arch}{path}, 2 fused rounds card vs "
               f"CPU: max |d loss| {dl:.3g}, max |d param| {dp:.3g} "
               f"(tolerance {ROUND_TOL}); the batcher's "
               f"logits within {e:.3g} of the largest, tokens equal at "
               f"{int(same.sum())} of {same.numel()} steps "
               f"({int((~sure).sum())} under the margin), stats {gst}")
+
+
+# -- phase 4l: the rest of the zoo: MLA and MTP, codebooks, the vision stub --
+
+# (tag, arch, layers kept, clients, fused rounds, extract rounds, other cut
+# fields): full widths; DeepSeek-V3 keeps its first (dense) layer and the
+# MTP block (a MoE layer of 256 experts is 11.5 B params alone), Phi-3-
+# vision 24 of its 32 layers, MusicGen-large all 48
+NEW_ROUNDS = [("mla round", "deepseek_v3_671b", 1, 2, 3, 1,
+               {"n_dense_layers": 1}),
+              ("audio round", "musicgen_large", 48, 2, 3, 1, {}),
+              ("vlm round", "phi_3_vision_4_2b", 24, 2, 3, 1, {})]
+# DeepSeek-V3's eval and serving: its first dense layer, one MoE layer of
+# all 256 experts (the shared expert, the sigmoid router) and MTP
+MLA_EVAL = dict(n_layers=2, n_dense_layers=1)
+MLA_ES = 2048              # eval: one sequence of 2048 tokens
+MLA_SB, MLA_SS, MLA_SG = 2, 256, 32  # serving: 2 x 256, 32 greedy steps
+MLA_TF = 32                # teacher-forced: prefill 224 + 32 vs 256
+# the continuous batcher: 4 requests of 16-64 prompt tokens (a cohort of
+# 4 x 64 tokens) and 8-32 new ones
+MLA_REQS, MLA_PROMPTS = 4, (16, 32, 48, 64)
+# MusicGen's and Phi-3-vision's serving: 4 prompts of 1536 positions (for
+# Phi-3-vision 256 patches + 1280 tokens), 64 greedy steps; the
+# teacher-forced check prefills 480 positions and decodes 32 (blockwise
+# attention takes whole chunks of 512 past 512)
+FAM_SB, FAM_SS, FAM_SG, FAM_TF = 4, 1536, 64, 32
+
+
+def _batch_on(batch, dev):
+    """A numpy batch on ``dev``: tokens as int64, patches as they are."""
+    return {k: torch.as_tensor(v, dtype=torch.long if k == "tokens"
+                               else None).to(dev) for k, v in batch.items()}
+
+
+def serve_generate(tag, model, params, prompts, gen, _build, extra=None):
+    """``serve.generate`` of ``gen`` greedy tokens after ``prompts`` (a
+    warm-up of 4 tokens on the first 256 first), with the launches counted
+    from 0 and the peak from a reset; prints prefill s, ms/token and the
+    peak, and checks that the kernels run no launch (serving is the
+    model's plain products) and the tokens are in the vocabulary."""
+    from repro_torch.launch.serve import generate
+    generate(model, params, prompts[:, :256], 4, extra=extra)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    out = generate(model, params, prompts, gen, extra=extra)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    toks = out["tokens"]
+    check(launches == {} and int(toks.min()) >= 0
+          and int(toks.max()) < model.cfg.vocab,
+          f"[{tag}] launches {launches}, tokens {toks.min()}..{toks.max()}")
+    P = extra["patches"].shape[1] if extra else 0
+    print(f"[{tag}] {model.cfg.name}: prefill {list(prompts.shape)}"
+          f"{f' behind {P} patches' if P else ''}: "
+          f"{out['prefill_s']:.4f} s; decode "
+          f"{1e3 * out['decode_s'] / gen:.3f} ms/token ({gen} greedy steps, "
+          f"batch {prompts.shape[0]}); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB; kernel launches {launches}; first row "
+          f"{toks[0, :8].tolist()}")
+
+
+def check_teacher_forced(tag, model, params, seq, split, extra=None):
+    """:func:`teacher_forced` against one prefill of all of ``seq``: the
+    last logits within MM_RTOL."""
+    got, _ = teacher_forced(model, params, seq, split, extra)
+    with torch.no_grad():
+        want, _ = model.prefill(params, seq, extra)
+    e = err(got, want)
+    check(bool(torch.isfinite(want).all()) and e[1] <= MM_RTOL,
+          f"[{tag}] prefill {split} + {seq.shape[1] - split} decode steps vs "
+          f"prefill {seq.shape[1]}: {e}")
+    print(f"[{tag}] prefill {split} + {seq.shape[1] - split} teacher-forced "
+          f"decode steps vs one prefill of {seq.shape[1]} tokens: logits max "
+          f"abs diff {e[0]:.3g} (rel {e[1]:.3g}, tolerance {MM_RTOL})")
+
+
+def phase_mla_eval_serve(dev, _build):
+    """``[mla eval]`` and ``[mla serve]``: DeepSeek-V3 at full width cut to
+    its first (dense) layer, one MoE layer of all 256 experts and the MTP
+    block (14.5 B params, f32, random weights from seed 0; the MoE layer on
+    ``dropping``).  Eval: ``Model.loss`` on one held-out sequence of 2048
+    tokens (``lm_loss`` and ``mtp_loss`` finite), the sub-model under a
+    ``heads`` 64-of-128 + ``d_ff`` 9216-of-18432 window (rows 1-2 through
+    MLA's up-projections and the dense MLPs) and one backward pass of its
+    loss at 2 x 256 tokens with respect to the embedding, the dense layer
+    and the MTP block (rows 3-4), each held against the compact sub-model
+    (the extracted windows, no kernel).  Serving: ``serve.generate`` of 32
+    greedy tokens after 2 x 256 through the absorbed decode (``dropping``);
+    then, on ``dropping`` at a capacity that holds every choice (capacity
+    factor n_experts / top_k = 32: what ``dense`` computes, without the
+    ``dense`` path's einsums, which copy the 15 GB expert stacks and do not
+    fit beside them), prefill 224 + 32 teacher-forced decode steps
+    against one prefill of 256, and MLA_REQS requests through the
+    continuous batcher, every logit held against single-request decoding.
+    Returns the eval's launches."""
+    from repro_torch.core.extract import extract
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.specs import sample_prompts
+    from repro_torch.models import build_model
+    tag = "mla eval"
+    cfg = zoo_config("deepseek_v3_671b", **MLA_EVAL)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n = sum(v.numel() for v in params.values())
+    batch = _batch_on(next(lm_batches(cfg.vocab, (1,), MLA_ES, seed=999)),
+                      dev)
+    small = {"tokens": batch["tokens"].new_tensor(next(lm_batches(
+        cfg.vocab, (2,), 256, seed=998))["tokens"])}
+    H, F = cfg.n_heads, cfg.d_ff
+    window = {("heads", H): (H // 2, H // 2), ("d_ff", F): (F // 2, F // 2)}
+    offsets = {k: o for k, (o, _) in window.items()}
+    sizes = {k: w for k, (_, w) in window.items()}
+    axes = model.axes()
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} of 61 layers (cut: depth; "
+          f"1 dense + 1 MoE layer of {cfg.moe.n_experts} experts, top-"
+          f"{cfg.moe.top_k}, {cfg.moe.n_shared} shared, {cfg.moe.router} "
+          f"router) + the MTP block, {n:,} params ({4 * n / 1e9:.1f} GB "
+          f"f32), made in {time.perf_counter() - t0:.1f} s; held-out "
+          f"{list(batch['tokens'].shape)} (seed 999), MoE path "
+          f"{model.moe_path}; sub-model window {window}")
+    trained = [k for k in params if k == "embed"
+               or k.startswith(("dense_layers/", "mtp/"))]
+    held = ("embed", "dense_layers/0/mlp/w_gate", "dense_layers/0/attn/w_uq")
+
+    def grad_pass(p, win):
+        """The loss at 2 x 256 and its gradients with respect to the
+        ``trained`` leaves (the MoE layer's stay fixed)."""
+        p = dict(p)
+        for k in trained:
+            p[k] = p[k].detach().requires_grad_()
+        loss, _ = model.loss(p, small, window=win)
+        grads = dict(zip(trained, torch.autograd.grad(
+            loss, [p[k] for k in trained])))
+        return float(loss.detach()), grads
+
+    def window_grad():
+        loss, grads = grad_pass(params, window)
+        finite = all(bool(torch.isfinite(t).all()) for t in grads.values())
+        outside = 0
+        for k, dim, key in (("dense_layers/0/mlp/w_gate", 1, ("d_ff", F)),
+                            ("mtp/mlp/w_up", 1, ("d_ff", F)),
+                            ("dense_layers/0/attn/w_uq", 1, ("heads", H)),
+                            ("mtp/attn/wo", 0, ("heads", H))):
+            g, (o, w) = grads[k], window[key]
+            outside += (torch.count_nonzero(g) - torch.count_nonzero(
+                g.narrow(dim, o, w))).item()
+        kept = extract({k: grads[k] for k in held}, axes, offsets, sizes)
+        return loss, outside, finite, {k: v.clone() for k, v in
+                                       kept.items()}
+
+    parts = _eval_parts(tag, [
+        ("deepseek-v3 server", lambda: batch_loss(model, params, batch)),
+        ("deepseek-v3 sub-model", lambda: batch_loss(model, params, batch,
+                                                     window)),
+        ("deepseek-v3 sub-model grad", window_grad)], _build)
+    blocks = cfg.n_layers + 1
+    mlps = cfg.n_dense_layers + 1
+    for name, want in (
+            ("deepseek-v3 server", {}),
+            ("deepseek-v3 sub-model", {"rolling_matmul": 3 * blocks,
+                                       "rolling_matmul_multi": mlps}),
+            ("deepseek-v3 sub-model grad", {
+                "rolling_matmul": 3 * blocks, "rolling_matmul_multi": mlps,
+                "rolling_matmul_dx": 3 * blocks,
+                "rolling_matmul_dx_multi": mlps})):
+        check(parts[name][1] == want, f"[{tag}] {name}: launches "
+              f"{parts[name][1]}, expected {want}")
+    metrics = parts["deepseek-v3 server"][0][1]
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"[{tag}] metrics {metrics}")
+    print(f"[{tag}] server metrics {metrics}")
+    res = parts["deepseek-v3 sub-model grad"][0]
+    check(res[1] == 0 and res[2], f"[{tag}] sub-model grad: {res[1]} "
+          f"nonzero grads outside the windows, finite {res[2]}")
+    sub = extract(params, axes, offsets, sizes)
+    plain = batch_loss(model, sub, batch)[0]
+    plain_grad, want = grad_pass(sub, None)
+    want = {k: want[k] for k in held}
+    for name, got, ref_loss in (
+            ("sub-model", parts["deepseek-v3 sub-model"][0][0], plain),
+            ("sub-model grad", res[0], plain_grad)):
+        rel = abs(got - ref_loss) / abs(ref_loss)
+        check(rel <= EVAL_RTOL, f"[{tag}] {name} {got} vs the compact "
+              f"sub-model's {ref_loss}: {rel:.3g}")
+        print(f"[{tag}] deepseek-v3 {name} loss vs the compact sub-model's "
+              f"(no kernel) {ref_loss:.6f}: relative difference {rel:.3g} "
+              f"(tolerance {EVAL_RTOL})")
+    for name in held:
+        e = err(res[3][name], want[name])
+        check(e[1] <= MM_RTOL, f"[{tag}] sub-model grad {name}: {e}")
+        print(f"[{tag}] deepseek-v3 sub-model grad {name} "
+              f"{list(want[name].shape)} vs the compact sub-model's: max abs "
+              f"err {e[0]:.3g} (rel {e[1]:.3g}, tolerance {MM_RTOL})")
+    res[3].clear()
+    del sub, want, res, small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tag = "mla serve"
+    prompts = torch.as_tensor(sample_prompts(cfg, MLA_SB, MLA_SS, seed=0)[0],
+                              dtype=torch.long).to(dev)
+    serve_generate(tag, model, params, prompts, MLA_SG, _build)
+    mo = cfg.moe
+    roomy = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.n_experts / mo.top_k)))
+    check_teacher_forced(tag, roomy, params, prompts, MLA_SS - MLA_TF)
+    _, _, launches = serve_continuous(tag, roomy, params, _build, n=MLA_REQS,
+                                      prompts=MLA_PROMPTS)
+    reqs, rec, _ = serve_continuous(tag, roomy, params, _build, record=True,
+                                    n=MLA_REQS, prompts=MLA_PROMPTS)
+    check(launches == {}, f"[{tag}] kernel launches {launches}")
+    check_single_requests(tag, roomy, params, reqs, rec)
+    del model, roomy, params, rec, batch, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {}
+    for _, launches in parts.values():
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_family_eval_serve(dev, _build, key, arch):
+    """``[{key} eval]`` and ``[{key} serve]`` on a whole model (random
+    weights from seed 0, f32): MusicGen-large (``audio``: 4 codebooks,
+    sinusoidal positions) or Phi-3-vision (``vlm``: 256 patches ahead of
+    the tokens).  Eval: ``Model.loss`` on 4 held-out sequences of 2048
+    positions (MusicGen: 2048 x 4 codebook tokens; Phi-3-vision: 256
+    patches + 1792 tokens) with and without ``REPRO_USE_FLASH`` (row 13 at
+    G = 1, head_dim 64 or 96), the two within EVAL_RTOL.  Serving:
+    ``serve.generate`` of FAM_SG greedy tokens after FAM_SB prompts of
+    FAM_SS positions, then prefill 480 positions + FAM_TF teacher-forced
+    decode steps against one prefill of 512.  Returns the eval's
+    launches."""
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.specs import sample_prompts
+    from repro_torch.models import build_model
+    tag = f"{key} eval"
+    cfg = zoo_config(arch)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    n = sum(v.numel() for v in params.values())
+    P = cfg.vision_patches if cfg.vision_stub else 0
+    vision = (P, cfg.vision_d) if P else None
+    batch = _batch_on(next(lm_batches(cfg.vocab, (EB,), ES - P, seed=999,
+                                      codebooks=cfg.n_codebooks,
+                                      vision=vision)), dev)
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers (whole), {n:,} params "
+          f"({4 * n / 1e9:.1f} GB f32); held-out "
+          f"{ {k: list(v.shape) for k, v in batch.items()} } (seed 999)")
+    parts = _eval_parts(tag, [
+        (f"{key} server, flash", lambda: batch_loss(model, params, batch,
+                                                    flash=True)),
+        (f"{key} server, blockwise", lambda: batch_loss(model, params,
+                                                        batch))], _build)
+    check(parts[f"{key} server, flash"][1] == {"flash_attention":
+                                               cfg.n_layers}
+          and parts[f"{key} server, blockwise"][1] == {},
+          f"[{tag}] launches {parts}")
+    _flash_agrees(tag, parts, f"{key} server, flash",
+                  f"{key} server, blockwise")
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tag = f"{key} serve"
+    prompts, extra = sample_prompts(cfg, FAM_SB, FAM_SS - P, seed=0)
+    prompts = torch.as_tensor(prompts, dtype=torch.long).to(dev)
+    if extra is not None:
+        extra = {k: torch.as_tensor(v).to(dev) for k, v in extra.items()}
+    serve_generate(tag, model, params, prompts, FAM_SG, _build, extra)
+    seq = prompts[:, :512 - P]
+    check_teacher_forced(tag, model, params, seq, seq.shape[1] - FAM_TF,
+                         extra)
+    del model, params, prompts, extra, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    return parts[f"{key} server, flash"][1]
 
 
 # -- phase 4e: the paper's protocol ---------------------------------------------
@@ -3669,11 +4042,29 @@ def phase_profile(tag, trainer, batch, round_s, ranges=()):
           f"{PEAK_BYTES / 1e12:.2f} TB/s): {t / b_ms:.3f}x")
 
 
+def _timed_phase(name, fn):
+    """``fn`` printing its host seconds and the script's elapsed time."""
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            t1 = time.perf_counter()
+            print(f"[time] {name}: {t1 - t0:.1f} s (at {t1 - T0:.1f} s)")
+    return run
+
+
+T0 = time.perf_counter()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's check needs the card",
               file=sys.stderr)
         return 2
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = _timed_phase(name, fn)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
@@ -3731,7 +4122,7 @@ def main():
     sr_launches, sx_launches = phase_slice_rounds(
         dev, _build, "ssm round", "mamba2_130m", SSM_SEQ)
     hr_launches, hx_launches = phase_slice_rounds(
-        dev, _build, "hybrid round", "hymba_1_5b", HYB_SEQ)
+        dev, _build, "hybrid round", "hymba_1_5b", HYB_SEQ, HYB_LAYERS)
     he_launches, hs_launches = phase_hybrid_serve(dev, _build)
     zoo = {}
     for tag, arch, layers, clients, n_fused, n_extract in ZOO_ROUNDS:
@@ -3740,6 +4131,16 @@ def main():
             dev, _build, tag, arch, layers, clients, n_fused, n_extract)
     ze_launches = phase_zoo_eval(dev, _build)
     qe_launches = phase_serve_continuous(dev, _build)
+    for tag, arch, layers, clients, n_fused, n_extract, over in NEW_ROUNDS:
+        key = tag.split()[0]
+        zoo[f"{key}_round"], zoo[f"{key}_extract"] = phase_zoo_round(
+            dev, _build, tag, arch, layers, clients, n_fused, n_extract,
+            over)
+    me_launches = phase_mla_eval_serve(dev, _build)
+    fam_eval = {f"{key}_eval": phase_family_eval_serve(dev, _build, key,
+                                                       arch)
+                for key, arch in (("audio", "musicgen_large"),
+                                  ("vlm", "phi_3_vision_4_2b"))}
     p_launches = phase_paper_path(dev, _build)
     phase_experiment_cli(dev)
     path = {"masked_sgd_inplace": m_launches, "fillin_agg_inplace": m_launches,
@@ -3774,7 +4175,7 @@ def main():
                                "hybrid_serve": hs_launches}
     more["flash_attention"] = {"hybrid_eval": he_launches,
                                "zoo_eval": ze_launches,
-                               "qwen3_eval": qe_launches}
+                               "qwen3_eval": qe_launches, **fam_eval}
     # this slice's zoo: the rounds (rows 5-8, 10; the extract rounds row 10
     # alone) and the evals (rows 1-4 and 13)
     for name in ("rolling_mm_fwd<1>", "rolling_mm_dx<1>",
@@ -3784,7 +4185,7 @@ def main():
     more["sgd_inplace"].update(zoo)
     for name in ("rolling_matmul", "rolling_matmul_multi",
                  "rolling_matmul_dx", "rolling_matmul_dx_multi"):
-        more[name] = {"zoo_eval": ze_launches}
+        more[name] = {"zoo_eval": ze_launches, "mla_eval": me_launches}
     for r in rows:
         r["launches"] = path.get(r["name"], launches).get(r["name"], 0)
         if r["name"] in more:

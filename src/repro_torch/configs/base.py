@@ -1,19 +1,17 @@
 """Model and sub-model configuration, the port's own copy.
 
-Ports ``MoEConfig``, ``SSMConfig``, ``ModelConfig`` (with ``n_params`` and
-``n_active_params``), ``SubmodelConfig``, ``list_archs``, ``_shrink``,
-``get_config`` and ``get_reduced_config`` of ``repro/configs/base.py``.
-Field names and defaults are the reference's, so one config means the same
-model in both packages.  The registry holds only the architectures the port
-can run; the family extensions it does not run yet (``mla``, ``mtp``,
-codebooks, the vision stub) keep their fields, and the model refuses them
-until they are ported.
+Ports ``MoEConfig``, ``SSMConfig``, ``MLAConfig``, ``ModelConfig`` (with
+``n_params`` and ``n_active_params``), ``SubmodelConfig``, ``list_archs``,
+``_shrink``, ``get_config`` and ``get_reduced_config`` of
+``repro/configs/base.py``.  Field names and defaults are the reference's,
+so one config means the same model in both packages, and the registry
+holds the reference's ten language-model architectures.
 """
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -38,6 +36,15 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    rope_head_dim: int = 64        # decoupled rope dims (shared k_rope)
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                    # dense | moe | ssm | hybrid | audio | vlm
@@ -55,16 +62,16 @@ class ModelConfig:
     sliding_window: int = 0        # 0 = full attention
     tie_embeddings: bool = False
     act: str = "silu"
-    moe: Optional[Any] = None
-    n_dense_layers: int = 0
-    ssm: Optional[Any] = None
-    mla: Optional[Any] = None
-    hybrid: bool = False
-    mtp: bool = False
-    n_codebooks: int = 0
-    vision_stub: bool = False
-    vision_d: int = 1024
-    vision_patches: int = 256
+    moe: Optional[MoEConfig] = None
+    n_dense_layers: int = 0        # leading dense layers before MoE layers
+    ssm: Optional[SSMConfig] = None
+    mla: Optional[MLAConfig] = None
+    hybrid: bool = False           # parallel attn + ssm heads per layer
+    mtp: bool = False              # multi-token-prediction block
+    n_codebooks: int = 0           # audio: codebook token streams
+    vision_stub: bool = False      # vlm: patch-embedding frontend
+    vision_d: int = 1024           # stub patch-embedding width
+    vision_patches: int = 256      # patches prepended in train/prefill
     source: str = ""               # citation
 
     def __post_init__(self):
@@ -151,8 +158,9 @@ class SubmodelConfig:
     shared_window: Optional[bool] = None
 
 
-ARCHS = ["tinyllama_1_1b", "mamba2_130m", "qwen3_14b", "deepseek_7b",
-         "mixtral_8x22b", "qwen3_32b", "hymba_1_5b"]
+ARCHS = ["deepseek_v3_671b", "tinyllama_1_1b", "mamba2_130m",
+         "musicgen_large", "qwen3_14b", "deepseek_7b", "mixtral_8x22b",
+         "qwen3_32b", "phi_3_vision_4_2b", "hymba_1_5b"]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}
 
@@ -160,9 +168,8 @@ _ALIAS = {a.replace("_", "-"): a for a in ARCHS}
 def _module(arch: str):
     arch = _ALIAS.get(arch, arch).replace("-", "_")
     if arch not in ARCHS:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (ROADMAP.md queue A, "
-            f"the rest of the model zoo); the port runs {ARCHS}")
+        raise ValueError(f"unknown architecture {arch!r}; the registry "
+                         f"holds {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 
@@ -180,8 +187,8 @@ def list_archs():
 
 
 def _shrink(cfg: ModelConfig, **over) -> ModelConfig:
-    """Generic reduction preserving the family structure (the reference's
-    rule for the dense, MoE and SSM families)."""
+    """Generic reduction preserving the family structure (the
+    reference's rule)."""
     base = dict(
         n_layers=2,
         d_model=min(cfg.d_model, 256),
@@ -201,5 +208,9 @@ def _shrink(cfg: ModelConfig, **over) -> ModelConfig:
     if cfg.ssm is not None:
         base["ssm"] = replace(cfg.ssm, d_state=min(cfg.ssm.d_state, 16),
                               head_dim=32, chunk=32)
+    if cfg.mla is not None:
+        base["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=64,
+                                rope_head_dim=16, nope_head_dim=32,
+                                v_head_dim=32)
     base.update(over)
     return replace(cfg, name=cfg.name + "-reduced", **base)

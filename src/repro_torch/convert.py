@@ -9,8 +9,11 @@ port keeps a flat ``{path: tensor}`` dict with one leaf per layer
 layer never makes autograd build a full-stack zero gradient.  The serving
 caches are stacked the same way in the reference (``{stack: {"k": [L, B,
 ...]}}``, ``Model.init_cache``) and flat per layer in the port
-(``layers/3/k``), so the same functions carry them.  Both directions copy
-values exactly.  Per-client trees (masks, client params) carry a leading
+(``layers/3/k``, MLA's ``dense_layers/0/c``), so the same functions carry
+them.  Leaves outside the stacks (the embedding, the heads, the MTP
+block's ``mtp/*``, the vision stub's ``vision_proj/*``) carry no layer
+axis and pass through as they are.  Both directions copy values
+exactly.  Per-client trees (masks, client params) carry a leading
 client axis before the stacked axis (the reference's ``layers/attn/wk``
 mask is ``[C, L, D, KV, hd]``); ``lead=1`` splits and re-stacks axis 1
 for them.

@@ -32,16 +32,30 @@ class BigramLM:
         return toks
 
 
-def lm_batches(vocab, batch_shape, seq, seed=0):
+def lm_batches(vocab, batch_shape, seq, seed=0, codebooks=0, vision=None):
     """Infinite iterator of ``{"tokens": int32 array}`` batches shaped
     ``batch_shape + (seq,)``; ``batch_shape`` is ``(K, C, mb)`` for a
-    federated round."""
+    federated round.  ``codebooks``: that many token streams stacked on a
+    trailing axis (``batch_shape + (seq, codebooks)``); ``vision = (P,
+    vision_d)``: a ``patches`` leaf of standard normals ``batch_shape +
+    (P, vision_d)`` float32 beside the tokens."""
     src = BigramLM(vocab, seed)
     rng = np.random.default_rng(seed + 1)
     flat = int(np.prod(batch_shape))
     while True:
-        toks = src.sample(rng, flat, seq).reshape(tuple(batch_shape) + (seq,))
-        yield {"tokens": toks}
+        if codebooks:
+            toks = np.stack([src.sample(rng, flat, seq)
+                             for _ in range(codebooks)], axis=-1)
+            toks = toks.reshape(tuple(batch_shape) + (seq, codebooks))
+        else:
+            toks = src.sample(rng, flat, seq).reshape(
+                tuple(batch_shape) + (seq,))
+        batch = {"tokens": toks}
+        if vision is not None:
+            P, vd = vision
+            batch["patches"] = rng.standard_normal(
+                tuple(batch_shape) + (P, vd)).astype(np.float32)
+        yield batch
 
 
 class SyntheticCIFAR:

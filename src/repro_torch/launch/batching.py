@@ -21,9 +21,10 @@ program for all ticks.  The cohort's prefill builds caches of its prompt
 width only (the reference pads them to ``max_len`` and then takes the
 same ``[0, width)``), which spares a second full-length cache on the card.
 
-Attention families only (dense, MoE): recurrent SSM state cannot be
-right-pad-masked without per-slot state swaps, so the SSM and hybrid
-families are refused; serve them with generation-level batching
+Attention families only (dense, MoE, MLA, whose compressed ``c`` and
+``kr`` caches merge as GQA's ``k`` and ``v`` do): recurrent SSM state
+cannot be right-pad-masked without per-slot state swaps, so the SSM and
+hybrid families are refused; serve them with generation-level batching
 (``launch/serve.py``).
 """
 from __future__ import annotations
@@ -124,10 +125,11 @@ class ContinuousBatcher:
     def _merge_cache(self, fresh, width, cohort_slots):
         """The cohort's rows of the fresh ``[B, width, ...]`` caches, placed
         at ``[pos, pos + width)`` of the timeline (dim 1 of each layer's
-        ``k`` and ``v``); the other slots' rows stay as they were."""
+        ``k`` and ``v``, or MLA's ``c`` and ``kr``); the other slots' rows
+        stay as they were."""
         sel = torch.tensor(cohort_slots, device=self.device)
         for path, new in fresh.items():
-            if path.rsplit("/", 1)[-1] in ("k", "v"):
+            if path.rsplit("/", 1)[-1] in ("k", "v", "c", "kr"):
                 old = self._cache[path]
                 old[sel, self._pos:self._pos + width] = \
                     new[sel, :width].to(old.dtype)

@@ -4,7 +4,9 @@
         --reduced --batch 4 --prompt-len 32 --gen 16 --device cpu
 
 Ports the batch engine of ``repro/launch/serve.py``: prefill the batch of
-prompts (``launch.specs.sample_prompts``), then decode greedily, one
+prompts (``launch.specs.sample_prompts``: codebook streams for the audio
+model, and the vision stub's patches ahead of the tokens), then decode
+greedily, one
 ``Model.decode_step`` per token, and print the prefill's time, the time per
 decoded token and two rows of the generations.  There is no ``jit``: the
 same prefill, argmax and decode loop run eagerly, timed to a
@@ -35,20 +37,25 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def generate(model, params, prompts, gen, return_logits=False):
+def generate(model, params, prompts, gen, return_logits=False, extra=None):
     """Greedy generation of ``gen`` tokens after ``prompts [B, S]`` (int, on
-    the params' device): one prefill, then ``gen`` decode steps, each fed
+    the params' device; ``[B, S, CB]`` for codebook models), behind the
+    vision stub's ``extra["patches"] [B, P, vision_d]`` if given: one
+    prefill, then ``gen`` decode steps at positions ``P + S + i``, each fed
     the argmax of the logits before it (the reference's loop).  Returns a
-    dict with ``tokens [B, gen]``, ``prefill_s`` and ``decode_s`` (host
-    seconds, each ending in a synchronize on the card) and, with
-    ``return_logits``, ``logits``: the ``gen + 1`` logits ``[B, V]`` of
-    the prefill and of every decode step."""
+    dict with ``tokens [B, gen]`` (``[B, gen, CB]``), ``prefill_s`` and
+    ``decode_s`` (host seconds, each ending in a synchronize on the card)
+    and, with ``return_logits``, ``logits``: the ``gen + 1`` logits ``[B,
+    (CB,) V]`` of the prefill and of every decode step."""
     device = prompts.device
-    B, S = prompts.shape
+    B, S = prompts.shape[:2]
+    P = (extra["patches"].shape[1] if extra is not None
+         and "patches" in extra else 0)
     with torch.no_grad():
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, prompts, max_len=S + gen)
+        logits, cache = model.prefill(params, prompts, extra,
+                                      max_len=P + S + gen)
         tok = torch.argmax(logits, -1)
         _sync(device)
         prefill_s = time.perf_counter() - t0
@@ -57,7 +64,7 @@ def generate(model, params, prompts, gen, return_logits=False):
         t0 = time.perf_counter()
         for i in range(gen):
             toks.append(tok)
-            logits, cache = model.decode_step(params, tok, cache, S + i)
+            logits, cache = model.decode_step(params, tok, cache, P + S + i)
             tok = torch.argmax(logits, -1)
             if return_logits:
                 kept.append(logits)
@@ -114,9 +121,12 @@ def main(argv=None):
     if args.engine == "continuous":
         return _serve_continuous(model, params, args)
     B, S, G = args.batch, args.prompt_len, args.gen
-    prompts, _ = sample_prompts(cfg, B, S, seed=args.seed)
+    prompts, extra = sample_prompts(cfg, B, S, seed=args.seed)
     prompts = torch.as_tensor(prompts, dtype=torch.long, device=device)
-    out = generate(model, params, prompts, G)
+    if extra is not None:
+        extra = {k: torch.as_tensor(v, device=device)
+                 for k, v in extra.items()}
+    out = generate(model, params, prompts, G, extra=extra)
     print(f"prefill: {out['prefill_s'] * 1e3:.1f} ms ({B}x{S} tokens, "
           f"{device.type})")
     print(f"decode : {out['decode_s'] / G * 1e3:.1f} ms/token ({G} steps, "

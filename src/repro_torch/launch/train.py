@@ -12,9 +12,11 @@ model (random weights from ``--seed``), the round (``api.fed_round``) and
 a ``FleetSimulator`` of ``--fleet`` clients with the latency flags),
 trains on the port's ``data.synthetic.lm_batches``
 (``--local-steps`` x ``--clients`` x ``--mb`` sequences of ``--seq``
-tokens a round), logs ``round N loss ...`` with the seconds per round
-every ``--log-every`` rounds, optionally saves a checkpoint in the
-reference's layout (``--ckpt``), and prints the reference's final JSON,
+tokens a round, with the codebook streams and the vision stub's patches
+of the architectures that take them), logs ``round N loss ...`` with the
+seconds per round every ``--log-every`` rounds, optionally saves a
+checkpoint in the reference's layout (``--ckpt``), and prints the
+reference's final JSON,
 ``{"first_loss": ..., "last_loss": ...}`` (the async run adds
 ``virtual_time``, ``rounds_per_vsec`` and ``mean_staleness``).  MoE
 layers take the ``dense`` path on reduced configs and ``dropping`` on
@@ -150,8 +152,10 @@ def main(argv=None):
                         fused_forward=args.fused_forward,
                         uplink_compression=args.uplink_compression,
                         device=device)
+    vision = (cfg.vision_patches, cfg.vision_d) if cfg.vision_stub else None
     it = lm_batches(cfg.vocab, (args.local_steps, args.clients, args.mb),
-                    args.seq, seed=args.seed)
+                    args.seq, seed=args.seed, codebooks=cfg.n_codebooks,
+                    vision=vision)
     t0 = time.time()
 
     def log(s):

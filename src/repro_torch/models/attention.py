@@ -1,9 +1,13 @@
-"""GQA attention: training, prefill and decode.
+"""Attention: GQA and MLA, each in training, prefill and decode.
 
 Ports ``attn_params`` (with the ``qk_norm`` leaves), ``_qkv``,
 ``blockwise_attention``, ``gqa_train``, ``gqa_prefill``, ``gqa_decode``
-(without context parallelism) and ``decode_attention`` of
-``repro/models/attention.py``.
+(without context parallelism), ``decode_attention``, and the MLA module
+(``mla_params``, ``_mla_q``, ``_mla_ckv``, ``mla_train``, ``mla_prefill``,
+``mla_decode``) of ``repro/models/attention.py``.  MLA trains and
+prefills on the decompressed path (per-head keys and values through
+blockwise attention, which has no flash branch in the reference either)
+and decodes on the absorbed one (attention over the compressed cache).
 ``blockwise_attention`` is plain jnp in the reference, so it is plain torch
 here: the same online softmax over kv chunks, with the same chunk bounds
 for causal and sliding-window masks.  Under ``REPRO_USE_FLASH`` training
@@ -18,6 +22,7 @@ import math
 import os
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (ParamBuilder, apply_rope, head_proj,
@@ -105,8 +110,9 @@ def _qkv(p, x, cfg, positions, window=None):
         # per-head RMS norm over head_dim (Qwen3), before the rotation
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -212,3 +218,139 @@ def gqa_decode(p, x, cfg, cache, pos, valid_override=None, rope_pos=None):
     out = torch.bmm(out.reshape(C, B, H * hd).to(x.dtype),
                     wo.reshape(C, H * hd, wo.shape[-1]))
     return out[:, :, None], {"k": kc, "v": vc}
+
+
+# ---------------------------------------------------------------------------
+# MLA
+# ---------------------------------------------------------------------------
+
+
+def mla_params(b: ParamBuilder, prefix, cfg):
+    m, D, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qh = m.nope_head_dim + m.rope_head_dim
+    b.dense(f"{prefix}/w_dq", (D, m.q_lora_rank), ("d_model", "mla_q_rank"))
+    b.const(f"{prefix}/q_norm", (m.q_lora_rank,), ("mla_q_rank",), 1.0)
+    b.dense(f"{prefix}/w_uq", (m.q_lora_rank, H, qh),
+            ("mla_q_rank", "heads", "head_dim"))
+    b.dense(f"{prefix}/w_dkv", (D, m.kv_lora_rank),
+            ("d_model", "mla_kv_rank"))
+    b.const(f"{prefix}/kv_norm", (m.kv_lora_rank,), ("mla_kv_rank",), 1.0)
+    b.dense(f"{prefix}/w_kr", (D, m.rope_head_dim), ("d_model", "rope_dim"))
+    b.dense(f"{prefix}/w_uk", (m.kv_lora_rank, H, m.nope_head_dim),
+            ("mla_kv_rank", "heads", "head_dim"))
+    b.dense(f"{prefix}/w_uv", (m.kv_lora_rank, H, m.v_head_dim),
+            ("mla_kv_rank", "heads", "v_head_dim"))
+    b.dense(f"{prefix}/wo", (H, m.v_head_dim, D),
+            ("heads", "v_head_dim", "d_model"),
+            scale=0.02 / math.sqrt(2 * max(cfg.n_layers, 1)))
+
+
+def _lin(x, w):
+    """``x [C, *lead, K] @ w [C, K, N]`` -> ``[C, *lead, N]``."""
+    C, K = x.shape[0], x.shape[-1]
+    y = torch.bmm(x.reshape(C, -1, K), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _mla_q(p, x, cfg, positions, hspec=None):
+    """The queries: ``w_dq``, the RMS ``q_norm``, the per-head up-projection
+    ``w_uq`` (windowed by ``hspec``), split into the no-rope part and the
+    rope part, RoPE on the latter."""
+    m = cfg.mla
+    cq = rms_norm(_lin(x, p["w_dq"]), p["q_norm"], cfg.norm_eps)
+    q = head_proj(cq, p["w_uq"], hspec)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(p, x, cfg, positions):
+    """The compressed kv ``c [C, *lead, r]`` (RMS ``kv_norm``) and the
+    shared rope key ``kr [C, *lead, rd]``."""
+    c = rms_norm(_lin(x, p["w_dkv"]), p["kv_norm"], cfg.norm_eps)
+    kr = apply_rope(_lin(x, p["w_kr"])[..., None, :], positions,
+                    cfg.rope_theta)[..., 0, :]
+    return c, kr
+
+
+def _mla_attend(p, x, cfg, positions, hspec):
+    """The decompressed path on ``x [C, B, S, D]``; returns the output and
+    the compressed ``c``, ``kr`` it attended over."""
+    m = cfg.mla
+    C, B, S, D = x.shape
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, hspec)
+    c, kr = _mla_ckv(p, x, cfg, positions)
+    k_nope = head_proj(c, p["w_uk"], hspec)
+    v = head_proj(c, p["w_uv"], hspec)
+    k_rope = kr[..., None, :].expand(*k_nope.shape[:-1], m.rope_head_dim)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope], -1)
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    # v padded to k's head_dim so that the two share hd, then sliced back
+    vp = F.pad(v, (0, k.shape[-1] - v.shape[-1]))
+    fold = (lambda t: t.reshape(C * B, S, t.shape[-2], t.shape[-1]))
+    out = blockwise_attention(fold(q), fold(k), fold(vp), causal=True,
+                              softmax_scale=scale)[..., :m.v_head_dim]
+    wo = p["wo"]
+    if hspec is not None:
+        # the contraction runs over the active heads only
+        wo = hspec.take(wo)
+    Hw = wo.shape[1]
+    out = torch.bmm(out.reshape(C, B * S, Hw * m.v_head_dim),
+                    wo.reshape(C, Hw * m.v_head_dim, D))
+    return out.reshape(C, B, S, D), c, kr
+
+
+def mla_train(p, x, cfg, positions, window=None):
+    """The decompressed path: per-head ``k_nope`` and ``v`` come from the
+    compressed ``c`` through ``w_uk``/``w_uv``, the one rope key is shared
+    by every head, and blockwise attention runs at ``softmax_scale = 1 /
+    sqrt(nope + rope)``.  ``window`` (a ``WindowMap`` or None) applies a
+    *standalone* ``heads`` window: every head draws its k/v from the shared
+    ``c``, so there is no kv grouping to couple to, and the per-head
+    up-projections (``w_uq``/``w_uk``/``w_uv``) are windowed on their own
+    through :func:`head_proj`, ``wo`` contracting over the active heads
+    only.  The low-rank down-projections, the norms and the rope key stay
+    full (they carry no ``heads`` axis)."""
+    hspec = window.get("heads", p["wo"].shape[1]) if window else None
+    return _mla_attend(p, x, cfg, positions, hspec)[0]
+
+
+def mla_prefill(p, x, cfg, positions):
+    """The prompt through the decompressed path; the cache is the
+    compressed ``{"c": [C, B, S, r], "kr": [C, B, S, rd]}``."""
+    out, c, kr = _mla_attend(p, x, cfg, positions, None)
+    return out, {"c": c, "kr": kr}
+
+
+def mla_decode(p, x, cfg, cache, pos, valid_override=None, rope_pos=None):
+    """The absorbed path on ``x [C, B, 1, D]``: ``W_uk`` is folded into the
+    query (``q_c [B, H, r]``), which attends over the compressed cache
+    (keys ``[c, kr]`` and values ``c``, one kv head shared by every head);
+    then ``W_uv`` and ``wo``.  The token's ``c`` and ``kr`` are written at
+    slot ``pos``.  ``valid_override [B, S]`` and ``rope_pos [B]`` as in
+    :func:`gqa_decode`.  Returns ``(out [C, B, 1, D], new cache)``; the
+    cache passed in is not changed."""
+    m = cfg.mla
+    C, B = x.shape[:2]
+    pos = int(pos)
+    positions = (rope_pos[:, None] if rope_pos is not None else
+                 torch.full((B, 1), pos, device=x.device))
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)       # [C, B, 1, H, .]
+    c_t, kr_t = _mla_ckv(p, x, cfg, positions)          # [C, B, 1, .]
+    cc, krc = cache["c"].clone(), cache["kr"].clone()
+    cc[:, :, pos] = c_t[:, :, 0]
+    krc[:, :, pos] = kr_t[:, :, 0]
+    q_c = torch.einsum("cbhe,crhe->cbhr", q_nope[:, :, 0], p["w_uk"])
+    q_cat = torch.cat([q_c, q_rope[:, :, 0]], -1)       # [C, B, H, r + rd]
+    k_cat = torch.cat([cc, krc], -1)                    # [C, B, S, r + rd]
+    S, H, r = cc.shape[2], q_cat.shape[2], cc.shape[-1]
+    valid = (valid_override if valid_override is not None else
+             (torch.arange(S, device=x.device) <= pos).expand(B, S))
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    ctx = decode_attention(q_cat.reshape(C * B, H, -1),
+                           k_cat.reshape(C * B, S, 1, -1),
+                           cc.reshape(C * B, S, 1, r), valid.repeat(C, 1),
+                           softmax_scale=scale).reshape(C, B, H, r)
+    out = torch.einsum("cbhr,crhe->cbhe", ctx.to(x.dtype), p["w_uv"])
+    out = torch.einsum("cbhe,ched->cbd", out, p["wo"])
+    return out[:, :, None], {"c": cc, "kr": krc}

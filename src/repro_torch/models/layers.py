@@ -4,8 +4,9 @@ Ports ``repro/models/layers.py``: ``AxisWindow``, ``WindowMap``,
 ``ParamBuilder`` (its fan-in rule covers the SSM's 3-D leaves: the product
 of every axis but the last, ``heads``/``kv_heads`` left out), ``rms_norm``
 (``rms_norm_plain`` without the client dimension), ``apply_rope``,
-``act_fn``, ``mlp_apply``, ``mlp_apply_rolling``, ``head_proj`` and
-``softmax_xent``.
+``sinusoidal_positions``, ``act_fn`` (``gelu`` is the tanh form, the
+default of ``jax.nn.gelu``), ``mlp_apply``, ``mlp_apply_rolling``,
+``head_proj`` and ``softmax_xent``.
 
 Params are a flat ``{path: tensor}`` dict with a parallel ``{path: axis
 tags}`` dict; paths are the reference's ``tree_paths`` with the stacked
@@ -106,9 +107,9 @@ class WindowMap:
         self.windows = {}
         for (name, size), spec in windows.items():
             if name not in self.SUPPORTED:
-                raise NotImplementedError(
-                    f"axis {name!r} has no window-aware forward in the port "
-                    f"yet; it supports {self.SUPPORTED}")
+                raise ValueError(
+                    f"axis {name!r} has no window-aware forward; fused "
+                    f"windows support {self.SUPPORTED}")
             self.windows[(name, int(size))] = spec
 
     def get(self, name: str, size) -> Optional[AxisWindow]:
@@ -180,8 +181,15 @@ def rms_norm(x, w, eps=1e-5):
     return rms_norm_plain(x, _per_client(w, x), eps)
 
 
+def gelu(x):
+    """The tanh form of GELU, as ``jax.nn.gelu`` computes it by default
+    (``approximate=True``); ``F.gelu``'s default is the exact erf form,
+    up to 4e-4 away on ``[-4, 4]``."""
+    return F.gelu(x, approximate="tanh")
+
+
 def act_fn(name):
-    return {"silu": F.silu, "gelu": F.gelu, "relu": F.relu}[name]
+    return {"silu": F.silu, "gelu": gelu, "relu": F.relu}[name]
 
 
 def apply_rope(x, positions, theta):
@@ -196,6 +204,17 @@ def apply_rope(x, positions, theta):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions, d_model):
+    """``[..., S]`` int -> ``[..., S, D]`` float32: ``sin`` over the first
+    half of the width, ``cos`` over the second."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

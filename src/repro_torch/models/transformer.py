@@ -1,40 +1,50 @@
-"""Model assembly for the dense GQA family (with ``qk_norm``), the MoE
-family, the SSM family and the hybrid block.
+"""Model assembly for the whole zoo: the dense GQA family (with
+``qk_norm``), MLA with leading dense layers and the MTP block, the MoE
+family, the SSM family, the hybrid block, codebook streams with
+sinusoidal positions (audio) and the vision stub (VLM).
 
-Ports ``build_params``, ``block_apply``, ``Model.forward``, ``Model.loss``
-(with ``window=``), ``Model.prefill``, ``Model._pad_caches``,
-``Model.decode_step``, ``Model.init_cache`` and ``build_model`` of
-``repro/models/transformer.py``.  The reference scans each stacked layer
-axis (``_layer_kind``: ``layers``, ``moe_layers`` for the MoE family, or
-``ssm_layers`` for the SSM family) under ``remat``; here the layers are
+Ports ``build_params``, ``_attn_any``, ``block_apply``, ``Model._embed``,
+``Model._head``, ``Model.forward``, ``Model.loss`` (with ``window=``, and
+the MTP term), ``Model.prefill``, ``Model._pad_caches``,
+``Model.decode_step`` (with ``_embed_decode``), ``Model.init_cache`` and
+``build_model`` of ``repro/models/transformer.py``.  The reference scans
+each stacked layer axis (``_layer_kind``: ``layers``, ``dense_layers``
+then ``moe_layers`` when an MoE model leads with dense layers,
+``moe_layers``, or ``ssm_layers``) under ``remat``; here the layers are
 separate leaves and a plain Python loop runs them.  An MoE layer's
 load-balance loss is summed over the layers into the loss, as the
 reference's scan carries it; ``Model.moe_path`` picks the MoE path
 (``dropping`` or ``dense``, ``models/moe.py``).  The hybrid block
 (``hymba_1_5b``) runs the attention and the SSM branch on the same input
 and joins them as ``0.5 * (rms_norm(a, fuse_a) + rms_norm(s, fuse_s))``
-before the MLP.
+before the MLP.  The MTP block (``mtp/*``, no layer axis) is one dense
+layer on the final hidden state whose head predicts the token after next:
+``loss`` adds ``0.3 * mtp_loss``.
 
 :meth:`Model.forward` and :meth:`Model.loss` take two forms, told apart by
-the tokens' rank:
+the tokens' rank less one for the codebook axis (``tokens.dim() -
+bool(cfg.n_codebooks)``: codebook tokens carry a trailing ``[CB]``):
 
 - one model, the reference's signature: params without a client
-  dimension, tokens ``[B, S]``; ``loss`` returns ``(scalar, metrics)``.
-  It runs as C = 1 views, and its ``window=`` (scalar offsets) counts
-  its window products as the reference's scalar-offset kernels.  Its SSM
-  mixers run the SSD chunk kernel (TPU row 12), which has no backward:
-  one model's SSM loss evaluates, it does not train;
+  dimension, tokens ``[B, S]`` (``[B, S, CB]``); ``loss`` returns
+  ``(scalar, metrics)``.  It runs as C = 1 views, and its ``window=``
+  (scalar offsets) counts its window products as the reference's
+  scalar-offset kernels.  Its SSM mixers run the SSD chunk kernel (TPU
+  row 12), which has no backward: one model's SSM loss evaluates, it does
+  not train;
 - C clients, the round's form: every leaf carries a leading client
-  dimension ``[C, ...]``, tokens are ``[C, B, S]``, and ``loss`` returns
-  one loss per client.  Its SSM mixers run the differentiable
+  dimension ``[C, ...]``, tokens are ``[C, B, S]`` (``[C, B, S, CB]``),
+  patches ``[C, B, P, vision_d]``, and ``loss`` returns one loss per
+  client.  Its SSM mixers run the differentiable
   ``models.ssm.ssd_chunked``, so every family trains.
 
 Serving (``prefill``, ``decode_step``, ``init_cache``) is one model's, in
 the reference's signatures.  Caches are a flat ``{path: tensor}`` dict with
-one leaf per layer (``layers/3/k`` ``[B, Sc, KV, hd]``, ``ssm_layers/3/h``
-``[B, nh, hd, N]``; a hybrid layer holds ``k``, ``v``, ``h`` and the conv
-tails), which ``repro_torch.convert`` carries to and from the reference's
-stacked ``{stack: {name: [L, B, ...]}}``.
+one leaf per layer (``layers/3/k`` ``[B, Sc, KV, hd]``, an MLA layer's
+compressed ``dense_layers/0/c`` ``[B, S, r]`` and ``kr`` ``[B, S, rd]``,
+``ssm_layers/3/h`` ``[B, nh, hd, N]``; a hybrid layer holds ``k``, ``v``,
+``h`` and the conv tails), which ``repro_torch.convert`` carries to and
+from the reference's stacked ``{stack: {name: [L, B, ...]}}``.
 
 :meth:`Model.init` makes one (server) model without the client dimension.
 """
@@ -50,69 +60,107 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (attn_params, gqa_decode,
-                                          gqa_prefill, gqa_train)
+                                          gqa_prefill, gqa_train, mla_decode,
+                                          mla_params, mla_prefill, mla_train)
 from repro_torch.models.layers import (AxisWindow, ParamBuilder, WindowMap,
-                                       mlp_apply, mlp_apply_rolling,
-                                       mlp_params, rms_norm, softmax_xent)
+                                       gelu, mlp_apply, mlp_apply_rolling,
+                                       mlp_params, rms_norm,
+                                       sinusoidal_positions, softmax_xent)
 from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.models.ssm import n_heads, ssm_decode, ssm_params, ssm_train
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+
 
 def _check_supported(cfg: ModelConfig):
+    """Refuse a config whose family label and family fields disagree (an
+    MoE config without ``moe``, an SSM one without ``ssm``, ...), or a
+    family the reference does not have."""
     ssm = cfg.family == "ssm"
     hybrid = cfg.family == "hybrid"
     extras = {"moe": (cfg.moe is not None) != (cfg.family == "moe"),
               "ssm": cfg.ssm is not None and not (ssm or hybrid),
               "no ssm": cfg.ssm is None and (ssm or hybrid),
-              "mla": cfg.mla is not None, "hybrid": cfg.hybrid != hybrid,
-              "mtp": cfg.mtp, "codebooks": bool(cfg.n_codebooks),
-              "vision": cfg.vision_stub,
-              "leading dense layers": bool(cfg.moe and cfg.n_dense_layers),
-              f"{cfg.pos_embed} positions":
-                  cfg.pos_embed != ("none" if ssm else "rope")}
-    missing = [k for k, v in extras.items() if v]
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or missing:
+              "hybrid": cfg.hybrid != hybrid}
+    bad = [k for k, v in extras.items() if v]
+    if cfg.family not in FAMILIES or bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense GQA family with rope "
-            f"(and qk_norm), the MoE family, the attention-free SSM family "
-            f"and the hybrid block; {missing or cfg.family} is not ported "
-            "yet (ROADMAP.md queue A, the rest of the model zoo: MLA and "
-            "MTP, audio, VLM)")
+            f"{cfg.name}: family {cfg.family!r} with {bad or 'its fields'} "
+            f"is not a configuration of the model zoo; the port runs the "
+            f"families {FAMILIES} as the reference's configs define them")
 
 
 def _layer_kind(cfg: ModelConfig) -> Tuple[str, ...]:
-    """Stack names in execution order (the MoE family's leading
-    ``dense_layers`` come with MLA, and are refused until then)."""
+    """Stack names in execution order."""
     if cfg.family == "ssm":
         return ("ssm_layers",)
-    return ("moe_layers",) if cfg.moe is not None else ("layers",)
+    if cfg.moe is not None and cfg.n_dense_layers:
+        return ("dense_layers", "moe_layers")
+    if cfg.moe is not None:
+        return ("moe_layers",)
+    return ("layers",)
+
+
+def _stack_layers(cfg: ModelConfig, stack: str) -> int:
+    """The number of layers in ``stack``: the leading dense layers, then
+    the rest as MoE layers."""
+    if stack == "dense_layers":
+        return cfg.n_dense_layers
+    if stack == "moe_layers":
+        return cfg.n_layers - cfg.n_dense_layers
+    return cfg.n_layers
+
+
+def _block_params(b: ParamBuilder, pre: str, cfg: ModelConfig, moe: bool):
+    D = cfg.d_model
+    b.const(f"{pre}/ln1", (D,), ("d_model",), 1.0)
+    if cfg.family == "ssm":
+        ssm_params(b, f"{pre}/ssm", cfg)
+        return
+    if cfg.mla is not None:
+        mla_params(b, f"{pre}/attn", cfg)
+    else:
+        attn_params(b, f"{pre}/attn", cfg)
+    if cfg.hybrid:
+        ssm_params(b, f"{pre}/ssm", cfg)
+        b.const(f"{pre}/fuse_a", (D,), ("d_model",), 1.0)
+        b.const(f"{pre}/fuse_s", (D,), ("d_model",), 1.0)
+    b.const(f"{pre}/ln2", (D,), ("d_model",), 1.0)
+    if moe:
+        moe_params(b, f"{pre}/moe", cfg)
+    else:
+        mlp_params(b, f"{pre}/mlp", D, cfg.d_ff)
 
 
 def build_params(cfg: ModelConfig, seed=0, device="cuda"
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, tuple]]:
     b = ParamBuilder(seed, device)
     D, V = cfg.d_model, cfg.vocab
-    b.dense("embed", (V, D), ("vocab", "d_model"), scale=0.02)
-    if not cfg.tie_embeddings:
-        b.dense("head", (D, V), ("d_model", "vocab"))
+    if cfg.n_codebooks:
+        CB = cfg.n_codebooks
+        b.dense("embed", (CB, V, D), ("codebooks", "vocab", "d_model"),
+                scale=0.02)
+        b.dense("head", (CB, D, V), ("codebooks", "d_model", "vocab"))
+    else:
+        b.dense("embed", (V, D), ("vocab", "d_model"), scale=0.02)
+        if not cfg.tie_embeddings:
+            b.dense("head", (D, V), ("d_model", "vocab"))
+    if cfg.vision_stub:
+        b.dense("vision_proj/w1", (cfg.vision_d, D), ("vision_d", "d_model"))
+        b.dense("vision_proj/w2", (D, D), ("d_model", "d_model"))
     for stack in _layer_kind(cfg):
-        for i in range(cfg.n_layers):
-            pre = f"{stack}/{i}"
-            b.const(f"{pre}/ln1", (D,), ("d_model",), 1.0)
-            if cfg.family == "ssm":
-                ssm_params(b, f"{pre}/ssm", cfg)
-                continue
-            attn_params(b, f"{pre}/attn", cfg)
-            if cfg.hybrid:
-                ssm_params(b, f"{pre}/ssm", cfg)
-                b.const(f"{pre}/fuse_a", (D,), ("d_model",), 1.0)
-                b.const(f"{pre}/fuse_s", (D,), ("d_model",), 1.0)
-            b.const(f"{pre}/ln2", (D,), ("d_model",), 1.0)
-            if stack == "moe_layers":
-                moe_params(b, f"{pre}/moe", cfg)
-            else:
-                mlp_params(b, f"{pre}/mlp", D, cfg.d_ff)
+        for i in range(_stack_layers(cfg, stack)):
+            _block_params(b, f"{stack}/{i}", cfg, stack == "moe_layers")
     b.const("final_norm", (D,), ("d_model",), 1.0)
+    if cfg.mtp:
+        b.const("mtp/ln1", (D,), ("d_model",), 1.0)
+        if cfg.mla is None:
+            attn_params(b, "mtp/attn", cfg)
+        else:
+            mla_params(b, "mtp/attn", cfg)
+        b.const("mtp/ln2", (D,), ("d_model",), 1.0)
+        mlp_params(b, "mtp/mlp", D, cfg.d_ff)
+        b.const("mtp/final", (D,), ("d_model",), 1.0)
     return b.params, b.axes
 
 
@@ -152,6 +200,35 @@ def _ssm_block(p, x, cfg, mode, cache, pos, window, one):
     return out[None], {k: v[None] for k, v in c.items()}
 
 
+def _attn_any(p, x, cfg, positions, mode, cache, pos, valid, rope_pos,
+              window):
+    """The layer's attention (MLA or GQA) in ``mode``; returns ``(out,
+    cache)``, the cache empty in ``train`` mode."""
+    if cfg.mla is not None:
+        if window is not None and \
+                window.get("kv_heads", cfg.n_kv_heads) is not None:
+            # every head shares the compressed kv: refuse rather than
+            # silently ignore the window
+            raise ValueError(
+                "MLA attention has no kv_heads axis to window; window the "
+                "standalone heads axis instead (windowed per-head "
+                "up-projections)")
+        if mode == "train":
+            return mla_train(p, x, cfg, positions, window=window), {}
+        if mode == "prefill":
+            return mla_prefill(p, x, cfg, positions)
+        return mla_decode(p, x, cfg, cache, pos, valid_override=valid,
+                          rope_pos=rope_pos)
+    if mode == "train":
+        return gqa_train(p, x, cfg, positions, window=window), {}
+    if mode == "prefill":
+        S = x.shape[2]
+        clen = min(S, cfg.sliding_window) if cfg.sliding_window else S
+        return gqa_prefill(p, x, cfg, positions, clen)
+    return gqa_decode(p, x, cfg, cache, pos, valid_override=valid,
+                      rope_pos=rope_pos)
+
+
 def block_apply(p, h, cfg, positions, window=None, mode="train", cache=None,
                 pos=None, valid=None, rope_pos=None, one=False,
                 moe_path="dropping"):
@@ -163,22 +240,15 @@ def block_apply(p, h, cfg, positions, window=None, mode="train", cache=None,
     MLP, MoE experts and SSM mixer alike); ``mode`` is ``train``,
     ``prefill`` or ``decode`` (one token against ``cache``, at position
     ``pos``); ``one`` marks one model's form (its SSM mixers run the SSD
-    chunk kernel)."""
+    chunk kernel).  A layer with ``moe/*`` leaves runs the MoE, one with
+    ``mlp/*`` leaves (a dense layer, the MTP block) the gated MLP."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         out, c = _ssm_block(_sub(p, "ssm"), x, cfg, mode, cache, pos, window,
                             one)
         return h + out, None, c
-    attn = _sub(p, "attn")
-    if mode == "train":
-        a, c = gqa_train(attn, x, cfg, positions, window=window), {}
-    elif mode == "prefill":
-        S = x.shape[2]
-        clen = min(S, cfg.sliding_window) if cfg.sliding_window else S
-        a, c = gqa_prefill(attn, x, cfg, positions, clen)
-    else:
-        a, c = gqa_decode(attn, x, cfg, cache, pos, valid_override=valid,
-                          rope_pos=rope_pos)
+    a, c = _attn_any(_sub(p, "attn"), x, cfg, positions, mode, cache, pos,
+                     valid, rope_pos, window)
     if cfg.hybrid:
         s, sc = _ssm_block(_sub(p, "ssm"), x, cfg, mode, cache, pos, window,
                            one)
@@ -198,6 +268,13 @@ def block_apply(p, h, cfg, positions, window=None, mode="train", cache=None,
     else:
         out = mlp_apply(mlp, x2, cfg.act)
     return h + out, None, c
+
+
+#: the attention caches and the positions each pads to: a GQA layer's ring
+#: (``k``, ``v``) to at most the sliding window, MLA's compressed ``c`` and
+#: ``kr`` to the full length
+KV_CACHE = ("k", "v")
+MLA_CACHE = ("c", "kr")
 
 
 @dataclass
@@ -223,13 +300,18 @@ class Model:
     def axes(self) -> Dict[str, tuple]:
         return build_params(self.cfg, 0, "meta")[1]
 
+    def _is_one(self, tokens) -> bool:
+        """Whether ``tokens`` are one model's (``[B, S]``, or ``[B, S, CB]``
+        with codebooks) rather than C clients'."""
+        return tokens.dim() - bool(self.cfg.n_codebooks) == 2
+
     def _one_model(self, params, window):
         """One model's params and window as the C = 1 form takes them:
         ``unsqueeze(0)`` views, and scalar :class:`AxisWindow` s.
         ``window`` is a :class:`WindowMap`, a ``{(axis, size): (offset,
         win) | AxisWindow}`` dict, or an ``(offset, win)`` pair meaning a
         bare ``d_ff`` window (the reference's ``_norm_window`` forms)."""
-        if params["embed"].dim() != 2:
+        if params["embed"].dim() != 2 + bool(self.cfg.n_codebooks):
             raise ValueError("tokens [B, S] are one model's; its params "
                              "carry no client dimension")
         params = {k: v.unsqueeze(0) for k, v in params.items()}
@@ -249,36 +331,75 @@ class Model:
             specs[key] = AxisWindow(int(np.reshape(offset, -1)[0]), win)
         return params, WindowMap(specs)
 
-    def forward(self, params, tokens, window=None):
-        """tokens ``[B, S]`` (one model) or ``[C, B, S]`` (C clients) int;
-        ``window`` routes every windowed product through the fused
-        sub-model forward.  Returns logits ``[(C,) B, S, V]`` and the final
-        hidden state."""
-        if tokens.dim() == 2:
+    def _patches(self, extra, one):
+        """The vision stub's ``patches`` of ``extra`` (a batch or the
+        prefill's inputs) in the clients' form, or None (no stub, or no
+        patches given)."""
+        if not self.cfg.vision_stub or extra is None or "patches" not in extra:
+            return None
+        return extra["patches"][None] if one else extra["patches"]
+
+    def forward(self, params, tokens, extra=None, window=None):
+        """tokens ``[B, S]`` (one model) or ``[C, B, S]`` (C clients) int,
+        with a trailing ``[CB]`` for codebooks; ``extra`` may carry the
+        vision stub's ``patches``; ``window`` routes every windowed product
+        through the fused sub-model forward.  Returns logits ``[(C,) B, P +
+        S, (CB,) V]`` and the final hidden state."""
+        if self._is_one(tokens):
             params, window = self._one_model(params, window)
-            logits, _, h = self._forward(params, tokens[None], window,
+            logits, _, h = self._forward(params, tokens[None],
+                                         self._patches(extra, True), window,
                                          one=True)
             return logits[0], h[0]
-        logits, _, h = self._forward(params, tokens, window)
+        logits, _, h = self._forward(params, tokens,
+                                     self._patches(extra, False), window)
         return logits, h
 
     def _prefixes(self):
         return [f"{stack}/{i}" for stack in _layer_kind(self.cfg)
-                for i in range(self.cfg.n_layers)]
+                for i in range(_stack_layers(self.cfg, stack))]
 
-    def _embed(self, params, tokens):
-        """tokens ``[C, B, S]`` -> ``[C, B, S, D]``, each client's rows."""
+    def _embed(self, params, tokens, patches=None, pos=None):
+        """tokens ``[C, B, S]`` (``[C, B, S, CB]``: the codebooks' rows
+        summed) -> ``[C, B, S, D]``, each client's rows; sinusoidal
+        positions added at ``0..S-1`` (at ``pos`` for a decode step); the
+        projected ``patches [C, B, P, vision_d]`` prepended."""
+        cfg = self.cfg
         C = tokens.shape[0]
-        emb = params["embed"]                                 # [C, V, D]
-        V = emb.shape[1]
-        rows = tokens + (torch.arange(C, device=tokens.device) * V
-                         ).view(C, 1, 1)
-        return F.embedding(rows, emb.reshape(C * V, emb.shape[2]))
+        emb = params["embed"]                     # [C, (CB,) V, D]
+        V, D = emb.shape[-2], emb.shape[-1]
+        table = emb.reshape(-1, D)
+        base = torch.arange(C, device=tokens.device).view(C, 1, 1)
+        if cfg.n_codebooks:
+            CB = cfg.n_codebooks
+            h = 0.0
+            for cb in range(CB):
+                h = h + F.embedding(tokens[..., cb] + (base * CB + cb) * V,
+                                    table)
+        else:
+            h = F.embedding(tokens + base * V, table)
+        if cfg.pos_embed == "sinusoidal":
+            S = tokens.shape[2]
+            at = (torch.arange(S, device=tokens.device) if pos is None else
+                  torch.full((S,), int(pos), device=tokens.device))
+            h = h + sinusoidal_positions(at, D).to(h.dtype)
+        if patches is not None:
+            w1, w2 = params["vision_proj/w1"], params["vision_proj/w2"]
+            vp = torch.bmm(gelu(torch.bmm(
+                patches.reshape(C, -1, patches.shape[-1]), w1)), w2)
+            h = torch.cat([vp.reshape(C, patches.shape[1], -1, D)
+                           .to(h.dtype), h], dim=2)
+        return h
 
     def _head(self, params, h):
         """``h [C, B, S, D]`` -> logits ``[C, B, S, V]`` (the tied head
-        multiplies by the embedding's transpose)."""
+        multiplies by the embedding's transpose; codebooks give ``[C, B,
+        S, CB, V]``, a head each)."""
         C, B, S, D = h.shape
+        if self.cfg.n_codebooks:
+            logits = torch.matmul(h.reshape(C, 1, B * S, D), params["head"])
+            return logits.permute(0, 2, 1, 3).reshape(
+                C, B, S, self.cfg.n_codebooks, -1)
         w = (params["embed"].transpose(1, 2) if self.cfg.tie_embeddings
              else params["head"])
         return torch.bmm(h.reshape(C, B * S, D), w).reshape(C, B, S, -1)
@@ -303,50 +424,71 @@ class Model:
             new.update({f"{pre}/{k}": v for k, v in c.items()})
         return h, aux_total, new
 
-    def _forward(self, params, tokens, window: Optional[WindowMap],
+    def _forward(self, params, tokens, patches, window: Optional[WindowMap],
                  one=False):
         """Logits, the layers' summed load-balance loss ``[C]`` and the
         final hidden state."""
-        S = tokens.shape[2]
-        h = self._embed(params, tokens)
-        positions = torch.arange(S, device=tokens.device)
+        h = self._embed(params, tokens, patches)
+        positions = torch.arange(h.shape[2], device=tokens.device)
         h, aux, _ = self._run(params, h, positions, "train", window, one=one)
         h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
         return self._head(params, h), aux, h
 
     def loss(self, params, batch, window=None):
-        """batch ``{"tokens": [B, S]}`` (one model): returns ``(loss,
-        metrics)``: the mean next-token cross-entropy plus the MoE layers'
-        load-balance loss, with the reference's ``lm_loss``, ``aux_loss``
-        (0 without MoE layers) and ``loss``.  batch ``{"tokens": [C, B,
-        S]}``: returns ``(loss [C], metrics [C])``, each client's own."""
+        """batch ``{"tokens": [B, S]}`` (one model; ``[B, S, CB]`` with
+        codebooks, and the vision stub's optional ``patches [B, P,
+        vision_d]``): returns ``(loss, metrics)``: the mean next-token
+        cross-entropy (over every codebook) plus the MoE layers'
+        load-balance loss and ``0.3 *`` the MTP block's loss on the token
+        after next, with the reference's ``lm_loss``, ``aux_loss`` (0
+        without MoE layers), ``mtp_loss`` (MTP models) and ``loss``; the
+        patches' logits are dropped.  batch ``{"tokens": [C, B, S]}``:
+        returns ``(loss [C], metrics [C])``, each client's own.  ``window``
+        is threaded into the MTP block too."""
+        cfg = self.cfg
         tokens = batch["tokens"]
-        one = tokens.dim() == 2
+        one = self._is_one(tokens)
+        patches = self._patches(batch, one)
         if one:
             params, window = self._one_model(params, window)
             tokens = tokens[None]
-        logits, aux, _ = self._forward(params, tokens, window, one=one)
+        logits, aux, h = self._forward(params, tokens, patches, window,
+                                       one=one)
+        P = cfg.vision_patches if patches is not None else 0
+        logits = logits[:, :, P:]
         lm = softmax_xent(logits[:, :, :-1], tokens[:, :, 1:])
         total = lm + aux
-        metrics = {"lm_loss": lm, "aux_loss": aux, "loss": total}
+        metrics = {"lm_loss": lm, "aux_loss": aux}
+        if cfg.mtp and not cfg.n_codebooks:
+            hp = h[:, :, P:]
+            positions = torch.arange(hp.shape[2], device=hp.device)
+            hm, _, _ = block_apply(_sub(params, "mtp"), hp, cfg, positions,
+                                   window, one=one, moe_path=self.moe_path)
+            hm = rms_norm(hm, params["mtp/final"], cfg.norm_eps)
+            mtp = softmax_xent(self._head(params, hm)[:, :, :-2],
+                               tokens[:, :, 2:])
+            total = total + 0.3 * mtp
+            metrics["mtp_loss"] = mtp
+        metrics["loss"] = total
         if not one:
             return total, metrics
         return total[0], {k: v[0] for k, v in metrics.items()}
 
-
     # -- serving (one model) -------------------------------------------------
-    def prefill(self, params, tokens, max_len=None, pos_offset=0,
+    def prefill(self, params, tokens, extra=None, max_len=None, pos_offset=0,
                 return_all_logits=False):
-        """tokens ``[B, S]`` int: run the prompt and build the caches.
-        ``max_len``: total cache capacity for the ``decode_step`` s that
-        follow (the KV caches are padded to it); ``pos_offset``: position
-        of the first token; ``return_all_logits``: logits ``[B, S, V]``
-        rather than the last position's ``[B, V]``.  Returns ``(logits,
-        caches)``."""
+        """tokens ``[B, S]`` (``[B, S, CB]``) int: run the prompt, after
+        the vision stub's ``extra["patches"] [B, P, vision_d]`` if given,
+        and build the caches.  ``max_len``: total cache capacity for the
+        ``decode_step`` s that follow (the caches are padded to it);
+        ``pos_offset``: position of the first token (of the rotary
+        positions; sinusoidal ones start at 0, as in the reference);
+        ``return_all_logits``: logits at every position rather than the
+        last one's.  Returns ``(logits, caches)``."""
         p1, _ = self._one_model(params, None)
-        S = tokens.shape[1]
-        h = self._embed(p1, tokens[None])
-        positions = pos_offset + torch.arange(S, device=tokens.device)
+        h = self._embed(p1, tokens[None], self._patches(extra, True))
+        positions = pos_offset + torch.arange(h.shape[2],
+                                              device=tokens.device)
         h, _, caches = self._run(p1, h, positions, "prefill")
         h = rms_norm(h, p1["final_norm"], self.cfg.norm_eps)
         logits = self._head(p1, h if return_all_logits else h[:, :, -1:])[0]
@@ -356,29 +498,32 @@ class Model:
         return (logits if return_all_logits else logits[:, 0]), caches
 
     def _pad_caches(self, caches, max_len):
-        """Zero-pad each KV cache along its positions to ``max_len`` (a
-        sliding window's ring to at most the window)."""
+        """Zero-pad each attention cache along its positions to ``max_len``
+        (a sliding window's ring to at most the window)."""
         cfg = self.cfg
         kv_target = (min(max_len, cfg.sliding_window) if cfg.sliding_window
                      else max_len)
         out = {}
         for path, x in caches.items():
             key = path.rsplit("/", 1)[-1]
-            if key in ("k", "v") and x.shape[1] < kv_target:
-                pad = [0, 0] * (x.dim() - 2) + [0, kv_target - x.shape[1]]
+            target = (kv_target if key in KV_CACHE else
+                      max_len if key in MLA_CACHE else 0)
+            if x.shape[1] < target:
+                pad = [0, 0] * (x.dim() - 2) + [0, target - x.shape[1]]
                 x = F.pad(x, pad)
             out[path] = x
         return out
 
     def decode_step(self, params, tokens, caches, pos, valid=None,
                     rope_pos=None):
-        """tokens ``[B]`` int; caches from :meth:`prefill` or
-        :meth:`init_cache`; ``pos`` the host integer position of the token;
-        ``valid [B, Sc]`` an optional per-slot cache mask and ``rope_pos
-        [B]`` per-row positions (continuous batching).  Returns ``(logits
-        [B, V], new caches)``; the caches passed in are not changed."""
+        """tokens ``[B]`` (``[B, CB]``) int; caches from :meth:`prefill` or
+        :meth:`init_cache`; ``pos`` the host integer position of the token
+        (a sinusoidal model's position too); ``valid [B, Sc]`` an optional
+        per-slot cache mask and ``rope_pos [B]`` per-row positions
+        (continuous batching).  Returns ``(logits [B, (CB,) V], new
+        caches)``; the caches passed in are not changed."""
         p1, _ = self._one_model(params, None)
-        h = self._embed(p1, tokens[None, :, None])
+        h = self._embed(p1, tokens[None, :, None], pos=pos)
         c1 = {k: v[None] for k, v in caches.items()}
         h, _, new = self._run(p1, h, None, "decode", caches=c1, pos=pos,
                               valid=valid, rope_pos=rope_pos)
@@ -392,28 +537,30 @@ class Model:
         cfg = self.cfg
         dev = resolve_device(device)
         caches = {}
+
+        def zeros(path, *shape, dt=dtype):
+            caches[path] = torch.zeros((batch, *shape), dtype=dt, device=dev)
         for pre in self._prefixes():
-            if cfg.family != "ssm":
+            if cfg.mla is not None:
+                m = cfg.mla
+                zeros(f"{pre}/c", seq_len, m.kv_lora_rank)
+                zeros(f"{pre}/kr", seq_len, m.rope_head_dim)
+            elif cfg.family != "ssm":
                 Sc = (min(seq_len, cfg.sliding_window) if cfg.sliding_window
                       else seq_len)
-                for name in ("k", "v"):
-                    caches[f"{pre}/{name}"] = torch.zeros(
-                        (batch, Sc, cfg.n_kv_heads, cfg.head_dim),
-                        dtype=dtype, device=dev)
+                for name in KV_CACHE:
+                    zeros(f"{pre}/{name}", Sc, cfg.n_kv_heads, cfg.head_dim)
             if cfg.ssm is not None:
                 s = cfg.ssm
                 nh = n_heads(cfg)
-                caches[f"{pre}/h"] = torch.zeros(
-                    (batch, nh, s.head_dim, s.d_state), device=dev)
+                zeros(f"{pre}/h", nh, s.head_dim, s.d_state,
+                      dt=torch.float32)
                 for name, ch in (("conv_x", nh * s.head_dim),
                                  ("conv_B", s.d_state),
                                  ("conv_C", s.d_state)):
-                    caches[f"{pre}/{name}"] = torch.zeros(
-                        (batch, s.conv_width - 1, ch), dtype=dtype,
-                        device=dev)
+                    zeros(f"{pre}/{name}", s.conv_width - 1, ch)
         return caches
 
 
 def build_model(cfg: ModelConfig, moe_path: str = "dropping") -> Model:
     return Model(cfg, moe_path=moe_path)
-

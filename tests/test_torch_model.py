@@ -155,7 +155,8 @@ def test_windowed_grads_are_exactly_zero_outside_the_window(ref):
 
 
 def test_model_refuses_unported_families():
-    # qk_norm and MoE are ported (A10); codebook streams (audio) are not
-    cfg = replace(get_reduced_config("tinyllama_1_1b"), n_codebooks=4)
+    # every family of the zoo is ported (A10); a family label its fields
+    # contradict (an MoE label without experts) is no configuration of it
+    cfg = replace(get_reduced_config("tinyllama_1_1b"), family="moe")
     with pytest.raises(NotImplementedError):
         build_model(cfg)

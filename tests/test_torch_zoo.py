@@ -26,7 +26,14 @@ params made by the reference and converted through numpy:
   shared-expert arm (``n_shared``, sigmoid routing) of one MoE layer
   against the reference's, windowed and not;
 - ``api.fed_round`` and ``api.Trainer`` through the training CLI on the
-  four reduced configs.
+  seven reduced configs.
+
+The generic tests (configs, ``n_params``, loss and logits, prefill and
+decode, prefill + decode == forward, the ``convert`` round trips, the
+training CLI) also run reduced DeepSeek-V3 (MLA, a leading dense layer,
+the MoE layer, the MTP block), MusicGen-large (4 codebooks, sinusoidal
+positions, gelu) and Phi-3-vision (tokens only here; its patches in
+``tests/test_torch_audio_vlm.py``).
 
 Tolerance: float32, atol 1e-5 and rtol 1e-5 (two frameworks, other
 summation orders through two layers and 4 SGD steps at lr 0.1).
@@ -60,8 +67,10 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import AxisWindow, WindowMap  # noqa: E402
 
 ATOL = RTOL = 1e-5
-ARCHS = ["deepseek_7b", "qwen3_14b", "mixtral_8x22b"]
-FULL = ["deepseek_7b", "qwen3_14b", "qwen3_32b", "mixtral_8x22b"]
+ARCHS = ["deepseek_7b", "qwen3_14b", "mixtral_8x22b", "deepseek_v3_671b",
+         "musicgen_large", "phi_3_vision_4_2b"]
+FULL = ["deepseek_7b", "qwen3_14b", "qwen3_32b", "mixtral_8x22b",
+        "deepseek_v3_671b", "musicgen_large", "phi_3_vision_4_2b"]
 ROUNDS, S, C = 2, 32, 4
 PROMPT = 24
 SCFG = dict(scheme="rolling", capacity=0.5, local_steps=2,
@@ -120,8 +129,11 @@ class Pair:
         self.vocab = rc.vocab
 
     def tokens(self, B, S_, seed=0):
+        """``[B, S]`` tokens, ``[B, S, CB]`` for a codebook model."""
         rng = np.random.default_rng(seed)
-        return rng.integers(0, self.vocab, (B, S_)).astype(np.int32)
+        cb = self.port.cfg.n_codebooks
+        return rng.integers(0, self.vocab, (B, S_, cb) if cb else
+                            (B, S_)).astype(np.int32)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -139,8 +151,8 @@ def test_config_matches_reference(arch, reduced):
     got = (get_reduced_config if reduced else get_config)(arch)
     for f in dataclasses.fields(got):
         a, b = getattr(got, f.name), getattr(want, f.name)
-        assert (vars(a) == vars(b) if f.name == "moe" and a else a == b), \
-            f.name
+        assert (vars(a) == vars(b) if f.name in ("moe", "mla") and a
+                else a == b), f.name
 
 
 @pytest.mark.parametrize("arch", FULL)
@@ -234,12 +246,31 @@ def test_convert_round_trips_experts_and_qk_norm(pair):
     again = convert.from_reference(back, "cpu")
     assert all(torch.equal(again[k], pair.params[k]) for k in pair.params)
     cfg = pair.port.cfg
+    D = cfg.d_model
     if cfg.moe is not None:
-        E, D, Fe = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff
-        assert back["moe_layers"]["moe"]["w_gate"].shape == (2, E, D, Fe)
-        assert pair.params["moe_layers/1/moe/w_down"].shape == (E, Fe, D)
+        E, Fe = cfg.moe.n_experts, cfg.moe.d_ff
+        n_moe = cfg.n_layers - cfg.n_dense_layers
+        assert back["moe_layers"]["moe"]["w_gate"].shape == (n_moe, E, D, Fe)
+        assert pair.params[f"moe_layers/{n_moe - 1}/moe/w_down"].shape == (
+            E, Fe, D)
         assert pair.port.axes()["moe_layers/0/moe/w_up"] == (
             "experts", "d_model", "moe_d_ff")
+    if cfg.n_dense_layers:
+        assert back["dense_layers"]["mlp"]["w_up"].shape == (
+            cfg.n_dense_layers, D, cfg.d_ff)
+    if cfg.mla is not None:
+        m = cfg.mla
+        assert back["dense_layers"]["attn"]["w_uk"].shape == (
+            cfg.n_dense_layers, m.kv_lora_rank, cfg.n_heads, m.nope_head_dim)
+        assert pair.port.axes()["moe_layers/0/attn/w_uv"] == (
+            "mla_kv_rank", "heads", "v_head_dim")
+    if cfg.mtp:
+        assert back["mtp"]["mlp"]["w_gate"].shape == (D, cfg.d_ff)
+        assert back["mtp"]["final"].shape == (D,)
+    if cfg.n_codebooks:
+        assert back["head"].shape == (cfg.n_codebooks, D, cfg.vocab)
+    if cfg.vision_stub:
+        assert back["vision_proj"]["w1"].shape == (cfg.vision_d, D)
     if cfg.qk_norm:
         assert back["layers"]["attn"]["q_norm"].shape == (2, cfg.head_dim)
         assert pair.port.axes()["layers/0/attn/k_norm"] == ("head_dim",)
