@@ -22,6 +22,14 @@ Phases, each of which fails the run when it fails:
    others), with the block tile each timed product launch took, and two
    launches of each bit-equal; flash also at head_dim 128.  The build's
    report gives each tensor-core source's spill stores and HMMA count.
+   Then the bf16 arms of rows 1-11 (``phase_kernels_bf16``, each row
+   named ``<kernel>/bf16``): the products within one bf16 ulp of their
+   plain versions (plus 1e-6 of the largest magnitude) at ragged shapes
+   and odd offsets, then timed at the bf16 paths' shapes beside ``bmm``/
+   ``mm`` on the bf16 window views and the bound at the dense bf16 rate;
+   the update arms bit for bit (aligned, ragged, in place on views with
+   shared odd and mismatched misalignments), timed beside ``add_``/
+   ``addcmul_`` and their byte bounds.
 3. Run two rounds of the reduced model on the card and on the CPU (the
    plain versions) from the same params, tokens and windows or masks
    (masks drawn on the CPU and copied), and hold the two against each
@@ -47,7 +55,8 @@ Phases, each of which fails the run when it fails:
    mask and 1 staggered-rolling round) and reduced Hymba (``[agree
    hybrid]``: 3 fused rounds, 1 extract) on the default axes; then
    reduced DeepSeek-7B, Qwen3-14B and Mixtral (``[agree zoo]``: 2 fused
-   rounds each, and one continuous batcher run, its logits and tokens).
+   rounds each, and one continuous batcher run, its logits and tokens);
+   then reduced TinyLlama with bf16 params (``[agree bf16]``, 4m).
 4. The window path: the shared-window federated round on full-width
    TinyLlama-1.1B (22 layers, f32, 4 clients x 2 local steps x 2 x 256
    tokens), through ``api.fed_round`` and ``api.Trainer``, 3 rounds, with
@@ -195,7 +204,30 @@ Phases, each of which fails the run when it fails:
    head_dim 64 and 96); ``[audio serve]``, ``[vlm serve]``: 64 greedy
    steps after 4 x 1536 positions, teacher-forced decode of the last 32
    of 512 positions vs one prefill.
+4m. bf16 parameters, after the mask path with the optimizers: ``[agree
+   bf16]`` in phase 3 first holds reduced TinyLlama at bf16 card vs CPU (2
+   fused window, 2 extract and 2 momentum mask rounds: client losses
+   within 2e-2, the params' change from the start within a gap of 0.15 of
+   the CPU's over all leaves and 0.4 for a leaf, where unmoved params read
+   1).  ``[bf16 window]``: full-width
+   TinyLlama-1.1B with bf16 params in the window path's configuration, 3
+   fused rounds (seconds, peak, the bf16 arms' launches against the layer
+   arithmetic, no f32 arm launched) and a profiled round; ``[bf16 eval]``
+   on the params they leave (4 x 2048 tokens, whole and the windowed
+   sub-model through rows 1-2, its gradient at 2 x 256 through rows 3-4,
+   no flash: row 13 has no bf16 arm); ``[bf16 extract]``: 3 rounds with
+   ``fused_forward="off"`` from the same params and offsets, held
+   against the fused rounds' params by the cosine of the two changes
+   (0.7 over all leaves, 0.4 a leaf) and their norm ratios (0.8-1.25),
+   profiled; ``[bf16 mask]``: 3
+   Bernoulli rounds with client momentum (rows 9 and 11); ``[bf16
+   serve]``: prefill 4 x 1536 and 32 greedy steps from the bf16 caches.
+   cuBLAS runs bf16 products with f32 reductions
+   (``allow_bf16_reduced_precision_reduction`` off, as the port's
+   ``device.resolve_device`` leaves it).
 
+The bf16 rows (``<kernel>/bf16``, rows 1-11) carry the bf16 paths'
+launches (``bf16_window``; row 10 also ``bf16_extract``).
 The update kernels (rows 9-11) are also held and timed at the shapes the
 extract and paper paths give them, and rows 5-13 carry each path's
 launches (``launches_by_path``: extract, full, stagger, hetero, fleet,
@@ -243,6 +275,10 @@ PEAK_BYTES = 3.35e12
 # each f32 product, so 2*M*N*K runs at 495 / 3 TFLOP/s at best.
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+# The bf16 arms of the products: one bf16 tensor-core pass, 989 TFLOP/s
+# dense (the same data sheet)
+PEAK_BF16_FLOPS = 989e12
+BF16_TOL = "1 bf16 ulp + 1e-6 max|plain|"   # bf16_err
 # kernel vs plain version: f32 both, different summation order; bounded
 # relative to the output's largest magnitude
 MM_RTOL = 1e-4
@@ -335,7 +371,28 @@ def err(a, b):
 
 
 def bits_equal(a, b):
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    it = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(it), b.view(it))
+
+
+def bf16_err(a, b):
+    """``(max abs difference, relative to max|b|, its largest excess over
+    the bf16 arms' tolerance)`` of bf16 ``a`` against bf16 ``b``: within
+    one bf16 ulp of each element of ``b`` (2^-7 of the power of two at or
+    below its magnitude), plus 1e-6 of b's largest magnitude.  The kernel
+    and the plain version both sum in f32, in other orders, and round
+    once; where the two sums straddle a rounding boundary they round one
+    ulp apart.  The excess is <= 0 when every element is within."""
+    check(a.dtype == b.dtype == torch.bfloat16, f"bf16 arms return "
+          f"{a.dtype}, plain {b.dtype}")
+    a, b = a.float(), b.float()
+    mant, exp = torch.frexp(b)
+    ulp = torch.where(mant == 0, torch.zeros_like(b),
+                      torch.ldexp(torch.ones_like(b), exp - 8))
+    d, top = (a - b).abs(), b.abs().max()
+    excess = d - ulp - 1e-6 * top
+    return (d.max().item(), d.max().item() / max(top.item(), 1e-30),
+            excess.max().item())
 
 
 def scfg_for(scheme):
@@ -602,7 +659,7 @@ def phase_kernels(dev):
 
 
 def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
-                   K=D):
+                   K=D, dtype=torch.float32):
     """One product kernel ("fwd" or "dx", T weights) at one shape: ``c``
     clients of ``m`` tokens, x [c, m, K], W [c, K, N], window ``win`` at
     ``off`` (a list: one offset per client).  Held against its plain
@@ -612,15 +669,26 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
     per-client windows, which no one call reads in place) and beside its
     bound at the 3xTF32 rate; a second launch must equal the first bit for
     bit.  Returns the kernel table's numbers and the block tile the launch
-    took."""
+    took.  ``dtype`` bfloat16 takes the bf16 arm: held within one bf16 ulp
+    of the plain version (``bf16_err``), its bound at the dense bf16 rate
+    and half the bytes, the library call on the bf16 window views."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rolling_matmul import (block_tile, make_offsets,
                                                     rolling_mm_dx,
                                                     rolling_mm_fwd)
-    x = torch.randn((c, m, K), device=dev, generator=g)
-    ws = [torch.randn((c, K, N), device=dev, generator=g) for _ in range(T)]
-    dys = [torch.randn((c, m, win), device=dev, generator=g)
+    x = torch.randn((c, m, K), device=dev, generator=g).to(dtype)
+    ws = [torch.randn((c, K, N), device=dev, generator=g).to(dtype)
+          for _ in range(T)]
+    dys = [torch.randn((c, m, win), device=dev, generator=g).to(dtype)
            for _ in range(T)]
+    bf16 = dtype == torch.bfloat16
+    def diff(a, b):
+        """(abs, rel, excess over the tolerance: <= 0 passes)"""
+        if bf16:
+            return bf16_err(a, b)
+        e = err(a, b)
+        return (*e, e[1] - MM_RTOL)
+    esize = 2 if bf16 else 4
     per_client = isinstance(off, list)
     offs = off if per_client else [off] * c
     o = make_offsets(offs, dev)     # the device copy a model keeps
@@ -636,9 +704,9 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
         else:
             lib = lambda: [torch.bmm(x, v) for v in views]       # noqa
         out = kern()
-        e = max((err(a, b) for a, b in zip(out, plain())),
-                key=lambda t: t[1])
-        nbytes = 4 * (c * m * K + T * c * K * win + T * c * m * win)
+        e = max((diff(a, b) for a, b in zip(out, plain())),
+                key=lambda t: t[2])
+        nbytes = esize * (c * m * K + T * c * K * win + T * c * m * win)
         shape = {"x": lead + [m, K], "W": [T] + lead + [K, N], "win": win}
     else:
         kern = lambda: rolling_mm_dx(dys, ws, o, win, name=scalar_name)  # noqa
@@ -656,26 +724,29 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
                 acc = torch.baddbmm(acc, d, v.mT)
             return acc
         out = [kern()]
-        e = err(out[0], plain())
-        nbytes = 4 * (T * c * m * win + T * c * K * win + c * m * K)
+        e = diff(out[0], plain())
+        nbytes = esize * (T * c * m * win + T * c * K * win + c * m * K)
         shape = {"dy": [T] + lead + [m, win], "W": [T] + lead + [K, N],
                  "win": win}
-    check(e[1] <= MM_RTOL, f"{kind}<{T}> at {shape}: {e}")
+    check(e[2] <= 0, f"{kind}<{T}> {dtype} at {shape}: {e}")
     again = kern()
     check(all(bits_equal(a, b) for a, b in zip(
         out, again if kind == "fwd" else [again])),
-          f"{kind}<{T}> at {shape}: two launches differ")
-    b_ms, b_by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
+          f"{kind}<{T}> {dtype} at {shape}: two launches differ")
+    b_ms, b_by = bound(flops, nbytes,
+                       PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS)
     k_ms = cuda_ms(kern)
     if per_client:
         shape["offsets"] = offs
     return dict(
         shape=shape, block_tile=list(block_tile(kind, T, c, m, K, win)),
-        max_abs_err=e[0], max_rel_err=e[1], tolerance=MM_RTOL, ms=k_ms,
+        max_abs_err=e[0], max_rel_err=e[1],
+        tolerance=BF16_TOL if bf16 else MM_RTOL, ms=k_ms,
         kernel_ms=k_ms, plain_ms=cuda_ms(plain),
         library_ms=None if per_client else cuda_ms(lib),
         library_calls=0 if per_client else T, bound_ms=b_ms, bound_by=b_by,
-        bound_rate="3xTF32: 2*M*N*K at 495/3 TFLOP/s")
+        bound_rate=("bf16: 2*M*N*K at 989 TFLOP/s" if bf16 else
+                    "3xTF32: 2*M*N*K at 495/3 TFLOP/s"))
 
 
 def mask_kernels(dev, g):
@@ -1265,13 +1336,16 @@ def run_rounds(tag, trainer, data, _build, clients=4, after=None):
     return launches, float(np.mean(later))
 
 
-def full_width(dev):
+def full_width(dev, param_dtype=torch.float32):
+    """Full-width TinyLlama-1.1B with ``param_dtype`` params, and 3
+    batches of the window path's shape."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     cfg = get_config("tinyllama_1_1b")
     batches = lm_batches(cfg.vocab, (2, 4, 2), seq=256)
-    return cfg, build_model(cfg), [next(batches) for _ in range(3)]
+    return cfg, build_model(cfg, param_dtype=param_dtype), [
+        next(batches) for _ in range(3)]
 
 
 def phase_main_path(dev, _build):
@@ -3904,6 +3978,479 @@ def phase_experiment_cli(dev):
           "held)")
 
 
+# -- bf16 parameters (ROADMAP A11, part 1): the bf16 arms of rows 1-11 -------
+
+BF = torch.bfloat16
+# bf16 rounds, card vs CPU and extract vs fused on the card: the two sides
+# round the same f32 sums to bf16 in other orders, and a round changes most
+# weights by a few bf16 ulp, so ulp-level differences stay.  The params are
+# held by their change from the starting params (bf16_change_stats), where
+# params that did not move read a gap of 1 and a cosine of 0.  Reduced
+# rounds (``[agree bf16]``): the gap |got - want| / |want - p0| within
+# BF16_GAP over all leaves and for each leaf moved in BF16_LEAF_MOVED
+# elements or more (tests/test_torch_bf16.py's limits against the reference,
+# which measured 0.037-0.059 and at most 0.20 there).  At full width the
+# products' rounding differences grow through 22 layers' backward, where most
+# weights' steps are under half a bf16 ulp: extract vs fused measured a gap
+# of 0.527 over all leaves and up to 0.93 for a leaf (f32: 3e-4) with the
+# changes still aligned (cosine 0.861 over all leaves, at least 0.567 for a
+# leaf, norm ratios 0.985-1.009), so ``[bf16 extract]`` holds the cosine to
+# BF16_COS and the norm ratio to BF16_RATIO instead.  Client losses within
+# BF16_LOSS_TOL, absolute (the reference's bf16 atol,
+# tests/test_kernels.py:18).
+BF16_LEAF_MOVED = 1000
+BF16_GAP = (0.15, 0.4)        # (all leaves, each leaf): at most
+BF16_COS = (0.7, 0.4)         # (all leaves, each leaf): at least
+BF16_RATIO = (0.8, 1.25)      # every leaf's and all leaves' |got-p0|/|want-p0|
+BF16_LOSS_TOL = 2e-2
+# full-width bf16 serving: prompts and greedy steps
+BF16_SERVE_B, BF16_SERVE_S, BF16_SERVE_G = 4, 1536, 32
+
+
+def bf16_change_stats(got, want, p0):
+    """How ``got``'s change from ``p0`` compares with ``want``'s (float32 on
+    got's device, leaf by leaf): the gap ``|got - want| / |want - p0|``,
+    the cosine of the two changes and their norm ratio ``|got - p0| /
+    |want - p0|`` (Euclidean norms), each over all leaves together and as
+    the (smallest, largest) over the leaves that ``want`` moved in
+    BF16_LEAF_MOVED elements or more; and the largest ``|got - want|`` of
+    an element.  Params that did not move read gap 1, cosine 0, ratio 0."""
+    num = den = gg = gw = big = 0.0
+    leaves = []
+    for k, g in got.items():
+        g = g.float()
+        w, z = want[k].to(g.device).float(), p0[k].to(g.device).float()
+        dg, dw = g - z, w - z
+        d2, r2 = float(((g - w) ** 2).sum()), float((dw ** 2).sum())
+        g2, gw1 = float((dg ** 2).sum()), float((dg * dw).sum())
+        num, den, gg, gw = num + d2, den + r2, gg + g2, gw + gw1
+        if int((w != z).sum()) >= BF16_LEAF_MOVED:
+            leaves.append((math.sqrt(d2 / r2),
+                           gw1 / math.sqrt(g2 * r2) if g2 else 0.0,
+                           math.sqrt(g2 / r2)))
+        big = max(big, float((g - w).abs().max()))
+    span = [(min(c), max(c)) for c in zip(*leaves)]
+    return dict(gap=(math.sqrt(num / den), *span[0]),
+                cos=(gw / math.sqrt(gg * den) if gg else 0.0, *span[1]),
+                ratio=(math.sqrt(gg / den), *span[2]), big=big)
+
+
+def check_bf16_rounds(tag, losses, want_losses, params, want, p0,
+                      hold="gap"):
+    """Losses within BF16_LOSS_TOL and the params' change against
+    ``want``'s (bf16_change_stats): ``hold="gap"`` within BF16_GAP,
+    ``"cos"`` at BF16_COS or above with every norm ratio in BF16_RATIO.
+    Prints the stats; returns them with the largest loss difference."""
+    dl = max(abs(a - b) for a, b in zip(losses, want_losses))
+    st = bf16_change_stats(params, want, p0)
+    gap, cos, ratio = st["gap"], st["cos"], st["ratio"]
+    if hold == "gap":
+        ok = gap[0] <= BF16_GAP[0] and gap[2] <= BF16_GAP[1]
+        rule = f"gap at most {BF16_GAP} (all leaves, each leaf)"
+    else:
+        ok = (cos[0] >= BF16_COS[0] and cos[1] >= BF16_COS[1] and
+              BF16_RATIO[0] <= min(ratio) and max(ratio) <= BF16_RATIO[1])
+        rule = (f"cosine at least {BF16_COS} (all leaves, each leaf), "
+                f"norm ratios within {BF16_RATIO}")
+    said = (f"losses max |d| {dl:.3g} (tolerance {BF16_LOSS_TOL}); the "
+            f"params' change against the other side's: gap {gap[0]:.4g} over "
+            f"all leaves, {gap[1]:.4g}-{gap[2]:.4g} a leaf; cosine "
+            f"{cos[0]:.4g}, {cos[1]:.4g}-{cos[2]:.4g}; norm ratio "
+            f"{ratio[0]:.4g}, {ratio[1]:.4g}-{ratio[2]:.4g} (held: {rule}; "
+            f"unmoved params read gap 1, cosine 0, ratio 0); max |d param| "
+            f"{st['big']:.3g}")
+    check(dl <= BF16_LOSS_TOL and ok, f"[{tag}] {said}")
+    return said
+
+
+def phase_kernels_bf16(dev):
+    """The bf16 arms of TPU rows 1-11 on the card: rows 1-8 within one
+    bf16 ulp of their plain versions (``bf16_err``) at ragged shapes and
+    odd offsets (the element-by-element copy path), then held and timed at
+    the bf16 paths' shapes (rows 5-8 at the window round's, 1-4 at the
+    eval's) beside ``bmm``/``mm`` on the bf16 window views and the bound at
+    the dense bf16 rate; rows 9-11 bit for bit on the ``w_gate`` leaf (and
+    ragged, misaligned and in place on views), timed beside ``add_`` /
+    ``addcmul_`` on bf16 and their byte bounds.  Each row is named
+    ``<kernel>/bf16``, as its launches count."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.masked_update import (fillin_agg_, masked_sgd_,
+                                                   sgd_)
+    from repro_torch.kernels.rolling_matmul import (make_offsets,
+                                                    rolling_mm_dx,
+                                                    rolling_mm_fwd)
+    g = torch.Generator(dev).manual_seed(24)
+    worst = 0.0
+    for (c, m, k, n, win, offs) in EXTRA + [(3, 70, 100, 130, 50,
+                                              [0, 33, 77])]:
+        for T in (1, 2):
+            x = torch.randn((c, m, k), device=dev, generator=g).to(BF)
+            ws = [torch.randn((c, k, n), device=dev, generator=g).to(BF)
+                  for _ in range(T)]
+            dys = [torch.randn((c, m, win), device=dev, generator=g).to(BF)
+                   for _ in range(T)]
+            o = make_offsets(offs, dev)
+            es = [bf16_err(y, yr) for y, yr in zip(
+                rolling_mm_fwd(x, ws, o, win),
+                ref.rolling_matmul_batched_ref(x, ws, offs, win))]
+            es.append(bf16_err(rolling_mm_dx(dys, ws, o, win),
+                               ref.rolling_matmul_batched_dx_ref(
+                                   dys, ws, offs, win)))
+            for e in es:
+                check(e[2] <= 0, f"bf16 <{T}> {(c, m, k, n, win, offs)}: "
+                      f"{e}")
+                worst = max(worst, e[0])
+    print(f"[kernels bf16] {(len(EXTRA) + 1) * 2 * 2} ragged / odd-offset "
+          f"product checks within {BF16_TOL} (largest |d| {worst:.3g})")
+
+    rows = []
+    for name, row, tpu_fn, T, N, win, off, kind in ROLLING:
+        r = product_timing(dev, g, kind, T, C, M, N, win, off, dtype=BF)
+        rows.append(dict(name=name + "/bf16", route="cuda",
+                         source=SRC + "rolling_mm.cu",
+                         replaces=TPU + tpu_fn, tpu_row=row, **r))
+        if row in (5, 6):      # the k/v projections: window 128 of 256
+            rows[-1]["sub_rows"] = [product_timing(
+                dev, g, kind, T, C, M, 256, 128, 128, dtype=BF)]
+    for name, row, tpu_fn, T, m, N, win, off, kind in SCALAR:
+        r = product_timing(dev, g, kind, T, 1, m, N, win, off,
+                           scalar_name=name, dtype=BF)
+        rows.append(dict(name=name + "/bf16", route="cuda",
+                         source=SRC + "rolling_mm.cu",
+                         replaces=TPU + tpu_fn, tpu_row=row, **r))
+
+    n = C * D * 5632           # the w_gate client leaf
+    w = torch.randn(n + 8, device=dev, generator=g).to(BF)
+    m = (torch.rand(n + 8, device=dev, generator=g) < 0.5).to(BF)
+    gr = torch.randn(n + 8, device=dev, generator=g).to(BF)
+    for kind in ("sgd", "masked_sgd"):
+        def step(wv, mo, go, size, lr=0.1, kind=kind):
+            if kind == "sgd":
+                return sgd_(wv, gr[go:go + size], lr)
+            return masked_sgd_(wv, m[mo:mo + size], gr[go:go + size], lr)
+
+        def plain(wv, mo, go, size, lr=0.1, kind=kind):
+            if kind == "sgd":
+                return ref.sgd_ref(wv, gr[go:go + size], lr)
+            return ref.masked_sgd_ref(wv, m[mo:mo + size], gr[go:go + size],
+                                      lr)
+        # aligned; a ragged leaf; in place on views with one shared odd
+        # misalignment (a scalar head) and with mismatched ones
+        for wo, mo, go, size in ((0, 0, 0, n), (0, 0, 0, 1_000_003),
+                                 (1, 1, 1, n - 2), (3, 3, 3, 1_000_001),
+                                 (1, 2, 2, n - 2)):
+            want = plain(w[wo:wo + size].clone(), mo, go, size)
+            a = w.clone()[wo:wo + size]
+            step(a, mo, go, size)
+            check(bits_equal(a, want), f"{kind}_inplace/bf16 not bit-exact "
+                  f"at w+{wo}, m+{mo}, g+{go}, {size}")
+    w, m, gr = w[:n], m[:n], gr[:n]
+    for name, row, tpu_fn, kern, pl, lib, n_ops, n_bytes in (
+            ("sgd_inplace", 10, "masked_update.py:53",
+             lambda: sgd_(w, gr, 1e-6), lambda: ref.sgd_ref(w, gr, 1e-6),
+             lambda: w.add_(gr, alpha=-1e-6), 2 * n, 6 * n),
+            ("masked_sgd_inplace", 9, "masked_update.py:33",
+             lambda: masked_sgd_(w, m, gr, 1e-6),
+             lambda: ref.masked_sgd_ref(w, m, gr, 1e-6),
+             lambda: w.addcmul_(m, gr, value=-1e-6), 3 * n, 8 * n)):
+        b_ms, b_by = bound(n_ops, n_bytes)
+        k_ms = cuda_ms(kern)
+        rows.append(dict(
+            name=name + "/bf16", route="cuda",
+            source=SRC + ("sgd.cu" if row == 10 else "masked_update.cu"),
+            replaces=TPU + tpu_fn, tpu_row=row, shape={"w": [C, D, 5632]},
+            max_abs_err=0.0, max_rel_err=0.0, tolerance=0.0, ms=k_ms,
+            kernel_ms=k_ms, plain_ms=cuda_ms(pl), library_ms=cuda_ms(lib),
+            library_calls=1, bound_ms=b_ms, bound_by=b_by))
+    del w, m, gr
+
+    ns = D * 5632              # the w_gate server leaf
+    w = torch.randn(ns + 1, device=dev, generator=g).to(BF)
+    for c in (3, 4):
+        wc = torch.randn((c, ns), device=dev, generator=g).to(BF)
+        mc = (torch.rand((c, ns), device=dev, generator=g) < 0.5).to(BF)
+        for slr in (1.0, 0.5):
+            for lo, size in ((0, ns), (1, 1_000_003)):
+                cw, cm = wc[:, :size].contiguous(), mc[:, :size].contiguous()
+                a = fillin_agg_(w[lo:lo + size].clone(), cw, cm, slr)
+                b = ref.fillin_agg_ref(w[lo:lo + size].clone(), cw, cm,
+                                       slr / c)
+                check(bits_equal(a, b), f"fillin_agg_inplace/bf16 not "
+                      f"bit-exact at C={c} server_lr={slr} {lo}+{size}")
+    print("[kernels bf16] update arms bit-exact to their plain versions "
+          "(aligned, ragged, in place on views with shared odd and "
+          "mismatched misalignments; fill-in C in {3, 4}, server_lr in "
+          "{1, 0.5}, client strides of 8k and 8k + 3 elements)")
+    w = w[:ns]
+    b_ms, b_by = bound((3 * C + 2) * ns, (4 + 4 * C) * ns)
+    k_ms = cuda_ms(lambda: fillin_agg_(w, wc, mc, 1.0))
+    rows.append(dict(
+        name="fillin_agg_inplace/bf16", route="cuda",
+        source=SRC + "masked_update.cu", replaces=TPU + "masked_update.py:79",
+        tpu_row=11, shape={"w": [D, 5632], "w_c": [C, D, 5632]},
+        max_abs_err=0.0, max_rel_err=0.0, tolerance=0.0, ms=k_ms,
+        kernel_ms=k_ms,
+        plain_ms=cuda_ms(lambda: ref.fillin_agg_ref(w, wc, mc, 1.0 / C)),
+        library_ms=None, library_calls=0, bound_ms=b_ms, bound_by=b_by))
+    for r in rows:
+        for sub in [r, *r.get("sub_rows", [])]:
+            lib = ("none" if sub["library_ms"] is None
+                   else f"{sub['library_ms']:.4f} ms")
+            print(f"[kernels bf16] {r['name']:28s} {json.dumps(sub['shape'])}"
+                  f" err {sub['max_abs_err']:.3g} kernel {sub['ms']:.4f} ms  "
+                  f"plain {sub['plain_ms']:.4f} ms  library {lib}  bound "
+                  f"{sub['bound_ms']:.4f} ms ({sub['bound_by']})")
+    return rows
+
+
+def phase_small_agreement_bf16(dev):
+    """Reduced TinyLlama at bf16, card vs CPU from the same bf16 params,
+    tokens, offsets and masks: 2 fused window rounds, 2 extract rounds and
+    2 Bernoulli mask rounds with client momentum (masks drawn on the CPU
+    and copied); losses and the params' change from the start as
+    ``check_bf16_rounds`` holds them, params bf16 on both sides."""
+    from repro_torch import api
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.core.fedavg import dense_client_masks
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    cfg = get_reduced_config("tinyllama_1_1b")
+    model = build_model(cfg, param_dtype=BF)
+    p0 = model.init(0, device="cpu")
+    it = lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0)
+    batches = [next(it) for _ in range(2)]
+    cases = (("window", scfg_for("rolling"), {}),
+             ("extract", scfg_for("rolling"), dict(fused_forward="off")),
+             ("mask momentum", scfg_for("bernoulli"),
+              dict(client_opt="momentum")))
+    for tag, scfg, kw in cases:
+        outs = {}
+        fed0 = api.fed_round(model, scfg, device="cpu", **kw)
+        if isinstance(fed0, api.MaskFedAvg):
+            inj = [{"masks": dense_client_masks(
+                torch.Generator().manual_seed(r), fed0.abstract, fed0.axes,
+                scfg, fed0.capacities, r, torch.device("cpu"))}
+                for r in range(2)]
+        else:
+            inj = [{"offsets": fed0.scheme.offsets(r, 4)} for r in range(2)]
+        for where in ("cpu", dev):
+            fed = api.fed_round(model, scfg, device=where, **kw)
+            t = api.Trainer(fed, {k: v.to(where, copy=True)
+                                  for k, v in p0.items()})
+            t.run(((b, {k: ({n: x.to(where) for n, x in v.items()}
+                            if k == "masks" else v) for k, v in i.items()})
+                   for b, i in zip(batches, inj)), 2)
+            outs[str(where)] = t
+        c, gpu = outs["cpu"], outs[str(dev)]
+        check(all(v.dtype == BF for v in gpu.params.values()),
+              f"bf16 {tag}: params left bf16")
+        said = check_bf16_rounds(
+            f"agree bf16 {tag}",
+            [float(x) for h in gpu.history for x in h["client_loss"].ravel()],
+            [float(x) for h in c.history for x in h["client_loss"].ravel()],
+            gpu.params, c.params, p0)
+        print(f"[agree bf16] reduced {tag}, 2 rounds card vs CPU: losses "
+              f"{[round(x, 4) for x in gpu.losses]} vs "
+              f"{[round(x, 4) for x in c.losses]}; {said}")
+
+
+def _only_bf16_arms(tag, launches):
+    """No f32 arm ran on a bf16 path: nothing widened to reach it."""
+    f32 = {k: n for k, n in launches.items() if not k.endswith("/bf16")}
+    check(not f32, f"[{tag}] float32 kernel arms launched on the bf16 path: "
+          f"{f32}")
+
+
+def phase_bf16_window(dev, _build):
+    """Full-width TinyLlama-1.1B with bf16 params through the window path's
+    configuration (C = 4 x K = 2 x 2 x 256 tokens, rolling at 0.5 on
+    d_ff, heads, kv_heads): 3 fused rounds counted (rows 5-8 and 10 at
+    bf16, no f32 arm) and profiled; the eval path on the params they leave
+    (``[bf16 eval]``: 4 x 2048 held-out tokens, whole and the windowed
+    sub-model through rows 1-2, the sub-model's gradient at 2 x 256
+    through rows 3-4); then 3 extract rounds (``fused_forward="off"``) from
+    the same params and offsets, held against the fused rounds' params
+    (captured before the profiled round) by ``check_bf16_rounds``'s cosine
+    and norm ratio.  Returns the launches of the window, eval and extract
+    paths."""
+    from repro_torch import api
+    cfg, model, data = full_width(dev, param_dtype=BF)
+    params = model.init(seed=0, device=dev)
+    p0 = {k: v.cpu() for k, v in params.items()}
+    fed = api.fed_round(model, scfg_for("rolling"), device=dev)
+    trainer = api.Trainer(fed, params)
+    n_params = sum(v.numel() for v in params.values())
+    print(f"[bf16 window] {cfg.name}: {cfg.n_layers} layers, {n_params:,} "
+          f"params, bf16; windows "
+          f"{ {f'{k[0]}/{k[1]}': w for k, w in fed.scheme.sizes.items()} }")
+    launches, round_s = run_rounds("bf16 window", trainer, data, _build)
+    _only_bf16_arms("bf16 window", launches)
+    L, leaves, R = cfg.n_layers, len(params), len(data)
+    want = {"rolling_mm_fwd<1>/bf16": 6 * L * R,   # q, k, v x K = 2
+            "rolling_mm_dx<1>/bf16": 6 * L * R,
+            "rolling_mm_fwd<2>/bf16": 2 * L * R,   # gate/up x K = 2
+            "rolling_mm_dx<2>/bf16": 2 * L * R,
+            "sgd_inplace/bf16": 2 * leaves * R}
+    check(launches == want, f"[bf16 window] launches {launches}, expected "
+          f"{want}")
+    check(all(v.dtype == BF for v in trainer.params.values()),
+          "[bf16 window] params left bf16")
+    # the counted rounds' params, before the profiled round moves them
+    fused = {k: v.cpu() for k, v in trainer.params.items()}
+    fused_losses = trainer.losses[:R]
+    phase_profile("bf16 window", trainer, data[0], round_s)
+    e_launches = phase_bf16_eval(dev, model, trainer, _build)
+    offsets = [fed.scheme.offsets(r, 4) for r in range(R)]
+    del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fed = api.fed_round(model, scfg_for("rolling"), fused_forward="off",
+                        device=dev)
+    trainer = api.Trainer(fed, {k: v.to(dev) for k, v in p0.items()})
+    x_launches, round_s = run_rounds(
+        "bf16 extract", trainer, [(b, {"offsets": o}) for b, o in
+                                  zip(data, offsets)], _build)
+    _only_bf16_arms("bf16 extract", x_launches)
+    check(x_launches == {"sgd_inplace/bf16": 2 * leaves * R},
+          f"[bf16 extract] launches {x_launches}")
+    said = check_bf16_rounds("bf16 extract", trainer.losses, fused_losses,
+                             trainer.params, fused, p0, hold="cos")
+    print(f"[bf16 extract] vs the fused rounds (bf16 kernels vs cuBLAS bf16, "
+          f"each summing in f32 and rounding once): losses {trainer.losses} "
+          f"vs {fused_losses}; {said}")
+    phase_profile("bf16 extract", trainer, (data[0], {"offsets": offsets[0]}),
+                  round_s)
+    del trainer, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, e_launches, x_launches
+
+
+def phase_bf16_eval(dev, model, trainer, _build):
+    """``[bf16 eval]``: the eval path at bf16 on the window rounds' params,
+    without flash (row 13 has no bf16 arm yet): each part driven once with
+    the launches counted, then timed 3 times, peak from a reset."""
+    from repro_torch.data.synthetic import lm_batches
+    cfg, params, fed = model.cfg, trainer.params, trainer.fed
+    tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (EB,), ES, seed=999))
+                             ["tokens"], dtype=torch.long).to(dev)
+    offs = fed.scheme.offsets(trainer.round_idx - 1,
+                              fed.scfg.clients_per_round)
+    window = {k: (offs[k][0], w) for k, w in fed.scheme.sizes.items()
+              if w < k[1]}
+    small = tokens[:2, :256]
+
+    def grad_pass():
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss, _ = model.loss(p, {"tokens": small}, window=window)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        check(all(t.dtype == BF and bool(torch.isfinite(t).all())
+                  for t in grads), "[bf16 eval] grads bf16 and finite")
+        g = dict(zip(p, grads))["layers/0/mlp/w_gate"]
+        o, w = window[("d_ff", cfg.d_ff)]
+        check(not g[:, :o].any() and not g[:, o + w:].any(),
+              "[bf16 eval] w_gate grad nonzero outside the d_ff window")
+        return float(loss.detach())
+
+    total = {}
+    for tag, fn in (("server", lambda: eval_loss(model, params, tokens)),
+                    ("sub-model", lambda: eval_loss(model, params, tokens,
+                                                    window)),
+                    ("sub-model grad 2x256", grad_pass)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        loss = fn()
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        _only_bf16_arms("bf16 eval", launches)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        secs, _ = timed(fn, 3)
+        peak = torch.cuda.max_memory_allocated()
+        check(math.isfinite(loss), f"[bf16 eval] {tag}: loss {loss}")
+        print(f"[bf16 eval] {tag:22s} loss {loss:.6f}  "
+              f"{float(np.mean(secs)):.4f} s (mean of 3 after a warm-up: "
+              f"{[round(t, 4) for t in secs]})  peak {peak / 2**30:.2f} GiB"
+              f"  launches {launches}")
+    L = cfg.n_layers     # q, k, v and the gate/up pair a layer, in the
+    want = {"rolling_matmul/bf16": 6 * L,     # sub-model's and the grad's
+            "rolling_matmul_multi/bf16": 2 * L,   # forwards; dx in the grad
+            "rolling_matmul_dx/bf16": 3 * L,
+            "rolling_matmul_dx_multi/bf16": L}
+    check(total == want, f"[bf16 eval] launches {total}, expected {want}")
+    return total
+
+
+def phase_bf16_mask(dev, _build):
+    """``[bf16 mask]``: the Bernoulli mask round with client momentum
+    (float32 velocity) at full width, bf16 params and masks, 3 rounds
+    through ``api.Trainer(rng=0)``: rows 9 and 11 at bf16, no f32 arm."""
+    from repro_torch import api
+    cfg, model, data = full_width(dev, param_dtype=BF)
+    params = model.init(seed=0, device=dev)
+    fed = api.fed_round(model, scfg_for("bernoulli"), device=dev,
+                        client_opt="momentum")
+    check(isinstance(fed, api.MaskFedAvg), "bernoulli is not MaskFedAvg")
+    trainer = api.Trainer(fed, params, rng=0)
+    print(f"[bf16 mask] {cfg.name}: bf16 params and masks, client momentum "
+          f"(float32 velocity), capacities {fed.capacities.tolist()}")
+    launches, round_s = run_rounds("bf16 mask", trainer, data, _build)
+    _only_bf16_arms("bf16 mask", launches)
+    leaves, R = len(params), len(data)
+    want = {"masked_sgd_inplace/bf16": 2 * leaves * R,
+            "fillin_agg_inplace/bf16": leaves * R}
+    check(launches == want, f"[bf16 mask] launches {launches}, expected "
+          f"{want}")
+    check(all(v.dtype == BF for v in trainer.params.values()),
+          "[bf16 mask] params left bf16")
+    del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bf16_serve(dev, _build):
+    """``[bf16 serve]``: full-width TinyLlama-1.1B with bf16 params serves 4
+    prompts of 1536 tokens and 32 greedy steps from the bf16 caches
+    prefill returns: prefill seconds (mean of 2 after a warm-up), ms per
+    token, peak; bf16 logits, finite."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.specs import sample_prompts
+    from repro_torch.models import build_model
+    cfg = get_config("tinyllama_1_1b")
+    model = build_model(cfg, param_dtype=BF)
+    params = model.init(seed=0, device=dev)
+    B, S, G = BF16_SERVE_B, BF16_SERVE_S, BF16_SERVE_G
+    prompts = torch.as_tensor(sample_prompts(cfg, B, S, seed=0)[0],
+                              dtype=torch.long).to(dev)
+    generate(model, params, prompts, 4)
+    with torch.no_grad():
+        pre, (logits, cache) = timed(lambda: model.prefill(
+            params, prompts, max_len=S + G), 2)
+    check(logits.dtype == BF and bool(torch.isfinite(logits.float()).all())
+          and all(v.dtype == BF for v in cache.values()),
+          f"[bf16 serve] prefill logits {logits.dtype}, caches bf16")
+    del logits, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    out = generate(model, params, prompts, G, return_logits=True)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(t.dtype == BF and bool(torch.isfinite(t.float()).all())
+              for t in out["logits"]), "[bf16 serve] decode logits")
+    print(f"[bf16 serve] {cfg.name} bf16: prefill {B}x{S}: "
+          f"{float(np.mean(pre)):.4f} s (mean of 2 after a warm-up: "
+          f"{[round(t, 4) for t in pre]}); decode "
+          f"{1e3 * out['decode_s'] / G:.3f} ms/token ({G} greedy steps, "
+          f"batch {B}); peak {peak / 2**30:.2f} GiB; kernel launches "
+          f"{launches}")
+    return launches
+
+
 def device_kernels(prof, skip=()):
     """``(name, device ms, count)`` of every kernel in a profile, leaving
     out the names in ``skip``, and their device ms summed by group."""
@@ -4020,10 +4567,12 @@ def phase_profile(tag, trainer, batch, round_s, ranges=()):
                   f"{100 * t / total:5.1f}%")
     # the client steps' update group against its byte bound for the round:
     # K steps x C clients x every element of every leaf they step (compact
-    # in the extract round), reading w and g (and m) and writing w once
-    group, per_elt = (("masked_sgd_inplace (port)", 16)
+    # in the extract round), reading w and g (and m) and writing w once, in
+    # the params' dtype
+    esize = next(iter(trainer.params.values())).element_size()
+    group, per_elt = (("masked_sgd_inplace (port)", 4 * esize)
                       if isinstance(trainer.fed, api.MaskFedAvg)
-                      else ("sgd_inplace (port)", 12))
+                      else ("sgd_inplace (port)", 3 * esize))
     fed, scfg = trainer.fed, trainer.fed.scfg
     if isinstance(fed, api.WindowFedAvg) and not fed.use_fused:
         # the extract round steps its clients' compact copies
@@ -4070,6 +4619,9 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 everywhere
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products in cuBLAS sum in f32 and round once, as the reference's
+    # preferred_element_type=float32 and the port's bf16 kernels do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -4078,6 +4630,7 @@ def main():
 
     phase_build(_build)
     rows = phase_kernels(dev)
+    rows += phase_kernels_bf16(dev)
     try:
         phase_small_agreement(dev)
     finally:
@@ -4090,6 +4643,7 @@ def main():
     phase_small_agreement_hetero(dev)
     phase_small_agreement_slice(dev)
     phase_small_agreement_zoo(dev)
+    phase_small_agreement_bf16(dev)
     launches, trainer, batch, round_s, fused = phase_main_path(dev, _build)
     e_launches = phase_eval(dev, trainer, _build)
     phase_profile("window", trainer, batch, round_s)
@@ -4109,6 +4663,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mo_launches = phase_mask_opt_path(dev, _build)
+    bw_launches, be_launches, bx_launches = phase_bf16_window(dev, _build)
+    bm_launches = phase_bf16_mask(dev, _build)
+    phase_bf16_serve(dev, _build)
     model, params, prompts, s_launches, prefill_s = phase_serve_ssm(dev,
                                                                     _build)
     phase_eval_ssm(dev, model, params, _build)
@@ -4186,12 +4743,26 @@ def main():
     for name in ("rolling_matmul", "rolling_matmul_multi",
                  "rolling_matmul_dx", "rolling_matmul_dx_multi"):
         more[name] = {"zoo_eval": ze_launches, "mla_eval": me_launches}
+    # the bf16 arms, on the bf16 paths: rows 5-8 and 10 on the window
+    # rounds (row 10 also on the extract rounds), 9 and 11 on the mask
+    # rounds, 1-4 on the eval
+    for name in ("rolling_mm_fwd<1>", "rolling_mm_dx<1>",
+                 "rolling_mm_fwd<2>", "rolling_mm_dx<2>", "sgd_inplace"):
+        path[name + "/bf16"] = bw_launches
+    for name in ("masked_sgd_inplace", "fillin_agg_inplace"):
+        path[name + "/bf16"] = bm_launches
+    for name in ("rolling_matmul", "rolling_matmul_multi",
+                 "rolling_matmul_dx", "rolling_matmul_dx_multi"):
+        path[name + "/bf16"] = be_launches
+    more["sgd_inplace/bf16"] = {"bf16_extract": bx_launches}
     for r in rows:
         r["launches"] = path.get(r["name"], launches).get(r["name"], 0)
         if r["name"] in more:
+            own = ("bf16_window" if r["name"].endswith("/bf16")
+                   else "main")
             r["launches_by_path"] = {
-                "main": r["launches"], **{p: n.get(r["name"], 0) for p, n in
-                                          more[r["name"]].items()}}
+                own: r["launches"], **{p: n.get(r["name"], 0) for p, n in
+                                       more[r["name"]].items()}}
     missing = [r["name"] for r in rows if r["launches"] == 0] + [
         f"{r['name']} ({p})" for r in rows
         for p, n in r.get("launches_by_path", {}).items() if n == 0]

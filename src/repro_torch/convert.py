@@ -13,7 +13,10 @@ caches are stacked the same way in the reference (``{stack: {"k": [L, B,
 them.  Leaves outside the stacks (the embedding, the heads, the MTP
 block's ``mtp/*``, the vision stub's ``vision_proj/*``) carry no layer
 axis and pass through as they are.  Both directions copy values
-exactly.  Per-client trees (masks, client params) carry a leading
+exactly.  bfloat16 crosses without ``ml_dtypes``: a reference bf16 array
+(``ml_dtypes.bfloat16``) goes through an int16 view of its bits into a
+``torch.bfloat16`` tensor, and :func:`to_reference` widens a bf16 tensor
+to float32 (exact; ``jnp.bfloat16`` rounds it back to the same bits).  Per-client trees (masks, client params) carry a leading
 client axis before the stacked axis (the reference's ``layers/attn/wk``
 mask is ``[C, L, D, KV, hd]``); ``lead=1`` splits and re-stacks axis 1
 for them.
@@ -40,42 +43,71 @@ def _flatten(tree, prefix=""):
             yield p, v
 
 
+def as_torch(v) -> torch.Tensor:
+    """A leaf as a CPU tensor (a torch tensor as it is): a numpy bfloat16
+    array through an int16 view of its bits."""
+    if isinstance(v, torch.Tensor):
+        return v
+    v = np.asarray(v)
+    if not (v.flags.c_contiguous and v.flags.writeable):
+        v = v.copy()            # torch wraps writable contiguous memory
+    if v.dtype.name == "bfloat16":
+        return torch.from_numpy(v.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(v)
+
+
+def _stack_at(parts):
+    """The index of a path's stack name (the first of :data:`STACKS` among
+    its parts: a params tree may sit under other keys), or None."""
+    return next((j for j, q in enumerate(parts) if q in STACKS), None)
+
+
 def from_reference(params_np, device="cuda", lead=0
                    ) -> Dict[str, torch.Tensor]:
-    """Nested dict of numpy arrays (reference layout) -> the port's flat
-    dict on ``device``, splitting each stack's layer axis (axis ``lead``,
-    after ``lead`` leading client axes)."""
+    """Nested dict of numpy arrays (reference layout; or CPU tensors) ->
+    the port's flat dict of copies on ``device``, splitting each stack's
+    layer axis (axis ``lead``, after ``lead`` leading client axes)."""
     dev = resolve_device(device)
     out = {}
     for path, v in _flatten(params_np):
-        v = np.asarray(v)
-        head, _, rest = path.partition("/")
-        if head in STACKS:
-            for i in range(v.shape[lead]):
-                out[f"{head}/{i}/{rest}"] = torch.tensor(
-                    np.take(v, i, axis=lead), device=dev)
-        else:
-            out[path] = torch.tensor(v, device=dev)
+        v = as_torch(v)
+        parts = path.split("/")
+        j = _stack_at(parts)
+        if j is None:
+            out[path] = v.to(dev, copy=True)
+            continue
+        head, rest = "/".join(parts[:j + 1]), "/".join(parts[j + 1:])
+        for i in range(v.shape[lead]):
+            out[f"{head}/{i}/{rest}"] = v.select(lead, i).to(
+                dev, copy=True).contiguous()
     return out
 
 
-def to_reference(params, lead=0) -> dict:
+def _numpy(v: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy, bf16 widened to float32 (exact)."""
+    return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+
+
+def to_reference(params, lead=0, leaf=_numpy) -> dict:
     """The port's flat dict -> nested dict of numpy arrays with each
     stack's layers re-stacked on axis ``lead`` (the inverse of
-    :func:`from_reference`)."""
-    stacks: Dict[tuple, Dict[int, np.ndarray]] = {}
+    :func:`from_reference`).  ``leaf`` makes each host tensor's array
+    (default: bf16 widened to float32)."""
+    stacks: Dict[tuple, Dict[int, torch.Tensor]] = {}
     tree: dict = {}
     for path, v in params.items():
-        arr = v.detach().cpu().numpy()
+        t = v.detach().cpu()
         parts = path.split("/")
-        if parts[0] in STACKS:
-            stacks.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = arr
+        j = _stack_at(parts)
+        if j is not None:
+            stacks.setdefault((*parts[:j + 1], *parts[j + 2:]), {})[
+                int(parts[j + 1])] = t
             continue
-        _insert(tree, parts, arr)
+        _insert(tree, parts, leaf(t))
     for parts, layers in stacks.items():
         _insert(tree, list(parts),
-                np.stack([layers[i] for i in range(len(layers))],
-                         axis=lead))
+                leaf(torch.stack([layers[i] for i in range(len(layers))],
+                                 dim=lead)))
     return tree
 
 

@@ -785,6 +785,14 @@ def dense_client_masks(generator, abstract, axes, scfg: SubmodelConfig,
     return out
 
 
+def _in_param_dtypes(masks, params):
+    """The round's masks in each param's dtype (0/1 is exact in bf16), as
+    the reference casts them for the masked step and the fill-in
+    (``kernels/ops.py:54, 70``): the update kernels take operands of one
+    dtype.  A float32 mask is itself."""
+    return {k: m.to(params[k].dtype) for k, m in masks.items()}
+
+
 @dataclass
 class MaskFedAvg:
     """The mask-mode round: dense per-client masks, K masked local SGD
@@ -864,9 +872,9 @@ class MaskFedAvg:
         """
         caps = (self.capacities if capacities is None
                 else self._check_capacities(capacities))
-        masks = dense_client_masks(generator, self.abstract, self.axes,
-                                   self.scfg, caps, round_idx, self.device,
-                                   masks=masks)
+        masks = _in_param_dtypes(dense_client_masks(
+            generator, self.abstract, self.axes, self.scfg, caps, round_idx,
+            self.device, masks=masks), params)
         w_c, losses = self.client_phase(params, batch, masks)
         with torch.no_grad():
             sm.fillin_average(params, w_c, masks, self.scfg.server_lr)
@@ -889,9 +897,9 @@ class MaskFedAvg:
                 "the round with api.fed_round(..., server_opt=...)")
         caps = (self.capacities if capacities is None
                 else self._check_capacities(capacities))
-        masks = dense_client_masks(generator, self.abstract, self.axes,
-                                   self.scfg, caps, round_idx, self.device,
-                                   masks=masks)
+        masks = _in_param_dtypes(dense_client_masks(
+            generator, self.abstract, self.axes, self.scfg, caps, round_idx,
+            self.device, masks=masks), params)
         w_c, losses = self.client_phase(params, batch, masks)
         with torch.no_grad():
             dbar = {}
@@ -933,9 +941,9 @@ def output_model(fed, params, batch, generator=None, lipschitz=1.0,
     scfg = fed.scfg
     mb = {k: _to_device(v, fed.device)[0] for k, v in batch.items()}
     if isinstance(fed, MaskFedAvg):
-        masks = dense_client_masks(generator, fed.abstract, fed.axes, scfg,
-                                   fed.capacities, round_idx, fed.device,
-                                   masks=masks)
+        masks = _in_param_dtypes(dense_client_masks(
+            generator, fed.abstract, fed.axes, scfg, fed.capacities,
+            round_idx, fed.device, masks=masks), params)
         w_c = {k: v[None] * masks[k] for k, v in params.items()}
         _, g = sm.masked_value_and_grad(fed.loss_fn)(w_c, masks, mb)
         gbar = {k: (masks[k] * g[k]).mean(0) for k in params}

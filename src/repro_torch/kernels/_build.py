@@ -15,7 +15,8 @@ machine without a card has no ``nvcc``.
 
 Each wrapper that launches a kernel adds one to that kernel's entry of
 :data:`LAUNCHES` (and nowhere else), so a run can show which kernels it
-went through.
+went through.  A kernel's bf16 arm is its own entry point (``_bf16``
+appended) and counts under its own name (``/bf16`` appended).
 """
 from __future__ import annotations
 
@@ -52,6 +53,11 @@ _SIGNATURES = {
     "flash_attn_fwd": [_P] * 4 + [_LL] * 12 + [_I] * 8 + [_F, _P],
     "ssd_chunk_intra_fwd": [_P] * 7 + [_LL] * 14 + [_I] * 8 + [_P],
 }
+
+# the bf16 arms take the f32 arms' arguments
+_SIGNATURES.update({f"{n}_bf16": _SIGNATURES[n] for n in (
+    "rolling_mm_fwd", "rolling_mm_dx", "sgd_inplace", "masked_sgd_inplace",
+    "fillin_agg_inplace")})
 
 _lib = None
 
@@ -130,6 +136,19 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+#: the operand dtypes the kernels take (``str`` of the torch dtype): the
+#: suffix of the arm's entry point, and of its launch-count name
+ARMS = {"torch.float32": ("", ""), "torch.bfloat16": ("_bf16", "/bf16")}
+
+
+def launch(entry: str, name: str, dtype, *args):
+    """Call the ``dtype`` arm of ``entry`` with ``args`` and count the
+    launch under ``name`` (``name/bf16`` for a bf16 one)."""
+    fn_suffix, name_suffix = ARMS[str(dtype)]
+    check_launch(name + name_suffix,
+                 getattr(library(), entry + fn_suffix)(*args))
 
 
 def check_launch(name: str, err: int):

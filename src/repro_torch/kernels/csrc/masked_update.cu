@@ -18,8 +18,8 @@
 // (w_c, m_c) and writes w, (8 + 8C) bytes per element; 44.0 GB per round
 // at C = 4, 13.1 ms.
 //
-// Design of masked_sgd (float4_body.cuh, as sgd.cu): one float4 of w, m
-// and g a thread, one block for every 256 float4 and no grid stride, plain
+// Design of masked_sgd (float4_body.cuh, as sgd.cu; one kernel for both
+// arms): one float4 of w, m and g a thread, one block for every 256 float4 and no grid stride, plain
 // loads and stores.  A leaf whose operands share one misalignment runs a
 // scalar head up to the 16-byte boundary, then the float4 body; only
 // mismatched misalignments go wholly scalar.
@@ -35,6 +35,16 @@
 // nvcc cannot contract them into FMAs: the results are bit-exact against
 // the plain PyTorch versions (kernels/ref.py masked_sgd_ref,
 // fillin_agg_ref).
+//
+// The bf16 arms (masked_sgd_inplace_bf16, fillin_agg_inplace_bf16) are the
+// Pallas bodies at bf16, as the reference runs them on bf16 params (w, m,
+// g and the clients' leaves and masks all in w's dtype, kernels/ops.py:54,
+// 69-70): every operand read as bf16, 8 a 16-byte load, widened to f32;
+// the same f32 operations in the same order as the f32 arms; one rounding
+// to bf16 at the store.  Half the f32 arms' bytes.  Both take the
+// float4_body grid (a thread for each 16-byte vector of w, walking the
+// clients in order for the fill-in), with scalar ends, and a wholly scalar
+// leaf where the operands' misalignments differ.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -60,27 +70,29 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// One kernel for both arms (E float or bf16, float4_body::Elt).
+template <class E>
 __global__ void __launch_bounds__(kThreads)
-    masked_sgd_kernel(float* __restrict__ w, const float* __restrict__ m,
-                      const float* __restrict__ g, float lr, long long n,
+    masked_sgd_kernel(E* __restrict__ w, const E* __restrict__ m,
+                      const E* __restrict__ g, float lr, long long n,
                       float4_body::Split s) {
+  using V = float4_body::Elt<E>;
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i < s.head) w[i] = masked_step(w[i], m[i], g[i], lr);
+  if (i < s.head)
+    w[i] = V::put(masked_step(V::get(w[i]), V::get(m[i]), V::get(g[i]), lr));
   if (s.tail + i < n) {
     const long long t = s.tail + i;
-    w[t] = masked_step(w[t], m[t], g[t], lr);
+    w[t] = V::put(masked_step(V::get(w[t]), V::get(m[t]), V::get(g[t]), lr));
   }
-  if (i < s.n4) {
-    float4* w4 = reinterpret_cast<float4*>(w + s.head);
-    float4 a = w4[i];
-    const float4 b = reinterpret_cast<const float4*>(m + s.head)[i];
-    const float4 c = reinterpret_cast<const float4*>(g + s.head)[i];
-    a.x = masked_step(a.x, b.x, c.x, lr);
-    a.y = masked_step(a.y, b.y, c.y, lr);
-    a.z = masked_step(a.z, b.z, c.z, lr);
-    a.w = masked_step(a.w, b.w, c.w, lr);
-    w4[i] = a;
+  if (i < s.nv) {
+    float a[V::N], b[V::N], c[V::N];
+    V::load(w + s.head, i, a);
+    V::load(m + s.head, i, b);
+    V::load(g + s.head, i, c);
+#pragma unroll
+    for (int k = 0; k < V::N; ++k) a[k] = masked_step(a[k], b[k], c[k], lr);
+    V::store(w + s.head, i, a);
   }
 }
 
@@ -125,11 +137,62 @@ __global__ void fillin_agg_kernel(float* __restrict__ w,
   }
 }
 
+// The bf16 fill-in on the float4_body grid: a thread for each 16-byte
+// vector of w (and each element of the scalar ends), walking the clients
+// in order; wc and mc hold client c's leaf at wc + c * cstride (elements).
+__global__ void __launch_bounds__(kThreads)
+    fillin_agg_bf16_kernel(__nv_bfloat16* __restrict__ w,
+                           const __nv_bfloat16* __restrict__ wc,
+                           const __nv_bfloat16* __restrict__ mc, float scale,
+                           long long n, int clients, long long cstride,
+                           float4_body::Split s) {
+  using V = float4_body::Elt<__nv_bfloat16>;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const auto one = [&](long long t) {
+    const float a = V::get(w[t]);
+    float acc = 0.f;
+    for (int c = 0; c < clients; ++c)
+      acc = fill_term(acc, a, V::get(wc[c * cstride + t]),
+                      V::get(mc[c * cstride + t]));
+    w[t] = V::put(__fadd_rn(a, __fmul_rn(scale, acc)));
+  };
+  if (i < s.head) one(i);
+  if (s.tail + i < n) one(s.tail + i);
+  if (i < s.nv) {
+    float a[V::N], acc[V::N] = {};
+    V::load(w + s.head, i, a);
+    for (int c = 0; c < clients; ++c) {
+      float x[V::N], k[V::N];
+      V::load(wc + c * cstride + s.head, i, x);
+      V::load(mc + c * cstride + s.head, i, k);
+#pragma unroll
+      for (int e = 0; e < V::N; ++e)
+        acc[e] = fill_term(acc[e], a[e], x[e], k[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < V::N; ++e)
+      a[e] = __fadd_rn(a[e], __fmul_rn(scale, acc[e]));
+    V::store(w + s.head, i, a);
+  }
+}
+
 unsigned grid_for(long long n) {
   long long blocks = (n / 4 + kThreads - 1) / kThreads;
   if (blocks < 1) blocks = 1;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   return static_cast<unsigned>(blocks);
+}
+
+template <class E>
+int masked_sgd_launch(E* w, const E* m, const E* g, float lr, long long n,
+                      void* stream) {
+  if (n <= 0) return 0;
+  const float4_body::Split s = float4_body::split(n, w, m, g, sizeof(E));
+  masked_sgd_kernel<E><<<float4_body::grid(n, s), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(w, m, g, lr, n,
+                                                              s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -138,12 +201,7 @@ unsigned grid_for(long long n) {
 // error of the launch (0 on success).
 extern "C" int masked_sgd_inplace(float* w, const float* m, const float* g,
                                   float lr, long long n, void* stream) {
-  if (n <= 0) return 0;
-  const float4_body::Split s = float4_body::split(n, w, m, g);
-  masked_sgd_kernel<<<float4_body::grid(n, s), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(w, m, g, lr, n,
-                                                           s);
-  return static_cast<int>(cudaGetLastError());
+  return masked_sgd_launch(w, m, g, lr, n, stream);
 }
 
 // w: the server leaf, n contiguous f32, updated in place.  wc, mc: the
@@ -156,5 +214,30 @@ extern "C" int fillin_agg_inplace(float* w, const float* wc, const float* mc,
   fillin_agg_kernel<<<grid_for(n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       w, wc, mc, scale, n, clients, cstride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// w, m and g contiguous bf16 of n elements on the device.
+extern "C" int masked_sgd_inplace_bf16(__nv_bfloat16* w,
+                                       const __nv_bfloat16* m,
+                                       const __nv_bfloat16* g, float lr,
+                                       long long n, void* stream) {
+  return masked_sgd_launch(w, m, g, lr, n, stream);
+}
+
+// As fillin_agg_inplace, every operand bf16.  The vector body needs the
+// client stride to keep every client's leaf at w's misalignment (a
+// multiple of 8 elements); otherwise the leaf is scalar.
+extern "C" int fillin_agg_inplace_bf16(__nv_bfloat16* w,
+                                       const __nv_bfloat16* wc,
+                                       const __nv_bfloat16* mc, float scale,
+                                       long long n, int clients,
+                                       long long cstride, void* stream) {
+  if (n <= 0) return 0;
+  float4_body::Split s = float4_body::split(n, w, wc, mc, 2);
+  if (cstride % 8 != 0) s = float4_body::Split{n, 0, n};
+  fillin_agg_bf16_kernel<<<float4_body::grid(n, s), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      w, wc, mc, scale, n, clients, cstride, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,16 +52,39 @@
 // output in a fixed order, so a result is the same from run to run.  The
 // TPU's sequential grid axes over the weight group and the window become
 // the dx block's one contraction loop over T x win.
+//
+// The bf16 arm (rolling_mm_fwd_bf16, rolling_mm_dx_bf16), the Pallas
+// kernels on bf16 operands (f32 accumulation, the output in x's dtype):
+// the same kernels, launches, tiles, tile picker, stage ring and copy
+// rules, templated on the element type; only the stage's products (the
+// bf16 mainloop, shared by the forward and dx), the tile copy and the
+// store differ.  Each operand is
+// exact in one mma.sync m16n8k16 bf16 pass (bf16_mma.cuh), so there is no
+// split: 2*M*N*K operations at the dense bf16 rate, 989 TFLOP/s at best,
+// and half the f32 arm's bytes.  Fragments come from shared memory by
+// ldmatrix: A (x, dy) and dx's B (W rows, the window along the
+// contraction) are contraction-contiguous; the forward's B (the window of
+// W [K, N], columns contiguous) is read with ldmatrix.trans.  Shared rows
+// are padded by 8 elements (16 bytes), which keeps every ldmatrix phase on
+// 32 distinct banks.  Copies are 16 bytes where rows and the window's first
+// column are multiples of 8 elements, else element by element (odd offsets
+// included).  Each stage's products are summed on the tensor core from
+// zero and added in f32; the outputs round once to bf16 at the store.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bf16_mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
-template <int BM_, int BN_, int WM_, int WN_, int STAGES_, int MINB_>
+// A block tile of elements E (float, or bf16 for the bf16 arm).
+template <class E_, int BM_, int BN_, int WM_, int WN_, int STAGES_,
+          int MINB_>
 struct Tile {
+  using E = E_;
+  static constexpr int VEC = 16 / sizeof(E);  // elements a 16-byte copy
   static constexpr int BM = BM_, BN = BN_;  // output tile of a block
   static constexpr int WM = WM_, WN = WN_;  // warps along M and along N
   static constexpr int BK = 32;             // contraction depth of a stage
@@ -70,26 +93,34 @@ struct Tile {
   static constexpr int THREADS = 32 * WM * WN;
   static constexpr int MT = BM / WM / 16;   // m16 tiles of a warp
   static constexpr int NT = BN / WN / 8;    // n8 tiles of a warp
-  static constexpr int SA = BK + 4;         // row stride of A and of dx's B
+  static constexpr int SA = BK + VEC;       // row stride of A and of dx's B
   static constexpr int SB_KN = BN + 8;      // row stride of the forward's B
-  static constexpr int A_FLOATS = BM * SA;
-  static constexpr int B_FLOATS_KN = BK * SB_KN;
-  static constexpr int B_FLOATS_NK = BN * SA;
+  static constexpr int A_ELTS = BM * SA;
+  static constexpr int B_ELTS_KN = BK * SB_KN;
+  static constexpr int B_ELTS_NK = BN * SA;
   static constexpr int smem_bytes(bool nk) {
-    return STAGES * 4 * (A_FLOATS + (nk ? B_FLOATS_NK : B_FLOATS_KN));
+    return STAGES * static_cast<int>(sizeof(E)) *
+           (A_ELTS + (nk ? B_ELTS_NK : B_ELTS_KN));
   }
+  static_assert(NT % 2 == 0, "B fragments load in pairs of n8 tiles");
 };
 
 // A warp's fragments of a whole stage stay in registers (the 12 products of
 // each output tile are summed before one f32 add): 128 x 128 and 128 x 64
 // need more than the 128 registers that two 256-thread blocks an SM allow.
-using Large = Tile<128, 128, 2, 4, 4, 1>;
-using Medium = Tile<128, 64, 4, 2, 4, 1>;
-using Small = Tile<64, 64, 2, 2, 4, 3>;
-using Narrow = Tile<64, 32, 2, 2, 4, 3>;
+// The bf16 arm takes the same tiles.
+template <class E>
+using Large = Tile<E, 128, 128, 2, 4, 4, 1>;
+template <class E>
+using Medium = Tile<E, 128, 64, 4, 2, 4, 1>;
+template <class E>
+using Small = Tile<E, 64, 64, 2, 2, 4, 3>;
+template <class E>
+using Narrow = Tile<E, 64, 32, 2, 2, 4, 3>;
 
+template <class E>
 struct WPtrs {
-  const float* p[2];
+  const E* p[2];
 };
 
 // The A fragment of rows r0 .. r0 + 15 and contraction kk .. kk + 7.
@@ -142,14 +173,14 @@ __device__ __forceinline__ void mainloop(float* smem, int stages, Load load,
                                          float (&acc)[TL::MT][TL::NT][4]) {
   constexpr int KS = TL::BK / 8;  // k8 steps of a stage
   constexpr int STAGE =
-      TL::A_FLOATS + (NK ? TL::B_FLOATS_NK : TL::B_FLOATS_KN);
+      TL::A_ELTS + (NK ? TL::B_ELTS_NK : TL::B_ELTS_KN);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm0 = (warp / TL::WN) * (TL::BM / TL::WM);
   const int wn0 = (warp % TL::WN) * (TL::BN / TL::WN);
 
 #pragma unroll
   for (int s = 0; s < TL::STAGES - 1; ++s) {
-    if (s < stages) load(smem + s * STAGE, smem + s * STAGE + TL::A_FLOATS, s);
+    if (s < stages) load(smem + s * STAGE, smem + s * STAGE + TL::A_ELTS, s);
     cp_async_commit();
   }
   for (int s = 0; s < stages; ++s) {
@@ -158,11 +189,11 @@ __device__ __forceinline__ void mainloop(float* smem, int stages, Load load,
     const int next = s + TL::STAGES - 1;
     if (next < stages) {
       float* st = smem + (next % TL::STAGES) * STAGE;
-      load(st, st + TL::A_FLOATS, next);
+      load(st, st + TL::A_ELTS, next);
     }
     cp_async_commit();
     const float* As = smem + (s % TL::STAGES) * STAGE;
-    const float* Bs = As + TL::A_FLOATS;
+    const float* Bs = As + TL::A_ELTS;
     uint32_t bb[KS][TL::NT][2], bs[KS][TL::NT][2];
 #pragma unroll
     for (int h = 0; h < KS; ++h)
@@ -224,20 +255,139 @@ __device__ __forceinline__ void store_tile(
   }
 }
 
+// -- the bf16 arm ---------------------------------------------------------------
+
+// The B fragments of the warp's NT n8 tiles from column n0, contraction
+// kk .. kk + 15, two tiles an ldmatrix.  NK: B stored [BN][SA] (contraction
+// contiguous, dx), else [BK][SB_KN] (the forward; read transposed).
+template <class TL, bool NK>
+__device__ __forceinline__ void load_b_bf16(const bf16* Bs, int n0, int kk,
+                                            int lane,
+                                            uint32_t (&b)[TL::NT][2]) {
+#pragma unroll
+  for (int j = 0; j < TL::NT; j += 2) {
+    uint32_t v[4];
+    if (NK) {
+      ldmatrix_x4_bf16(v, Bs + (n0 + j * 8 + (lane & 7) + (lane >> 4) * 8) *
+                                   TL::SA +
+                              kk + ((lane >> 3) & 1) * 8);
+    } else {
+      ldmatrix_x4_trans_bf16(
+          v, Bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * TL::SB_KN +
+                 n0 + j * 8 + (lane >> 4) * 8);
+    }
+    b[j][0] = v[0], b[j][1] = v[1], b[j + 1][0] = v[2], b[j + 1][1] = v[3];
+  }
+}
+
+// acc += A B over `stages` contraction stages; load(As, Bs, s) issues the
+// copies of stage s.  Each output tile's KS products of a stage are summed
+// on the tensor core from zero, then added to acc in f32.
+template <class TL, bool NK, class Load>
+__device__ __forceinline__ void mainloop(bf16* smem, int stages, Load load,
+                                         float (&acc)[TL::MT][TL::NT][4]) {
+  constexpr int KS = TL::BK / 16;  // k16 steps of a stage
+  constexpr int STAGE = TL::A_ELTS + (NK ? TL::B_ELTS_NK : TL::B_ELTS_KN);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm0 = (warp / TL::WN) * (TL::BM / TL::WM);
+  const int wn0 = (warp % TL::WN) * (TL::BN / TL::WN);
+
+#pragma unroll
+  for (int s = 0; s < TL::STAGES - 1; ++s) {
+    if (s < stages) load(smem + s * STAGE, smem + s * STAGE + TL::A_ELTS, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<TL::STAGES - 2>();
+    __syncthreads();  // stage s landed for all; stage s - 1 is read by all
+    const int next = s + TL::STAGES - 1;
+    if (next < stages) {
+      bf16* st = smem + (next % TL::STAGES) * STAGE;
+      load(st, st + TL::A_ELTS, next);
+    }
+    cp_async_commit();
+    const bf16* As = smem + (s % TL::STAGES) * STAGE;
+    const bf16* Bs = As + TL::A_ELTS;
+    uint32_t b[KS][TL::NT][2];
+#pragma unroll
+    for (int h = 0; h < KS; ++h)
+      load_b_bf16<TL, NK>(Bs, wn0, 16 * h, lane, b[h]);
+#pragma unroll
+    for (int i = 0; i < TL::MT; ++i) {
+      uint32_t a[KS][4];
+#pragma unroll
+      for (int h = 0; h < KS; ++h)
+        ldmatrix_x4_bf16(a[h], As + (wm0 + 16 * i + (lane & 15)) * TL::SA +
+                                   16 * h + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < TL::NT; ++j) {
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < KS; ++h) mma_bf16(t, a[h], b[h][j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// store_tile at bf16: each accumulator rounded once to nearest even; a
+// thread's two neighbouring columns as one 4-byte store where out and ld
+// allow it.
+template <class TL>
+__device__ __forceinline__ void store_tile(
+    const float (&acc)[TL::MT][TL::NT][4], bf16* out, long long ld, int nr,
+    int nc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm0 = (warp / TL::WN) * (TL::BM / TL::WM);
+  const int wn0 = (warp % TL::WN) * (TL::BN / TL::WN);
+  const bool pairs = ld % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < TL::MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm0 + i * 16 + g + 8 * h;
+      if (r >= nr) continue;
+#pragma unroll
+      for (int j = 0; j < TL::NT; ++j) {
+        const int c = wn0 + j * 8 + 2 * q;
+        bf16* o = out + r * ld + c;
+        const float a = acc[i][j][2 * h], b = acc[i][j][2 * h + 1];
+        if (pairs && c + 1 < nc) {
+          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+        } else {
+          if (c < nc) o[0] = __float2bfloat16_rn(a);
+          if (c + 1 < nc) o[1] = __float2bfloat16_rn(b);
+        }
+      }
+    }
+  }
+}
+
+// -- the kernels ---------------------------------------------------------------
+
+// The kernels of both arms: mainloop, store_tile and load_tile take the
+// element type of TL (f32: tf32x3.cuh and the 3xTF32 mainloop above; bf16:
+// bf16_mma.cuh and the bf16 mainloop above).
 template <class TL, int T>
 __global__ void __launch_bounds__(TL::THREADS, TL::MINB)
-rolling_mm_fwd_kernel(const float* __restrict__ x, WPtrs w, float* y0,
-                      float* y1, const int* __restrict__ off, int M, int K,
-                      int win, long long w_bs, long long ldw, bool x_vec,
-                      bool w_vec) {
-  extern __shared__ __align__(16) float smem[];
+rolling_mm_fwd_kernel(const typename TL::E* __restrict__ x,
+                      WPtrs<typename TL::E> w, typename TL::E* y0,
+                      typename TL::E* y1, const int* __restrict__ off, int M,
+                      int K, int win, long long w_bs, long long ldw,
+                      bool x_vec, bool w_vec) {
+  using E = typename TL::E;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);
   const int c = blockIdx.z / T, t = blockIdx.z % T;
   const int m0 = blockIdx.y * TL::BM, n0 = blockIdx.x * TL::BN;
   const int o = off[c];
-  const bool wv = w_vec && o % 4 == 0;
-  const float* xt = x + ((long long)c * M + m0) * K;
-  const float* wt = (t == 0 ? w.p[0] : w.p[1]) + c * w_bs + o + n0;
-  auto load = [&](float* As, float* Bs, int s) {
+  const bool wv = w_vec && o % TL::VEC == 0;
+  const E* xt = x + ((long long)c * M + m0) * K;
+  const E* wt = (t == 0 ? w.p[0] : w.p[1]) + c * w_bs + o + n0;
+  auto load = [&](E* As, E* Bs, int s) {
     const int k0 = s * TL::BK;
     load_tile<TL::BM, TL::BK, TL::SA, TL::THREADS>(As, xt + k0, K, M - m0,
                                                    K - k0, x_vec);
@@ -246,27 +396,29 @@ rolling_mm_fwd_kernel(const float* __restrict__ x, WPtrs w, float* y0,
   };
   float acc[TL::MT][TL::NT][4] = {};
   mainloop<TL, false>(smem, (K + TL::BK - 1) / TL::BK, load, acc);
-  float* y = (t == 0 ? y0 : y1) + ((long long)c * M + m0) * win + n0;
+  E* y = (t == 0 ? y0 : y1) + ((long long)c * M + m0) * win + n0;
   store_tile<TL>(acc, y, win, M - m0, win - n0);
 }
 
 template <class TL, int T>
 __global__ void __launch_bounds__(TL::THREADS, TL::MINB)
-rolling_mm_dx_kernel(const float* dy0, const float* dy1, WPtrs w,
-                     float* __restrict__ dx, const int* __restrict__ off,
-                     int M, int K, int win, long long w_bs, long long ldw,
-                     bool dy_vec, bool w_vec) {
-  extern __shared__ __align__(16) float smem[];
+rolling_mm_dx_kernel(const typename TL::E* dy0, const typename TL::E* dy1,
+                     WPtrs<typename TL::E> w, typename TL::E* __restrict__ dx,
+                     const int* __restrict__ off, int M, int K, int win,
+                     long long w_bs, long long ldw, bool dy_vec, bool w_vec) {
+  using E = typename TL::E;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);
   const int c = blockIdx.z;
   const int m0 = blockIdx.y * TL::BM, k0 = blockIdx.x * TL::BN;
   const int o = off[c];
-  const bool wv = w_vec && o % 4 == 0;
+  const bool wv = w_vec && o % TL::VEC == 0;
   const int per_t = (win + TL::BK - 1) / TL::BK;  // stages of one weight
-  auto load = [&](float* As, float* Bs, int s) {
+  auto load = [&](E* As, E* Bs, int s) {
     const int t = T == 1 ? 0 : s / per_t;
     const int n0 = (s - t * per_t) * TL::BK;
-    const float* dyt = (t == 0 ? dy0 : dy1) + ((long long)c * M + m0) * win;
-    const float* wt = (t == 0 ? w.p[0] : w.p[1]) + c * w_bs + k0 * ldw + o;
+    const E* dyt = (t == 0 ? dy0 : dy1) + ((long long)c * M + m0) * win;
+    const E* wt = (t == 0 ? w.p[0] : w.p[1]) + c * w_bs + k0 * ldw + o;
     load_tile<TL::BM, TL::BK, TL::SA, TL::THREADS>(As, dyt + n0, win, M - m0,
                                                    win - n0, dy_vec);
     load_tile<TL::BN, TL::BK, TL::SA, TL::THREADS>(Bs, wt + n0, ldw, K - k0,
@@ -288,16 +440,19 @@ int pick_tile(int cols, int M, int Z) {
   const auto blocks = [&](int bm, int bn) {
     return (long long)((cols + bn - 1) / bn) * ((M + bm - 1) / bm) * Z;
   };
-  if (blocks(Large::BM, Large::BN) >= sms) return 0;
-  if (blocks(Medium::BM, Medium::BN) >= sms) return 1;
-  if (blocks(Small::BM, Small::BN) >= sms) return 2;
+  using L = Large<float>;
+  using Me = Medium<float>;
+  using Sm = Small<float>;
+  if (blocks(L::BM, L::BN) >= sms) return 0;
+  if (blocks(Me::BM, Me::BN) >= sms) return 1;
+  if (blocks(Sm::BM, Sm::BN) >= sms) return 2;
   return 3;
 }
 
-template <class TL, int T>
-cudaError_t launch_fwd(const float* x, WPtrs w, float* y0, float* y1,
-                       const int* off, int C, int M, int K, int win,
-                       long long w_bs, long long ldw, bool x_vec, bool w_vec,
+template <class TL, int T, class E>
+cudaError_t launch_fwd(const E* x, WPtrs<E> w, E* y0, E* y1, const int* off,
+                       int C, int M, int K, int win, long long w_bs,
+                       long long ldw, bool x_vec, bool w_vec,
                        cudaStream_t s) {
   const auto kern = rolling_mm_fwd_kernel<TL, T>;
   const int bytes = TL::smem_bytes(false);
@@ -312,8 +467,8 @@ cudaError_t launch_fwd(const float* x, WPtrs w, float* y0, float* y1,
   return cudaGetLastError();
 }
 
-template <class TL, int T>
-cudaError_t launch_dx(const float* dy0, const float* dy1, WPtrs w, float* dx,
+template <class TL, int T, class E>
+cudaError_t launch_dx(const E* dy0, const E* dy1, WPtrs<E> w, E* dx,
                       const int* off, int C, int M, int K, int win,
                       long long w_bs, long long ldw, bool dy_vec, bool w_vec,
                       cudaStream_t s) {
@@ -329,26 +484,69 @@ cudaError_t launch_dx(const float* dy0, const float* dy1, WPtrs w, float* dx,
   return cudaGetLastError();
 }
 
-template <int T, class... A>
+template <class E, int T, class... A>
 cudaError_t fwd_tiled(int tile, A... a) {
-  if (tile == 0) return launch_fwd<Large, T>(a...);
-  if (tile == 1) return launch_fwd<Medium, T>(a...);
-  if (tile == 2) return launch_fwd<Small, T>(a...);
-  return launch_fwd<Narrow, T>(a...);
+  if (tile == 0) return launch_fwd<Large<E>, T>(a...);
+  if (tile == 1) return launch_fwd<Medium<E>, T>(a...);
+  if (tile == 2) return launch_fwd<Small<E>, T>(a...);
+  return launch_fwd<Narrow<E>, T>(a...);
 }
 
-template <int T, class... A>
+template <class E, int T, class... A>
 cudaError_t dx_tiled(int tile, A... a) {
-  if (tile == 0) return launch_dx<Large, T>(a...);
-  if (tile == 1) return launch_dx<Medium, T>(a...);
-  if (tile == 2) return launch_dx<Small, T>(a...);
-  return launch_dx<Narrow, T>(a...);
+  if (tile == 0) return launch_dx<Large<E>, T>(a...);
+  if (tile == 1) return launch_dx<Medium<E>, T>(a...);
+  if (tile == 2) return launch_dx<Small<E>, T>(a...);
+  return launch_dx<Narrow<E>, T>(a...);
+}
+
+// The entry points of both arms: x [C, M, K] and y_t [C, M, win]
+// contiguous; W_t rows of stride ldw, clients of stride w_bs; off int32 [C]
+// on the device (off[c] + win <= N).  16-byte copies where x's rows and
+// W's strides are whole 16-byte vectors (the window's offset is checked
+// per client in the kernel).
+template <class E>
+int fwd_entry(int T, const E* x, const E* w0, const E* w1, E* y0, E* y1,
+              const int* off, int C, int M, int K, int win, long long w_bs,
+              long long ldw, void* stream) {
+  if (T != 1 && T != 2) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int V = 16 / sizeof(E);
+  const WPtrs<E> w{{w0, w1}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool x_vec = K % V == 0 && aligned16(x);
+  const bool w_vec = ldw % V == 0 && w_bs % V == 0 && aligned16(w0) &&
+                     (T == 1 || aligned16(w1));
+  const int tile = pick_tile(win, M, C * T);
+  return static_cast<int>(
+      T == 1 ? fwd_tiled<E, 1>(tile, x, w, y0, y1, off, C, M, K, win, w_bs,
+                               ldw, x_vec, w_vec, s)
+             : fwd_tiled<E, 2>(tile, x, w, y0, y1, off, C, M, K, win, w_bs,
+                               ldw, x_vec, w_vec, s));
+}
+
+// dy_t [C, M, win] and dx [C, M, K] contiguous; W_t as for fwd_entry.
+template <class E>
+int dx_entry(int T, const E* dy0, const E* dy1, const E* w0, const E* w1,
+             E* dx, const int* off, int C, int M, int K, int win,
+             long long w_bs, long long ldw, void* stream) {
+  if (T != 1 && T != 2) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int V = 16 / sizeof(E);
+  const WPtrs<E> w{{w0, w1}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dy_vec = win % V == 0 && aligned16(dy0) &&
+                      (T == 1 || aligned16(dy1));
+  const bool w_vec = ldw % V == 0 && w_bs % V == 0 && aligned16(w0) &&
+                     (T == 1 || aligned16(w1));
+  const int tile = pick_tile(K, M, C);
+  return static_cast<int>(
+      T == 1 ? dx_tiled<E, 1>(tile, dy0, dy1, w, dx, off, C, M, K, win, w_bs,
+                              ldw, dy_vec, w_vec, s)
+             : dx_tiled<E, 2>(tile, dy0, dy1, w, dx, off, C, M, K, win, w_bs,
+                              ldw, dy_vec, w_vec, s));
 }
 
 }  // namespace
 
-// x [C, M, K] and y_t [C, M, win] contiguous; W_t rows of stride ldw,
-// clients of stride w_bs; off int32 [C] on the device (off[c] + win <= N).
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int rolling_mm_fwd(int T, const float* x, const float* w0,
                               const float* w1, float* y0, float* y1,
@@ -356,48 +554,49 @@ extern "C" int rolling_mm_fwd(int T, const float* x, const float* w0,
                               int win, long long w_bs, long long ldw,
                               void* stream) {
   (void)N;
-  if (T != 1 && T != 2) return static_cast<int>(cudaErrorInvalidValue);
-  const WPtrs w{{w0, w1}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool x_vec = K % 4 == 0 && aligned16(x);
-  const bool w_vec = ldw % 4 == 0 && w_bs % 4 == 0 && aligned16(w0) &&
-                     (T == 1 || aligned16(w1));
-  const int tile = pick_tile(win, M, C * T);
-  return static_cast<int>(
-      T == 1 ? fwd_tiled<1>(tile, x, w, y0, y1, off, C, M, K, win, w_bs, ldw,
-                            x_vec, w_vec, s)
-             : fwd_tiled<2>(tile, x, w, y0, y1, off, C, M, K, win, w_bs, ldw,
-                            x_vec, w_vec, s));
+  return fwd_entry(T, x, w0, w1, y0, y1, off, C, M, K, win, w_bs, ldw,
+                   stream);
 }
 
-// dy_t [C, M, win] and dx [C, M, K] contiguous; W_t as for rolling_mm_fwd.
 extern "C" int rolling_mm_dx(int T, const float* dy0, const float* dy1,
                              const float* w0, const float* w1, float* dx,
                              const int* off, int C, int M, int K, int N,
                              int win, long long w_bs, long long ldw,
                              void* stream) {
   (void)N;
-  if (T != 1 && T != 2) return static_cast<int>(cudaErrorInvalidValue);
-  const WPtrs w{{w0, w1}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool dy_vec = win % 4 == 0 && aligned16(dy0) &&
-                      (T == 1 || aligned16(dy1));
-  const bool w_vec = ldw % 4 == 0 && w_bs % 4 == 0 && aligned16(w0) &&
-                     (T == 1 || aligned16(w1));
-  const int tile = pick_tile(K, M, C);
-  return static_cast<int>(
-      T == 1 ? dx_tiled<1>(tile, dy0, dy1, w, dx, off, C, M, K, win, w_bs,
-                           ldw, dy_vec, w_vec, s)
-             : dx_tiled<2>(tile, dy0, dy1, w, dx, off, C, M, K, win, w_bs,
-                           ldw, dy_vec, w_vec, s));
+  return dx_entry(T, dy0, dy1, w0, w1, dx, off, C, M, K, win, w_bs, ldw,
+                  stream);
 }
 
 // The block tile (rows << 16 | columns) that rolling_mm_fwd (dx = 0) or
-// rolling_mm_dx (dx = 1) takes for these sizes on the current device.
+// rolling_mm_dx (dx = 1) takes for these sizes on the current device (the
+// bf16 arm takes the same).
 extern "C" int rolling_mm_tile(int dx, int T, int C, int M, int K, int win) {
-  static const int tiles[4] = {Large::BM << 16 | Large::BN,
-                               Medium::BM << 16 | Medium::BN,
-                               Small::BM << 16 | Small::BN,
-                               Narrow::BM << 16 | Narrow::BN};
+  static const int tiles[4] = {
+      Large<float>::BM << 16 | Large<float>::BN,
+      Medium<float>::BM << 16 | Medium<float>::BN,
+      Small<float>::BM << 16 | Small<float>::BN,
+      Narrow<float>::BM << 16 | Narrow<float>::BN};
   return tiles[dx ? pick_tile(K, M, C) : pick_tile(win, M, C * T)];
+}
+
+// The bf16 arm: every operand bf16, the same layout rules.
+extern "C" int rolling_mm_fwd_bf16(int T, const bf16* x, const bf16* w0,
+                                   const bf16* w1, bf16* y0, bf16* y1,
+                                   const int* off, int C, int M, int K, int N,
+                                   int win, long long w_bs, long long ldw,
+                                   void* stream) {
+  (void)N;
+  return fwd_entry(T, x, w0, w1, y0, y1, off, C, M, K, win, w_bs, ldw,
+                   stream);
+}
+
+extern "C" int rolling_mm_dx_bf16(int T, const bf16* dy0, const bf16* dy1,
+                                  const bf16* w0, const bf16* w1, bf16* dx,
+                                  const int* off, int C, int M, int K, int N,
+                                  int win, long long w_bs, long long ldw,
+                                  void* stream) {
+  (void)N;
+  return dx_entry(T, dy0, dy1, w0, w1, dx, off, C, M, K, win, w_bs, ldw,
+                  stream);
 }

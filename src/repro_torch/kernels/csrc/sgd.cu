@@ -19,6 +19,12 @@
 // __fsub_rn), as in the reference's p - lr * g, so the result is bit-exact
 // against the plain PyTorch version w.sub_(g * lr).  w and g are
 // __restrict__: the wrapper refuses a g that overlaps w.
+//
+// The bf16 arm (sgd_inplace_bf16) is the Pallas body at bf16, the same
+// kernel on bf16 elements: w and g are read as bf16 (one 16-byte load of 8
+// each a thread), widened to f32, the step taken in the f32 arm's order (no
+// FMA contraction), and the result rounded once to bf16 at the store.  Half the f32 arm's bytes; bit-exact
+// against the plain version (w.float() - g.float() * lr).to(bf16).
 #include "float4_body.cuh"
 
 namespace {
@@ -29,23 +35,37 @@ __device__ __forceinline__ float step(float w, float g, float lr) {
   return __fsub_rn(w, __fmul_rn(lr, g));
 }
 
+// One kernel for both arms (E float or bf16, float4_body::Elt).
+template <class E>
 __global__ void __launch_bounds__(kThreads)
-    sgd_inplace_kernel(float* __restrict__ w, const float* __restrict__ g,
-                       float lr, long long n, float4_body::Split s) {
+    sgd_inplace_kernel(E* __restrict__ w, const E* __restrict__ g, float lr,
+                       long long n, float4_body::Split s) {
+  using V = float4_body::Elt<E>;
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i < s.head) w[i] = step(w[i], g[i], lr);
-  if (s.tail + i < n) w[s.tail + i] = step(w[s.tail + i], g[s.tail + i], lr);
-  if (i < s.n4) {
-    float4* w4 = reinterpret_cast<float4*>(w + s.head);
-    float4 a = w4[i];
-    const float4 b = reinterpret_cast<const float4*>(g + s.head)[i];
-    a.x = step(a.x, b.x, lr);
-    a.y = step(a.y, b.y, lr);
-    a.z = step(a.z, b.z, lr);
-    a.w = step(a.w, b.w, lr);
-    w4[i] = a;
+  if (i < s.head) w[i] = V::put(step(V::get(w[i]), V::get(g[i]), lr));
+  if (s.tail + i < n) {
+    const long long t = s.tail + i;
+    w[t] = V::put(step(V::get(w[t]), V::get(g[t]), lr));
   }
+  if (i < s.nv) {
+    float a[V::N], b[V::N];
+    V::load(w + s.head, i, a);
+    V::load(g + s.head, i, b);
+#pragma unroll
+    for (int k = 0; k < V::N; ++k) a[k] = step(a[k], b[k], lr);
+    V::store(w + s.head, i, a);
+  }
+}
+
+template <class E>
+int sgd_launch(E* w, const E* g, float lr, long long n, void* stream) {
+  if (n <= 0) return 0;
+  const float4_body::Split s = float4_body::split(n, w, g, g, sizeof(E));
+  sgd_inplace_kernel<E><<<float4_body::grid(n, s), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(w, g, lr, n,
+                                                               s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -54,9 +74,11 @@ __global__ void __launch_bounds__(kThreads)
 // error of the launch (0 on success).
 extern "C" int sgd_inplace(float* w, const float* g, float lr, long long n,
                            void* stream) {
-  if (n <= 0) return 0;
-  const float4_body::Split s = float4_body::split(n, w, g, g);
-  sgd_inplace_kernel<<<float4_body::grid(n, s), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(w, g, lr, n, s);
-  return static_cast<int>(cudaGetLastError());
+  return sgd_launch(w, g, lr, n, stream);
+}
+
+// w and g contiguous bf16 of n elements on the device.
+extern "C" int sgd_inplace_bf16(__nv_bfloat16* w, const __nv_bfloat16* g,
+                                float lr, long long n, void* stream) {
+  return sgd_launch(w, g, lr, n, stream);
 }

@@ -40,8 +40,8 @@ MAX_GROUP = 128
 
 def _check(q, k, v, window):
     if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError("flash attention takes float32 q, k and v (bf16 is "
-                        "ROADMAP.md queue B, row 13)")
+        raise TypeError("flash attention takes float32 q, k and v (its bf16 "
+                        "arm is ROADMAP.md A11 part 2, kernel β3)")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be [B, Sq, H, hd] and k, v one [B, Skv, "
                          f"KV, hd] shape; got {tuple(q.shape)}, "

@@ -7,6 +7,13 @@ Ports ``sgd_2d``, ``masked_sgd_2d`` and ``fillin_agg_2d`` of
 :func:`sgd_`, :func:`masked_sgd_` and :func:`fillin_agg_` launch the
 ``csrc/sgd.cu`` and ``csrc/masked_update.cu`` kernels or raise; on CPU
 tensors they run the plain versions in ``kernels.ref``.
+
+Each takes float32 or bfloat16 operands, all of one dtype.  The bf16 arms
+are the Pallas bodies on bf16 params: every operand in w's dtype (the
+reference casts the mask, grad, client leaves and masks to it,
+``kernels/ops.py:54-55, 69-70`` and ``dispatch.py:206``), the arithmetic
+in float32 and one rounding to bf16 at the store.  A bf16 launch counts
+under the kernel's name with ``/bf16`` appended.
 """
 from __future__ import annotations
 
@@ -15,9 +22,11 @@ import torch
 from repro_torch.kernels import _build, ref
 
 
-def _check_f32_contiguous(what, *ts):
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError(f"{what} takes float32 tensors")
+def _check_contiguous(what, *ts):
+    if (str(ts[0].dtype) not in _build.ARMS
+            or any(t.dtype != ts[0].dtype for t in ts)):
+        raise TypeError(f"{what} takes float32 or bfloat16 tensors, all of "
+                        f"one dtype; got {[t.dtype for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{what} takes contiguous tensors")
     if len({t.device for t in ts}) != 1:
@@ -37,7 +46,7 @@ def _stream(t):
 def sgd_(w: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
     """Update ``w`` in place (one read of w and g, one write of w: no new
     copy of the leaf); returns ``w``."""
-    _check_f32_contiguous("the SGD step", w, g)
+    _check_contiguous("the SGD step", w, g)
     if w.shape != g.shape:
         raise ValueError(f"param {tuple(w.shape)} and grad {tuple(g.shape)} "
                          "disagree")
@@ -46,9 +55,8 @@ def sgd_(w: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
                          "memory with the grad")
     if w.device.type == "cpu":
         return ref.sgd_ref(w, g, lr)
-    err = _build.library().sgd_inplace(
-        w.data_ptr(), g.data_ptr(), float(lr), w.numel(), _stream(w))
-    _build.check_launch("sgd_inplace", err)
+    _build.launch("sgd_inplace", "sgd_inplace", w.dtype, w.data_ptr(),
+                  g.data_ptr(), float(lr), w.numel(), _stream(w))
     return w
 
 
@@ -56,7 +64,7 @@ def masked_sgd_(w: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
                 lr: float) -> torch.Tensor:
     """``w <- w - (lr * m) * g`` in place (reads w, m and g once, writes w
     once); returns ``w``."""
-    _check_f32_contiguous("the masked SGD step", w, m, g)
+    _check_contiguous("the masked SGD step", w, m, g)
     if not w.shape == m.shape == g.shape:
         raise ValueError(f"param {tuple(w.shape)}, mask {tuple(m.shape)} and "
                          f"grad {tuple(g.shape)} disagree")
@@ -65,10 +73,9 @@ def masked_sgd_(w: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
                          "not share memory with the mask or the grad")
     if w.device.type == "cpu":
         return ref.masked_sgd_ref(w, m, g, lr)
-    err = _build.library().masked_sgd_inplace(
-        w.data_ptr(), m.data_ptr(), g.data_ptr(), float(lr), w.numel(),
-        _stream(w))
-    _build.check_launch("masked_sgd_inplace", err)
+    _build.launch("masked_sgd_inplace", "masked_sgd_inplace", w.dtype,
+                  w.data_ptr(), m.data_ptr(), g.data_ptr(), float(lr),
+                  w.numel(), _stream(w))
     return w
 
 
@@ -80,7 +87,7 @@ def fillin_agg_(w: torch.Tensor, w_clients: torch.Tensor,
     *w.shape]`` client leaves and masks (reads each once, writes w once);
     returns ``w``.  ``server_lr / C`` is taken in double and rounded once
     to float32, as the reference's ``scale=float(scale)``."""
-    _check_f32_contiguous("the fill-in average", w, w_clients, m_clients)
+    _check_contiguous("the fill-in average", w, w_clients, m_clients)
     C = w_clients.shape[0] if w_clients.dim() else 0
     if C < 1 or w_clients.shape != (C, *w.shape) or \
             m_clients.shape != w_clients.shape:
@@ -94,8 +101,8 @@ def fillin_agg_(w: torch.Tensor, w_clients: torch.Tensor,
     scale = float(server_lr) / C
     if w.device.type == "cpu":
         return ref.fillin_agg_ref(w, w_clients, m_clients, scale)
-    err = _build.library().fillin_agg_inplace(
-        w.data_ptr(), w_clients.data_ptr(), m_clients.data_ptr(), scale,
-        w.numel(), C, w.numel(), _stream(w))
-    _build.check_launch("fillin_agg_inplace", err)
+    _build.launch("fillin_agg_inplace", "fillin_agg_inplace", w.dtype,
+                  w.data_ptr(), w_clients.data_ptr(),
+                  m_clients.data_ptr(), scale, w.numel(), C, w.numel(),
+                  _stream(w))
     return w

@@ -4,6 +4,13 @@ They define what each CUDA kernel computes.  The wrappers take them only
 for tensors on the CPU; the CPU tests hold them against the JAX
 reference, and ``chip_smoke.py`` holds each kernel against them on the card.
 ``offsets`` are host integers, one per client.
+
+The products and updates take float32 or bfloat16 operands.  At bf16 they
+compute what the Pallas bodies compute: the products in float32 on the
+widened operands, the updates' arithmetic in float32 in the f32 arms'
+order, each result rounded once to bf16 (never a bf16 operation that
+rounds twice).  At float32 every ``.float()`` and ``.to(dtype)`` below is
+the tensor itself, so the f32 arms are unchanged.
 """
 from __future__ import annotations
 
@@ -35,31 +42,42 @@ def rolling_matmul_batched_ref(x, ws, offsets, win):
     """``ys[t][c] = x[c] @ ws[t][c][:, offsets[c] : offsets[c] + win]``
     (the reference's ``rolling_matmul_ref`` per client, per weight): one
     ``bmm`` on the clients' windows, the product the extract client phase
-    takes on its compact copies (the same bits)."""
-    return tuple(torch.bmm(x, window_columns(w, offsets, win)) for w in ws)
+    takes on its compact copies (the same bits); at bf16 the float32
+    product of the widened operands, rounded once (``preferred_element_type
+    =float32``, then the cast to x's dtype)."""
+    return tuple(torch.bmm(x.float(), window_columns(w, offsets, win).float())
+                 .to(x.dtype) for w in ws)
 
 
 def rolling_matmul_batched_dx_ref(dys, ws, offsets, win):
     """``dx[c] = sum_t dys[t][c] @ ws[t][c][:, offsets[c] : offsets[c] +
     win]^T``, summed over t in order (the reference's pairwise sum), one
-    ``bmm`` per weight, as the forward."""
+    ``bmm`` per weight, as the forward; at bf16 in float32, the sum over t
+    too, rounded once."""
     out = None
     for dy, w in zip(dys, ws):
-        term = torch.bmm(dy, window_columns(w, offsets, win).mT)
+        term = torch.bmm(dy.float(), window_columns(w, offsets, win).float().mT)
         out = term if out is None else out + term
-    return out
+    return out.to(dys[0].dtype)
 
 
 def sgd_ref(w, g, lr):
     """``w <- w - lr * g`` in place, rounding the product and the difference
-    separately as the reference's ``p - lr * g`` does; returns ``w``."""
-    return w.sub_(g * lr)
+    separately as the reference's ``p - lr * g`` does; returns ``w``.  At
+    bf16 the same in float32, rounded once into w."""
+    if w.dtype == torch.float32:
+        return w.sub_(g * lr)
+    return w.copy_(w.float() - g.float() * lr)
 
 
 def masked_sgd_ref(w, m, g, lr):
     """``w <- w - (lr * m) * g`` in place: the product rounds first, then
-    the difference, as the reference's ``p - lr * m * g``; returns ``w``."""
-    return w.sub_(m * float(np.float32(lr)) * g)
+    the difference, as the reference's ``p - lr * m * g``; returns ``w``.
+    At bf16 the same in float32, rounded once into w."""
+    lr = float(np.float32(lr))
+    if w.dtype == torch.float32:
+        return w.sub_(m * lr * g)
+    return w.copy_(w.float() - m.float() * lr * g.float())
 
 
 def fillin_agg_ref(w, w_clients, m_clients, scale):
@@ -67,11 +85,16 @@ def fillin_agg_ref(w, w_clients, m_clients, scale):
     summed over c = 0 .. C-1 in order from 0 (the reference's
     ``_fillin_kernel``); ``scale`` (``server_lr / C``) is rounded once to
     float32.  ``w_clients`` and ``m_clients`` are ``[C, *w.shape]``;
-    returns ``w``."""
-    acc = torch.zeros_like(w)
+    returns ``w``.  At bf16 the sum and the update run in float32 on the
+    widened operands, rounded once into w."""
+    wf = w.float()
+    acc = torch.zeros_like(wf)
     for wc, mc in zip(w_clients, m_clients):
-        acc += mc * (wc - w)
-    return w.add_(acc * float(np.float32(scale)))
+        acc += mc.float() * (wc.float() - wf)
+    scale = float(np.float32(scale))
+    if w.dtype == torch.float32:
+        return w.add_(acc * scale)
+    return w.copy_(wf + acc * scale)
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0,

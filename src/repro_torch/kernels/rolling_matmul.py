@@ -25,6 +25,12 @@ shared weight and offset (``dispatch.py:276-287``).
 On a CUDA tensor each wrapper launches its kernel (``csrc/rolling_mm.cu``)
 or raises; on a CPU tensor it runs the plain version in ``kernels.ref``.
 There is no other arm and no fallback.
+
+The operands are float32, or all bfloat16: the bf16 arm (the Pallas
+kernels on bf16 operands: float32 accumulation, the output rounded once
+to the operands' dtype) launches ``rolling_mm_fwd_bf16`` /
+``rolling_mm_dx_bf16`` and counts under the launch's name with ``/bf16``
+appended.  Mixed dtypes are refused.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from repro_torch.device import check_f32_sums
 from repro_torch.kernels import _build, ref
 
 
@@ -53,8 +60,10 @@ def _check(x, ws, offsets, win, x_name="x"):
     """Validate what the kernels take; returns (C, M, K, N, ldw, w_bs)."""
     if not 1 <= len(ws) <= 2:
         raise ValueError(f"1 or 2 weights share one {x_name}; got {len(ws)}")
-    if x.dtype != torch.float32 or any(w.dtype != torch.float32 for w in ws):
-        raise TypeError("the windowed products take float32 operands")
+    if str(x.dtype) not in _build.ARMS or any(w.dtype != x.dtype for w in ws):
+        raise TypeError(f"the windowed products take float32 or bfloat16 "
+                        f"operands, all of one dtype; got {x.dtype} and "
+                        f"{[w.dtype for w in ws]}")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"{x_name} must be a contiguous [C, M, *] tensor; "
                          f"got shape {tuple(x.shape)}")
@@ -96,11 +105,10 @@ def rolling_mm_fwd(x, ws, offsets: Offsets, win, name=None):
                for _ in range(T))
     wp = [w.data_ptr() for w in ws] + [0] * (2 - T)
     yp = [y.data_ptr() for y in ys] + [0] * (2 - T)
-    err = _build.library().rolling_mm_fwd(
-        T, x.data_ptr(), wp[0], wp[1], yp[0], yp[1], offsets.dev.data_ptr(),
-        C, M, K, N, win, w_bs, ldw, torch.cuda.current_stream(
-            x.device).cuda_stream)
-    _build.check_launch(name or f"rolling_mm_fwd<{T}>", err)
+    _build.launch("rolling_mm_fwd", name or f"rolling_mm_fwd<{T}>",
+                  x.dtype, T, x.data_ptr(), wp[0], wp[1], yp[0], yp[1],
+                  offsets.dev.data_ptr(), C, M, K, N, win, w_bs, ldw,
+                  torch.cuda.current_stream(x.device).cuda_stream)
     return ys
 
 
@@ -112,10 +120,10 @@ def rolling_mm_dx(dys, ws, offsets: Offsets, win, name=None):
     C, M, K, N, ldw, w_bs = _check(dy0, ws, offsets, win, x_name="dy")
     if len(dys) != len(ws) or any(
             d.shape != (C, M, win) or not d.is_contiguous()
-            or d.dtype != torch.float32 or d.device != dy0.device
+            or d.dtype != dy0.dtype or d.device != dy0.device
             for d in dys):
-        raise ValueError(f"each dy must be a contiguous float32 [C, M, win] "
-                         f"tensor, one per weight; got "
+        raise ValueError(f"each dy must be a contiguous [C, M, win] tensor "
+                         f"of the weights' dtype, one per weight; got "
                          f"{[tuple(d.shape) for d in dys]}")
     if dy0.device.type == "cpu":
         return ref.rolling_matmul_batched_dx_ref(dys, ws, offsets.host, win)
@@ -123,11 +131,10 @@ def rolling_mm_dx(dys, ws, offsets: Offsets, win, name=None):
     dx = torch.empty((C, M, K), dtype=dy0.dtype, device=dy0.device)
     wp = [w.data_ptr() for w in ws] + [0] * (2 - T)
     dp = [d.data_ptr() for d in dys] + [0] * (2 - T)
-    err = _build.library().rolling_mm_dx(
-        T, dp[0], dp[1], wp[0], wp[1], dx.data_ptr(), offsets.dev.data_ptr(),
-        C, M, K, N, win, w_bs, ldw, torch.cuda.current_stream(
-            dy0.device).cuda_stream)
-    _build.check_launch(name or f"rolling_mm_dx<{T}>", err)
+    _build.launch("rolling_mm_dx", name or f"rolling_mm_dx<{T}>",
+                  dy0.dtype, T, dp[0], dp[1], wp[0], wp[1], dx.data_ptr(),
+                  offsets.dev.data_ptr(), C, M, K, N, win, w_bs, ldw,
+                  torch.cuda.current_stream(dy0.device).cuda_stream)
     return dx
 
 
@@ -159,14 +166,19 @@ def _window_grad(dw, x, dy, offsets, win):
     card), one batched product for a shared window, one per client for
     per-client windows.  On the CPU per-client windows take one bmm and a
     scatter, the extract client phase's product (one mm per client rounds
-    otherwise past about 256 columns)."""
+    otherwise past about 256 columns).  At bf16 the product sums in
+    float32 and rounds once into ``dw`` (``dispatch.py:377-381``): cuBLAS
+    does so on the card, into zeros (``device.check_f32_sums``); on the
+    CPU the operands are widened, the extract client phase's product
+    (``models.layers.bmm``)."""
+    check_f32_sums(x)
     o = ref.shared_offset(offsets.host)
-    if o is not None:
-        dw[:, :, o:o + win].baddbmm_(x.mT, dy)
-    elif dw.device.type == "cpu":
-        g = torch.bmm(x.mT, dy)
+    if dw.device.type == "cpu" and (o is None or dw.dtype != torch.float32):
+        g = torch.bmm(x.mT.float(), dy.float())
         for c, oc in enumerate(offsets.host):
             dw[c, :, oc:oc + win] = g[c]
+    elif o is not None:
+        dw[:, :, o:o + win].baddbmm_(x.mT, dy)
     else:
         for c, oc in enumerate(offsets.host):
             dw[c, :, oc:oc + win].addmm_(x[c].mT, dy[c])

@@ -40,7 +40,8 @@ def _check(x, dt, A, B, C, head_offset, head_win):
     """Validate the operands; returns the head window ``(offset, win)``."""
     ts = (x, dt, A, B, C)
     if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError("ssd_chunk_intra takes float32 x, dt, A, B and C")
+        raise TypeError("ssd_chunk_intra takes float32 x, dt, A, B and C "
+                        "(its bf16 arm is ROADMAP.md A11 part 2)")
     if x.dim() != 5 or dt.shape != x.shape[:4] or A.shape != x.shape[3:4] \
             or B.dim() != 4 or B.shape != C.shape \
             or B.shape[:3] != x.shape[:3]:

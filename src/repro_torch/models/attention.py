@@ -25,8 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import (ParamBuilder, apply_rope, head_proj,
-                                       rms_norm)
+from repro_torch.models.layers import (ParamBuilder, apply_rope, bmm,
+                                       head_proj, rms_norm)
 
 NEG_INF = -1e30
 
@@ -47,7 +47,10 @@ def blockwise_attention(q, k, v, *, causal=True, window=0, q_chunk=512,
                         kv_chunk=512, softmax_scale=None):
     """q ``[B, Sq, H, hd]``; k, v ``[B, Sk, KV, hd]``; H % KV == 0.
     Returns ``[B, Sq, H, hd]``.  Only the kv chunks a q chunk can see are
-    visited."""
+    visited.  QK^T and P V are summed in float32 on widened operands (the
+    reference's ``preferred_element_type=float32``): at bf16 no score and
+    no partial sum is rounded to 8 mantissa bits; P is cast to V's dtype
+    first, as in the reference."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -76,7 +79,8 @@ def blockwise_attention(q, k, v, *, causal=True, window=0, q_chunk=512,
             kc = k[:, kj * kv_chunk:(kj + 1) * kv_chunk]
             vc = v[:, kj * kv_chunk:(kj + 1) * kv_chunk]
             kpos = kj * kv_chunk + ar_k
-            s = torch.einsum("bqkgd,bskd->bkgqs", qc, kc).float() * scale
+            s = torch.einsum("bqkgd,bskd->bkgqs", qc.float(),
+                             kc.float()) * scale
             valid = (qpos[:, None] >= kpos[None, :] if causal else
                      torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
                                 device=q.device))
@@ -88,7 +92,7 @@ def blockwise_attention(q, k, v, *, causal=True, window=0, q_chunk=512,
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
             acc = acc * corr[..., None] + torch.einsum(
-                "bkgqs,bskd->bkgqd", p.to(vc.dtype), vc).float()
+                "bkgqs,bskd->bkgqd", p.to(vc.dtype).float(), vc.float())
             m = m_new
         out = acc / torch.clamp_min(l, 1e-30)[..., None]
         # [B, KV, G, Qc, hd] -> [B, Qc, H, hd]
@@ -143,7 +147,7 @@ def gqa_train(p, x, cfg, positions, window=None):
         # window; grads land as exact zeros outside)
         wo = hspec.take(wo)
     Hw, hd = wo.shape[1], wo.shape[2]
-    out = torch.bmm(out.reshape(C, B * S, Hw * hd), wo.reshape(C, Hw * hd, D))
+    out = bmm(out.reshape(C, B * S, Hw * hd), wo.reshape(C, Hw * hd, D))
     return out.reshape(C, B, S, D)
 
 
@@ -165,22 +169,23 @@ def gqa_prefill(p, x, cfg, positions, cache_len):
         kc, vc = k, v
     wo = p["wo"]
     H, hd = wo.shape[1], wo.shape[2]
-    out = torch.bmm(out.reshape(C, B * S, H * hd), wo.reshape(C, H * hd, D))
+    out = bmm(out.reshape(C, B * S, H * hd), wo.reshape(C, H * hd, D))
     return out.reshape(C, B, S, D), {"k": kc, "v": vc}
 
 
 def decode_attention(q, k, v, valid, softmax_scale=None):
     """q ``[B, H, hd]``; k, v ``[B, Sc, KV, hd]``; valid ``[B, Sc]`` bool.
-    Returns ``[B, H, hd]``."""
+    Returns ``[B, H, hd]`` float32.  Both products sum in float32, as in
+    :func:`blockwise_attention`."""
     B, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     scale = softmax_scale or 1.0 / math.sqrt(hd)
     qg = q.reshape(B, KV, G, hd)
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k).float() * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype), v).float()
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
     return out.reshape(B, H, -1)
 
 
@@ -215,8 +220,8 @@ def gqa_decode(p, x, cfg, cache, pos, valid_override=None, rope_pos=None):
                            vc.reshape(C * B, Sc, *vc.shape[3:]),
                            valid.repeat(C, 1))
     wo = p["wo"]
-    out = torch.bmm(out.reshape(C, B, H * hd).to(x.dtype),
-                    wo.reshape(C, H * hd, wo.shape[-1]))
+    out = bmm(out.reshape(C, B, H * hd).to(x.dtype),
+              wo.reshape(C, H * hd, wo.shape[-1]))
     return out[:, :, None], {"k": kc, "v": vc}
 
 

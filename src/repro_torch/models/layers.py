@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import check_f32_sums
 from repro_torch.kernels.rolling_matmul import (SCALAR_NAMES, Offsets,
                                                 make_offsets,
                                                 rolling_matmul_batched)
@@ -122,12 +123,14 @@ class WindowMap:
 
 
 class ParamBuilder:
-    """Collects ``{path: tensor}`` f32 params and ``{path: axes}`` tags.
-    Weights are drawn from one ``torch.Generator`` on ``device`` (the
+    """Collects ``{path: tensor}`` params of ``dtype`` (float32 or bfloat16)
+    and ``{path: axes}`` tags.  Weights are drawn in float32 from one
+    ``torch.Generator`` on ``device`` and rounded once to ``dtype`` (the
     ``meta`` device builds shapes only)."""
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, dtype=torch.float32):
         self.device = torch.device(device)
+        self.dtype = dtype
         self.gen = None
         if self.device.type != "meta":
             self.gen = torch.Generator(self.device).manual_seed(int(seed))
@@ -150,10 +153,10 @@ class ParamBuilder:
         w = torch.empty(shape, dtype=torch.float32, device=self.device)
         if self.gen is not None:
             w.normal_(0.0, scale, generator=self.gen)
-        self._put(path, w, axes)
+        self._put(path, w.to(self.dtype), axes)
 
     def const(self, path, shape, axes, value=0.0):
-        self._put(path, torch.full(shape, value, dtype=torch.float32,
+        self._put(path, torch.full(shape, value, dtype=self.dtype,
                                    device=self.device), axes)
 
 
@@ -233,10 +236,34 @@ def _rows(x):
     return x.reshape(x.shape[0], -1, x.shape[-1])
 
 
+def _wide(t):
+    """``t`` as an operand of a float32-accumulated product: a bfloat16
+    tensor on the CPU widened to float32, anything else itself."""
+    if t.dtype == torch.bfloat16 and t.device.type == "cpu":
+        return t.float()
+    return t
+
+
+def bmm(a, b, dtype=None):
+    """``torch.bmm(a, b)`` in ``dtype`` (default a's), summed in float32
+    and rounded once, as the reference's bf16 products are.  cuBLAS does
+    so on the card with ``allow_bf16_reduced_precision_reduction`` off
+    (``device.resolve_device`` turns it off; a bf16 product raises while
+    it is on); on the CPU bf16 operands are widened first, since torch's
+    CPU bf16 GEMM sums in another order than its f32 one and the windowed
+    products' plain versions (``kernels.ref``) multiply widened operands:
+    the fused and the extract client phases then agree to the bit."""
+    check_f32_sums(a)
+    return torch.bmm(_wide(a), _wide(b)).to(dtype or a.dtype)
+
+
 def mlp_apply(p, x, act="silu"):
-    x2 = _rows(x)
-    g = act_fn(act)(torch.bmm(x2, p["w_gate"]))
-    out = torch.bmm(g * torch.bmm(x2, p["w_up"]), p["w_down"])
+    # one widened x for the gate/up pair: at bf16 on the CPU its grads sum
+    # in float32 and round once, as the pair's dx kernel (the fused
+    # phase's) sums them
+    x2 = _wide(_rows(x))
+    g = act_fn(act)(bmm(x2, p["w_gate"], x.dtype))
+    out = bmm(g * bmm(x2, p["w_up"], x.dtype), p["w_down"])
     return out.reshape(x.shape)
 
 
@@ -248,7 +275,7 @@ def mlp_apply_rolling(p, x, spec: AxisWindow, act="silu"):
     gy, u = rolling_matmul_batched(
         _rows(x), (p["w_gate"], p["w_up"]), spec.cols(1, x.device),
         spec.win, names=spec.names(2))
-    out = torch.bmm(act_fn(act)(gy) * u, spec.take(p["w_down"]))
+    out = bmm(act_fn(act)(gy) * u, spec.take(p["w_down"]))
     return out.reshape(x.shape)
 
 
@@ -260,7 +287,7 @@ def head_proj(x, w, spec: Optional[AxisWindow]):
     lead = x.shape[1:-1]
     w2 = w.reshape(C, D, H * hd)
     if spec is None:
-        return torch.bmm(_rows(x), w2).reshape(C, *lead, H, hd)
+        return bmm(_rows(x), w2).reshape(C, *lead, H, hd)
     (y,) = rolling_matmul_batched(_rows(x), (w2,), spec.cols(hd, x.device),
                                   spec.win * hd, names=spec.names(1))
     return y.reshape(C, *lead, spec.win, hd)

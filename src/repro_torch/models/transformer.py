@@ -63,9 +63,10 @@ from repro_torch.models.attention import (attn_params, gqa_decode,
                                           gqa_prefill, gqa_train, mla_decode,
                                           mla_params, mla_prefill, mla_train)
 from repro_torch.models.layers import (AxisWindow, ParamBuilder, WindowMap,
-                                       gelu, mlp_apply, mlp_apply_rolling,
-                                       mlp_params, rms_norm,
-                                       sinusoidal_positions, softmax_xent)
+                                       bmm, gelu, mlp_apply,
+                                       mlp_apply_rolling, mlp_params,
+                                       rms_norm, sinusoidal_positions,
+                                       softmax_xent)
 from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.models.ssm import n_heads, ssm_decode, ssm_params, ssm_train
 
@@ -132,9 +133,10 @@ def _block_params(b: ParamBuilder, pre: str, cfg: ModelConfig, moe: bool):
         mlp_params(b, f"{pre}/mlp", D, cfg.d_ff)
 
 
-def build_params(cfg: ModelConfig, seed=0, device="cuda"
+def build_params(cfg: ModelConfig, seed=0, device="cuda",
+                 dtype=torch.float32
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, tuple]]:
-    b = ParamBuilder(seed, device)
+    b = ParamBuilder(seed, device, dtype)
     D, V = cfg.d_model, cfg.vocab
     if cfg.n_codebooks:
         CB = cfg.n_codebooks
@@ -277,24 +279,51 @@ KV_CACHE = ("k", "v")
 MLA_CACHE = ("c", "kr")
 
 
+#: the parameter dtypes a model takes
+PARAM_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_bf16_family(cfg: ModelConfig):
+    """bf16 params run the dense GQA family (with ``qk_norm``); the rest
+    waits for ROADMAP.md A11 part 2 (the SSD and flash kernels' bf16 arms,
+    and the MoE, MLA, codebook and vision paths at bf16)."""
+    if cfg.family != "dense" or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: bfloat16 params run the dense GQA family only; "
+            f"family {cfg.family!r}{' with MLA' if cfg.mla else ''} at "
+            "bf16 is ROADMAP.md A11 (part 2)")
+
+
 @dataclass
 class Model:
     cfg: ModelConfig
     moe_path: str = "dropping"     # MoE layers: "dropping" or "dense"
+    # float32 or bfloat16: the dtype ``init`` draws the params in.
+    # Activations follow the embedding's dtype, as in the reference; the
+    # products sum in float32 and round once, the loss is taken in float32
+    param_dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
         _check_supported(self.cfg)
         if self.moe_path not in ("dropping", "dense"):
             raise ValueError(f"moe_path must be 'dropping' or 'dense'; got "
                              f"{self.moe_path!r}")
+        if self.param_dtype not in PARAM_DTYPES:
+            raise ValueError(f"param_dtype must be one of {PARAM_DTYPES}; "
+                             f"got {self.param_dtype!r}")
+        if self.param_dtype != torch.float32:
+            _check_bf16_family(self.cfg)
 
     def init(self, seed=0, device="cuda") -> Dict[str, torch.Tensor]:
-        """Random server params, drawn from ``seed`` on ``device``."""
-        params, _ = build_params(self.cfg, seed, resolve_device(device))
+        """Random server params of ``param_dtype``, drawn from ``seed`` on
+        ``device``."""
+        params, _ = build_params(self.cfg, seed, resolve_device(device),
+                                 self.param_dtype)
         return params
 
     def abstract_params(self) -> Dict[str, torch.Size]:
-        params, _ = build_params(self.cfg, 0, "meta")
+        """``{path: shape}``; the params' dtype is ``param_dtype``."""
+        params, _ = build_params(self.cfg, 0, "meta", self.param_dtype)
         return {k: v.shape for k, v in params.items()}
 
     def axes(self) -> Dict[str, tuple]:
@@ -402,7 +431,7 @@ class Model:
                 C, B, S, self.cfg.n_codebooks, -1)
         w = (params["embed"].transpose(1, 2) if self.cfg.tie_embeddings
              else params["head"])
-        return torch.bmm(h.reshape(C, B * S, D), w).reshape(C, B, S, -1)
+        return bmm(h.reshape(C, B * S, D), w).reshape(C, B, S, -1)
 
     def _run(self, params, h, positions, mode, window=None, caches=None,
              pos=None, valid=None, rope_pos=None, one=False):
@@ -562,5 +591,6 @@ class Model:
         return caches
 
 
-def build_model(cfg: ModelConfig, moe_path: str = "dropping") -> Model:
-    return Model(cfg, moe_path=moe_path)
+def build_model(cfg: ModelConfig, moe_path: str = "dropping",
+                param_dtype: torch.dtype = torch.float32) -> Model:
+    return Model(cfg, moe_path=moe_path, param_dtype=param_dtype)

@@ -34,11 +34,13 @@ class ClientOpt(NamedTuple):
 
 def _step(params, direction, lr, masks):
     """``w <- w - lr * d`` (masked: ``w <- w - (lr * m) * d``) on every
-    leaf, in place through the update kernels."""
+    leaf, in place through the update kernels.  ``d`` is cast to the
+    param's dtype first (a bf16 param's float32 velocity to bf16), as the
+    reference's ``_dispatched_step`` does."""
     for path, p in params.items():
         # a grad through a permuted view (the ResNet's HWIO kernels)
         # comes back strided; the kernels take contiguous operands
-        d = direction[path].contiguous()
+        d = direction[path].to(p.dtype).contiguous()
         if masks is None:
             sgd_(p, d, lr)
         else:

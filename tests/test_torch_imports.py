@@ -1,8 +1,10 @@
 """The port stands alone: no module of ``src/repro_torch``, not its
 examples (``examples/*_torch.py``), not ``chip_smoke.py`` and not the
-card's measurement scripts in ``tools/`` import ``jax`` or the JAX package
-``repro`` (imports of ``repro_torch`` itself are fine).  A static AST scan,
-so it holds for code paths no CPU test reaches.
+card's measurement scripts in ``tools/`` import ``jax``, the JAX package
+``repro`` or ``ml_dtypes`` (JAX's bfloat16 dtype, which the card's
+machine may lack: the port carries bf16 through int16 views), and
+imports of ``repro_torch`` itself are fine.  A static AST scan, so it
+holds for code paths no CPU test reaches.
 
 This file imports no JAX, so it also holds the ``gpu`` test of the
 paper-protocol round at ResNet18's full width, which the card's machine
@@ -17,7 +19,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     sorted((ROOT / "examples").glob("*_torch.py")) + \
     [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_modules(tree):

@@ -41,7 +41,8 @@ from repro_torch.kernels.masked_update import (fillin_agg_,  # noqa: E402
 from repro_torch.kernels.ref import (fillin_agg_ref,  # noqa: E402
                                      masked_sgd_ref,
                                      rolling_matmul_batched_dx_ref,
-                                     rolling_matmul_batched_ref, sgd_ref)
+                                     rolling_matmul_batched_ref, sgd_ref,
+                                     window_columns)
 from repro_torch.kernels.rolling_matmul import (block_tile,  # noqa: E402
                                                 make_offsets,
                                                 rolling_matmul,
@@ -776,3 +777,228 @@ def test_gpu_moe_dropping_is_deterministic(cuda, stagger):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     for a, b in zip(first, run("cpu")):
         _gpu_close(a.cpu(), b)
+
+
+# -- on the card: the bf16 arms (rows 1-11) against their plain versions -----
+
+
+def _bf16_ulp(b):
+    """One bf16 ulp of each element of ``b``: 2^-7 of the power of two at
+    or below its magnitude (0 where b is 0)."""
+    mant, exp = torch.frexp(b.float())
+    return torch.where(mant == 0, torch.zeros_like(mant),
+                       torch.ldexp(torch.ones_like(mant), exp - 8))
+
+
+def _within_one_ulp(a, b):
+    """The products' bf16 tolerance: both sides sum in f32, in other
+    orders, then round once; where the two f32 sums straddle a rounding
+    boundary they round one bf16 ulp apart.  Each element within one ulp
+    of the plain version's, plus 1e-6 of its largest magnitude."""
+    assert a.dtype == b.dtype == torch.bfloat16
+    a, b = a.float(), b.float()
+    slack = _bf16_ulp(b) + 1e-6 * b.abs().max()
+    assert ((a - b).abs() <= slack).all(), (a - b).abs().max()
+
+
+# (C, M, K, N, win, offsets): the main path's q shape; per-client and odd
+# offsets (no 16-byte row: the element-by-element copy); Hymba's dt (ldw
+# 50, win 25); a contraction and a window that are not multiples of 16
+GPU_BF16_SHAPES = [
+    (4, 512, 2048, 2048, 1024, [1024] * 4),
+    (3, 24, 40, 96, 32, [5, 37, 64]),
+    (4, 512, 1600, 50, 25, [25, 0, 25, 13]),
+    (2, 70, 100, 130, 50, [0, 33]),
+    (1, 300, 1000, 777, 333, [17]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("shape", GPU_BF16_SHAPES)
+def test_gpu_bf16_rolling_kernels_within_one_ulp(cuda, T, shape):
+    c, m, k, n, win, offs = shape
+    g = torch.Generator(cuda).manual_seed(30 + T)
+    bf = torch.bfloat16
+    x = torch.randn((c, m, k), device=cuda, generator=g).to(bf)
+    ws = [torch.randn((c, k, n), device=cuda, generator=g).to(bf)
+          for _ in range(T)]
+    dys = [torch.randn((c, m, win), device=cuda, generator=g).to(bf)
+           for _ in range(T)]
+    o = make_offsets(offs, cuda)
+    names = [f"rolling_mm_fwd<{T}>/bf16", f"rolling_mm_dx<{T}>/bf16"]
+    before = [_build.LAUNCHES[nm] for nm in names]
+    ys = rolling_mm_fwd(x, ws, o, win)
+    dx = rolling_mm_dx(dys, ws, o, win)
+    torch.cuda.synchronize()
+    assert [_build.LAUNCHES[nm] for nm in names] == [b + 1 for b in before]
+    for y, yr in zip(ys, rolling_matmul_batched_ref(x, ws, offs, win)):
+        _within_one_ulp(y, yr)
+    _within_one_ulp(dx, rolling_matmul_batched_dx_ref(dys, ws, offs, win))
+    again = [*rolling_mm_fwd(x, ws, o, win), rolling_mm_dx(dys, ws, o, win)]
+    for a, b in zip([*ys, dx], again):                  # deterministic
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2])
+def test_gpu_bf16_autograd_function_matches_plain_autograd(cuda, T):
+    """At bf16, dx through the kernel and dW through cuBLAS into the
+    window of zeros (its reductions in f32), against autograd through the
+    plain products on x widened once, so that the T weights' dx sum in f32
+    and round once, as the kernel sums them (the extract client phase's
+    ``mlp_apply``)."""
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        _bf16_autograd_vs_plain(cuda, T)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = old
+
+
+@pytest.mark.gpu
+def test_gpu_bf16_extract_round_from_the_default_matmul_flag(cuda):
+    """PyTorch's default lets cuBLAS add a bf16 GEMM's partial sums in
+    bf16.  The port's entry points turn that off when they pick the card
+    (``device.resolve_device``), so a reduced bf16 extract round started
+    from the default is, bit for bit, the round started with the flag off;
+    with the flag set back on, a bf16 product on the card raises."""
+    from repro_torch import api
+    from repro_torch.configs.base import SubmodelConfig, get_reduced_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import bmm
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_bf16_reduced_precision_reduction
+    cfg = get_reduced_config("tinyllama_1_1b")
+    scfg = SubmodelConfig(scheme="rolling", capacity=0.5, local_steps=2,
+                          clients_per_round=4, client_lr=0.1,
+                          axes=("d_ff", "heads", "kv_heads"))
+    it = lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0)
+    batches = [next(it) for _ in range(2)]
+    out = []
+    try:
+        for flag in (True, False):
+            matmul.allow_bf16_reduced_precision_reduction = flag
+            model = build_model(cfg, param_dtype=torch.bfloat16)
+            fed = api.fed_round(model, scfg, fused_forward="off",
+                                device="cuda")
+            assert not matmul.allow_bf16_reduced_precision_reduction
+            trainer = api.Trainer(fed, model.init(0, device="cuda"))
+            trainer.run(iter(batches), 2)
+            out.append(trainer.params)
+        for k, v in out[0].items():
+            assert v.dtype == torch.bfloat16
+            assert torch.equal(v.view(torch.int16),
+                               out[1][k].view(torch.int16)), k
+        matmul.allow_bf16_reduced_precision_reduction = True
+        a = torch.ones((1, 8, 8), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(RuntimeError, match="reduced_precision"):
+            bmm(a, a)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = old
+
+
+def _bf16_autograd_vs_plain(cuda, T):
+    c, m, k, n, win = 3, 70, 96, 130, 50
+    g = torch.Generator(cuda).manual_seed(40 + T)
+    bf = torch.bfloat16
+    x = torch.randn((c, m, k), device=cuda, generator=g).to(bf)
+    ws = [torch.randn((c, k, n), device=cuda, generator=g).to(bf)
+          for _ in range(T)]
+    dys = [torch.randn((c, m, win), device=cuda, generator=g).to(bf)
+           for _ in range(T)]
+    for offs in ([0, 33, n - win], [40, 40, 40]):
+        leaves = [t.clone().requires_grad_() for t in (x, *ws)]
+        got = torch.autograd.grad(rolling_matmul_batched(
+            leaves[0], leaves[1:], make_offsets(offs, cuda), win),
+            leaves, dys)
+        xw = leaves[0].float()
+        want = torch.autograd.grad(
+            [torch.bmm(xw, window_columns(w, offs, win).float()).to(w.dtype)
+             for w in leaves[1:]], leaves, dys)
+        for a, b in zip(got, want):
+            _within_one_ulp(a, b)
+
+
+# around the bf16 arms' block of 256 vectors of 8 (2048 elements)
+BF16_SIZES = [0, 1, 7, 2047, 2053, 8191, 8199, 1 << 20]
+# offsets in elements: shared odd and even misalignments (a scalar head),
+# mismatched ones (the scalar loop)
+BF16_VIEWS = [(1, 1, 1), (3, 3, 3), (2, 2, 2), (1, 2, 2), (0, 2, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sgd", "masked_sgd"])
+@pytest.mark.parametrize("n", BF16_SIZES)
+def test_gpu_bf16_client_steps_bit_exact_to_plain(cuda, kind, n):
+    """Rows 9 and 10 at bf16, bit for bit against the plain versions, also
+    in place on views; counted under ``/bf16``."""
+    g = torch.Generator(cuda).manual_seed(n + 7)
+    bf = torch.bfloat16
+    w = torch.randn(n + 4, device=cuda, generator=g).to(bf)
+    m = (torch.rand(n + 4, device=cuda, generator=g) < 0.5).to(bf)
+    gr = torch.randn(n + 4, device=cuda, generator=g).to(bf)
+    name = f"{kind}_inplace/bf16"
+    for wo, mo, go in [(0, 0, 0), *BF16_VIEWS]:
+        if kind == "sgd":
+            want = sgd_ref(w[wo:wo + n].clone(), gr[go:go + n], 0.05)
+        else:
+            want = masked_sgd_ref(w[wo:wo + n].clone(), m[mo:mo + n],
+                                  gr[go:go + n], 0.05)
+        buf, view = _in_place_view(w, wo, n)
+        before = _build.LAUNCHES[name]
+        if kind == "sgd":
+            got = sgd_(view, gr[go:go + n], 0.05)
+        else:
+            got = masked_sgd_(view, m[mo:mo + n], gr[go:go + n], 0.05)
+        assert got is view and _build.LAUNCHES[name] == before + 1
+        assert torch.equal(view.view(torch.int16), want.view(torch.int16))
+        assert torch.equal(buf[:wo].view(torch.int16),
+                           w[:wo].view(torch.int16))
+        assert torch.equal(buf[wo + n:].view(torch.int16),
+                           w[wo + n:].view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("server_lr", [1.0, 0.5])
+@pytest.mark.parametrize("C", [3, 4])
+@pytest.mark.parametrize("n", [1, 8199, 1 << 20])
+def test_gpu_bf16_fillin_bit_exact_to_plain(cuda, C, server_lr, n):
+    """Row 11 at bf16, bit for bit: a client stride that is a multiple of
+    8 elements (the vector body) and one that is not (scalar)."""
+    g = torch.Generator(cuda).manual_seed(n + C + 1)
+    bf = torch.bfloat16
+    w = torch.randn(n + 1, device=cuda, generator=g).to(bf)
+    wc = torch.randn(C, n + 1, device=cuda, generator=g).to(bf)
+    mc = (torch.rand(C, n + 1, device=cuda, generator=g) < 0.5).to(bf)
+    for lo in (0, 1):
+        sl = slice(lo, lo + n)
+        want = fillin_agg_ref(w[sl].clone(), wc[:, :n], mc[:, :n],
+                              server_lr / C)
+        got = fillin_agg_(w[sl].clone(), wc[:, :n].contiguous(),
+                          mc[:, :n].contiguous(), server_lr)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_gpu_bf16_reaching_rows_12_13_raises(cuda):
+    """Rows 12 and 13 have no bf16 arm yet (ROADMAP A11 part 2): a bf16
+    tensor on the card raises, naming it, and nothing widens to f32."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_intra
+    bf = torch.bfloat16
+    q = torch.randn(1, 64, 4, 64, device=cuda).to(bf)
+    k = torch.randn(1, 64, 2, 64, device=cuda).to(bf)
+    with pytest.raises(TypeError, match="A11 part 2"):
+        flash_attention(q, k, k)
+    x = torch.randn(1, 1, 64, 2, 64, device=cuda).to(bf)
+    dt = torch.rand(1, 1, 64, 2, device=cuda).to(bf)
+    A = -torch.rand(2, device=cuda).to(bf)
+    B = torch.randn(1, 1, 64, 16, device=cuda).to(bf)
+    with pytest.raises(TypeError, match="A11 part 2"):
+        ssd_chunk_intra(x, dt, A, B, B)
+    with pytest.raises(TypeError):
+        rolling_mm_fwd(q.reshape(1, 64, 256), [torch.randn(
+            1, 256, 64, device=cuda)], make_offsets([0], cuda), 32)
