@@ -22,7 +22,7 @@ Phases, each of which fails the run when it fails:
    others), with the block tile each timed product launch took, and two
    launches of each bit-equal; flash also at head_dim 128.  The build's
    report gives each tensor-core source's spill stores and HMMA count.
-   Then the bf16 arms of rows 1-11 (``phase_kernels_bf16``, each row
+   Then the bf16 arms of rows 1-13 (``phase_kernels_bf16``, each row
    named ``<kernel>/bf16``): the products within one bf16 ulp of their
    plain versions (plus 1e-6 of the largest magnitude) at ragged shapes
    and odd offsets, then timed at the bf16 paths' shapes beside ``bmm``/
@@ -56,7 +56,8 @@ Phases, each of which fails the run when it fails:
    hybrid]``: 3 fused rounds, 1 extract) on the default axes; then
    reduced DeepSeek-7B, Qwen3-14B and Mixtral (``[agree zoo]``: 2 fused
    rounds each, and one continuous batcher run, its logits and tokens);
-   then reduced TinyLlama with bf16 params (``[agree bf16]``, 4m).
+   then reduced TinyLlama, Mamba2 and Hymba with bf16 params (``[agree
+   bf16]``, 4m, 4n).
 4. The window path: the shared-window federated round on full-width
    TinyLlama-1.1B (22 layers, f32, 4 clients x 2 local steps x 2 x 256
    tokens), through ``api.fed_round`` and ``api.Trainer``, 3 rounds, with
@@ -190,7 +191,7 @@ Phases, each of which fails the run when it fails:
    5-8 and 10's launches against the block arithmetic, a profiled round)
    and 1 extract round within EXTRACT_TOL of the fused rounds' first, on
    DeepSeek-V3 cut to its first (dense) layer and the MTP block,
-   MusicGen-large whole (48 layers) and Phi-3-vision at 24 of 32 layers.
+   MusicGen-large at 24 of 48 layers and Phi-3-vision at 24 of 32.
    ``[mla eval]``: DeepSeek-V3 at 1 dense + 1 MoE layer of all 256
    experts + MTP (14.5 B params; ``dropping``): its loss (``lm_loss``,
    ``mtp_loss``) on 1 x 2048 tokens, the ``heads`` + ``d_ff`` sub-model's
@@ -214,8 +215,9 @@ Phases, each of which fails the run when it fails:
    fused rounds (seconds, peak, the bf16 arms' launches against the layer
    arithmetic, no f32 arm launched) and a profiled round; ``[bf16 eval]``
    on the params they leave (4 x 2048 tokens, whole and the windowed
-   sub-model through rows 1-2, its gradient at 2 x 256 through rows 3-4,
-   no flash: row 13 has no bf16 arm); ``[bf16 extract]``: 3 rounds with
+   sub-model through rows 1-2, each also with ``REPRO_USE_FLASH`` through
+   row 13's bf16 arm, its gradient at 2 x 256 through rows 3-4);
+   ``[bf16 extract]``: 3 rounds with
    ``fused_forward="off"`` from the same params and offsets, held
    against the fused rounds' params by the cosine of the two changes
    (0.7 over all leaves, 0.4 a leaf) and their norm ratios (0.8-1.25),
@@ -225,9 +227,38 @@ Phases, each of which fails the run when it fails:
    cuBLAS runs bf16 products with f32 reductions
    (``allow_bf16_reduced_precision_reduction`` off, as the port's
    ``device.resolve_device`` leaves it).
+4n. The SSM family and the hybrid block with bf16 params, after ``[bf16
+   serve]``.  Phase 2 adds rows 12 and 13's bf16 arms (x, dt, B, C or q,
+   k, v bf16; A and the SSD states f32), within one bf16 ulp plus 1e-4 of
+   the largest output of their plain versions at ragged chunks and
+   lengths, odd head offsets and views at odd strides, timed at a Mamba2
+   prefill layer and Hymba's (row 12), q [4, 2048, 32, 64], head_dim 128
+   and Hymba's eval (row 13, beside a bf16 SDPA, which rounds P to bf16),
+   each beside its bound (the bf16 bytes; C B^T and q k^T at the dense
+   bf16 rate, the products with an f32 operand at the 3xTF32 rate).
+   ``[agree bf16]`` in phase 3 adds reduced Mamba2 and Hymba at bf16 (2
+   fused, 2 extract and 2 Bernoulli mask rounds each, card vs CPU, by the
+   gap).  ``[bf16 ssm round]``: full-width Mamba2-130M with bf16 params
+   in ``[ssm round]``'s configuration at client lr BF16_SLICE_LR, 3 fused
+   rounds (rows 5, 6 and 10 at bf16, no f32 arm) and one profiled
+   (``[profile bf16 ssm round]``, with the chunked SSD's range);
+   ``[bf16 ssm extract]``: 3 extract rounds held
+   against them by the cosine and norm ratios; ``[bf16 ssm mask]``: 2
+   Bernoulli rounds (rows 9 and 11); ``[bf16 ssm eval]``: its loss on 4 x
+   2048 tokens (row 12's bf16 arm, 24 launches); ``[bf16 ssm serve]``: 8 x
+   32768 prefilled and BF16_SSM_G greedy steps from the bf16 caches (the
+   SSM state f32).  ``[bf16 hybrid round]`` / ``[bf16 hybrid extract]``:
+   Hymba-1.5B at HYB_LAYERS layers the same way, unprofiled (rows 5-8,
+   10);
+   ``[bf16 hybrid eval]``: 4 x 2048 with ``REPRO_USE_FLASH`` (rows 12 and
+   13 at bf16) and without; ``[bf16 hybrid serve]``: 4 x 2048 and
+   BF16_HYB_G greedy steps.  Each prints seconds, peak and its launches.
 
-The bf16 rows (``<kernel>/bf16``, rows 1-11) carry the bf16 paths'
-launches (``bf16_window``; row 10 also ``bf16_extract``).
+The bf16 rows (``<kernel>/bf16``) carry the bf16 paths' launches
+(``bf16_window``; row 10 also ``bf16_extract``; rows 5-11 the bf16 SSM
+and hybrid rounds, 12 ``bf16_ssm_serve``, ``bf16_ssm_eval``,
+``bf16_hybrid_eval`` and ``bf16_hybrid_serve``, 13 ``bf16_eval`` and
+``bf16_hybrid_eval``).
 The update kernels (rows 9-11) are also held and timed at the shapes the
 extract and paper paths give them, and rows 5-13 carry each path's
 launches (``launches_by_path``: extract, full, stagger, hetero, fleet,
@@ -279,6 +310,7 @@ PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 # dense (the same data sheet)
 PEAK_BF16_FLOPS = 989e12
 BF16_TOL = "1 bf16 ulp + 1e-6 max|plain|"   # bf16_err
+BF16_TOL_1213 = "1 bf16 ulp + 1e-4 max|plain|"   # rows 12, 13
 # kernel vs plain version: f32 both, different summation order; bounded
 # relative to the output's largest magnitude
 MM_RTOL = 1e-4
@@ -375,14 +407,16 @@ def bits_equal(a, b):
     return a.dtype == b.dtype and torch.equal(a.view(it), b.view(it))
 
 
-def bf16_err(a, b):
+def bf16_err(a, b, slack=1e-6):
     """``(max abs difference, relative to max|b|, its largest excess over
     the bf16 arms' tolerance)`` of bf16 ``a`` against bf16 ``b``: within
     one bf16 ulp of each element of ``b`` (2^-7 of the power of two at or
-    below its magnitude), plus 1e-6 of b's largest magnitude.  The kernel
-    and the plain version both sum in f32, in other orders, and round
-    once; where the two sums straddle a rounding boundary they round one
-    ulp apart.  The excess is <= 0 when every element is within."""
+    below its magnitude), plus ``slack`` of b's largest magnitude.  The
+    kernel and the plain version both sum in f32, in other orders, and
+    round once; where the two sums straddle a rounding boundary they round
+    one ulp apart (rows 12 and 13 take MM_RTOL as the slack, their f32
+    arms' tolerance for the other order).  The excess is <= 0 when every
+    element is within."""
     check(a.dtype == b.dtype == torch.bfloat16, f"bf16 arms return "
           f"{a.dtype}, plain {b.dtype}")
     a, b = a.float(), b.float()
@@ -390,7 +424,7 @@ def bf16_err(a, b):
     ulp = torch.where(mant == 0, torch.zeros_like(b),
                       torch.ldexp(torch.ones_like(b), exp - 8))
     d, top = (a - b).abs(), b.abs().max()
-    excess = d - ulp - 1e-6 * top
+    excess = d - ulp - slack * top
     return (d.max().item(), d.max().item() / max(top.item(), 1e-30),
             excess.max().item())
 
@@ -3592,10 +3626,11 @@ def phase_small_agreement_zoo(dev):
 # (tag, arch, layers kept, clients, fused rounds, extract rounds, other cut
 # fields): full widths; DeepSeek-V3 keeps its first (dense) layer and the
 # MTP block (a MoE layer of 256 experts is 11.5 B params alone), Phi-3-
-# vision 24 of its 32 layers, MusicGen-large all 48
+# vision 24 of its 32 layers, MusicGen-large 24 of its 48 (cut: depth, so
+# that the script stays inside its time limit on a slow host)
 NEW_ROUNDS = [("mla round", "deepseek_v3_671b", 1, 2, 3, 1,
                {"n_dense_layers": 1}),
-              ("audio round", "musicgen_large", 48, 2, 3, 1, {}),
+              ("audio round", "musicgen_large", 24, 2, 3, 1, {}),
               ("vlm round", "phi_3_vision_4_2b", 24, 2, 3, 1, {})]
 # DeepSeek-V3's eval and serving: its first dense layer, one MoE layer of
 # all 256 experts (the shared expert, the sigmoid router) and MTP
@@ -4036,11 +4071,12 @@ def bf16_change_stats(got, want, p0):
 
 
 def check_bf16_rounds(tag, losses, want_losses, params, want, p0,
-                      hold="gap"):
+                      hold="gap", cos_min=BF16_COS):
     """Losses within BF16_LOSS_TOL and the params' change against
     ``want``'s (bf16_change_stats): ``hold="gap"`` within BF16_GAP,
-    ``"cos"`` at BF16_COS or above with every norm ratio in BF16_RATIO.
-    Prints the stats; returns them with the largest loss difference."""
+    ``"cos"`` at ``cos_min`` (all leaves, each leaf; BF16_COS) or above
+    with every norm ratio in BF16_RATIO.  Prints the stats; returns them
+    with the largest loss difference."""
     dl = max(abs(a - b) for a, b in zip(losses, want_losses))
     st = bf16_change_stats(params, want, p0)
     gap, cos, ratio = st["gap"], st["cos"], st["ratio"]
@@ -4048,9 +4084,9 @@ def check_bf16_rounds(tag, losses, want_losses, params, want, p0,
         ok = gap[0] <= BF16_GAP[0] and gap[2] <= BF16_GAP[1]
         rule = f"gap at most {BF16_GAP} (all leaves, each leaf)"
     else:
-        ok = (cos[0] >= BF16_COS[0] and cos[1] >= BF16_COS[1] and
+        ok = (cos[0] >= cos_min[0] and cos[1] >= cos_min[1] and
               BF16_RATIO[0] <= min(ratio) and max(ratio) <= BF16_RATIO[1])
-        rule = (f"cosine at least {BF16_COS} (all leaves, each leaf), "
+        rule = (f"cosine at least {cos_min} (all leaves, each leaf), "
                 f"norm ratios within {BF16_RATIO}")
     said = (f"losses max |d| {dl:.3g} (tolerance {BF16_LOSS_TOL}); the "
             f"params' change against the other side's: gap {gap[0]:.4g} over "
@@ -4064,7 +4100,8 @@ def check_bf16_rounds(tag, losses, want_losses, params, want, p0,
 
 
 def phase_kernels_bf16(dev):
-    """The bf16 arms of TPU rows 1-11 on the card: rows 1-8 within one
+    """The bf16 arms of TPU rows 1-13 on the card (rows 12 and 13:
+    ``ssd_bf16_rows``, ``flash_bf16_rows``): rows 1-8 within one
     bf16 ulp of their plain versions (``bf16_err``) at ragged shapes and
     odd offsets (the element-by-element copy path), then held and timed at
     the bf16 paths' shapes (rows 5-8 at the window round's, 1-4 at the
@@ -4192,6 +4229,8 @@ def phase_kernels_bf16(dev):
         kernel_ms=k_ms,
         plain_ms=cuda_ms(lambda: ref.fillin_agg_ref(w, wc, mc, 1.0 / C)),
         library_ms=None, library_calls=0, bound_ms=b_ms, bound_by=b_by))
+    del w, wc, mc
+    rows += ssd_bf16_rows(dev, g) + flash_bf16_rows(dev, g)
     for r in rows:
         for sub in [r, *r.get("sub_rows", [])]:
             lib = ("none" if sub["library_ms"] is None
@@ -4201,6 +4240,179 @@ def phase_kernels_bf16(dev):
                   f"plain {sub['plain_ms']:.4f} ms  library {lib}  bound "
                   f"{sub['bound_ms']:.4f} ms ({sub['bound_by']})")
     return rows
+
+
+# row 12's bf16 arm (tag, Bt, nc, Q, nh, hd, N, head_offset, head_win, odd
+# strides); the first is one layer of the Mamba2 prefill (8 x 32768, chunk
+# 256), timed, the second one of Hymba's (4 x 2048, 50 heads, N 16, chunk
+# 128), timed as a sub-row
+SSD_BF16 = [
+    ("Mamba2 prefill layer", 8, 128, 256, 24, 64, 128, None, 0, False),
+    ("Hymba prefill layer", 4, 16, 128, 50, 64, 16, None, 0, False),
+    ("odd head offset (5, 7)", 2, 4, 256, 24, 64, 128, 5, 7, False),
+    ("Hymba odd offset (25, 13), Q = 100", 2, 4, 100, 50, 64, 16, 25, 13,
+     False),
+    ("odd strides, offset (3, 9)", 2, 4, 256, 24, 64, 128, 3, 9, True),
+]
+# row 13's bf16 arm, checked only (B, S, H, KV, hd, window, odd strides):
+# ragged lengths, Hymba's 25 on 5 heads, head_dim 128 (q staged in shared
+# memory), views at odd strides (the element-by-element copies)
+FLASH_BF16 = [(2, 1000, 32, 4, 64, 0, False),
+              (1, 777, 25, 5, 64, 512, True),
+              (2, 300, 6, 2, 128, 0, True)]
+
+
+def odd_view(t):
+    """``t`` in a buffer one element longer along the last axis, viewed
+    back: the same values at odd strides (no 16-byte rows)."""
+    buf = torch.zeros((*t.shape[:-1], t.shape[-1] + 1), dtype=t.dtype,
+                      device=t.device)
+    view = buf[..., :t.shape[-1]]
+    view.copy_(t)
+    return view
+
+
+def ssd_bf16_rows(dev, g):
+    """Row 12's bf16 arm (``ssd_chunk_intra/bf16``): x, dt, B and C bf16, A
+    float32, against the plain version on the same inputs at SSD_BF16's
+    cases, y within one bf16 ulp plus MM_RTOL of its largest magnitude
+    (``bf16_err``), the float32 states within MM_RTOL; a second launch
+    bit-equal; timed at the Mamba2 and Hymba prefill layers beside the
+    plain version (no library call computes the block) and the bound: the
+    bytes at bf16 (f32 A and states), and C B^T at the dense bf16 rate (two
+    bf16 operands, exact in one pass) plus M x and the state (an f32
+    operand) at the 3xTF32 rate."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_intra
+    row, subs = None, []
+    for tag, Bt, nc, Q, nh, hd, N, off, win, odd in SSD_BF16:
+        x, dt, A, B, C = ssd_inputs(dev, g, Bt, nc, Q, nh, hd, N)
+        x, dt, B, C = (t.to(BF) for t in (x, dt, B, C))
+        if odd:
+            x, dt, B, C = (odd_view(t) for t in (x, dt, B, C))
+        hs = slice(off or 0, (off or 0) + (win or nh))
+        kern = lambda: ssd_chunk_intra(x, dt, A, B, C,  # noqa: E731
+                                       head_offset=off, head_win=win)
+        plain = lambda: ref.ssd_chunk_intra_ref(  # noqa: E731
+            x[..., hs, :], dt[..., hs], A[hs], B, C)
+        (y, s), (yr, sr) = kern(), plain()
+        ey, es = bf16_err(y, yr, MM_RTOL), err(s, sr)
+        check(s.dtype == torch.float32 and ey[2] <= 0 and es[1] <= MM_RTOL,
+              f"ssd_chunk_intra/bf16 {tag}: y {ey}, states {es}")
+        print(f"[kernels bf16] ssd {tag:36s} x {[Bt, nc, Q, nh, hd]} N {N} "
+              f"heads [{hs.start}, {hs.stop}): y max abs err {ey[0]:.3g} "
+              f"(rel {ey[1]:.3g}), states rel {es[1]:.3g}")
+        if len(subs) < 2 and not odd and off is None:
+            del yr, sr
+            y2, s2 = kern()
+            check(bits_equal(y, y2) and bits_equal(s, s2),
+                  f"ssd_chunk_intra/bf16 {tag}: two launches differ")
+            del y, s, y2, s2
+            pairs = Q * (Q + 1) // 2
+            f_bf16 = Bt * nc * 2 * pairs * N
+            f_rest = Bt * nc * nh * (2 * pairs * hd + 2 * Q * hd * N)
+            nbytes = (2 * (2 * Bt * nc * Q * nh * hd + Bt * nc * Q * nh
+                           + 2 * Bt * nc * Q * N)
+                      + 4 * (nh + Bt * nc * nh * hd * N))
+            # C B^T at the bf16 rate, in 3xTF32-rate operations
+            b_ms, b_by = bound(
+                f_rest + f_bf16 * PEAK_3XTF32_FLOPS / PEAK_BF16_FLOPS,
+                nbytes, PEAK_3XTF32_FLOPS)
+            k_ms = cuda_ms(kern)
+            subs.append(dict(
+                tag=tag, shape={"x": [Bt, nc, Q, nh, hd], "B": [Bt, nc, Q, N]},
+                max_abs_err=max(ey[0], es[0]), max_rel_err=max(ey[1], es[1]),
+                tolerance=BF16_TOL_1213, ms=k_ms, kernel_ms=k_ms,
+                plain_ms=cuda_ms(plain, iters=3, warmup=1), library_ms=None,
+                library_calls=0, bound_ms=b_ms, bound_by=b_by,
+                bound_rate="C B^T at 989 TFLOP/s (bf16), M x and the state "
+                           "at 495/3 (3xTF32); bytes at bf16, f32 states"))
+        del x, dt, A, B, C
+    row = dict(name="ssd_chunk_intra/bf16", route="cuda",
+               source=SRC + "ssd_chunk.cu", replaces=TPU + "ssd_chunk.py:58",
+               tpu_row=12, **{k: v for k, v in subs[0].items() if k != "tag"})
+    row["sub_rows"] = subs[1:]
+    return [row]
+
+
+def flash_bf16_timing(dev, g, B, S, H, KV, hd, window=0):
+    """Row 13's bf16 arm at one causal (``window`` > 0: sliding-window)
+    shape: held against its plain version within one bf16 ulp plus
+    MM_RTOL of the largest output, a second launch bit-equal, timed beside
+    the plain version, one bf16 ``scaled_dot_product_attention`` (timed
+    only; it rounds P to bf16 for P V, less precise work than the kernel's
+    f32 P) and the bound: the bytes at bf16, q k^T at the dense bf16 rate
+    (two bf16 operands) and P V (P in f32) at the 3xTF32 rate."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn((B, S, H, hd), device=dev, generator=g).to(BF)
+    k = torch.randn((B, S, KV, hd), device=dev, generator=g).to(BF)
+    v = torch.randn((B, S, KV, hd), device=dev, generator=g).to(BF)
+    kern = lambda: flash_attention(q, k, v, window=window)           # noqa
+    plain = lambda: ref.flash_attention_ref(q, k, v, window=window)  # noqa
+    out = kern()
+    e = bf16_err(out, plain(), MM_RTOL)
+    shape = {"q": [B, S, H, hd], "kv": [B, S, KV, hd], "causal": True,
+             "window": window}
+    check(e[2] <= 0, f"flash_attention/bf16 at {shape}: {e}")
+    check(bits_equal(out, kern()),
+          f"flash_attention/bf16 at {shape}: two launches differ")
+    del out
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window:
+        i = torch.arange(S, device=dev)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+        lib = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                           enable_gqa=True)
+    else:
+        lib = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
+                           enable_gqa=True)
+    pairs = visible_pairs(S, window)
+    f_qk = f_pv = 2 * B * H * hd * pairs
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    b_ms, b_by = bound(f_pv + f_qk * PEAK_3XTF32_FLOPS / PEAK_BF16_FLOPS,
+                       nbytes, PEAK_3XTF32_FLOPS)
+    k_ms = cuda_ms(kern)
+    return dict(
+        shape=shape, max_abs_err=e[0], max_rel_err=e[1],
+        tolerance=BF16_TOL_1213, ms=k_ms, kernel_ms=k_ms,
+        plain_ms=cuda_ms(plain, iters=5), library_ms=cuda_ms(lib),
+        library_calls=1, library_note="SDPA rounds P to bf16 for P V",
+        bound_ms=b_ms, bound_by=b_by,
+        bound_rate="q k^T at 989 TFLOP/s (bf16), P V at 495/3 (3xTF32, P "
+                   "f32); bytes at bf16")
+
+
+def flash_bf16_rows(dev, g):
+    """Row 13's bf16 arm (``flash_attention/bf16``): checked at FLASH_BF16's
+    ragged, odd-stride and head_dim-128 cases, then timed
+    (``flash_bf16_timing``) at TinyLlama's eval shape, q [4, 2048, 32, 64],
+    at head_dim 128 and at Hymba's eval (25 on 5 heads, window 1024)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    for B, S, H, KV, hd, window, odd in FLASH_BF16:
+        q = torch.randn((B, S, H, hd), device=dev, generator=g).to(BF)
+        k = torch.randn((B, S, KV, hd), device=dev, generator=g).to(BF)
+        v = torch.randn((B, S, KV, hd), device=dev, generator=g).to(BF)
+        if odd:
+            q, k, v = (odd_view(t) for t in (q, k, v))
+        e = bf16_err(flash_attention(q, k, v, window=window),
+                     ref.flash_attention_ref(q, k, v, window=window),
+                     MM_RTOL)
+        case = (B, S, H, KV, hd, window, odd)
+        check(e[2] <= 0, f"flash_attention/bf16 {case}: {e}")
+        print(f"[kernels bf16] flash q {[B, S, H, hd]} kv heads {KV} window "
+              f"{window}{' odd strides' if odd else ''}: max abs err "
+              f"{e[0]:.3g} (rel {e[1]:.3g})")
+    row = dict(name="flash_attention/bf16", route="cuda",
+               source=SRC + "flash_attn.cu",
+               replaces=TPU + "flash_attention.py:88", tpu_row=13,
+               **flash_bf16_timing(dev, g, EB, ES, 32, 4, 64))
+    row["sub_rows"] = [flash_bf16_timing(dev, g, EB, ES, 32, 8, 128),
+                       {"tag": "hymba eval", **flash_bf16_timing(
+                           dev, g, HB, HS, 25, 5, 64, window=1024)}]
+    return [row]
 
 
 def phase_small_agreement_bf16(dev):
@@ -4329,8 +4541,11 @@ def phase_bf16_window(dev, _build):
 
 def phase_bf16_eval(dev, model, trainer, _build):
     """``[bf16 eval]``: the eval path at bf16 on the window rounds' params,
-    without flash (row 13 has no bf16 arm yet): each part driven once with
-    the launches counted, then timed 3 times, peak from a reset."""
+    whole and through the windowed sub-model, each without and with
+    ``REPRO_USE_FLASH`` (row 13's bf16 arm, a launch a layer), and the
+    sub-model's gradient: each part driven once with the launches counted,
+    then timed 3 times, peak from a reset; the flash losses within
+    BF16_LOSS_TOL of the blockwise ones."""
     from repro_torch.data.synthetic import lm_batches
     cfg, params, fed = model.cfg, trainer.params, trainer.fed
     tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (EB,), ES, seed=999))
@@ -4353,10 +4568,14 @@ def phase_bf16_eval(dev, model, trainer, _build):
               "[bf16 eval] w_gate grad nonzero outside the d_ff window")
         return float(loss.detach())
 
-    total = {}
+    total, losses = {}, {}
     for tag, fn in (("server", lambda: eval_loss(model, params, tokens)),
+                    ("server, flash", lambda: eval_loss(
+                        model, params, tokens, flash=True)),
                     ("sub-model", lambda: eval_loss(model, params, tokens,
                                                     window)),
+                    ("sub-model, flash", lambda: eval_loss(
+                        model, params, tokens, window, flash=True)),
                     ("sub-model grad 2x256", grad_pass)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4370,15 +4589,22 @@ def phase_bf16_eval(dev, model, trainer, _build):
         secs, _ = timed(fn, 3)
         peak = torch.cuda.max_memory_allocated()
         check(math.isfinite(loss), f"[bf16 eval] {tag}: loss {loss}")
+        losses[tag] = loss
         print(f"[bf16 eval] {tag:22s} loss {loss:.6f}  "
               f"{float(np.mean(secs)):.4f} s (mean of 3 after a warm-up: "
               f"{[round(t, 4) for t in secs]})  peak {peak / 2**30:.2f} GiB"
               f"  launches {launches}")
-    L = cfg.n_layers     # q, k, v and the gate/up pair a layer, in the
-    want = {"rolling_matmul/bf16": 6 * L,     # sub-model's and the grad's
-            "rolling_matmul_multi/bf16": 2 * L,   # forwards; dx in the grad
+    for tag in ("server", "sub-model"):
+        d = abs(losses[f"{tag}, flash"] - losses[tag])
+        check(d <= BF16_LOSS_TOL, f"[bf16 eval] {tag} flash vs blockwise {d}")
+        print(f"[bf16 eval] {tag}: flash vs blockwise |d| {d:.3g} "
+              f"(tolerance {BF16_LOSS_TOL})")
+    L = cfg.n_layers     # q, k, v and the gate/up pair a layer, in the two
+    want = {"rolling_matmul/bf16": 9 * L,     # sub-models' and the grad's
+            "rolling_matmul_multi/bf16": 3 * L,   # forwards; dx in the grad
             "rolling_matmul_dx/bf16": 3 * L,
-            "rolling_matmul_dx_multi/bf16": L}
+            "rolling_matmul_dx_multi/bf16": L,
+            "flash_attention/bf16": 2 * L}    # the two flash evals
     check(total == want, f"[bf16 eval] launches {total}, expected {want}")
     return total
 
@@ -4449,6 +4675,315 @@ def phase_bf16_serve(dev, _build):
           f"batch {B}); peak {peak / 2**30:.2f} GiB; kernel launches "
           f"{launches}")
     return launches
+
+
+# -- bf16 parameters (ROADMAP A11, part 2): the SSM family and the hybrid
+# block at bf16, through rows 12 and 13's bf16 arms -----------------------
+
+# Reduced bf16 rounds card vs CPU (``[agree bf16]``): each family's client
+# lr in tests/test_torch_bf16_ssm.py, where the port is held to the
+# reference (at 0.1 Hymba's bf16 rounds amplify rounding until the
+# reference's own fused and extract arms part by a gap of 0.26)
+BF16_AGREE_LR = {"mamba2_130m": 0.1, "hymba_1_5b": 0.01}
+# The full-width bf16 SSM and hybrid rounds' client lr, chosen with
+# ``tools/round_lr_probe.py --bf16`` (PERF.md §6, PR 25): extract against
+# fused is held by the cosine of the two changes and their norm ratios
+# (check_bf16_rounds), which unmoved params fail (cosine 0, ratio 0).  Like
+# the f32 rounds at lr 0.1, these rounds amplify rounding: at lr 0.1,
+# 0.03 and 0.01 extract vs fused read a cosine of 0.26, 0.37 and 0.58 over
+# all leaves for Mamba2 (at least 0.13, 0.18 and 0.30 a leaf) and 0.57,
+# 0.77 and 0.95 for Hymba at 16 layers (0.29, 0.43 and 0.64 a leaf), norm
+# ratios 0.89-1.16 throughout.  At 0.01 both hold a limit between those
+# readings and an unmoved state's 0: Mamba2 (0.4, 0.2), Hymba BF16_COS
+BF16_SLICE_LR = 0.01
+BF16_SLICE_COS = {"mamba2_130m": (0.4, 0.2), "hymba_1_5b": BF16_COS}
+BF16_SSM_G, BF16_HYB_G = 32, 32   # greedy steps after the bf16 prefills
+
+
+def phase_small_agreement_bf16_ssm(dev):
+    """Reduced Mamba2 and Hymba at bf16, card vs CPU from the same bf16
+    params, tokens and CPU-drawn offsets or masks, 2 rounds each: fused,
+    extract and Bernoulli mask (BF16_AGREE_LR); losses and the params'
+    change as ``check_bf16_rounds`` holds them (the gap), params bf16."""
+    from repro_torch import api
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    for arch, lr in BF16_AGREE_LR.items():
+        model = build_model(get_reduced_config(arch), param_dtype=BF)
+        p0 = model.init(0, device="cpu")
+        it = lm_batches(model.cfg.vocab, (2, 4, 2), 64, seed=0)
+        data = [next(it) for _ in range(2)]
+        for tag, mode, over, kw in (
+                ("fused", "window", {}, {}),
+                ("extract", "window", {}, dict(fused_forward="off")),
+                ("mask", "mask", dict(scheme="bernoulli"), {})):
+            scfg = slice_scfg(client_lr=lr, **over)
+            inj = _injected(api.fed_round(model, scfg, mode=mode,
+                                          device="cpu", **kw), mode, 2)
+            outs = {}
+            for where in ("cpu", dev):
+                fed = api.fed_round(model, scfg, mode=mode, device=where,
+                                    **kw)
+                t = api.Trainer(fed, _to(p0, where))
+                t.run(((b, {k: _to(v, where) for k, v in i.items()})
+                       for b, i in zip(data, inj)), 2)
+                outs[str(where)] = t
+            c, gpu = outs["cpu"], outs[str(dev)]
+            check(all(v.dtype == BF for v in gpu.params.values()),
+                  f"[agree bf16] {arch} {tag}: params left bf16")
+            said = check_bf16_rounds(
+                f"agree bf16 {arch} {tag}",
+                [float(x) for h in gpu.history
+                 for x in h["client_loss"].ravel()],
+                [float(x) for h in c.history
+                 for x in h["client_loss"].ravel()],
+                gpu.params, c.params, p0)
+            print(f"[agree bf16] reduced {arch} {tag}, 2 rounds card vs CPU "
+                  f"(client lr {lr}): losses "
+                  f"{[round(x, 4) for x in gpu.losses]} vs "
+                  f"{[round(x, 4) for x in c.losses]}; {said}")
+
+
+def _bf16_slice_launches(cfg, leaves, n, fused):
+    """``_slice_launches`` under the bf16 arms' names, zeros left out."""
+    return {f"{k}/bf16": v for k, v in
+            _slice_launches(cfg, leaves, n, fused).items() if v}
+
+
+def phase_bf16_slice_rounds(dev, _build, tag, arch, seq, layers=None,
+                            lr=None, profile=False):
+    """Full-width bf16 rounds of an SSM or hybrid config (``layers`` cuts
+    the depth), in the f32 slice rounds' configuration (C = 4 x K = 2 x 2 x
+    ``seq`` tokens, rolling at 0.5 on the default axes) at client lr
+    ``lr`` (BF16_SLICE_LR): 3 fused rounds counted (rows 5-8 and 10 at
+    bf16 against the layer arithmetic, no f32 arm, params bf16) and, with
+    ``profile``, one profiled as ``[profile bf16 window]`` is, with the
+    chunked SSD's range (its device annotation is no kernel); then 3
+    extract rounds
+    (``fused_forward="off"``) from the same params and offsets, held
+    against the fused rounds' params (taken before the profiled round) by
+    ``check_bf16_rounds``'s cosine (BF16_SLICE_COS) and norm ratios.
+    Returns the launches of both."""
+    from repro_torch import api
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.models.ssm import SSD_CHUNKED
+    lr = BF16_SLICE_LR if lr is None else lr
+    cfg = zoo_config(arch, layers)
+    model = build_model(cfg, param_dtype=BF)
+    it = lm_batches(cfg.vocab, (2, 4, 2), seq=seq)
+    data = [next(it) for _ in range(3)]
+    scfg = slice_scfg(client_lr=lr)
+    fed = api.fed_round(model, scfg, device=dev)
+    check(fed.use_fused, f"[{tag}] the default axes took the extract phase")
+    offsets = [fed._client_offsets(r) for r in range(len(data))]
+    items = [(b, {"offsets": o}) for b, o in zip(data, offsets)]
+    params = model.init(seed=0, device=dev)
+    p0 = {k: v.to("cpu", copy=True) for k, v in params.items()}
+    leaves, n_params = len(params), sum(v.numel() for v in params.values())
+    windows = {f"{k[0]}/{k[1]}": w for k, w in fed.scheme.sizes.items()}
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, {n_params:,} params "
+          f"({leaves} leaves), bf16; 4 clients x 2 steps x 2 x {seq} tokens, "
+          f"client lr {lr}; windows {windows}")
+    trainer = api.Trainer(fed, params)
+    launches, round_s = run_rounds(tag, trainer, items, _build)
+    _only_bf16_arms(tag, launches)
+    want = _bf16_slice_launches(cfg, leaves, len(data), True)
+    check(launches == want, f"[{tag}] launches {launches}, expected {want}")
+    check(all(v.dtype == BF for v in trainer.params.values()),
+          f"[{tag}] params left bf16")
+    fused = ({k: v.to("cpu", copy=True) for k, v in trainer.params.items()},
+             trainer.losses[:len(data)])
+    if profile:
+        phase_profile(tag, trainer, items[0], round_s, ranges=(SSD_CHUNKED,))
+    del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    xtag = tag.replace("round", "extract")
+    fed = api.fed_round(model, scfg, fused_forward="off", device=dev)
+    check(not fed.use_fused, f"[{xtag}] took the fused phase")
+    trainer = api.Trainer(fed, _to(p0, dev))
+    x_launches, _ = run_rounds(xtag, trainer, items, _build)
+    _only_bf16_arms(xtag, x_launches)
+    want = _bf16_slice_launches(cfg, leaves, len(data), False)
+    check(x_launches == want, f"[{xtag}] launches {x_launches}, expected "
+          f"{want}")
+    said = check_bf16_rounds(xtag, trainer.losses, fused[1], trainer.params,
+                             fused[0], p0, hold="cos",
+                             cos_min=BF16_SLICE_COS[arch])
+    print(f"[{xtag}] vs the fused rounds (bf16 kernels vs cuBLAS bf16, each "
+          f"summing in f32 and rounding once): losses {trainer.losses} vs "
+          f"{fused[1]}; {said}")
+    del trainer, fused, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, x_launches
+
+
+def phase_bf16_ssm_mask(dev, _build):
+    """``[bf16 ssm mask]``: full-width Mamba2-130M at bf16, 2 Bernoulli
+    mask rounds (capacity 0.5, client lr BF16_SLICE_LR, ``Trainer(rng=0)``)
+    of the slice rounds' shape: rows 9 and 11 at bf16, no f32 arm, params
+    bf16."""
+    from repro_torch import api
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    cfg = zoo_config("mamba2_130m")
+    model = build_model(cfg, param_dtype=BF)
+    it = lm_batches(cfg.vocab, (2, 4, 2), seq=SSM_SEQ)
+    data = [next(it) for _ in range(2)]
+    params = model.init(seed=0, device=dev)
+    fed = api.fed_round(model, slice_scfg(scheme="bernoulli",
+                                          client_lr=BF16_SLICE_LR),
+                        device=dev)
+    check(isinstance(fed, api.MaskFedAvg), "bernoulli is not MaskFedAvg")
+    print(f"[bf16 ssm mask] {cfg.name}: bf16 params and masks, capacities "
+          f"{fed.capacities.tolist()}, client lr {BF16_SLICE_LR}")
+    trainer = api.Trainer(fed, params, rng=0)
+    launches, _ = run_rounds("bf16 ssm mask", trainer, data, _build)
+    _only_bf16_arms("bf16 ssm mask", launches)
+    leaves, R = len(params), len(data)
+    want = {"masked_sgd_inplace/bf16": 2 * leaves * R,
+            "fillin_agg_inplace/bf16": leaves * R}
+    check(launches == want, f"[bf16 ssm mask] launches {launches}, "
+          f"expected {want}")
+    check(all(v.dtype == BF for v in trainer.params.values()),
+          "[bf16 ssm mask] params left bf16")
+    del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _bf16_eval(tag, model, params, tokens, _build, want, flash=False):
+    """One eval at bf16 counted (its launches must be ``want``, bf16 arms
+    only), then timed 3 times; returns the loss and the launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    loss = eval_loss(model, params, tokens, flash=flash)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    secs, again = timed(lambda: eval_loss(model, params, tokens,
+                                          flash=flash), 3)
+    peak = torch.cuda.max_memory_allocated()
+    _only_bf16_arms(tag, launches)
+    check(math.isfinite(loss) and math.isfinite(again) and launches == want,
+          f"[{tag}] loss {loss}, {again}, launches {launches}, expected "
+          f"{want}")
+    print(f"[{tag}] {model.cfg.name} loss on {list(tokens.shape)} held-out "
+          f"tokens (seed 999), REPRO_USE_FLASH {'set' if flash else 'unset'}"
+          f": {loss:.6f}  {float(np.mean(secs)):.4f} s (mean of 3 after a "
+          f"warm-up: {[round(t, 4) for t in secs]})  peak "
+          f"{peak / 2**30:.2f} GiB  launches {launches}")
+    return loss, launches
+
+
+def _bf16_generate(tag, model, params, prompts, gen, _build, want):
+    """``serve.generate`` at bf16 after a short warm-up, counted (launches
+    ``want``, bf16 arms only) and timed: prefill seconds, ms a token, peak;
+    bf16 logits, finite.  Returns the launches."""
+    from repro_torch.launch.serve import generate
+    generate(model, params, prompts[:, :256], 2)            # a warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    out = generate(model, params, prompts, gen, return_logits=True)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _only_bf16_arms(tag, launches)
+    check(launches == want, f"[{tag}] launches {launches}, expected {want}")
+    check(all(t.dtype == BF and bool(torch.isfinite(t.float()).all())
+              for t in out["logits"]), f"[{tag}] logits bf16 and finite")
+    B, S = prompts.shape
+    print(f"[{tag}] {model.cfg.name} bf16: prefill {B}x{S}: "
+          f"{out['prefill_s']:.4f} s; decode "
+          f"{1e3 * out['decode_s'] / gen:.3f} ms/token ({gen} greedy steps "
+          f"from the bf16 caches, batch {B}); peak {peak / 2**30:.2f} GiB; "
+          f"kernel launches {launches}; first row "
+          f"{out['tokens'][0, :12].tolist()}")
+    return launches
+
+
+def _check_bf16_caches(tag, model, params, prompts):
+    """The caches a bf16 prefill returns: the SSM state ``h`` float32, the
+    rest (conv tails, a hybrid layer's ring) bf16."""
+    with torch.no_grad():
+        _, cache = model.prefill(params, prompts[:, :512], max_len=520)
+    bad = {k: str(v.dtype) for k, v in cache.items()
+           if v.dtype != (torch.float32 if k.endswith("/h") else BF)}
+    check(not bad, f"[{tag}] cache dtypes {bad}")
+
+
+def phase_bf16_ssm_eval_serve(dev, _build):
+    """Full-width Mamba2-130M with bf16 params (seed 0): ``[bf16 ssm
+    eval]``, its loss on 4 x 2048 held-out tokens through row 12's bf16 arm
+    (24 launches); ``[bf16 ssm serve]``, 8 prompts of 32768 tokens
+    prefilled through it and BF16_SSM_G greedy steps from the bf16 caches
+    (h float32).  Returns both paths' launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.specs import sample_prompts
+    from repro_torch.models import build_model
+    cfg = get_config("mamba2_130m")
+    model = build_model(cfg, param_dtype=BF)
+    params = model.init(seed=0, device=dev)
+    want = {"ssd_chunk_intra/bf16": cfg.n_layers}
+    tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (EB,), ES,
+                                             seed=999))["tokens"],
+                             dtype=torch.long).to(dev)
+    _, e_launches = _bf16_eval("bf16 ssm eval", model, params, tokens,
+                               _build, want)
+    prompts = torch.as_tensor(sample_prompts(cfg, SB, SS, seed=0)[0],
+                              dtype=torch.long).to(dev)
+    _check_bf16_caches("bf16 ssm serve", model, params, prompts)
+    s_launches = _bf16_generate("bf16 ssm serve", model, params, prompts,
+                                BF16_SSM_G, _build, want)
+    del model, params, prompts, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return e_launches, s_launches
+
+
+def phase_bf16_hybrid_eval_serve(dev, _build):
+    """Hymba-1.5B at HYB_LAYERS of its 32 layers with bf16 params (seed
+    0): ``[bf16 hybrid eval]``, its loss on 4 x 2048 held-out tokens with
+    ``REPRO_USE_FLASH`` (rows 12 and 13 at bf16, a launch of each a layer)
+    and without (row 12), the two within BF16_LOSS_TOL; ``[bf16 hybrid
+    serve]``, 4 prompts of 2048 prefilled (past the window of 1024) and
+    BF16_HYB_G greedy steps from the bf16 caches.  Returns the flash
+    eval's and the generation's launches."""
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.specs import sample_prompts
+    from repro_torch.models import build_model
+    cfg = zoo_config("hymba_1_5b", HYB_LAYERS)
+    model = build_model(cfg, param_dtype=BF)
+    params = model.init(seed=0, device=dev)
+    tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (HB,), HS,
+                                             seed=999))["tokens"],
+                             dtype=torch.long).to(dev)
+    L = cfg.n_layers
+    flash, e_launches = _bf16_eval(
+        "bf16 hybrid eval", model, params, tokens, _build,
+        {"ssd_chunk_intra/bf16": L, "flash_attention/bf16": L}, flash=True)
+    blockwise, _ = _bf16_eval("bf16 hybrid eval", model, params, tokens,
+                              _build, {"ssd_chunk_intra/bf16": L})
+    d = abs(flash - blockwise)
+    check(d <= BF16_LOSS_TOL, f"[bf16 hybrid eval] flash vs blockwise {d}")
+    print(f"[bf16 hybrid eval] flash vs blockwise |d| {d:.3g} (tolerance "
+          f"{BF16_LOSS_TOL})")
+    prompts = torch.as_tensor(sample_prompts(cfg, HB, HS, seed=0)[0],
+                              dtype=torch.long).to(dev)
+    _check_bf16_caches("bf16 hybrid serve", model, params, prompts)
+    s_launches = _bf16_generate("bf16 hybrid serve", model, params, prompts,
+                                BF16_HYB_G, _build,
+                                {"ssd_chunk_intra/bf16": L})
+    del model, params, prompts, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return e_launches, s_launches
 
 
 def device_kernels(prof, skip=()):
@@ -4644,6 +5179,7 @@ def main():
     phase_small_agreement_slice(dev)
     phase_small_agreement_zoo(dev)
     phase_small_agreement_bf16(dev)
+    phase_small_agreement_bf16_ssm(dev)
     launches, trainer, batch, round_s, fused = phase_main_path(dev, _build)
     e_launches = phase_eval(dev, trainer, _build)
     phase_profile("window", trainer, batch, round_s)
@@ -4666,6 +5202,13 @@ def main():
     bw_launches, be_launches, bx_launches = phase_bf16_window(dev, _build)
     bm_launches = phase_bf16_mask(dev, _build)
     phase_bf16_serve(dev, _build)
+    bsr_launches, bsx_launches = phase_bf16_slice_rounds(
+        dev, _build, "bf16 ssm round", "mamba2_130m", SSM_SEQ, profile=True)
+    bsm_launches = phase_bf16_ssm_mask(dev, _build)
+    bse_launches, bss_launches = phase_bf16_ssm_eval_serve(dev, _build)
+    bhr_launches, bhx_launches = phase_bf16_slice_rounds(
+        dev, _build, "bf16 hybrid round", "hymba_1_5b", HYB_SEQ, HYB_LAYERS)
+    bhe_launches, bhs_launches = phase_bf16_hybrid_eval_serve(dev, _build)
     model, params, prompts, s_launches, prefill_s = phase_serve_ssm(dev,
                                                                     _build)
     phase_eval_ssm(dev, model, params, _build)
@@ -4755,11 +5298,34 @@ def main():
                  "rolling_matmul_dx", "rolling_matmul_dx_multi"):
         path[name + "/bf16"] = be_launches
     more["sgd_inplace/bf16"] = {"bf16_extract": bx_launches}
+    # the bf16 SSM and hybrid paths: rows 5-8 and 10 on their rounds (row
+    # 10 alone on the extract rounds), 9 and 11 on Mamba2's mask rounds,
+    # 12 on the evals and prefills, 13 on the evals with flash
+    for name in ("rolling_mm_fwd<1>", "rolling_mm_dx<1>"):
+        more[f"{name}/bf16"] = {"bf16_ssm_round": bsr_launches,
+                                "bf16_hybrid_round": bhr_launches}
+    for name in ("rolling_mm_fwd<2>", "rolling_mm_dx<2>"):
+        more[f"{name}/bf16"] = {"bf16_hybrid_round": bhr_launches}
+    more["sgd_inplace/bf16"].update(
+        bf16_ssm_round=bsr_launches, bf16_ssm_extract=bsx_launches,
+        bf16_hybrid_round=bhr_launches, bf16_hybrid_extract=bhx_launches)
+    for name in ("masked_sgd_inplace/bf16", "fillin_agg_inplace/bf16"):
+        more[name] = {"bf16_ssm_mask": bsm_launches}
+    path["ssd_chunk_intra/bf16"] = bss_launches
+    more["ssd_chunk_intra/bf16"] = {"bf16_ssm_eval": bse_launches,
+                                    "bf16_hybrid_eval": bhe_launches,
+                                    "bf16_hybrid_serve": bhs_launches}
+    path["flash_attention/bf16"] = be_launches
+    more["flash_attention/bf16"] = {"bf16_hybrid_eval": bhe_launches}
+    own_path = {"ssd_chunk_intra/bf16": "bf16_ssm_serve",
+                "flash_attention/bf16": "bf16_eval",
+                "masked_sgd_inplace/bf16": "bf16_mask",
+                "fillin_agg_inplace/bf16": "bf16_mask"}
     for r in rows:
         r["launches"] = path.get(r["name"], launches).get(r["name"], 0)
         if r["name"] in more:
-            own = ("bf16_window" if r["name"].endswith("/bf16")
-                   else "main")
+            own = own_path.get(r["name"], "bf16_window" if r[
+                "name"].endswith("/bf16") else "main")
             r["launches_by_path"] = {
                 own: r["launches"], **{p: n.get(r["name"], 0) for p, n in
                                        more[r["name"]].items()}}

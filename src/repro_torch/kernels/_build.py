@@ -57,7 +57,7 @@ _SIGNATURES = {
 # the bf16 arms take the f32 arms' arguments
 _SIGNATURES.update({f"{n}_bf16": _SIGNATURES[n] for n in (
     "rolling_mm_fwd", "rolling_mm_dx", "sgd_inplace", "masked_sgd_inplace",
-    "fillin_agg_inplace")})
+    "fillin_agg_inplace", "flash_attn_fwd", "ssd_chunk_intra_fwd")})
 
 _lib = None
 

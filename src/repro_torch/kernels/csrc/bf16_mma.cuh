@@ -1,5 +1,7 @@
 // bf16 building blocks for Hopper's tensor cores: the bf16 arm of the
-// windowed products (rolling_mm.cu).  Beside tf32x3.cuh, whose copy and
+// windowed products (rolling_mm.cu), and the widening helpers of the SSD
+// chunk block's and flash attention's bf16 arms (ssd_chunk.cu,
+// flash_attn.cu; the last section).  Beside tf32x3.cuh, whose copy and
 // pipeline helpers they share.
 //
 // A bf16 operand is exact in one tensor-core pass: mma.sync m16n8k16 with
@@ -112,6 +114,125 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// -- widening at fragment build (ssd_chunk.cu, flash_attn.cu) ---------------
+//
+// Their bf16 arms keep bf16 tiles in shared memory (half the f32 arm's
+// bytes) and widen each element to f32 exactly as a fragment is built, so
+// the 3xTF32 mainloops run unchanged: a widened bf16 has no bits below
+// TF32's, so its small part is 0.  Each overload pair below does one thing
+// for either element type; the f32 one is the f32 arm's own code.  A bf16
+// row of shared memory is HD + 8 elements (f32: HD + 4): its fragment reads
+// then hit distinct 4-byte words across a warp, or the same word (a
+// broadcast), and rows stay 16-byte aligned.
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <class E>
+__device__ __forceinline__ E from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// p[0], p[1] = a, b (p two elements aligned); bf16 rounds each once.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ uint32_t wide_bits(bf16 v) {
+  return __float_as_uint(__bfloat162float(v));
+}
+
+// The m16n8k8 A fragment of the 16 x 8 tile at s (row stride ld, the
+// contraction along the row), as f32 bits: lane 4 g + q gets (g, q),
+// (g + 8, q), (g, q + 4), (g + 8, q + 4).
+__device__ __forceinline__ void frag_a(uint32_t (&v)[4], const float* s,
+                                       int ld) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(v, s + (lane & 15) * ld + (lane >> 4) * 4);
+}
+__device__ __forceinline__ void frag_a(uint32_t (&v)[4], const bf16* s,
+                                       int ld) {
+  const int lane = threadIdx.x & 31;
+  const bf16* p = s + (lane >> 2) * ld + (lane & 3);
+  v[0] = wide_bits(p[0]);
+  v[1] = wide_bits(p[8 * ld]);
+  v[2] = wide_bits(p[4]);
+  v[3] = wide_bits(p[8 * ld + 4]);
+}
+
+// The m16n8k8 B fragments of two n8 tiles at s (16 rows along n, row
+// stride ld, the contraction along the row), as f32 bits: lane 4 g + q
+// gets (n g, k q) and (n g, k q + 4) of tile 0 (rows 0-7) in v[0], v[1],
+// and of tile 1 (rows 8-15) in v[2], v[3].
+__device__ __forceinline__ void frag_b2(uint32_t (&v)[4], const float* s,
+                                        int ld) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(v, s + ((lane & 7) + (lane >> 4) * 8) * ld +
+                     ((lane >> 3) & 1) * 4);
+}
+__device__ __forceinline__ void frag_b2(uint32_t (&v)[4], const bf16* s,
+                                        int ld) {
+  const int lane = threadIdx.x & 31;
+  const bf16* p = s + (lane >> 2) * ld + (lane & 3);
+  v[0] = wide_bits(p[0]);
+  v[1] = wide_bits(p[4]);
+  v[2] = wide_bits(p[8 * ld]);
+  v[3] = wide_bits(p[8 * ld + 4]);
+}
+
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
+                                           int bytes) {
+  cp_async16_bf16(dst, src, bytes);
+}
+
+// A ROWS x COLS tile (COLS contiguous, row stride ld, the first element at
+// g) into shared memory of row stride SLD, elements at row >= nr or column
+// >= nc zero.  f32: tf32x3.cuh's load_tile.  bf16: any tile shape and
+// thread count (COLS a multiple of 8); vec: 16-byte cp.async (g and ld
+// multiples of 8 elements), else element by element with plain loads.
+template <int ROWS, int COLS, int SLD, int THREADS>
+__device__ __forceinline__ void load_block(float* s, const float* g,
+                                           long long ld, int nr, int nc,
+                                           bool vec) {
+  load_tile<ROWS, COLS, SLD, THREADS>(s, g, ld, nr, nc, vec);
+}
+template <int ROWS, int COLS, int SLD, int THREADS>
+__device__ __forceinline__ void load_block(bf16* s, const bf16* g,
+                                           long long ld, int nr, int nc,
+                                           bool vec) {
+  static_assert(COLS % 8 == 0, "tile shape");
+  if (vec) {
+    constexpr int CPR = COLS / 8;
+    for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
+      const int r = i / CPR, c = (i % CPR) * 8;
+      const int n = r < nr ? min(max(nc - c, 0), 8) : 0;
+      cp_async16_bf16(s + r * SLD + c, n ? g + r * ld + c : g, 2 * n);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    for (int i = threadIdx.x; i < ROWS * COLS; i += THREADS) {
+      const int r = i / COLS, c = i % COLS;
+      s[r * SLD + c] = r < nr && c < nc ? g[r * ld + c] : zero;
+    }
+  }
+}
+
+// tf32x3.cuh's load_rows at bf16: ROWS full rows of COLS, rows >= nr zero.
+template <int ROWS, int COLS, int SLD, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          long long ld, int nr, bool vec) {
+  load_block<ROWS, COLS, SLD, THREADS>(dst, src, ld, nr, COLS, vec);
 }
 
 }  // namespace

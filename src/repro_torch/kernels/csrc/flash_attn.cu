@@ -48,10 +48,26 @@
 // a tile none of its rows can see.  No atomics: a launch gives the same bits
 // every time.  Shared memory rows are hd + 4 floats, so every fragment read
 // of a warp hits 32 distinct banks and rows stay 16-byte aligned.
+//
+// The bf16 arm (flash_attn_fwd_bf16) takes q, k and v in bf16 and writes
+// the output in bf16, as the Pallas body does: it casts q, k and v to f32
+// at the load, keeps P in f32 for P v, and writes the output in q's
+// dtype.  The kernel is templated on the element type E of q, k, v and
+// out, and the bf16 instance differs from the f32 one only where an
+// element is copied, widened or stored: bf16 K and V tiles (and q above hd
+// 64) go into shared memory at half the bytes (rows of hd + 8 elements),
+// each element is widened to f32 as its fragment is built (bf16_mma.cuh),
+// the 3xTF32 products run as they are (a widened bf16's small part is 0;
+// P's is not), masked keys still score -1e30 and zero-filled rows read 0,
+// and the output is rounded once to bf16.  At the eval shape above the
+// bf16 data is 0.067 GB (0.02 ms); q k^T multiplies two bf16 operands,
+// exact in one bf16 pass (34.4 GFLOP at 989 TFLOP/s), while P v multiplies
+// the f32 P (34.4 GFLOP at the 3xTF32 rate): 0.243 ms.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bf16_mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -65,31 +81,37 @@ struct Strides {
   long long b, s, h;  // batch, position and head strides, in elements
 };
 
-template <int HD>
+// E: the element type of q, k, v and out (float, or bf16 for the bf16 arm)
+template <int HD, class E>
 struct Cfg {
   static constexpr int BKV = HD <= 64 ? 64 : 32;  // keys of a K/V tile
   static constexpr bool QREG = HD <= 64;  // q's split fragments in registers
-  static constexpr int S = HD + 4;        // shared-memory row stride
+  // shared-memory row stride, in elements
+  static constexpr int S = sizeof(E) == 4 ? HD + 4 : HD + 8;
+  static constexpr int VEC = 16 / sizeof(E);  // elements of a 16-byte copy
   static constexpr int KT = BKV / 8;      // n8 key tiles of S
   static constexpr int DK = HD / 8;       // k8 steps of q k^T; n8 tiles of O
   // n8 tiles of O summed at once in P v (their V fragments and stage sums
   // live in registers together)
   static constexpr int NCH = DK <= 8 ? DK : DK / 2;
-  static constexpr int KV_FLOATS = 2 * BKV * S;  // one stage: K, then V
-  static constexpr int smem_bytes = 4 * (2 * KV_FLOATS + (QREG ? 0 : BM * S));
+  static constexpr int KV_ELTS = 2 * BKV * S;  // one stage: K, then V
+  static constexpr int smem_bytes = static_cast<int>(sizeof(E)) *
+                                    (2 * KV_ELTS + (QREG ? 0 : BM * S));
 };
 
-template <int HD>
+template <int HD, class E>
 __global__ void __launch_bounds__(THREADS, 2)
-    flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ out,
+    flash_attn_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                      const E* __restrict__ v, E* __restrict__ out,
                       Strides sq, Strides sk, Strides sv, Strides so, int KV,
                       int G, int Sq, int Skv, int causal, int window,
                       float scale) {
-  using CF = Cfg<HD>;
+  using CF = Cfg<HD, E>;
   constexpr int BKV = CF::BKV, S = CF::S, KT = CF::KT, DK = CF::DK;
+  constexpr int VEC = CF::VEC;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem + 2 * CF::KV_FLOATS;  // [BM][S], above hd 64 only
+  E* ring = reinterpret_cast<E*>(smem);  // two stages of K and V
+  E* Qs = ring + 2 * CF::KV_ELTS;        // [BM][S], above hd 64 only
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, qd = lane & 3;
@@ -116,15 +138,15 @@ __global__ void __launch_bounds__(THREADS, 2)
            static_cast<long long>(kvh * G + r % G) * sq.h;
   };
 
-  const float* kb = k + b * sk.b + kvh * sk.h;
-  const float* vb = v + b * sv.b + kvh * sv.h;
-  const bool kvec = sk.s % 4 == 0 && sk.b % 4 == 0 && sk.h % 4 == 0 &&
+  const E* kb = k + b * sk.b + kvh * sk.h;
+  const E* vb = v + b * sv.b + kvh * sv.h;
+  const bool kvec = sk.s % VEC == 0 && sk.b % VEC == 0 && sk.h % VEC == 0 &&
                     aligned16(k);
-  const bool vvec = sv.s % 4 == 0 && sv.b % 4 == 0 && sv.h % 4 == 0 &&
+  const bool vvec = sv.s % VEC == 0 && sv.b % VEC == 0 && sv.h % VEC == 0 &&
                     aligned16(v);
   auto load_kv = [&](int it) {
     const int t0 = t_first + it * BKV;
-    float* st = smem + (it & 1) * CF::KV_FLOATS;
+    E* st = ring + (it & 1) * CF::KV_ELTS;
     load_rows<BKV, HD, S, THREADS>(st, kb + t0 * sk.s, sk.s, Skv - t0, kvec);
     load_rows<BKV, HD, S, THREADS>(st + BKV * S, vb + t0 * sv.s, sv.s,
                                    Skv - t0, vvec);
@@ -133,30 +155,34 @@ __global__ void __launch_bounds__(THREADS, 2)
   // q: split once into registers, or staged with the first K/V tile
   uint32_t qb[CF::QREG ? DK : 1][4], qs[CF::QREG ? DK : 1][4];
   if constexpr (CF::QREG) {
-    const float* qa = ra < nrows ? qrow(ra) : nullptr;
-    const float* qc = rb < nrows ? qrow(rb) : nullptr;
+    const E* qa = ra < nrows ? qrow(ra) : nullptr;
+    const E* qc = rb < nrows ? qrow(rb) : nullptr;
 #pragma unroll
     for (int kk = 0; kk < DK; ++kk) {
       const int d = 8 * kk + qd;
-      split_tf32(qa ? qa[d] : 0.0f, qb[kk][0], qs[kk][0]);
-      split_tf32(qc ? qc[d] : 0.0f, qb[kk][1], qs[kk][1]);
-      split_tf32(qa ? qa[d + 4] : 0.0f, qb[kk][2], qs[kk][2]);
-      split_tf32(qc ? qc[d + 4] : 0.0f, qb[kk][3], qs[kk][3]);
+      split_tf32(qa ? to_f32(qa[d]) : 0.0f, qb[kk][0], qs[kk][0]);
+      split_tf32(qc ? to_f32(qc[d]) : 0.0f, qb[kk][1], qs[kk][1]);
+      split_tf32(qa ? to_f32(qa[d + 4]) : 0.0f, qb[kk][2], qs[kk][2]);
+      split_tf32(qc ? to_f32(qc[d + 4]) : 0.0f, qb[kk][3], qs[kk][3]);
     }
   } else {
-    const bool qvec = sq.s % 4 == 0 && sq.b % 4 == 0 && sq.h % 4 == 0 &&
-                      aligned16(q);
-    constexpr int CPR = HD / 4;
+    const bool qvec = sq.s % VEC == 0 && sq.b % VEC == 0 &&
+                      sq.h % VEC == 0 && aligned16(q);
+    constexpr int CPR = HD / VEC;
     for (int i = threadIdx.x; i < BM * CPR; i += THREADS) {
-      const int r = i / CPR, c = (i % CPR) * 4;
+      const int r = i / CPR, c = (i % CPR) * VEC;
       const bool ok = R0 + r < nrows;
-      const float* src = ok ? qrow(R0 + r) + c : q;
+      const E* src = ok ? qrow(R0 + r) + c : q;
       if (qvec) {
         cp_async16(Qs + r * S + c, src, ok ? 16 : 0);
-      } else {
+      } else if constexpr (sizeof(E) == 4) {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           cp_async4(Qs + r * S + c + e, ok ? src + e : q, ok ? 4 : 0);
+      } else {  // bf16 at an odd element: plain copies
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          Qs[r * S + c + e] = ok ? src[e] : from_f32<E>(0.0f);
       }
     }
   }
@@ -177,8 +203,8 @@ __global__ void __launch_bounds__(THREADS, 2)
       continue;  // none of the warp's rows sees a key of this tile
     const bool mask = (causal && t0 + BKV - 1 > wq_lo) ||
                       (window && wq_hi - t0 >= window) || t0 + BKV > Skv;
-    const float* Ks = smem + (it & 1) * CF::KV_FLOATS;
-    const float* Vs = Ks + BKV * S;
+    const E* Ks = ring + (it & 1) * CF::KV_ELTS;
+    const E* Vs = Ks + BKV * S;
 
     // S = q k^T
     float sc[1][KT][4] = {};
@@ -191,16 +217,14 @@ __global__ void __launch_bounds__(THREADS, 2)
         for (int e = 0; e < 4; ++e) ab[0][e] = qb[kk][e], as[0][e] = qs[kk][e];
       } else {
         uint32_t x[4];
-        ldmatrix_x4(x, Qs + (16 * warp + (lane & 15)) * S + 8 * kk +
-                           (lane >> 4) * 4);
+        frag_a(x, Qs + 16 * warp * S + 8 * kk, S);
         split4(x, ab[0], as[0]);
       }
       uint32_t bb[KT][2], bs[KT][2];
 #pragma unroll
       for (int j = 0; j < KT; j += 2) {
         uint32_t x[4], xb[4], xs[4];
-        ldmatrix_x4(x, Ks + (8 * j + (lane & 7) + (lane >> 4) * 8) * S +
-                           8 * kk + ((lane >> 3) & 1) * 4);
+        frag_b2(x, Ks + 8 * j * S + 8 * kk, S);
         split4(x, xb, xs);
         bb[j][0] = xb[0], bb[j][1] = xb[1], bb[j + 1][0] = xb[2],
         bb[j + 1][1] = xb[3];
@@ -265,9 +289,9 @@ __global__ void __launch_bounds__(THREADS, 2)
         uint32_t bb[CF::NCH][2], bs[CF::NCH][2];
 #pragma unroll
         for (int n = 0; n < CF::NCH; ++n) {
-          const float* vc = Vs + (8 * j + 2 * qd) * S + 8 * (n0 + n) + g;
-          split_tf32(vc[0], bb[n][0], bs[n][0]);
-          split_tf32(vc[S], bb[n][1], bs[n][1]);
+          const E* vc = Vs + (8 * j + 2 * qd) * S + 8 * (n0 + n) + g;
+          split_tf32(to_f32(vc[0]), bb[n][0], bs[n][0]);
+          split_tf32(to_f32(vc[S]), bb[n][1], bs[n][1]);
         }
         mma3_tiles<1, CF::NCH>(t, pb, ps, bb, bs);
       }
@@ -290,60 +314,53 @@ __global__ void __launch_bounds__(THREADS, 2)
   const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
   const bool pairs = so.b % 2 == 0 && so.s % 2 == 0 && so.h % 2 == 0 &&
-                     reinterpret_cast<uintptr_t>(out) % 8 == 0;
+                     reinterpret_cast<uintptr_t>(out) % (2 * sizeof(E)) == 0;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = hf ? rb : ra;
     if (r >= nrows) continue;
     const float inv = hf ? inv_b : inv_a;
-    float* orow = out + b * so.b + static_cast<long long>(r / G) * so.s +
-                  static_cast<long long>(kvh * G + r % G) * so.h + 2 * qd;
+    E* orow = out + b * so.b + static_cast<long long>(r / G) * so.s +
+              static_cast<long long>(kvh * G + r % G) * so.h + 2 * qd;
 #pragma unroll
     for (int n = 0; n < DK; ++n) {
       const float x0 = o[n][2 * hf] * inv, x1 = o[n][2 * hf + 1] * inv;
       if (pairs) {
-        *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x0, x1);
+        store2(orow + 8 * n, x0, x1);
       } else {
-        orow[8 * n] = x0;
-        orow[8 * n + 1] = x1;
+        orow[8 * n] = from_f32<E>(x0);
+        orow[8 * n + 1] = from_f32<E>(x1);
       }
     }
   }
 }
 
-template <int HD>
-int launch(const float* q, const float* k, const float* v, float* out,
-           Strides sq, Strides sk, Strides sv, Strides so, int B, int KV,
-           int G, int Sq, int Skv, int causal, int window, float scale,
-           cudaStream_t s) {
-  const int smem = Cfg<HD>::smem_bytes;
+template <int HD, class E>
+int launch(const E* q, const E* k, const E* v, E* out, Strides sq,
+           Strides sk, Strides sv, Strides so, int B, int KV, int G, int Sq,
+           int Skv, int causal, int window, float scale, cudaStream_t s) {
+  const int smem = Cfg<HD, E>::smem_bytes;
   // above 48 KB a block's dynamic shared memory needs this opt-in
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attn_kernel<HD, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long tiles = (static_cast<long long>(Sq) * G + BM - 1) / BM;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(B * KV, static_cast<unsigned>(tiles));
-  flash_attn_kernel<HD><<<grid, THREADS, smem, s>>>(
+  flash_attn_kernel<HD, E><<<grid, THREADS, smem, s>>>(
       q, k, v, out, sq, sk, sv, so, KV, G, Sq, Skv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// q [B, Sq, H, hd], k and v [B, Skv, KV, hd], out [B, Sq, H, hd], each with
-// unit stride along hd and the given batch / position / head strides (in
-// elements); H = KV * G with G <= 128; hd one of 8, 16, 32, 64, 96, 128.
-// Returns the CUDA error of the launch (0 on success).
-extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
-                              float* out, long long sq_b, long long sq_s,
-                              long long sq_h, long long sk_b, long long sk_s,
-                              long long sk_h, long long sv_b, long long sv_s,
-                              long long sv_h, long long so_b, long long so_s,
-                              long long so_h, int B, int KV, int G, int Sq,
-                              int Skv, int hd, int causal, int window,
-                              float scale, void* stream) {
+// Checks the sizes and launches the kernel at head_dim hd.
+template <class E>
+int run(const E* q, const E* k, const E* v, E* out, long long sq_b,
+        long long sq_s, long long sq_h, long long sk_b, long long sk_s,
+        long long sk_h, long long sv_b, long long sv_s, long long sv_h,
+        long long so_b, long long so_s, long long so_h, int B, int KV, int G,
+        int Sq, int Skv, int hd, int causal, int window, float scale,
+        void* stream) {
   if (G < 1 || G > 128 || B < 1 || KV < 1 || Sq < 1 || Skv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{sq_b, sq_s, sq_h}, sk{sk_b, sk_s, sk_h},
@@ -371,4 +388,39 @@ extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// q [B, Sq, H, hd], k and v [B, Skv, KV, hd], out [B, Sq, H, hd], each with
+// unit stride along hd and the given batch / position / head strides (in
+// elements); H = KV * G with G <= 128; hd one of 8, 16, 32, 64, 96, 128.
+// Returns the CUDA error of the launch (0 on success).
+extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
+                              float* out, long long sq_b, long long sq_s,
+                              long long sq_h, long long sk_b, long long sk_s,
+                              long long sk_h, long long sv_b, long long sv_s,
+                              long long sv_h, long long so_b, long long so_s,
+                              long long so_h, int B, int KV, int G, int Sq,
+                              int Skv, int hd, int causal, int window,
+                              float scale, void* stream) {
+  return run(q, k, v, out, sq_b, sq_s, sq_h, sk_b, sk_s, sk_h, sv_b, sv_s,
+             sv_h, so_b, so_s, so_h, B, KV, G, Sq, Skv, hd, causal, window,
+             scale, stream);
+}
+
+// The bf16 arm: q, k, v and out bf16; the same layout rules.
+extern "C" int flash_attn_fwd_bf16(const bf16* q, const bf16* k,
+                                   const bf16* v, bf16* out, long long sq_b,
+                                   long long sq_s, long long sq_h,
+                                   long long sk_b, long long sk_s,
+                                   long long sk_h, long long sv_b,
+                                   long long sv_s, long long sv_h,
+                                   long long so_b, long long so_s,
+                                   long long so_h, int B, int KV, int G,
+                                   int Sq, int Skv, int hd, int causal,
+                                   int window, float scale, void* stream) {
+  return run(q, k, v, out, sq_b, sq_s, sq_h, sk_b, sk_s, sk_h, sv_b, sv_s,
+             sv_h, so_b, so_s, so_h, B, KV, G, Sq, Skv, hd, causal, window,
+             scale, stream);
 }

@@ -50,6 +50,21 @@
 // head's dt at a head's first stage and tabulates it at the last, where its
 // rows (q0 .. q0 + 31) see none of the keys.  Query tiles go longest first.
 //
+// The bf16 arm (ssd_chunk_intra_fwd_bf16) takes x, dt, B and C in bf16 (A
+// in f32) and writes y in bf16, the states in f32, as the Pallas body
+// does: it casts its inputs to f32 at the load, computes in f32 and
+// writes y in x's dtype.  Both kernels below are templated on the element
+// type E of x, dt, B, C and y, and the bf16 instances differ from the f32
+// ones only where an element is copied, widened or stored: bf16 tiles go
+// into shared memory (half the bytes; rows of hd + 8 and 16 + 8 elements),
+// each element is widened to f32 as its fragment is built (bf16_mma.cuh),
+// the 3xTF32 mainloops run as they are (a widened bf16's small part is 0),
+// and y is rounded once to bf16 at the store.  At the prefill layer above
+// the bf16 data is 2.2 GB (0.65 ms at 3.35 TB/s); of the operations, C B^T
+// multiplies two bf16 operands, exact in one bf16 pass (8.6 GFLOP at 989
+// TFLOP/s), while M x and the state multiply an f32 weight by x (206 GFLOP
+// at the 3xTF32 rate): 1.26 ms.
+//
 // ssd_state_kernel forms S, one block per (batch, chunk, head), 4 warps
 // (8 at hd 128): a 3xTF32 product hd x N over the chunk's positions, A =
 // (x * w)^T with the key weight w_t = exp(L_{Q-1} - L_t) * dt_t computed
@@ -64,14 +79,16 @@
 // about 1e-5 of its largest value, inside the 1e-4 the kernel is held to
 // (a sequential cumsum a head would cost a millisecond at the prefill
 // shape).  Copies are 16 bytes where the rows allow it (row stride a
-// multiple of 4 floats, 16-byte aligned start), else 4 bytes, the ragged
-// edges zero-filled by the copy's source size.  No split of a contraction
+// multiple of 4 floats, or 8 bf16, 16-byte aligned start), else 4 bytes
+// (bf16: element by element, with plain loads), the ragged edges
+// zero-filled.  No split of a contraction
 // across blocks and no atomics: one block sums each output in a fixed
 // order, so a launch gives the same bits every time.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bf16_mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -80,18 +97,20 @@ constexpr int NMAX = 128;      // largest d_state
 constexpr int QMAX = 256;      // largest chunk
 constexpr int TQ = 64;         // query rows of a y block
 constexpr int CB_BK = 16;      // d_state depth of a C B^T stage
-constexpr int CB_S = CB_BK + 4;  // row stride of the C and B stage tiles
 constexpr int KS = 32;         // positions of an x (or state) stage
 constexpr int STAGES = 3;      // the cp.async ring
 constexpr int HG = 24;         // most heads a y block serves
 
+// E: the element type of x, dt, B, C and y (float, or bf16 for the bf16
+// arm); A and the states are f32 in both.
+template <class E>
 struct Args {
-  const float* x;
-  const float* dt;
+  const E* x;
+  const E* dt;
   const float* A;
-  const float* B;
-  const float* C;
-  float* y;
+  const E* B;
+  const E* C;
+  E* y;
   float* states;
   long long sx_b, sx_c, sx_q, sx_h;  // x strides, unit along hd
   long long sd_b, sd_c, sd_q, sd_h;  // dt strides
@@ -130,13 +149,15 @@ __device__ __forceinline__ void scan_L(const float (&v)[QMAX / 32], float Ah,
 }
 
 // One warp: lane l's dt_t for t = 8 l .. 8 l + 7 (zero past Q), as plain
-// loads into registers, which may stay in flight across a barrier.
-__device__ __forceinline__ void load_dt(float (&v)[QMAX / 32], const float* dtp,
+// loads into registers (widened to f32), which may stay in flight across a
+// barrier.
+template <class E>
+__device__ __forceinline__ void load_dt(float (&v)[QMAX / 32], const E* dtp,
                                         long long sd_q, int Q, int lane) {
 #pragma unroll
   for (int i = 0; i < QMAX / 32; ++i) {
     const int t = lane * (QMAX / 32) + i;
-    v[i] = t < Q ? dtp[t * sd_q] : 0.0f;
+    v[i] = t < Q ? to_f32(dtp[t * sd_q]) : 0.0f;
   }
 }
 
@@ -161,36 +182,43 @@ __device__ __forceinline__ void head_tables(const float (&v)[QMAX / 32],
 }
 
 
-template <int HD>
+template <int HD, class E>
 struct YCfg {
+  static constexpr bool F32 = sizeof(E) == 4;
   static constexpr int WM = 4;          // warps along the 64 rows
   static constexpr int WN = 2;          // warps along hd
   static constexpr int THREADS = 32 * WM * WN;
   static constexpr int MT = 4 / WM;     // m16 tiles of a warp
   static constexpr int NT = HD / 16;    // n8 tiles of a warp (half of hd)
-  static constexpr int XS = HD + 4;     // x stage row stride: the permuted
-                                        // fragment reads hit 32 banks
-  static constexpr int CB_STAGE = 2 * TQ * CB_S;
+  // x stage row stride: the permuted fragment reads hit 32 banks (f32),
+  // or distinct words (bf16)
+  static constexpr int XS = F32 ? HD + 4 : HD + 8;
+  static constexpr int CB_S = F32 ? CB_BK + 4 : CB_BK + 8;  // C, B stages
+  static constexpr int VEC = 16 / sizeof(E);  // elements of a 16-byte copy
+  static constexpr int CB_STAGE = 2 * TQ * CB_S;  // elements
   static constexpr int X_STAGE = KS * XS;
   static constexpr int XSTAGES = 4;  // the x ring's depth
-  static constexpr int RING = STAGES * CB_STAGE > XSTAGES * X_STAGE
-                                  ? STAGES * CB_STAGE
-                                  : XSTAGES * X_STAGE;
+  static constexpr int RING_E = STAGES * CB_STAGE > XSTAGES * X_STAGE
+                                    ? STAGES * CB_STAGE
+                                    : XSTAGES * X_STAGE;
+  // the ring in floats, a multiple of 4 (the tables stay 16-byte aligned)
+  static constexpr int RING = (RING_E * static_cast<int>(sizeof(E)) + 15) /
+                              16 * 4;
   static constexpr int TABS = 4 * QMAX;  // L, dt, u, u8 of a head
   static constexpr int fixed_floats() { return RING + 2 * TABS; }
 };
 
-template <int HD>
-__global__ void __launch_bounds__(YCfg<HD>::THREADS, 2)
-    ssd_y_kernel(Args a, int nqt, int ngr, int hg, int nj) {
-  using CF = YCfg<HD>;
-  constexpr int MT = CF::MT, NT = CF::NT, XS = CF::XS;
-  constexpr int THREADS = CF::THREADS, TABS = CF::TABS;
+template <int HD, class E>
+__global__ void __launch_bounds__(YCfg<HD, E>::THREADS, 2)
+    ssd_y_kernel(Args<E> a, int nqt, int ngr, int hg, int nj) {
+  using CF = YCfg<HD, E>;
+  constexpr int MT = CF::MT, NT = CF::NT, XS = CF::XS, CB_S = CF::CB_S;
+  constexpr int THREADS = CF::THREADS, TABS = CF::TABS, VEC = CF::VEC;
   constexpr int XST = CF::XSTAGES, XSTAGE = CF::X_STAGE;
   constexpr int STAGE = CF::CB_STAGE;     // the C B^T phase's ring slots
   extern __shared__ __align__(16) float smem[];
-  float* ring = smem;                     // CF::RING floats
-  float* tabs = ring + CF::RING;          // [2][TABS], by head parity
+  E* ring = reinterpret_cast<E*>(smem);   // CF::RING_E elements
+  float* tabs = smem + CF::RING;          // [2][TABS], by head parity
   float* cbf = tabs + 2 * TABS;           // [4 m16][nj n8][32 lanes][4]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -209,10 +237,10 @@ __global__ void __launch_bounds__(YCfg<HD>::THREADS, 2)
   const int q0 = qt * TQ;
   const int h_lo = gr * hg, h_n = min(hg, a.win - h_lo);
 
-  const float* Cp = a.C + b * a.sc_b + c * a.sc_c;
-  const float* Bp = a.B + b * a.sb_b + c * a.sb_c;
-  const float* xb = a.x + b * a.sx_b + c * a.sx_c;
-  const float* dtb = a.dt + b * a.sd_b + c * a.sd_c;
+  const E* Cp = a.C + b * a.sc_b + c * a.sc_c;
+  const E* Bp = a.B + b * a.sb_b + c * a.sb_c;
+  const E* xb = a.x + b * a.sx_b + c * a.sx_c;
+  const E* dtb = a.dt + b * a.sd_b + c * a.sd_c;
   auto head_dt = [&](int hh) {
     return dtb + static_cast<long long>(a.head_offset + h_lo + hh) * a.sd_h;
   };
@@ -223,16 +251,16 @@ __global__ void __launch_bounds__(YCfg<HD>::THREADS, 2)
   {
     const int ns = (N + CB_BK - 1) / CB_BK;  // d_state stages of a key tile
     const int total = (qt + 1) * ns;
-    const bool cv = a.sc_q % 4 == 0 && aligned16(Cp);
-    const bool bv = a.sb_q % 4 == 0 && aligned16(Bp);
+    const bool cv = a.sc_q % VEC == 0 && aligned16(Cp);
+    const bool bv = a.sb_q % VEC == 0 && aligned16(Bp);
     auto load = [&](int s) {
-      float* st = ring + (s % STAGES) * STAGE;
+      E* st = ring + (s % STAGES) * STAGE;
       const int kt = s / ns, n0 = (s % ns) * CB_BK;
-      load_tile<TQ, CB_BK, CB_S, THREADS>(st, Cp + q0 * a.sc_q + n0, a.sc_q,
-                                          Q - q0, N - n0, cv);
-      load_tile<TQ, CB_BK, CB_S, THREADS>(st + TQ * CB_S,
-                                          Bp + kt * TQ * a.sb_q + n0, a.sb_q,
-                                          Q - kt * TQ, N - n0, bv);
+      load_block<TQ, CB_BK, CB_S, THREADS>(st, Cp + q0 * a.sc_q + n0, a.sc_q,
+                                           Q - q0, N - n0, cv);
+      load_block<TQ, CB_BK, CB_S, THREADS>(st + TQ * CB_S,
+                                           Bp + kt * TQ * a.sb_q + n0,
+                                           a.sb_q, Q - kt * TQ, N - n0, bv);
     };
     float cb[MT][4][4] = {};
 #pragma unroll
@@ -245,17 +273,15 @@ __global__ void __launch_bounds__(YCfg<HD>::THREADS, 2)
       __syncthreads();  // stage s landed for all; stage s - 1 is read by all
       if (s + STAGES - 1 < total) load(s + STAGES - 1);
       cp_async_commit();
-      const float* Cs = ring + (s % STAGES) * STAGE;
-      const float* Bs = Cs + TQ * CB_S;
+      const E* Cs = ring + (s % STAGES) * STAGE;
+      const E* Bs = Cs + TQ * CB_S;
       uint32_t bb[2][4][2], bs[2][4][2];
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int j = 0; j < 4; j += 2) {
           uint32_t v[4], vb[4], vs[4];
-          ldmatrix_x4(v, Bs + (wn * 32 + j * 8 + (lane & 7) + (lane >> 4) * 8) *
-                                  CB_S +
-                             8 * h + ((lane >> 3) & 1) * 4);
+          frag_b2(v, Bs + (wn * 32 + j * 8) * CB_S + 8 * h, CB_S);
           split4(v, vb, vs);
           bb[h][j][0] = vb[0], bb[h][j][1] = vb[1];
           bb[h][j + 1][0] = vb[2], bb[h][j + 1][1] = vb[3];
@@ -269,8 +295,7 @@ __global__ void __launch_bounds__(YCfg<HD>::THREADS, 2)
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           uint32_t v[4];
-          ldmatrix_x4(v, Cs + (wrow + 16 * i + (lane & 15)) * CB_S + 8 * h +
-                             (lane >> 4) * 4);
+          frag_a(v, Cs + (wrow + 16 * i) * CB_S + 8 * h, CB_S);
           split4(v, ab[i], as[i]);
         }
         mma3_tiles<MT, 4>(t, ab, as, bb[h], bs[h]);
@@ -304,13 +329,13 @@ __global__ void __launch_bounds__(YCfg<HD>::THREADS, 2)
   // ---- y, head by head: keys 0 .. min(q0 + 64, Q) - 1 in 32-deep stages
   const int nks = (min(q0 + TQ, Q) + KS - 1) / KS;
   const int total = h_n * nks;
-  const bool xq4 = a.sx_q % 4 == 0;
+  const bool xq4 = a.sx_q % VEC == 0;
   auto head_x = [&](int hh) {
     return xb + static_cast<long long>(a.head_offset + h_lo + hh) * a.sx_h;
   };
   auto load = [&](int s) {
     const int hh = s / nks, t0 = (s % nks) * KS;
-    const float* xh = head_x(hh);
+    const E* xh = head_x(hh);
     load_rows<KS, HD, XS, THREADS>(ring + (s % XST) * XSTAGE,
                                    xh + t0 * a.sx_q, a.sx_q, Q - t0,
                                    xq4 && aligned16(xh));
@@ -344,7 +369,7 @@ __global__ void __launch_bounds__(YCfg<HD>::THREADS, 2)
     const float* dth = Lh + QMAX;
     const float* uh = Lh + 2 * QMAX;
     const float* u8h = Lh + 3 * QMAX;
-    const float* Xs = ring + (s % XST) * XSTAGE;
+    const E* Xs = ring + (s % XST) * XSTAGE;
 
     // a warp whose rows all precede the stage's keys has nothing to add
     if (t0 <= q0 + wrow + MT * 16 - 1) {
@@ -411,10 +436,10 @@ __global__ void __launch_bounds__(YCfg<HD>::THREADS, 2)
         uint32_t bb[NT][2], bs[NT][2];
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
-          const float* xc =
+          const E* xc =
               Xs + (8 * h + 2 * qd) * XS + wn * (HD / 2) + 8 * j + g;
-          split_tf32(xc[0], bb[j][0], bs[j][0]);   // key t
-          split_tf32(xc[XS], bb[j][1], bs[j][1]);  // key t + 1
+          split_tf32(to_f32(xc[0]), bb[j][0], bs[j][0]);   // key t
+          split_tf32(to_f32(xc[XS]), bb[j][1], bs[j][1]);  // key t + 1
         }
         uint32_t a_b[MT][4], a_s[MT][4];
 #pragma unroll
@@ -433,7 +458,7 @@ __global__ void __launch_bounds__(YCfg<HD>::THREADS, 2)
     }
 
     if (ks == nks - 1) {  // head hh is done: write its rows, start afresh
-      float* yh = a.y + ((b * a.nc + c) * Q) * y_row + (h_lo + hh) * HD;
+      E* yh = a.y + ((b * a.nc + c) * Q) * y_row + (h_lo + hh) * HD;
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -442,9 +467,8 @@ __global__ void __launch_bounds__(YCfg<HD>::THREADS, 2)
 #pragma unroll
           for (int j = 0; j < NT; ++j) {
             if (r < Q)
-              *reinterpret_cast<float2*>(yh + r * y_row + wn * (HD / 2) +
-                                         8 * j + 2 * qd) =
-                  make_float2(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
+              store2(yh + r * y_row + wn * (HD / 2) + 8 * j + 2 * qd,
+                     acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
             acc[i][j][2 * hf] = acc[i][j][2 * hf + 1] = 0.0f;
           }
         }
@@ -454,7 +478,7 @@ __global__ void __launch_bounds__(YCfg<HD>::THREADS, 2)
 }
 
 // The state kernel's warps: WM along hd, WN along d_state (NMAX columns).
-template <int HD>
+template <int HD, class E>
 struct SCfg {
   static constexpr int WM = HD == 16 ? 1 : (HD == 128 ? 4 : 2);
   static constexpr int WN = HD == 16 ? 4 : 2;
@@ -463,22 +487,25 @@ struct SCfg {
   static constexpr int NT = NMAX / (8 * WN);  // n8 tiles of a warp
   static constexpr int XS = HD + 8;           // x stage row stride
   static constexpr int BS = NMAX + 8;         // B stage row stride
-  static constexpr int STAGE = KS * (XS + BS);
-  static constexpr int smem_bytes = 4 * (STAGES * STAGE + 2 * QMAX);
+  static constexpr int VEC = 16 / sizeof(E);  // elements of a 16-byte copy
+  static constexpr int STAGE = KS * (XS + BS);  // elements
+  static constexpr int smem_bytes =
+      static_cast<int>(sizeof(E)) * STAGES * STAGE + 4 * 2 * QMAX;
   // two 256-thread blocks an SM leave 128 registers a thread: too few for
   // hd 128's two m16 tiles of accumulators and their stage sums
   static constexpr int MINB = HD == 128 ? 1 : 2;
 };
 
-template <int HD>
-__global__ void __launch_bounds__(SCfg<HD>::THREADS, SCfg<HD>::MINB)
-    ssd_state_kernel(Args a) {
-  using CF = SCfg<HD>;
+template <int HD, class E>
+__global__ void __launch_bounds__(SCfg<HD, E>::THREADS, SCfg<HD, E>::MINB)
+    ssd_state_kernel(Args<E> a) {
+  using CF = SCfg<HD, E>;
   constexpr int MT = CF::MT, NT = CF::NT, XS = CF::XS, BS = CF::BS;
-  constexpr int STAGE = CF::STAGE;
+  constexpr int STAGE = CF::STAGE, VEC = CF::VEC;
   extern __shared__ __align__(16) float smem[];
-  float* ring = smem;
-  float* w = ring + STAGES * STAGE;  // [QMAX] key weights (L first)
+  E* ring = reinterpret_cast<E*>(smem);
+  // [QMAX] key weights (L first)
+  float* w = reinterpret_cast<float*>(ring + STAGES * STAGE);
   float* dts = w + QMAX;             // [QMAX]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -490,8 +517,8 @@ __global__ void __launch_bounds__(SCfg<HD>::THREADS, SCfg<HD>::MINB)
   const int c = static_cast<int>((blk / a.win) % a.nc);
   const long long b = blk / (static_cast<long long>(a.win) * a.nc);
   const int h = a.head_offset + hr;
-  const float* xh = a.x + b * a.sx_b + c * a.sx_c + h * a.sx_h;
-  const float* Bp = a.B + b * a.sb_b + c * a.sb_c;
+  const E* xh = a.x + b * a.sx_b + c * a.sx_c + h * a.sx_h;
+  const E* Bp = a.B + b * a.sb_b + c * a.sb_c;
 
   // dt's loads stay in flight while the first stages are issued; the
   // weights are formed once stage 0 has landed
@@ -500,15 +527,15 @@ __global__ void __launch_bounds__(SCfg<HD>::THREADS, SCfg<HD>::MINB)
     load_dt(dtv, a.dt + b * a.sd_b + c * a.sd_c + h * a.sd_h, a.sd_q, Q,
             lane);
   const int total = (Q + KS - 1) / KS;
-  const bool xv = a.sx_q % 4 == 0 && aligned16(xh);
-  const bool bv = a.sb_q % 4 == 0 && aligned16(Bp);
+  const bool xv = a.sx_q % VEC == 0 && aligned16(xh);
+  const bool bv = a.sb_q % VEC == 0 && aligned16(Bp);
   auto load = [&](int s) {
-    float* st = ring + (s % STAGES) * STAGE;
+    E* st = ring + (s % STAGES) * STAGE;
     const int t0 = s * KS;
-    load_tile<KS, HD, XS, CF::THREADS>(st, xh + t0 * a.sx_q, a.sx_q, Q - t0,
-                                       HD, xv);
-    load_tile<KS, NMAX, BS, CF::THREADS>(st + KS * XS, Bp + t0 * a.sb_q,
-                                         a.sb_q, Q - t0, N, bv);
+    load_block<KS, HD, XS, CF::THREADS>(st, xh + t0 * a.sx_q, a.sx_q, Q - t0,
+                                        HD, xv);
+    load_block<KS, NMAX, BS, CF::THREADS>(st + KS * XS, Bp + t0 * a.sb_q,
+                                          a.sb_q, Q - t0, N, bv);
   };
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -532,8 +559,8 @@ __global__ void __launch_bounds__(SCfg<HD>::THREADS, SCfg<HD>::MINB)
       __syncthreads();
     }
     if (n0 >= N) continue;  // a warp past d_state waits at the barriers
-    const float* Xs = ring + (s % STAGES) * STAGE;
-    const float* Bs = Xs + KS * XS;
+    const E* Xs = ring + (s % STAGES) * STAGE;
+    const E* Bs = Xs + KS * XS;
     float t[MT][NT][4] = {};
 #pragma unroll
     for (int kk = 0; kk < KS / 8; ++kk) {
@@ -542,18 +569,19 @@ __global__ void __launch_bounds__(SCfg<HD>::THREADS, SCfg<HD>::MINB)
       uint32_t ab[MT][4], as[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        const float* xc = Xs + tq * XS + m0 + 16 * i + g;
-        split_tf32(__fmul_rn(xc[0], w0), ab[i][0], as[i][0]);
-        split_tf32(__fmul_rn(xc[8], w0), ab[i][1], as[i][1]);
-        split_tf32(__fmul_rn(xc[4 * XS], w1), ab[i][2], as[i][2]);
-        split_tf32(__fmul_rn(xc[4 * XS + 8], w1), ab[i][3], as[i][3]);
+        const E* xc = Xs + tq * XS + m0 + 16 * i + g;
+        split_tf32(__fmul_rn(to_f32(xc[0]), w0), ab[i][0], as[i][0]);
+        split_tf32(__fmul_rn(to_f32(xc[8]), w0), ab[i][1], as[i][1]);
+        split_tf32(__fmul_rn(to_f32(xc[4 * XS]), w1), ab[i][2], as[i][2]);
+        split_tf32(__fmul_rn(to_f32(xc[4 * XS + 8]), w1), ab[i][3],
+                   as[i][3]);
       }
       uint32_t bb[NT][2], bs[NT][2];
 #pragma unroll
       for (int j = 0; j < NT; ++j) {  // columns past N are zero-filled
-        const float* bc = Bs + tq * BS + n0 + 8 * j + g;
-        split_tf32(bc[0], bb[j][0], bs[j][0]);
-        split_tf32(bc[4 * BS], bb[j][1], bs[j][1]);
+        const E* bc = Bs + tq * BS + n0 + 8 * j + g;
+        split_tf32(to_f32(bc[0]), bb[j][0], bs[j][0]);
+        split_tf32(to_f32(bc[4 * BS]), bb[j][1], bs[j][1]);
       }
       mma3_tiles<MT, NT>(t, ab, as, bb, bs);
     }
@@ -580,30 +608,61 @@ __global__ void __launch_bounds__(SCfg<HD>::THREADS, SCfg<HD>::MINB)
     }
 }
 
-template <int HD>
-int launch(const Args& a, int Bt, cudaStream_t s) {
+template <int HD, class E>
+int launch(const Args<E>& a, int Bt, cudaStream_t s) {
   const int nqt = (a.Q + TQ - 1) / TQ;
   const int ngr = (a.win + HG - 1) / HG;
   const int hg = (a.win + ngr - 1) / ngr;  // heads a block serves
   const int nj = nqt * TQ / 8;             // n8 key tiles of the strip
   const long long yblocks = static_cast<long long>(nqt) * Bt * a.nc * ngr;
   const int ysmem =
-      4 * (YCfg<HD>::fixed_floats() + 4 * nj * 32 * 4);
-  const auto yk = ssd_y_kernel<HD>;
+      4 * (YCfg<HD, E>::fixed_floats() + 4 * nj * 32 * 4);
+  const auto yk = ssd_y_kernel<HD, E>;
   cudaError_t e = cudaFuncSetAttribute(
       yk, cudaFuncAttributeMaxDynamicSharedMemorySize, ysmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  yk<<<static_cast<unsigned>(yblocks), YCfg<HD>::THREADS, ysmem, s>>>(
+  yk<<<static_cast<unsigned>(yblocks), YCfg<HD, E>::THREADS, ysmem, s>>>(
       a, nqt, ngr, hg, nj);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const auto sk = ssd_state_kernel<HD>;
+  const auto sk = ssd_state_kernel<HD, E>;
   e = cudaFuncSetAttribute(sk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           SCfg<HD>::smem_bytes);
+                           SCfg<HD, E>::smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   sk<<<static_cast<unsigned>(static_cast<long long>(Bt) * a.nc * a.win),
-       SCfg<HD>::THREADS, SCfg<HD>::smem_bytes, s>>>(a);
+       SCfg<HD, E>::THREADS, SCfg<HD, E>::smem_bytes, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Checks the sizes and launches both kernels at head_dim hd.
+template <class E>
+int run(const E* x, const E* dt, const float* A, const E* B, const E* C,
+        E* y, float* states, long long sx_b, long long sx_c, long long sx_q,
+        long long sx_h, long long sd_b, long long sd_c, long long sd_q,
+        long long sd_h, long long sb_b, long long sb_c, long long sb_q,
+        long long sc_b, long long sc_c, long long sc_q, int Bt, int nc, int Q,
+        int nh, int hd, int N, int head_offset, int win, void* stream) {
+  const long long blocks = static_cast<long long>(Bt) * nc * win;
+  if (Bt < 1 || nc < 1 || Q < 1 || Q > QMAX || N < 1 || N > NMAX ||
+      win < 1 || head_offset < 0 || head_offset + win > nh ||
+      4 * blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args<E> a{x,    dt,   A,    B,    C,    y,    states, sx_b, sx_c,
+                  sx_q, sx_h, sd_b, sd_c, sd_q, sd_h, sb_b,   sb_c, sb_q,
+                  sc_b, sc_c, sc_q, nc,   Q,    N,    win,    head_offset};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16:
+      return launch<16>(a, Bt, s);
+    case 32:
+      return launch<32>(a, Bt, s);
+    case 64:
+      return launch<64>(a, Bt, s);
+    case 128:
+      return launch<128>(a, Bt, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -622,25 +681,22 @@ extern "C" int ssd_chunk_intra_fwd(
     long long sb_q, long long sc_b, long long sc_c, long long sc_q, int Bt,
     int nc, int Q, int nh, int hd, int N, int head_offset, int win,
     void* stream) {
-  const long long blocks = static_cast<long long>(Bt) * nc * win;
-  if (Bt < 1 || nc < 1 || Q < 1 || Q > QMAX || N < 1 || N > NMAX ||
-      win < 1 || head_offset < 0 || head_offset + win > nh ||
-      4 * blocks > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x,    dt,   A,    B,    C,    y,    states, sx_b, sx_c,
-               sx_q, sx_h, sd_b, sd_c, sd_q, sd_h, sb_b,   sb_c, sb_q,
-               sc_b, sc_c, sc_q, nc,   Q,    N,    win,    head_offset};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16:
-      return launch<16>(a, Bt, s);
-    case 32:
-      return launch<32>(a, Bt, s);
-    case 64:
-      return launch<64>(a, Bt, s);
-    case 128:
-      return launch<128>(a, Bt, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return run(x, dt, A, B, C, y, states, sx_b, sx_c, sx_q, sx_h, sd_b, sd_c,
+             sd_q, sd_h, sb_b, sb_c, sb_q, sc_b, sc_c, sc_q, Bt, nc, Q, nh,
+             hd, N, head_offset, win, stream);
+}
+
+// The bf16 arm: x, dt, B, C and y bf16, A and the states f32; the same
+// layout rules.
+extern "C" int ssd_chunk_intra_fwd_bf16(
+    const bf16* x, const bf16* dt, const float* A, const bf16* B,
+    const bf16* C, bf16* y, float* states, long long sx_b, long long sx_c,
+    long long sx_q, long long sx_h, long long sd_b, long long sd_c,
+    long long sd_q, long long sd_h, long long sb_b, long long sb_c,
+    long long sb_q, long long sc_b, long long sc_c, long long sc_q, int Bt,
+    int nc, int Q, int nh, int hd, int N, int head_offset, int win,
+    void* stream) {
+  return run(x, dt, A, B, C, y, states, sx_b, sx_c, sx_q, sx_h, sd_b, sd_c,
+             sd_q, sd_h, sb_b, sb_c, sb_q, sc_b, sc_c, sc_q, Bt, nc, Q, nh,
+             hd, N, head_offset, win, stream);
 }

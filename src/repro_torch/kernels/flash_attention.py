@@ -6,7 +6,10 @@ public layout: q ``[B, Sq, H, hd]``, k and v ``[B, Skv, KV, hd]`` ->
 ``softmax_scale`` (default ``1 / sqrt(hd)``).  Query and key positions both
 start at 0; a key is visible when ``qpos >= kpos`` (causal) and ``qpos -
 kpos < window`` (window > 0).  The TPU's ``bq``/``bkv`` block sizes were its
-tiling and are gone: any ``Sq`` and ``Skv`` work.  float32 only.
+tiling and are gone: any ``Sq`` and ``Skv`` work.  q, k and v are all
+float32 or all bfloat16: as in the Pallas body, the bf16 arm
+(``flash_attn_fwd_bf16``, counted as ``flash_attention/bf16``) widens them
+at the load, computes in float32 (P too) and rounds the output once.
 
 There is no backward, as the reference has none: with autograd recording,
 inputs that require a gradient are refused.
@@ -39,9 +42,11 @@ MAX_GROUP = 128
 
 
 def _check(q, k, v, window):
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError("flash attention takes float32 q, k and v (its bf16 "
-                        "arm is ROADMAP.md A11 part 2, kernel β3)")
+    if len({q.dtype, k.dtype, v.dtype}) != 1 or q.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise TypeError(f"flash attention takes q, k and v of one dtype, "
+                        f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be [B, Sq, H, hd] and k, v one [B, Skv, "
                          f"KV, hd] shape; got {tuple(q.shape)}, "
@@ -82,9 +87,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, softmax_scale=None):
                          f"groups of at most {MAX_GROUP}; got {hd}, {G}")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)]
-    err = _build.library().flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
-        B, KV, G, Sq, Skv, hd, int(bool(causal)), int(window), scale,
+    _build.launch(
+        "flash_attn_fwd", "flash_attention", q.dtype, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides, B, KV, G, Sq,
+        Skv, hd, int(bool(causal)), int(window), scale,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check_launch("flash_attention", err)
     return out

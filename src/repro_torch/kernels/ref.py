@@ -106,7 +106,9 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0,
     those wholly above the causal diagonal or outside the window; scores
     masked to ``-1e30``; the online softmax; ``acc / max(l, 1e-30)``.  A
     ragged last tile is simply shorter (the reference asserts that the
-    tiles divide the lengths)."""
+    tiles divide the lengths).  bf16 q, k and v are widened at the load,
+    as the body's ``astype(float32)``, P stays float32 and the output is
+    rounded once to q's dtype."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -160,7 +162,9 @@ def ssd_chunk_intra_ref(x, dt, A, B, C):
     (inclusive), ``diff = L_q - L_t``, ``where(causal, exp(diff), 0)``,
     ``M = (C B^T * decay) * dt_t``, ``y = M x``; the state ``sum_t exp(L_last
     - L_t) * dt_t * x_t (x) B_t``.  One batch row at a time, so the ``[nc,
-    nh, Q, Q]`` decay tensor is the largest temporary."""
+    nh, Q, Q]`` decay tensor is the largest temporary.  bf16 x, dt, B and
+    C are widened at the load, as the body's ``astype(float32)``; y is
+    rounded once to x's dtype and the states stay float32."""
     Q = x.shape[2]
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=x.device))

@@ -12,11 +12,15 @@ On a CUDA tensor :func:`ssd_chunk_intra` launches ``ssd_chunk_intra_fwd``
 version, ``kernels.ref.ssd_chunk_intra_ref``, a transcription of the Pallas
 body.  The TPU's head block (``nh_block``) and its rule that a window's
 offset be a multiple of it were its tiling: any ``head_offset`` works.
-float32 only.  There is no backward, as the reference kernel has none:
-with autograd recording, inputs that require a gradient are refused, and
-the message points to ``models.ssm.ssd_chunked``, the differentiable
-transcription the federated round trains through (a backward kernel is
-ROADMAP.md queue B, beta 1).
+x, dt, B and C are all float32 or all bfloat16 (A is float32): as in the
+Pallas body, the bf16 arm (``ssd_chunk_intra_fwd_bf16``, counted as
+``ssd_chunk_intra/bf16``) widens them at the load, computes in float32,
+rounds y once to bf16 and keeps the states float32.  There is no
+backward, as the reference kernel has none: with autograd recording,
+inputs that require a gradient are refused, and the message points to
+``models.ssm.ssd_chunked``, the differentiable transcription the
+federated round trains through (a backward kernel is ROADMAP.md queue B,
+beta 1).
 
 :func:`ssd_chunk_scan` is the kernel plus the inter-chunk recurrence in
 plain torch (a loop over chunks, as the reference's ``lax.scan``), with the
@@ -39,9 +43,11 @@ RECURRENCE = "ssd_chunk_scan.recurrence"
 def _check(x, dt, A, B, C, head_offset, head_win):
     """Validate the operands; returns the head window ``(offset, win)``."""
     ts = (x, dt, A, B, C)
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError("ssd_chunk_intra takes float32 x, dt, A, B and C "
-                        "(its bf16 arm is ROADMAP.md A11 part 2)")
+    if len({t.dtype for t in (x, dt, B, C)}) != 1 or x.dtype not in (
+            torch.float32, torch.bfloat16) or A.dtype != torch.float32:
+        raise TypeError(
+            f"ssd_chunk_intra takes x, dt, B and C of one dtype, float32 or "
+            f"bfloat16, and float32 A; got {[str(t.dtype) for t in ts]}")
     if x.dim() != 5 or dt.shape != x.shape[:4] or A.shape != x.shape[3:4] \
             or B.dim() != 4 or B.shape != C.shape \
             or B.shape[:3] != x.shape[:3]:
@@ -93,11 +99,11 @@ def ssd_chunk_intra(x, dt, A, B, C, *, head_offset=None, head_win=0):
     strides = ([x.stride(i) for i in range(4)] + list(dt.stride())
                + [B.stride(i) for i in range(3)]
                + [C.stride(i) for i in range(3)])
-    err = _build.library().ssd_chunk_intra_fwd(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), states.data_ptr(), *strides, Bt, nc, Q,
-        nh, hd, N, off, win, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_launch("ssd_chunk_intra", err)
+    _build.launch(
+        "ssd_chunk_intra_fwd", "ssd_chunk_intra", x.dtype, x.data_ptr(),
+        dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        y.data_ptr(), states.data_ptr(), *strides, Bt, nc, Q, nh, hd, N, off,
+        win, torch.cuda.current_stream(x.device).cuda_stream)
     return y, states
 
 
@@ -138,7 +144,10 @@ def ssd_chunk_scan(xr, dt, A, Br, Cr, chunk, head_offset=None, head_win=0):
             h_entry[:, c] = h
             h = h * decay[:, c, :, None, None] + states[:, c]
     del states
-    y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cs, h_entry.to(Cs.dtype))
+    # summed in float32 on the widened operands, the entry states rounded
+    # to Cs's dtype first (the reference's ``ops.ssd_chunk_scan``)
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cs.float(),
+                           h_entry.to(Cs.dtype).float())
     del h_entry
     y_inter = y_inter * torch.exp(L)[..., None].to(y_inter.dtype)
     y = (y_intra.float() + y_inter).reshape(Bsz, S, nh, hd)

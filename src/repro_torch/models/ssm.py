@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rolling_matmul import rolling_matmul_batched
 from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
-from repro_torch.models.layers import (ParamBuilder, _rows, head_proj,
+from repro_torch.models.layers import (ParamBuilder, _rows, bmm, head_proj,
                                        rms_norm_plain)
 
 #: the profiler range around :func:`ssd_chunked`'s forward
@@ -71,18 +71,20 @@ def _causal_conv(x, w):
     """x ``[C, B, S, ch]``; w ``[C, cw, ch]``: each client's depthwise
     causal conv, ``cw - 1`` zeros on the left, as one grouped ``conv1d``
     over the ``C * ch`` channels.  JAX's conv and ``conv1d`` are both
-    cross-correlations, so the weight is transposed, not flipped."""
+    cross-correlations, so the weight is transposed, not flipped.  At bf16
+    the conv sums the widened operands in float32 and rounds once."""
     C, B, S, ch = x.shape
     cw = w.shape[1]
     xi = x.permute(1, 0, 3, 2).reshape(B, C * ch, S)
     wi = w.permute(0, 2, 1).reshape(C * ch, 1, cw)
-    out = F.conv1d(F.pad(xi, (cw - 1, 0)), wi, groups=C * ch)
+    out = F.conv1d(F.pad(xi.float(), (cw - 1, 0)), wi.float(),
+                   groups=C * ch).to(x.dtype)
     return out.reshape(B, C, ch, S).permute(1, 0, 3, 2).contiguous()
 
 
 def _per_client(x, w):
     """``x [C, B, S, D] @ w [C, D, n]`` -> ``[C, B, S, n]``."""
-    return torch.bmm(_rows(x), w).reshape(*x.shape[:-1], w.shape[-1])
+    return bmm(_rows(x), w).reshape(*x.shape[:-1], w.shape[-1])
 
 
 def _projections(p, x, spec=None):
@@ -111,8 +113,8 @@ def _projections(p, x, spec=None):
 def _out(y, w_out):
     """``einsum("cbshe,ched->cbsd", y, w_out)`` as one batched product."""
     C, nh, hd, D = w_out.shape
-    return torch.bmm(y.reshape(C, -1, nh * hd),
-                     w_out.reshape(C, nh * hd, D)).reshape(*y.shape[:-2], D)
+    return bmm(y.reshape(C, -1, nh * hd),
+               w_out.reshape(C, nh * hd, D)).reshape(*y.shape[:-2], D)
 
 
 def ssd_chunked(xr, dt, A, Br, Cr, chunk):
@@ -123,7 +125,12 @@ def ssd_chunked(xr, dt, A, Br, Cr, chunk):
     S)``; ``S`` must be a multiple of it (the reference's reshape fails
     otherwise).  The reference's ops in its order, except that the
     intra-chunk decay's exponent is masked to ``-inf`` above the diagonal
-    before the ``exp`` (see the module docstring)."""
+    before the ``exp`` (see the module docstring).  At bf16 its casts too:
+    ``CB``, ``y_intra``, the states and ``y_inter`` are summed in float32
+    on widened operands; ``M``, ``sdecay`` and the entry states are
+    rounded to bf16 before their products, as the reference's ``astype``
+    calls do; y is rounded once.  At float32 every cast is the tensor
+    itself."""
     Bsz, S, nh, hd = xr.shape
     N = Br.shape[-1]
     Q = min(chunk, S)
@@ -138,19 +145,23 @@ def ssd_chunked(xr, dt, A, Br, Cr, chunk):
         Cs = Cr.reshape(Bsz, nc, Q, N)
         dA = dts * A.reshape(-1, 1, 1, nh)                # [B, nc, Q, nh]
         L = torch.cumsum(dA, dim=2)                       # inclusive
+        xw = xs.float()               # the products' operands, in float32
         # -- intra-chunk (quadratic within the chunk) --
-        CB = torch.einsum("bcqn,bctn->bcqt", Cs, Bs)      # [B, nc, Q, Q]
+        CB = torch.einsum("bcqn,bctn->bcqt", Cs.float(),
+                          Bs.float())                     # [B, nc, Q, Q]
         Lh = L.transpose(2, 3)                            # [B, nc, nh, Q]
         diff = Lh[..., :, None] - Lh[..., None, :]        # [B, nc, nh, Q, Q]
         causal = torch.ones((Q, Q), dtype=torch.bool,
                             device=xr.device).tril()
         decay = torch.exp(diff.masked_fill(~causal, float("-inf")))
         M = CB[:, :, None] * decay * dts.transpose(2, 3)[:, :, :, None, :]
-        y_intra = torch.einsum("bchqt,bcthp->bcqhp", M, xs)
+        y_intra = torch.einsum("bchqt,bcthp->bcqhp",
+                               M.to(xs.dtype).float(), xw)
         # -- chunk states --
         Llast = Lh[..., -1:]                              # [B, nc, nh, 1]
         sdecay = torch.exp(Llast - Lh) * dts.transpose(2, 3)
-        states = torch.einsum("bcthp,bctn,bcht->bchpn", xs, Bs, sdecay)
+        states = torch.einsum("bcthp,bctn,bcht->bchpn", xw, Bs.float(),
+                              sdecay.to(xs.dtype).float())
         # -- inter-chunk recurrence: a loop over chunks (the reference's
         # lax.scan), emitting the state at each chunk's entry --
         dtot = torch.exp(dA.sum(2))                       # [B, nc, nh]
@@ -161,7 +172,8 @@ def ssd_chunked(xr, dt, A, Br, Cr, chunk):
             entries.append(h)
             h = h * dtot[:, c, :, None, None] + states[:, c]
         h_entry = torch.stack(entries, dim=1)             # [B, nc, nh, hd, N]
-        y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cs, h_entry)
+        y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cs.float(),
+                               h_entry.to(Cs.dtype).float())
         y_inter = y_inter * torch.exp(L)[..., None]
         y = (y_intra + y_inter).reshape(Bsz, S, nh, hd)
     return y.to(xr.dtype), h
@@ -252,8 +264,8 @@ def ssm_decode(p, x, cfg, cache, pos):
     def conv_step(buf, new, w):
         # buf [B, cw-1, ch]; new [B, 1, ch]; w [cw, ch]
         win = torch.cat([buf, new], dim=1)                # [B, cw, ch]
-        out = torch.einsum("bwc,wc->bc", win, w)
-        return out, win[:, 1:]
+        out = torch.einsum("bwc,wc->bc", win.float(), w.float())
+        return out.to(win.dtype), win[:, 1:]
 
     xr_f, conv_x = conv_step(cache["conv_x"], xr.reshape(B, 1, nh * hd),
                              p["conv_x"].reshape(cw, nh * hd))
@@ -266,7 +278,7 @@ def ssm_decode(p, x, cfg, cache, pos):
     A = -torch.exp(p["A_log"].float())
     decay = torch.exp(dt * A)                             # [B, nh]
     h = cache["h"] * decay[:, :, None, None] + torch.einsum(
-        "bhp,bn,bh->bhpn", xr_f.float(), Br_f.float(), dt)
+        "bhp,bn,bh->bhpn", xr_f.float(), Br_f.float(), dt.float())
     y = torch.einsum("bhpn,bn->bhp", h, Cr_f.float())
     y = y.to(x.dtype) + p["D_skip"][:, None] * xr_f
     y = rms_norm_plain(y[:, None] * F.silu(z), p["y_norm"], cfg.norm_eps)

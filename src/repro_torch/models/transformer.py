@@ -283,15 +283,20 @@ MLA_CACHE = ("c", "kr")
 PARAM_DTYPES = (torch.float32, torch.bfloat16)
 
 
+#: the families bf16 params run
+BF16_FAMILIES = ("dense", "ssm", "hybrid")
+
+
 def _check_bf16_family(cfg: ModelConfig):
-    """bf16 params run the dense GQA family (with ``qk_norm``); the rest
-    waits for ROADMAP.md A11 part 2 (the SSD and flash kernels' bf16 arms,
-    and the MoE, MLA, codebook and vision paths at bf16)."""
-    if cfg.family != "dense" or cfg.mla is not None:
+    """bf16 params run the dense GQA family (with ``qk_norm``), the SSM
+    family and the hybrid block; the MoE, MLA, codebook and vision paths at
+    bf16 wait for ROADMAP.md A11 part 3."""
+    if cfg.family not in BF16_FAMILIES or cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: bfloat16 params run the dense GQA family only; "
-            f"family {cfg.family!r}{' with MLA' if cfg.mla else ''} at "
-            "bf16 is ROADMAP.md A11 (part 2)")
+            f"{cfg.name}: bfloat16 params run the families {BF16_FAMILIES} "
+            f"without MLA; family {cfg.family!r}"
+            f"{' with MLA' if cfg.mla else ''} at bf16 is ROADMAP.md A11 "
+            "(part 3)")
 
 
 @dataclass

@@ -982,23 +982,148 @@ def test_gpu_bf16_fillin_bit_exact_to_plain(cuda, C, server_lr, n):
         assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
+def _odd_view(t, dim):
+    """``t`` copied into a buffer one element longer along ``dim`` and
+    viewed back: the same values at odd strides (no 16-byte rows)."""
+    shape = list(t.shape)
+    shape[dim] += 1
+    buf = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    view = buf.narrow(dim, 0, t.shape[dim])
+    view.copy_(t)
+    return view
+
+
+def _within_ulp_and(a, b, rel):
+    """bf16 ``a`` within one ulp of ``b`` plus ``rel`` of b's largest
+    magnitude (the f32 arms' own tolerance, GPU_RTOL, for their other
+    summation order, then one rounding)."""
+    assert a.dtype == b.dtype == torch.bfloat16
+    a, b = a.float(), b.float()
+    slack = _bf16_ulp(b) + rel * b.abs().max()
+    assert ((a - b).abs() <= slack).all(), (a - b).abs().max()
+
+
+# row 12 at bf16: (Bt, nc, Q, nh, hd, N, head_offset, head_win, odd strides)
+SSD_BF16 = [(2, 3, 100, 24, 64, 128, 5, 7, False),
+            (1, 2, 128, 50, 64, 16, None, 0, False),
+            (2, 2, 64, 16, 32, 16, 3, 5, True),
+            (1, 2, 256, 4, 128, 128, None, 0, True)]
+# row 13 at bf16: (B, Sq, Skv, H, KV, hd, window, odd strides)
+FLASH_BF16 = [(2, 200, 200, 8, 8, 64, 0, False),
+              (1, 300, 300, 25, 5, 64, 64, False),
+              (2, 130, 190, 6, 2, 128, 0, True),
+              (1, 97, 97, 4, 2, 96, 32, True)]
+
+
 @pytest.mark.gpu
-def test_gpu_bf16_reaching_rows_12_13_raises(cuda):
-    """Rows 12 and 13 have no bf16 arm yet (ROADMAP A11 part 2): a bf16
-    tensor on the card raises, naming it, and nothing widens to f32."""
+def test_gpu_rows_12_13_bf16_arms(cuda):
+    """The bf16 arms of rows 12 and 13 against their plain versions on the
+    same bf16 inputs: ragged chunks and lengths, odd head offsets,
+    Hymba's 50 SSM heads and 25 on 5 query heads under a window, and views
+    at odd strides (the element-by-element copies).  y and the output
+    within one ulp plus GPU_RTOL of the largest magnitude, the f32 states
+    within GPU_RTOL; counted under ``/bf16``; a mixed-dtype call
+    raises."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import (flash_attention_ref,
+                                         ssd_chunk_intra_ref)
     from repro_torch.kernels.ssd_chunk import ssd_chunk_intra
     bf = torch.bfloat16
-    q = torch.randn(1, 64, 4, 64, device=cuda).to(bf)
-    k = torch.randn(1, 64, 2, 64, device=cuda).to(bf)
-    with pytest.raises(TypeError, match="A11 part 2"):
-        flash_attention(q, k, k)
-    x = torch.randn(1, 1, 64, 2, 64, device=cuda).to(bf)
-    dt = torch.rand(1, 1, 64, 2, device=cuda).to(bf)
-    A = -torch.rand(2, device=cuda).to(bf)
-    B = torch.randn(1, 1, 64, 16, device=cuda).to(bf)
-    with pytest.raises(TypeError, match="A11 part 2"):
-        ssd_chunk_intra(x, dt, A, B, B)
+    g = torch.Generator(cuda).manual_seed(12)
+    F = torch.nn.functional
+    for Bt, nc, Q, nh, hd, N, off, win, odd in SSD_BF16:
+        x = (0.5 * torch.randn((Bt, nc, Q, nh, hd), device=cuda,
+                               generator=g)).to(bf)
+        dt = F.softplus(torch.randn((Bt, nc, Q, nh), device=cuda,
+                                    generator=g)).to(bf)
+        A = -torch.exp(0.3 * torch.randn((nh,), device=cuda, generator=g))
+        B, C = ((0.5 * torch.randn((Bt, nc, Q, N), device=cuda,
+                                   generator=g)).to(bf) for _ in range(2))
+        if odd:
+            x, dt, B, C = (_odd_view(x, 4), _odd_view(dt, 3), _odd_view(B, 3),
+                           _odd_view(C, 3))
+        hs = slice(off or 0, (off or 0) + (win or nh))
+        n = _build.LAUNCHES["ssd_chunk_intra/bf16"]
+        y, st = ssd_chunk_intra(x, dt, A, B, C, head_offset=off,
+                                head_win=win)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["ssd_chunk_intra/bf16"] == n + 1
+        yr, sr = ssd_chunk_intra_ref(x[..., hs, :], dt[..., hs], A[hs], B, C)
+        assert y.dtype == bf and st.dtype == torch.float32
+        _within_ulp_and(y, yr, GPU_RTOL)
+        _gpu_close(st, sr)
+    for Bsz, Sq, Skv, H, KV, hd, window, odd in FLASH_BF16:
+        q = (2 * torch.randn((Bsz, Sq, H, hd), device=cuda,
+                             generator=g)).to(bf)
+        k = (2 * torch.randn((Bsz, Skv, KV, hd), device=cuda,
+                             generator=g)).to(bf)
+        v = torch.randn((Bsz, Skv, KV, hd), device=cuda, generator=g).to(bf)
+        if odd:
+            q, k, v = (_odd_view(t, 3) for t in (q, k, v))
+        n = _build.LAUNCHES["flash_attention/bf16"]
+        out = flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["flash_attention/bf16"] == n + 1
+        assert out.dtype == bf
+        _within_ulp_and(out, flash_attention_ref(q, k, v, window=window),
+                        GPU_RTOL)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention(q, k.float(), v)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_chunk_intra(x, dt.float(), A, B, C)
     with pytest.raises(TypeError):
-        rolling_mm_fwd(q.reshape(1, 64, 256), [torch.randn(
-            1, 256, 64, device=cuda)], make_offsets([0], cuda), 32)
+        rolling_mm_fwd(q[..., :64].reshape(1, -1, 64), [torch.randn(
+            1, 64, 64, device=cuda)], make_offsets([0], cuda), 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2_130m", "hymba_1_5b"])
+def test_gpu_bf16_ssm_paths_from_the_default_matmul_flag(cuda, arch):
+    """Reduced Mamba2 and Hymba at bf16 on the card, from PyTorch's default
+    matmul flag (the port's entry points turn its bf16 partial sums off):
+    one fused round (rows 5-8 and 10 at bf16), an eval with
+    ``REPRO_USE_FLASH`` (rows 12 and 13 at bf16), prefill and 4 greedy
+    steps; finite, bf16 params and logits, only bf16 arms launched."""
+    import os
+
+    from repro_torch import api
+    from repro_torch.configs.base import SubmodelConfig, get_reduced_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_bf16_reduced_precision_reduction
+    cfg = get_reduced_config(arch)
+    model = build_model(cfg, param_dtype=torch.bfloat16)
+    batch = next(lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0))
+    tokens = torch.as_tensor(batch["tokens"][0, :, 0], dtype=torch.long,
+                             device=cuda)
+    try:
+        matmul.allow_bf16_reduced_precision_reduction = True
+        fed = api.fed_round(model, SubmodelConfig(
+            scheme="rolling", capacity=0.5, local_steps=2,
+            clients_per_round=4, client_lr=0.01), device="cuda")
+        assert not matmul.allow_bf16_reduced_precision_reduction
+        trainer = api.Trainer(fed, model.init(0, device="cuda"))
+        _build.reset_launches()
+        trainer.run(iter([batch]), 1)
+        os.environ["REPRO_USE_FLASH"] = "1"
+        with torch.no_grad():
+            loss, _ = model.loss(trainer.params, {"tokens": tokens})
+        del os.environ["REPRO_USE_FLASH"]
+        out = generate(model, trainer.params, tokens, 4, return_logits=True)
+        launches = dict(_build.LAUNCHES)
+        assert np.isfinite(trainer.losses).all() and np.isfinite(float(loss))
+        assert all(v.dtype == torch.bfloat16
+                   for v in trainer.params.values())
+        assert all(t.dtype == torch.bfloat16 and torch.isfinite(
+            t.float()).all() for t in out["logits"])
+        assert all(k.endswith("/bf16") for k in launches), launches
+        for name in ("rolling_mm_fwd<1>/bf16", "sgd_inplace/bf16",
+                     "ssd_chunk_intra/bf16"):
+            assert launches.get(name, 0) > 0, (name, launches)
+        assert (launches.get("flash_attention/bf16", 0) > 0) == (
+            arch == "hymba_1_5b")
+    finally:
+        os.environ.pop("REPRO_USE_FLASH", None)
+        matmul.allow_bf16_reduced_precision_reduction = old

@@ -2,7 +2,7 @@
 """Run the full-width SSM and hybrid rounds of ``chip_smoke.py`` at other
 client learning rates.
 
-    python3 tools/round_lr_probe.py [--lr 0.01 0.003 0.001]
+    python3 tools/round_lr_probe.py [--lr 0.01 0.003 0.001] [--bf16]
 
 Builds the port's kernels, then runs ``chip_smoke.phase_slice_rounds``
 (3 fused rounds, a profiled round, 3 fused rounds from params scaled by
@@ -10,8 +10,13 @@ Builds the port's kernels, then runs ``chip_smoke.phase_slice_rounds``
 full-width Mamba2-130M and Hymba-1.5B, and prints ``OK`` or ``FAIL``
 after the phase's own lines.  Its ``[... extract] vs the fused rounds``
 line says how far rounding alone carries the rounds at that rate: use it
-to choose ``chip_smoke.ROUND_LR``.  Needs one CUDA card.  Exits 1 if any
-run failed.
+to choose ``chip_smoke.ROUND_LR``.  With ``--bf16`` it runs
+``chip_smoke.phase_bf16_slice_rounds`` instead (bf16 params; Hymba at
+``chip_smoke.HYB_LAYERS`` layers, as the script runs it), whose ``[...
+extract]`` line gives the cosine and norm ratios of the extract rounds'
+change against the fused rounds': use it to choose
+``chip_smoke.BF16_SLICE_LR``.  Needs one CUDA card.  Exits 1 if any run
+failed.
 """
 import argparse
 import gc
@@ -27,6 +32,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--lr", type=float, nargs="+", default=[0.01, 0.003,
                                                            0.001])
+    ap.add_argument("--bf16", action="store_true",
+                    help="the bf16 rounds (phase_bf16_slice_rounds)")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import torch
@@ -47,8 +54,14 @@ def main():
             cs.ROUND_LR = lr
             seq = cs.SSM_SEQ if arch == "mamba2_130m" else cs.HYB_SEQ
             try:
-                cs.phase_slice_rounds(dev, _build, f"{tag} lr {lr}",
-                                      arch, seq)
+                if args.bf16:
+                    cs.phase_bf16_slice_rounds(
+                        dev, _build, f"bf16 {tag} lr {lr}", arch, seq,
+                        None if arch == "mamba2_130m" else cs.HYB_LAYERS,
+                        lr=lr)
+                else:
+                    cs.phase_slice_rounds(dev, _build, f"{tag} lr {lr}",
+                                          arch, seq)
                 print(f"OK {arch} lr {lr}")
             except RuntimeError:
                 traceback.print_exc()
