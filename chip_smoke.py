@@ -1,12 +1,24 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card and check what comes out.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases name,...]
+
+With no argument every phase runs and every check is kept.  ``--phases``
+names the ``phase_*`` functions to run (the prefix may be left off, e.g.
+``--phases kernels_bf16,bf16_window``); the build and the ``[card]`` line
+always run, a phase that needs what a skipped one hands on is skipped too,
+and the line before the last (``[phases]``) says which were skipped.  A
+partial run keeps its phases' checks but not the check that every kernel
+launched on its path.
 
 Phases, each of which fails the run when it fails:
 
 1. Build the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-   print nvcc's ``-Xptxas -v`` report and the card.
+   print nvcc's ``-Xptxas -v`` report and the card; per source the spill
+   stores and the mma.sync (HMMA) and wgmma (HGMMA) instructions, and for
+   each kernel of the bf16 arms' own bodies (rows 1-8's wgmma kernels, row
+   13's bf16 kernel) its registers, spill stores, HGMMA, bf16 HMMA.16816
+   and TF32 HMMA.1684 (row 13's must have none).
 2. Hold every kernel of the paths against its plain PyTorch version on the
    card, at the shapes the full-width TinyLlama-1.1B rounds and evaluation
    and the Mamba2-130M prefill give it (plus unaligned offsets, ragged
@@ -254,6 +266,18 @@ Phases, each of which fails the run when it fails:
    13 at bf16) and without; ``[bf16 hybrid serve]``: 4 x 2048 and
    BF16_HYB_G greedy steps.  Each prints seconds, peak and its launches.
 
+The bf16 bodies: rows 1-8's bf16 arm runs on wgmma fed by TMA where the
+tensor map takes its operands, else on its mma.sync body; ``[kernels
+bf16]`` prints each timed launch's body and tile, its device time alone
+(``device_ms``, ``torch.profiler``: at the small shapes ``cuda_ms`` also
+counts the Python wrapper's host time), rows 5-6 also at Mamba2's and
+Hymba's dt, q and k/v windows, and row 13's bound for the work of its
+design (q k^T and P v's two bf16 passes at 989 TFLOP/s) beside that of
+its 3xTF32-P design before it (``bound_3xtf32_p_ms``).  Each bf16 path
+prints its launches by body (``[bf16 window] launches by body``),
+``[bf16 window]`` checks that the wgmma body took all of rows 5-8's, and
+rows 1-8's bf16 rows carry ``launches_by_body`` and ``bodies``.
+
 The bf16 rows (``<kernel>/bf16``) carry the bf16 paths' launches
 (``bf16_window``; row 10 also ``bf16_extract``; rows 5-11 the bf16 SSM
 and hybrid rounds, 12 ``bf16_ssm_serve``, ``bf16_ssm_eval``,
@@ -391,6 +415,24 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, n=20):
+    """The device time of the kernels one call of ``fn`` launches, from a
+    ``torch.profiler`` profile of ``n`` calls after one: the kernels
+    alone, where ``cuda_ms`` also counts the host's time between launches
+    that do not keep the card busy (small kernels behind a Python
+    wrapper)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+
+
 def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -449,40 +491,78 @@ def phase_build(_build):
         if ("ptxas info" in line or line.startswith("==")
                 or "spill" in line):
             print(f"[build] {line.strip()}")
-    for src, (n, spill, hmma) in kernel_report(_build, path, log).items():
+    per_src, per_fn = kernel_report(_build, path, log)
+    for src, (n, spill, hmma, hgmma) in per_src.items():
         print(f"[build] {src}: {n} kernels, {spill} bytes of spill stores, "
-              f"HMMA (tensor-core mma) per kernel {min(hmma)}..{max(hmma)}")
+              f"HMMA (mma.sync) per kernel {min(hmma)}..{max(hmma)}, HGMMA "
+              f"(wgmma) per kernel {min(hgmma)}..{max(hgmma)}")
+    # the bf16 arms' own bodies: rows 1-8's wgmma kernels, row 13's kernel
+    # (bf16 m16n8k16, HMMA.16816, and no TF32 m16n8k8, HMMA.1684)
+    for fn, r in per_fn.items():
+        if "wgmma_kernel" in fn or "flash_attn_bf16_kernel" in fn:
+            print(f"[build] {r['src']} {demangle(fn)}: {r['regs']} registers, "
+                  f"{r['spill']} bytes of spill stores, HGMMA {r['hgmma']}, "
+                  f"HMMA.16816 {r['hmma16816']}, HMMA.1684 {r['hmma1684']}")
+            if "flash_attn_bf16_kernel" in fn:
+                check(r["hmma16816"] > 0 and r["hmma1684"] == 0,
+                      f"row 13's bf16 kernel {fn} runs TF32 mma: {r}")
+            else:
+                check(r["hgmma"] > 0, f"{fn} has no wgmma: {r}")
+
+
+def demangle(fn):
+    """A kernel's name without its template arguments' mangling noise:
+    ``rolling_mm_fwd_wgmma_kernel<WTile<128, 128, 6>, 1>``."""
+    import re
+    for m in re.finditer(r"(\d+)([A-Za-z_])", fn):
+        end = m.start(2) + int(m.group(1))
+        if fn[m.start(2):end].endswith("kernel"):
+            args = re.findall(r"Li(\d+)E", fn[end:].split("EEv")[0])
+            return f"{fn[m.start(2):end]}<{', '.join(args)}>"
+    return fn
 
 
 def kernel_report(_build, path, log):
     """Per source: its kernels, the spill stores ptxas reports over all of
-    them (bytes) and the HMMA instructions cuobjdump finds in each."""
-    src, fn, spills = None, None, {}
+    them (bytes), and the HMMA (mma.sync) and HGMMA (wgmma) instructions
+    cuobjdump finds in each; and per kernel its source, registers, spill
+    stores and tensor-core instructions (HGMMA, bf16 HMMA.16816, TF32
+    HMMA.1684)."""
+    src, fn, per_fn = None, None, {}
     for line in log.splitlines():
         if line.startswith("== nvcc "):
             src = line.split()[2]
         elif "Function properties for" in line:
             fn = line.rsplit(" ", 1)[-1]
         elif "spill stores" in line and fn:
-            spills[fn] = (src, int(line.split(" bytes spill stores")[0]
-                                   .rsplit(" ", 1)[-1]))
+            per_fn[fn] = dict(src=src, spill=int(
+                line.split(" bytes spill stores")[0].rsplit(" ", 1)[-1]),
+                regs=0, hmma=0, hgmma=0, hmma16816=0, hmma1684=0)
+        elif "Used" in line and "registers" in line and fn in per_fn:
+            per_fn[fn]["regs"] = int(line.split("Used ")[1].split()[0])
             fn = None
     sass = subprocess.run(
         [str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
          str(path)], capture_output=True, text=True, timeout=300,
         check=True).stdout
-    hmma, fn = {}, None
+    fn = None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            hmma[fn] = 0
-        elif "HMMA" in line and fn:
-            hmma[fn] += 1
-    out = {}
-    for fn, (src, spill) in spills.items():
-        n, total, counts = out.get(src, (0, 0, []))
-        out[src] = (n + 1, total + spill, counts + [hmma.get(fn, 0)])
-    return out
+        elif fn in per_fn:
+            r = per_fn[fn]
+            if "HGMMA" in line:
+                r["hgmma"] += 1
+            elif "HMMA" in line:
+                r["hmma"] += 1
+                r["hmma16816"] += "HMMA.16816" in line
+                r["hmma1684"] += "HMMA.1684" in line
+    per_src = {}
+    for fn, r in per_fn.items():
+        n, total, counts, wg = per_src.get(r["src"], (0, 0, [], []))
+        per_src[r["src"]] = (n + 1, total + r["spill"], counts + [r["hmma"]],
+                             wg + [r["hgmma"]])
+    return per_src, per_fn
 
 
 def nvidia_smi():
@@ -706,7 +786,7 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
     took.  ``dtype`` bfloat16 takes the bf16 arm: held within one bf16 ulp
     of the plain version (``bf16_err``), its bound at the dense bf16 rate
     and half the bytes, the library call on the bf16 window views."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.rolling_matmul import (block_tile, make_offsets,
                                                     rolling_mm_dx,
                                                     rolling_mm_fwd)
@@ -737,6 +817,7 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
             lib = lambda: [torch.mm(x[0], v[0]) for v in views]  # noqa
         else:
             lib = lambda: [torch.bmm(x, v) for v in views]       # noqa
+        before = dict(_build.BODIES)
         out = kern()
         e = max((diff(a, b) for a, b in zip(out, plain())),
                 key=lambda t: t[2])
@@ -757,6 +838,7 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
             for d, v in zip(dys[1:], views[1:]):
                 acc = torch.baddbmm(acc, d, v.mT)
             return acc
+        before = dict(_build.BODIES)
         out = [kern()]
         e = diff(out[0], plain())
         nbytes = esize * (T * c * m * win + T * c * K * win + c * m * K)
@@ -767,20 +849,29 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
     check(all(bits_equal(a, b) for a, b in zip(
         out, again if kind == "fwd" else [again])),
           f"{kind}<{T}> {dtype} at {shape}: two launches differ")
+    # the body the launch ran (the bf16 arm has two)
+    body = [k.rsplit(" ", 1)[1] for k, n in _build.BODIES.items()
+            if n > before.get(k, 0)]
     b_ms, b_by = bound(flops, nbytes,
                        PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS)
     k_ms = cuda_ms(kern)
     if per_client:
         shape["offsets"] = offs
+    extra = {}
+    if bf16:
+        extra = dict(body=body[0], device_ms=device_ms(kern))
     return dict(
-        shape=shape, block_tile=list(block_tile(kind, T, c, m, K, win)),
+        shape=shape, block_tile=list(block_tile(
+            kind, T, c, m, K, win,
+            dtype=dtype if extra.get("body") == "wgmma" else torch.float32)),
         max_abs_err=e[0], max_rel_err=e[1],
         tolerance=BF16_TOL if bf16 else MM_RTOL, ms=k_ms,
         kernel_ms=k_ms, plain_ms=cuda_ms(plain),
         library_ms=None if per_client else cuda_ms(lib),
         library_calls=0 if per_client else T, bound_ms=b_ms, bound_by=b_by,
-        bound_rate=("bf16: 2*M*N*K at 989 TFLOP/s" if bf16 else
-                    "3xTF32: 2*M*N*K at 495/3 TFLOP/s"))
+        bound_rate=("bf16: 2*M*N*K at 989 TFLOP/s, the work of both bodies "
+                    "and of the mma.sync design" if bf16 else
+                    "3xTF32: 2*M*N*K at 495/3 TFLOP/s"), **extra)
 
 
 def mask_kernels(dev, g):
@@ -1332,6 +1423,22 @@ def phase_small_agreement_ssm(dev):
 # -- phase 4 ------------------------------------------------------------------
 
 
+#: path tag -> launches by body of the kernels with several (rows 1-8's
+#: bf16 arm: ``"<name>/bf16 <body>"``), counted with the path's launches
+BODY_LAUNCHES = {}
+
+
+def record_bodies(tag, _build, add=False):
+    """Keep (``add``: add to) the body counts of path ``tag``'s run and
+    print them."""
+    got = BODY_LAUNCHES.setdefault(tag, {}) if add else {}
+    for k, n in _build.BODIES.items():
+        got[k] = got.get(k, 0) + n
+    BODY_LAUNCHES[tag] = got
+    if got:
+        print(f"[{tag}] launches by body {got}")
+
+
 def run_rounds(tag, trainer, data, _build, clients=4, after=None):
     """``len(data)`` rounds, each timed to a synchronize, with the kernel
     launches counted from 0 and the peak memory from a reset; checks what
@@ -1350,6 +1457,7 @@ def run_rounds(tag, trainer, data, _build, clients=4, after=None):
         if after is not None:
             after(i)
     launches = dict(_build.LAUNCHES)
+    record_bodies(tag, _build)
     peak = torch.cuda.max_memory_allocated()
     losses = trainer.losses
     client = [h["client_loss"].cpu().tolist() for h in trainer.history]
@@ -4118,8 +4226,12 @@ def phase_kernels_bf16(dev):
                                                     rolling_mm_fwd)
     g = torch.Generator(dev).manual_seed(24)
     worst = 0.0
-    for (c, m, k, n, win, offs) in EXTRA + [(3, 70, 100, 130, 50,
-                                              [0, 33, 77])]:
+    # EXTRA, a window of 50 at odd offsets (the mma.sync body), and a
+    # ragged contraction and window at offsets of 8k (the wgmma body: dx's
+    # last stage of each weight 56 columns wide)
+    cases = EXTRA + [(3, 70, 100, 130, 50, [0, 33, 77]),
+                     (3, 200, 1000, 776, 120, [0, 64, 656])]
+    for (c, m, k, n, win, offs) in cases:
         for T in (1, 2):
             x = torch.randn((c, m, k), device=dev, generator=g).to(BF)
             ws = [torch.randn((c, k, n), device=dev, generator=g).to(BF)
@@ -4137,8 +4249,9 @@ def phase_kernels_bf16(dev):
                 check(e[2] <= 0, f"bf16 <{T}> {(c, m, k, n, win, offs)}: "
                       f"{e}")
                 worst = max(worst, e[0])
-    print(f"[kernels bf16] {(len(EXTRA) + 1) * 2 * 2} ragged / odd-offset "
-          f"product checks within {BF16_TOL} (largest |d| {worst:.3g})")
+    print(f"[kernels bf16] {5 * len(cases)} ragged / "
+          f"odd-offset product checks (both bodies) within {BF16_TOL} "
+          f"(largest |d| {worst:.3g})")
 
     rows = []
     for name, row, tpu_fn, T, N, win, off, kind in ROLLING:
@@ -4149,6 +4262,13 @@ def phase_kernels_bf16(dev):
         if row in (5, 6):      # the k/v projections: window 128 of 256
             rows[-1]["sub_rows"] = [product_timing(
                 dev, g, kind, T, C, M, 256, 128, 128, dtype=BF)]
+            # the SSM and hybrid rounds' narrow windows (the dt windows on
+            # the mma.sync body: offsets 12 and 25 are no 16-byte vector)
+            rows[-1]["sub_rows"] += [
+                {"tag": tag, **product_timing(dev, g, kind, 1, C, m, N_, w, o,
+                                              K=K, dtype=BF)}
+                for tag, T_, m, K, N_, w, o in SLICE_ROWS
+                if tag in ("mamba2 dt", "hymba dt", "hymba q", "hymba k/v")]
     for name, row, tpu_fn, T, m, N, win, off, kind in SCALAR:
         r = product_timing(dev, g, kind, T, 1, m, N, win, off,
                            scalar_name=name, dtype=BF)
@@ -4235,10 +4355,19 @@ def phase_kernels_bf16(dev):
         for sub in [r, *r.get("sub_rows", [])]:
             lib = ("none" if sub["library_ms"] is None
                    else f"{sub['library_ms']:.4f} ms")
-            print(f"[kernels bf16] {r['name']:28s} {json.dumps(sub['shape'])}"
-                  f" err {sub['max_abs_err']:.3g} kernel {sub['ms']:.4f} ms  "
-                  f"plain {sub['plain_ms']:.4f} ms  library {lib}  bound "
-                  f"{sub['bound_ms']:.4f} ms ({sub['bound_by']})")
+            more = "".join((
+                f" (device {sub['device_ms']:.4f} ms)"
+                if "device_ms" in sub else "",
+                f"; the 3xTF32-P bound {sub['bound_3xtf32_p_ms']:.4f} ms"
+                if "bound_3xtf32_p_ms" in sub else "",
+                f"; body {sub['body']}, tile {sub['block_tile']}"
+                if "body" in sub else ""))
+            tag = f"{sub['tag']}: " if "tag" in sub else ""
+            print(f"[kernels bf16] {r['name']:28s} {tag}"
+                  f"{json.dumps(sub['shape'])} err {sub['max_abs_err']:.3g} "
+                  f"kernel {sub['ms']:.4f} ms  plain "
+                  f"{sub['plain_ms']:.4f} ms  library {lib}  bound "
+                  f"{sub['bound_ms']:.4f} ms ({sub['bound_by']}){more}")
     return rows
 
 
@@ -4341,8 +4470,9 @@ def flash_bf16_timing(dev, g, B, S, H, KV, hd, window=0):
     MM_RTOL of the largest output, a second launch bit-equal, timed beside
     the plain version, one bf16 ``scaled_dot_product_attention`` (timed
     only; it rounds P to bf16 for P V, less precise work than the kernel's
-    f32 P) and the bound: the bytes at bf16, q k^T at the dense bf16 rate
-    (two bf16 operands) and P V (P in f32) at the 3xTF32 rate."""
+    two-part P) and the bound of this design's work: the bytes at bf16, q
+    k^T and P V's two bf16 passes at the dense bf16 rate; beside it PR
+    25's bound (P V in 3xTF32)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     q = torch.randn((B, S, H, hd), device=dev, generator=g).to(BF)
@@ -4371,17 +4501,23 @@ def flash_bf16_timing(dev, g, B, S, H, KV, hd, window=0):
     pairs = visible_pairs(S, window)
     f_qk = f_pv = 2 * B * H * hd * pairs
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-    b_ms, b_by = bound(f_pv + f_qk * PEAK_3XTF32_FLOPS / PEAK_BF16_FLOPS,
-                       nbytes, PEAK_3XTF32_FLOPS)
+    # the work of this design: q k^T and P V as two bf16 passes (P's two
+    # parts), all at the dense bf16 rate; the design before it kept P V
+    # in 3xTF32
+    b_ms, b_by = bound(f_qk + 2 * f_pv, nbytes, PEAK_BF16_FLOPS)
+    old_ms, _ = bound(f_pv + f_qk * PEAK_3XTF32_FLOPS / PEAK_BF16_FLOPS,
+                      nbytes, PEAK_3XTF32_FLOPS)
     k_ms = cuda_ms(kern)
     return dict(
         shape=shape, max_abs_err=e[0], max_rel_err=e[1],
         tolerance=BF16_TOL_1213, ms=k_ms, kernel_ms=k_ms,
-        plain_ms=cuda_ms(plain, iters=5), library_ms=cuda_ms(lib),
-        library_calls=1, library_note="SDPA rounds P to bf16 for P V",
+        device_ms=device_ms(kern), plain_ms=cuda_ms(plain, iters=5),
+        library_ms=cuda_ms(lib), library_calls=1,
+        library_note="SDPA rounds P to bf16 for P V",
         bound_ms=b_ms, bound_by=b_by,
-        bound_rate="q k^T at 989 TFLOP/s (bf16), P V at 495/3 (3xTF32, P "
-                   "f32); bytes at bf16")
+        bound_rate="q k^T and P V's two bf16 passes at 989 TFLOP/s; bytes "
+                   "at bf16",
+        bound_3xtf32_p_ms=old_ms)
 
 
 def flash_bf16_rows(dev, g):
@@ -4505,6 +4641,11 @@ def phase_bf16_window(dev, _build):
             "sgd_inplace/bf16": 2 * leaves * R}
     check(launches == want, f"[bf16 window] launches {launches}, expected "
           f"{want}")
+    # TinyLlama's windows are whole 16-byte vectors: TMA takes every launch
+    bodies = BODY_LAUNCHES["bf16 window"]
+    check(all(bodies.get(f"{k} wgmma", 0) == n for k, n in want.items()
+              if k.startswith("rolling_mm")),
+          f"[bf16 window] rows 5-8 off the wgmma body: {bodies}")
     check(all(v.dtype == BF for v in trainer.params.values()),
           "[bf16 window] params left bf16")
     # the counted rounds' params, before the profiled round moves them
@@ -4584,6 +4725,7 @@ def phase_bf16_eval(dev, model, trainer, _build):
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
         _only_bf16_arms("bf16 eval", launches)
+        record_bodies("bf16 eval", _build, add=True)
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
         secs, _ = timed(fn, 3)
@@ -5135,13 +5277,53 @@ def _timed_phase(name, fn):
         finally:
             t1 = time.perf_counter()
             print(f"[time] {name}: {t1 - t0:.1f} s (at {t1 - T0:.1f} s)")
+    run.phase = name
     return run
 
 
 T0 = time.perf_counter()
+#: the phases a run drives (``--phases``), None for all of them
+SELECTED = None
+#: the phases a partial run left out, in order
+SKIPPED = []
 
 
-def main():
+def parse_phases(argv):
+    """``--phases name,...``: the ``phase_*`` functions to run (the
+    ``phase_`` prefix may be left off); no argument runs every phase.  The
+    build and the ``[card]`` line always run."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: python3 chip_smoke.py [--phases name,...]")
+    names = {n if n.startswith("phase_") else f"phase_{n}"
+             for n in argv[1].split(",") if n}
+    unknown = sorted(n for n in names if not callable(globals().get(n)))
+    if unknown:
+        raise SystemExit(f"chip_smoke: no such phase {unknown}")
+    return names
+
+
+def wanted(fn, needs=()):
+    """Whether the run selects phase ``fn`` and every object in ``needs``
+    (what earlier phases handed on) exists; records it as skipped if
+    not."""
+    name = getattr(fn, "phase", fn.__name__)
+    if (SELECTED is not None and name not in SELECTED) or any(
+            n is None for n in needs):
+        SKIPPED.append(name)
+        return False
+    return True
+
+
+def phase(fn, *args, skip=None, needs=(), **kw):
+    """Phase ``fn`` on ``args`` where ``wanted``; else ``skip``."""
+    return fn(*args, **kw) if wanted(fn, needs) else skip
+
+
+def main(argv=()):
+    global SELECTED
+    SELECTED = parse_phases(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's check needs the card",
               file=sys.stderr)
@@ -5164,85 +5346,96 @@ def main():
           f"{torch.version.cuda}")
 
     phase_build(_build)
-    rows = phase_kernels(dev)
-    rows += phase_kernels_bf16(dev)
+    rows = phase(phase_kernels, dev, skip=[])
+    rows += phase(phase_kernels_bf16, dev, skip=[])
     try:
-        phase_small_agreement(dev)
+        phase(phase_small_agreement, dev)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    phase_small_agreement_mask(dev)
-    phase_small_agreement_ssm(dev)
-    phase_small_agreement_extract(dev)
-    phase_small_agreement_paper(dev)
-    phase_small_agreement_opt(dev)
-    phase_small_agreement_hetero(dev)
-    phase_small_agreement_slice(dev)
-    phase_small_agreement_zoo(dev)
-    phase_small_agreement_bf16(dev)
-    phase_small_agreement_bf16_ssm(dev)
-    launches, trainer, batch, round_s, fused = phase_main_path(dev, _build)
-    e_launches = phase_eval(dev, trainer, _build)
-    phase_profile("window", trainer, batch, round_s)
-    phase_trainer_eval(trainer, full_width(dev)[2])
+    for fn in (phase_small_agreement_mask, phase_small_agreement_ssm,
+               phase_small_agreement_extract, phase_small_agreement_paper,
+               phase_small_agreement_opt, phase_small_agreement_hetero,
+               phase_small_agreement_slice, phase_small_agreement_zoo,
+               phase_small_agreement_bf16, phase_small_agreement_bf16_ssm):
+        phase(fn, dev)
+    launches, trainer, batch, round_s, fused = phase(
+        phase_main_path, dev, _build, skip=({}, None, None, None, None))
+    e_launches = phase(phase_eval, dev, trainer, _build, skip={},
+                       needs=(trainer,))
+    phase(phase_profile, "window", trainer, batch, round_s, needs=(trainer,))
+    if wanted(phase_trainer_eval, needs=(trainer,)):
+        phase_trainer_eval(trainer, full_width(dev)[2])
     del trainer            # the two full-width paths do not fit together
     gc.collect()
     torch.cuda.empty_cache()
-    x_launches, f_launches = phase_extract_path(dev, _build, fused)
+    x_launches, f_launches = phase(phase_extract_path, dev, _build, fused,
+                                   skip=({}, {}), needs=(fused,))
     del fused
-    st_launches = phase_stagger_path(dev, _build)
-    h_launches = phase_hetero_path(dev, _build)
-    fl_launches = phase_fleet_path(dev, _build)
-    m_launches, trainer, batch, round_s = phase_mask_path(dev, _build)
-    phase_profile("mask", trainer, batch, round_s)
-    phase_client_phase_peaks(trainer, batch)
+    st_launches = phase(phase_stagger_path, dev, _build, skip={})
+    h_launches = phase(phase_hetero_path, dev, _build, skip={})
+    fl_launches = phase(phase_fleet_path, dev, _build, skip={})
+    m_launches, trainer, batch, round_s = phase(
+        phase_mask_path, dev, _build, skip=({}, None, None, None))
+    phase(phase_profile, "mask", trainer, batch, round_s, needs=(trainer,))
+    phase(phase_client_phase_peaks, trainer, batch, needs=(trainer,))
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    mo_launches = phase_mask_opt_path(dev, _build)
-    bw_launches, be_launches, bx_launches = phase_bf16_window(dev, _build)
-    bm_launches = phase_bf16_mask(dev, _build)
-    phase_bf16_serve(dev, _build)
-    bsr_launches, bsx_launches = phase_bf16_slice_rounds(
-        dev, _build, "bf16 ssm round", "mamba2_130m", SSM_SEQ, profile=True)
-    bsm_launches = phase_bf16_ssm_mask(dev, _build)
-    bse_launches, bss_launches = phase_bf16_ssm_eval_serve(dev, _build)
-    bhr_launches, bhx_launches = phase_bf16_slice_rounds(
-        dev, _build, "bf16 hybrid round", "hymba_1_5b", HYB_SEQ, HYB_LAYERS)
-    bhe_launches, bhs_launches = phase_bf16_hybrid_eval_serve(dev, _build)
-    model, params, prompts, s_launches, prefill_s = phase_serve_ssm(dev,
-                                                                    _build)
-    phase_eval_ssm(dev, model, params, _build)
-    phase_profile_serve_ssm(model, params, prompts, prefill_s)
+    mo_launches = phase(phase_mask_opt_path, dev, _build, skip={})
+    bw_launches, be_launches, bx_launches = phase(
+        phase_bf16_window, dev, _build, skip=({}, {}, {}))
+    bm_launches = phase(phase_bf16_mask, dev, _build, skip={})
+    phase(phase_bf16_serve, dev, _build)
+    bsr_launches, bsx_launches = phase(
+        phase_bf16_slice_rounds, dev, _build, "bf16 ssm round",
+        "mamba2_130m", SSM_SEQ, profile=True, skip=({}, {}))
+    bsm_launches = phase(phase_bf16_ssm_mask, dev, _build, skip={})
+    bse_launches, bss_launches = phase(phase_bf16_ssm_eval_serve, dev, _build,
+                                       skip=({}, {}))
+    bhr_launches, bhx_launches = phase(
+        phase_bf16_slice_rounds, dev, _build, "bf16 hybrid round",
+        "hymba_1_5b", HYB_SEQ, HYB_LAYERS, skip=({}, {}))
+    bhe_launches, bhs_launches = phase(phase_bf16_hybrid_eval_serve, dev,
+                                       _build, skip=({}, {}))
+    model, params, prompts, s_launches, prefill_s = phase(
+        phase_serve_ssm, dev, _build, skip=(None, None, None, {}, None))
+    phase(phase_eval_ssm, dev, model, params, _build, needs=(model,))
+    phase(phase_profile_serve_ssm, model, params, prompts, prefill_s,
+          needs=(model,))
     del prompts
-    phase_ssm_grad(dev, model, params, _build)
+    phase(phase_ssm_grad, dev, model, params, _build, needs=(model,))
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    phase_serve_dense(dev, _build)
-    sr_launches, sx_launches = phase_slice_rounds(
-        dev, _build, "ssm round", "mamba2_130m", SSM_SEQ)
-    hr_launches, hx_launches = phase_slice_rounds(
-        dev, _build, "hybrid round", "hymba_1_5b", HYB_SEQ, HYB_LAYERS)
-    he_launches, hs_launches = phase_hybrid_serve(dev, _build)
+    phase(phase_serve_dense, dev, _build)
+    sr_launches, sx_launches = phase(
+        phase_slice_rounds, dev, _build, "ssm round", "mamba2_130m",
+        SSM_SEQ, skip=({}, {}))
+    hr_launches, hx_launches = phase(
+        phase_slice_rounds, dev, _build, "hybrid round", "hymba_1_5b",
+        HYB_SEQ, HYB_LAYERS, skip=({}, {}))
+    he_launches, hs_launches = phase(phase_hybrid_serve, dev, _build,
+                                     skip=({}, {}))
     zoo = {}
     for tag, arch, layers, clients, n_fused, n_extract in ZOO_ROUNDS:
         key = tag.split()[0]
-        zoo[f"{key}_round"], zoo[f"{key}_extract"] = phase_zoo_round(
-            dev, _build, tag, arch, layers, clients, n_fused, n_extract)
-    ze_launches = phase_zoo_eval(dev, _build)
-    qe_launches = phase_serve_continuous(dev, _build)
+        zoo[f"{key}_round"], zoo[f"{key}_extract"] = phase(
+            phase_zoo_round, dev, _build, tag, arch, layers, clients,
+            n_fused, n_extract, skip=({}, {}))
+    ze_launches = phase(phase_zoo_eval, dev, _build, skip={})
+    qe_launches = phase(phase_serve_continuous, dev, _build, skip={})
     for tag, arch, layers, clients, n_fused, n_extract, over in NEW_ROUNDS:
         key = tag.split()[0]
-        zoo[f"{key}_round"], zoo[f"{key}_extract"] = phase_zoo_round(
-            dev, _build, tag, arch, layers, clients, n_fused, n_extract,
-            over)
-    me_launches = phase_mla_eval_serve(dev, _build)
-    fam_eval = {f"{key}_eval": phase_family_eval_serve(dev, _build, key,
-                                                       arch)
+        zoo[f"{key}_round"], zoo[f"{key}_extract"] = phase(
+            phase_zoo_round, dev, _build, tag, arch, layers, clients,
+            n_fused, n_extract, over, skip=({}, {}))
+    me_launches = phase(phase_mla_eval_serve, dev, _build, skip={})
+    fam_eval = {f"{key}_eval": phase(phase_family_eval_serve, dev, _build,
+                                     key, arch, skip={})
                 for key, arch in (("audio", "musicgen_large"),
                                   ("vlm", "phi_3_vision_4_2b"))}
-    p_launches = phase_paper_path(dev, _build)
-    phase_experiment_cli(dev)
+    p_launches = phase(phase_paper_path, dev, _build, skip={})
+    phase(phase_experiment_cli, dev)
     path = {"masked_sgd_inplace": m_launches, "fillin_agg_inplace": m_launches,
             "ssd_chunk_intra": s_launches}
     path.update({name: e_launches for name in (
@@ -5329,13 +5522,30 @@ def main():
             r["launches_by_path"] = {
                 own: r["launches"], **{p: n.get(r["name"], 0) for p, n in
                                        more[r["name"]].items()}}
+    # rows 1-8's bf16 arm has two bodies: each path's launches of each
+    for r in rows:
+        by = {tag: {k.rsplit(" ", 1)[1]: n for k, n in got.items()
+                    if k.rsplit(" ", 1)[0] == r["name"]}
+              for tag, got in BODY_LAUNCHES.items()}
+        by = {tag: n for tag, n in by.items() if n}
+        if by:
+            r["launches_by_body"] = by
+            r["bodies"] = {"wgmma": SRC + "rolling_mm.cu "
+                           "rolling_mm_{fwd,dx}_wgmma_kernel (TMA + wgmma)",
+                           "mma.sync": SRC + "rolling_mm.cu "
+                           "rolling_mm_{fwd,dx}_kernel (copies + mma.sync)"}
     missing = [r["name"] for r in rows if r["launches"] == 0] + [
         f"{r['name']} ({p})" for r in rows
         for p, n in r.get("launches_by_path", {}).items() if n == 0]
-    check(not missing, f"kernels never launched on their path: {missing}")
+    if SELECTED is None:
+        check(not missing, f"kernels never launched on their path: {missing}")
 
     print(json.dumps({"kernels": rows}))
     print(smi)
+    if SELECTED is not None:
+        print(f"[phases] a partial run (--phases): skipped "
+              f"{len(SKIPPED)} phases {SKIPPED}; launches on skipped paths "
+              f"read 0 ({missing})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -5343,4 +5553,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

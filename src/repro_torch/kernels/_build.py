@@ -16,7 +16,10 @@ machine without a card has no ``nvcc``.
 Each wrapper that launches a kernel adds one to that kernel's entry of
 :data:`LAUNCHES` (and nowhere else), so a run can show which kernels it
 went through.  A kernel's bf16 arm is its own entry point (``_bf16``
-appended) and counts under its own name (``/bf16`` appended).
+appended) and counts under its own name (``/bf16`` appended).  An entry
+point that picks one of several bodies per launch (the products' bf16 arm:
+``wgmma`` or ``mma.sync``) reports which, and the launch also counts under
+``"<name> <body>"`` in :data:`BODIES`.
 """
 from __future__ import annotations
 
@@ -38,6 +41,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: Kernel name -> launches so far in this process.
 LAUNCHES: collections.Counter = collections.Counter()
+#: ``"<kernel name> <body>"`` -> launches so far, for the kernels whose
+#: entry point picks one of several bodies per launch (BODY_NAMES); each
+#: such launch also counts under its name in LAUNCHES.
+BODIES: collections.Counter = collections.Counter()
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -46,7 +53,7 @@ _SIGNATURES = {
                        _LL, _P],
     "rolling_mm_dx": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL,
                       _LL, _P],
-    "rolling_mm_tile": [_I] * 6,
+    "rolling_mm_tile": [_I] * 7,
     "sgd_inplace": [_P, _P, _F, _LL, _P],
     "masked_sgd_inplace": [_P, _P, _P, _F, _LL, _P],
     "fillin_agg_inplace": [_P, _P, _P, _F, _LL, _I, _LL, _P],
@@ -54,16 +61,27 @@ _SIGNATURES = {
     "ssd_chunk_intra_fwd": [_P] * 7 + [_LL] * 14 + [_I] * 8 + [_P],
 }
 
-# the bf16 arms take the f32 arms' arguments
+# the bf16 arms take the f32 arms' arguments; the products' bf16 arms
+# also whether every offset is a multiple of 8 elements, and an int* that
+# says which of their bodies ran (BODIES)
 _SIGNATURES.update({f"{n}_bf16": _SIGNATURES[n] for n in (
-    "rolling_mm_fwd", "rolling_mm_dx", "sgd_inplace", "masked_sgd_inplace",
-    "fillin_agg_inplace", "flash_attn_fwd", "ssd_chunk_intra_fwd")})
+    "sgd_inplace", "masked_sgd_inplace", "fillin_agg_inplace",
+    "flash_attn_fwd", "ssd_chunk_intra_fwd")})
+_SIGNATURES.update({f"{n}_bf16": _SIGNATURES[n] + [_I, _P] for n in (
+    "rolling_mm_fwd", "rolling_mm_dx")})
+
+#: the bodies of a kernel with more than one, by the code its entry point
+#: reports: the bf16 products run on wgmma fed by TMA where the tensor map
+#: takes their operands, else on mma.sync fed by copies
+BODY_NAMES = {"rolling_mm_fwd_bf16": ("mma.sync", "wgmma"),
+              "rolling_mm_dx_bf16": ("mma.sync", "wgmma")}
 
 _lib = None
 
 
 def reset_launches():
     LAUNCHES.clear()
+    BODIES.clear()
 
 
 def _nvcc() -> str:
@@ -145,10 +163,16 @@ ARMS = {"torch.float32": ("", ""), "torch.bfloat16": ("_bf16", "/bf16")}
 
 def launch(entry: str, name: str, dtype, *args):
     """Call the ``dtype`` arm of ``entry`` with ``args`` and count the
-    launch under ``name`` (``name/bf16`` for a bf16 one)."""
+    launch under ``name`` (``name/bf16`` for a bf16 one), and, for an arm
+    with several bodies, under ``"<that name> <body>"`` in BODIES."""
     fn_suffix, name_suffix = ARMS[str(dtype)]
+    bodies = BODY_NAMES.get(entry + fn_suffix)
+    body = ctypes.c_int(-1)
+    extra = (ctypes.byref(body),) if bodies else ()
     check_launch(name + name_suffix,
-                 getattr(library(), entry + fn_suffix)(*args))
+                 getattr(library(), entry + fn_suffix)(*args, *extra))
+    if bodies:
+        BODIES[f"{name}{name_suffix} {bodies[body.value]}"] += 1
 
 
 def check_launch(name: str, err: int):

@@ -1,8 +1,9 @@
-// bf16 building blocks for Hopper's tensor cores: the bf16 arm of the
-// windowed products (rolling_mm.cu), and the widening helpers of the SSD
-// chunk block's and flash attention's bf16 arms (ssd_chunk.cu,
-// flash_attn.cu; the last section).  Beside tf32x3.cuh, whose copy and
-// pipeline helpers they share.
+// bf16 building blocks for Hopper's tensor cores: the bf16 arms of the
+// windowed products' mma.sync body (rolling_mm.cu) and of flash attention
+// (flash_attn.cu), and the widening helpers of the SSD chunk block's bf16
+// arm (ssd_chunk.cu; the last section), whose overloads flash attention's
+// f32 arm shares.  Beside tf32x3.cuh, whose copy and pipeline helpers they
+// share.
 //
 // A bf16 operand is exact in one tensor-core pass: mma.sync m16n8k16 with
 // bf16 A and B and f32 accumulators multiplies exactly and sums in f32, so
@@ -116,10 +117,10 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// -- widening at fragment build (ssd_chunk.cu, flash_attn.cu) ---------------
+// -- widening at fragment build (ssd_chunk.cu) --------------------------------
 //
-// Their bf16 arms keep bf16 tiles in shared memory (half the f32 arm's
-// bytes) and widen each element to f32 exactly as a fragment is built, so
+// Its bf16 arm keeps bf16 tiles in shared memory (half the f32 arm's
+// bytes) and widens each element to f32 exactly as a fragment is built, so
 // the 3xTF32 mainloops run unchanged: a widened bf16 has no bits below
 // TF32's, so its small part is 0.  Each overload pair below does one thing
 // for either element type; the f32 one is the f32 arm's own code.  A bf16

@@ -49,20 +49,37 @@
 // every time.  Shared memory rows are hd + 4 floats, so every fragment read
 // of a warp hits 32 distinct banks and rows stay 16-byte aligned.
 //
-// The bf16 arm (flash_attn_fwd_bf16) takes q, k and v in bf16 and writes
-// the output in bf16, as the Pallas body does: it casts q, k and v to f32
-// at the load, keeps P in f32 for P v, and writes the output in q's
-// dtype.  The kernel is templated on the element type E of q, k, v and
-// out, and the bf16 instance differs from the f32 one only where an
-// element is copied, widened or stored: bf16 K and V tiles (and q above hd
-// 64) go into shared memory at half the bytes (rows of hd + 8 elements),
-// each element is widened to f32 as its fragment is built (bf16_mma.cuh),
-// the 3xTF32 products run as they are (a widened bf16's small part is 0;
-// P's is not), masked keys still score -1e30 and zero-filled rows read 0,
-// and the output is rounded once to bf16.  At the eval shape above the
-// bf16 data is 0.067 GB (0.02 ms); q k^T multiplies two bf16 operands,
-// exact in one bf16 pass (34.4 GFLOP at 989 TFLOP/s), while P v multiplies
-// the f32 P (34.4 GFLOP at the 3xTF32 rate): 0.243 ms.
+// The bf16 arm (flash_attn_fwd_bf16, flash_attn_bf16_kernel) takes q, k
+// and v in bf16 and writes the output in bf16, as the Pallas body does: it
+// casts q, k and v to f32, keeps P in f32 for P v, and rounds the output
+// once.  Its kernel keeps this skeleton (rows as (position, head) pairs,
+// longest tiles first, causal and window tile skipping, masked keys at
+// -1e30, the online softmax in exp2, P fed back from the accumulators, no
+// atomics) on bf16 mma.sync m16n8k16:
+// - q k^T in one bf16 pass: both operands are bf16, so the products are
+//   exact and their sums f32, as the Pallas body's f32 dot of widened
+//   values (up to the summation order).
+// - P v as two bf16 passes on P's two parts, hi = bf16(P) and lo = bf16(P
+//   - hi) (P - hi is exact in f32): hi + lo lies within 2^-17 P of P, so P
+//   v stays as close to the f32-P product as 3xTF32 kept it
+//   (tests/test_torch_flash.py pins that arithmetic on the CPU).  Two
+//   neighbouring n8 accumulator tiles of S are one k16 A fragment in the
+//   mma's own order, so V needs no permutation.
+// - K's fragments by ldmatrix and V's by ldmatrix.trans from bf16 shared
+//   memory (rows of hd + 8 elements: each ldmatrix phase on 32 distinct
+//   banks), through a 3-deep cp.async ring of 64-key tiles; q's fragments
+//   once into registers up to head_dim 64, above it staged in shared
+//   memory and read by ldmatrix each tile (the registers go to O).
+// - Up to head_dim 64 a warp owns two 16-row tiles, which share every K
+//   and V fragment it reads (half the shared-memory reads of an mma), 4
+//   warps a block; above it one tile a warp, 16 warps a block.
+// What bounds it: operations, q k^T and P v's two passes at the dense bf16
+// rate, 1.5x SDPA's (which rounds P once to bf16).  At the eval shape above
+// that is 103 GFLOP, 0.104 ms at 989 TFLOP/s, against 0.02 ms for its
+// 0.067 GB at 3.35 TB/s; mma.sync reaches about two thirds of that rate,
+// and the softmax's exp2 and the split of P take the rest of a warp's
+// issue.  The softmax's exp2 is ex2.approx (2^-22 relative), far inside
+// the arm's tolerance.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -81,37 +98,34 @@ struct Strides {
   long long b, s, h;  // batch, position and head strides, in elements
 };
 
-// E: the element type of q, k, v and out (float, or bf16 for the bf16 arm)
-template <int HD, class E>
+template <int HD>
 struct Cfg {
   static constexpr int BKV = HD <= 64 ? 64 : 32;  // keys of a K/V tile
   static constexpr bool QREG = HD <= 64;  // q's split fragments in registers
-  // shared-memory row stride, in elements
-  static constexpr int S = sizeof(E) == 4 ? HD + 4 : HD + 8;
-  static constexpr int VEC = 16 / sizeof(E);  // elements of a 16-byte copy
+  static constexpr int S = HD + 4;  // shared-memory row stride, in floats
+  static constexpr int VEC = 4;       // floats of a 16-byte copy
   static constexpr int KT = BKV / 8;      // n8 key tiles of S
   static constexpr int DK = HD / 8;       // k8 steps of q k^T; n8 tiles of O
   // n8 tiles of O summed at once in P v (their V fragments and stage sums
   // live in registers together)
   static constexpr int NCH = DK <= 8 ? DK : DK / 2;
   static constexpr int KV_ELTS = 2 * BKV * S;  // one stage: K, then V
-  static constexpr int smem_bytes = static_cast<int>(sizeof(E)) *
-                                    (2 * KV_ELTS + (QREG ? 0 : BM * S));
+  static constexpr int smem_bytes = 4 * (2 * KV_ELTS + (QREG ? 0 : BM * S));
 };
 
-template <int HD, class E>
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 2)
-    flash_attn_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                      const E* __restrict__ v, E* __restrict__ out,
+    flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
                       Strides sq, Strides sk, Strides sv, Strides so, int KV,
                       int G, int Sq, int Skv, int causal, int window,
                       float scale) {
-  using CF = Cfg<HD, E>;
+  using CF = Cfg<HD>;
   constexpr int BKV = CF::BKV, S = CF::S, KT = CF::KT, DK = CF::DK;
   constexpr int VEC = CF::VEC;
   extern __shared__ __align__(16) float smem[];
-  E* ring = reinterpret_cast<E*>(smem);  // two stages of K and V
-  E* Qs = ring + 2 * CF::KV_ELTS;        // [BM][S], above hd 64 only
+  float* ring = smem;               // two stages of K and V
+  float* Qs = ring + 2 * CF::KV_ELTS;  // [BM][S], above hd 64 only
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, qd = lane & 3;
@@ -138,15 +152,15 @@ __global__ void __launch_bounds__(THREADS, 2)
            static_cast<long long>(kvh * G + r % G) * sq.h;
   };
 
-  const E* kb = k + b * sk.b + kvh * sk.h;
-  const E* vb = v + b * sv.b + kvh * sv.h;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
   const bool kvec = sk.s % VEC == 0 && sk.b % VEC == 0 && sk.h % VEC == 0 &&
                     aligned16(k);
   const bool vvec = sv.s % VEC == 0 && sv.b % VEC == 0 && sv.h % VEC == 0 &&
                     aligned16(v);
   auto load_kv = [&](int it) {
     const int t0 = t_first + it * BKV;
-    E* st = ring + (it & 1) * CF::KV_ELTS;
+    float* st = ring + (it & 1) * CF::KV_ELTS;
     load_rows<BKV, HD, S, THREADS>(st, kb + t0 * sk.s, sk.s, Skv - t0, kvec);
     load_rows<BKV, HD, S, THREADS>(st + BKV * S, vb + t0 * sv.s, sv.s,
                                    Skv - t0, vvec);
@@ -155,15 +169,15 @@ __global__ void __launch_bounds__(THREADS, 2)
   // q: split once into registers, or staged with the first K/V tile
   uint32_t qb[CF::QREG ? DK : 1][4], qs[CF::QREG ? DK : 1][4];
   if constexpr (CF::QREG) {
-    const E* qa = ra < nrows ? qrow(ra) : nullptr;
-    const E* qc = rb < nrows ? qrow(rb) : nullptr;
+    const float* qa = ra < nrows ? qrow(ra) : nullptr;
+    const float* qc = rb < nrows ? qrow(rb) : nullptr;
 #pragma unroll
     for (int kk = 0; kk < DK; ++kk) {
       const int d = 8 * kk + qd;
-      split_tf32(qa ? to_f32(qa[d]) : 0.0f, qb[kk][0], qs[kk][0]);
-      split_tf32(qc ? to_f32(qc[d]) : 0.0f, qb[kk][1], qs[kk][1]);
-      split_tf32(qa ? to_f32(qa[d + 4]) : 0.0f, qb[kk][2], qs[kk][2]);
-      split_tf32(qc ? to_f32(qc[d + 4]) : 0.0f, qb[kk][3], qs[kk][3]);
+      split_tf32(qa ? qa[d] : 0.0f, qb[kk][0], qs[kk][0]);
+      split_tf32(qc ? qc[d] : 0.0f, qb[kk][1], qs[kk][1]);
+      split_tf32(qa ? qa[d + 4] : 0.0f, qb[kk][2], qs[kk][2]);
+      split_tf32(qc ? qc[d + 4] : 0.0f, qb[kk][3], qs[kk][3]);
     }
   } else {
     const bool qvec = sq.s % VEC == 0 && sq.b % VEC == 0 &&
@@ -172,17 +186,13 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int i = threadIdx.x; i < BM * CPR; i += THREADS) {
       const int r = i / CPR, c = (i % CPR) * VEC;
       const bool ok = R0 + r < nrows;
-      const E* src = ok ? qrow(R0 + r) + c : q;
+      const float* src = ok ? qrow(R0 + r) + c : q;
       if (qvec) {
         cp_async16(Qs + r * S + c, src, ok ? 16 : 0);
-      } else if constexpr (sizeof(E) == 4) {
+      } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           cp_async4(Qs + r * S + c + e, ok ? src + e : q, ok ? 4 : 0);
-      } else {  // bf16 at an odd element: plain copies
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          Qs[r * S + c + e] = ok ? src[e] : from_f32<E>(0.0f);
       }
     }
   }
@@ -203,8 +213,8 @@ __global__ void __launch_bounds__(THREADS, 2)
       continue;  // none of the warp's rows sees a key of this tile
     const bool mask = (causal && t0 + BKV - 1 > wq_lo) ||
                       (window && wq_hi - t0 >= window) || t0 + BKV > Skv;
-    const E* Ks = ring + (it & 1) * CF::KV_ELTS;
-    const E* Vs = Ks + BKV * S;
+    const float* Ks = ring + (it & 1) * CF::KV_ELTS;
+    const float* Vs = Ks + BKV * S;
 
     // S = q k^T
     float sc[1][KT][4] = {};
@@ -289,9 +299,9 @@ __global__ void __launch_bounds__(THREADS, 2)
         uint32_t bb[CF::NCH][2], bs[CF::NCH][2];
 #pragma unroll
         for (int n = 0; n < CF::NCH; ++n) {
-          const E* vc = Vs + (8 * j + 2 * qd) * S + 8 * (n0 + n) + g;
-          split_tf32(to_f32(vc[0]), bb[n][0], bs[n][0]);
-          split_tf32(to_f32(vc[S]), bb[n][1], bs[n][1]);
+          const float* vc = Vs + (8 * j + 2 * qd) * S + 8 * (n0 + n) + g;
+          split_tf32(vc[0], bb[n][0], bs[n][0]);
+          split_tf32(vc[S], bb[n][1], bs[n][1]);
         }
         mma3_tiles<1, CF::NCH>(t, pb, ps, bb, bs);
       }
@@ -314,13 +324,13 @@ __global__ void __launch_bounds__(THREADS, 2)
   const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
   const bool pairs = so.b % 2 == 0 && so.s % 2 == 0 && so.h % 2 == 0 &&
-                     reinterpret_cast<uintptr_t>(out) % (2 * sizeof(E)) == 0;
+                     reinterpret_cast<uintptr_t>(out) % 8 == 0;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = hf ? rb : ra;
     if (r >= nrows) continue;
     const float inv = hf ? inv_b : inv_a;
-    E* orow = out + b * so.b + static_cast<long long>(r / G) * so.s +
+    float* orow = out + b * so.b + static_cast<long long>(r / G) * so.s +
               static_cast<long long>(kvh * G + r % G) * so.h + 2 * qd;
 #pragma unroll
     for (int n = 0; n < DK; ++n) {
@@ -328,27 +338,397 @@ __global__ void __launch_bounds__(THREADS, 2)
       if (pairs) {
         store2(orow + 8 * n, x0, x1);
       } else {
-        orow[8 * n] = from_f32<E>(x0);
-        orow[8 * n + 1] = from_f32<E>(x1);
+        orow[8 * n] = x0;
+        orow[8 * n + 1] = x1;
       }
     }
   }
 }
 
-template <int HD, class E>
-int launch(const E* q, const E* k, const E* v, E* out, Strides sq,
-           Strides sk, Strides sv, Strides so, int B, int KV, int G, int Sq,
-           int Skv, int causal, int window, float scale, cudaStream_t s) {
-  const int smem = Cfg<HD, E>::smem_bytes;
+// -- the bf16 arm -------------------------------------------------------------
+
+// split_bf16x2(a, b): hi = the bf16 pair (a, b) rounded to nearest, lo =
+// the bf16 pair of what is left (a - hi, b - hi exactly in f32), each a
+// register of two bf16, a in the low half
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Two bf16 of a row of q (columns d, d + 1) as one register, zero past hd
+// or for a missing row.
+__device__ __forceinline__ uint32_t q_pair(const bf16* row, int d, int hd,
+                                           bool pairs) {
+  if (!row || d >= hd) return 0u;
+  if (pairs) return *reinterpret_cast<const uint32_t*>(row + d);
+  const __nv_bfloat162 v = __halves2bfloat162(row[d], row[d + 1]);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int HD>
+struct CfgBf16 {
+  // a warp owns MT row tiles of 16 rows, which share every K and V
+  // fragment it reads; NW warps a block
+  static constexpr int MT = HD <= 64 ? 2 : 1;
+  static constexpr int NW = HD <= 64 ? 4 : 16;
+  static constexpr int MINB = 1;            // blocks an SM holds
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int WROWS = 16 * MT;     // rows of a warp
+  static constexpr int BM = WROWS * NW;     // rows of a block
+  static constexpr int BKV = 64;            // keys of a K/V tile
+  static constexpr int STAGES = 3;          // K/V tiles in the ring
+  static constexpr int S = HD + 8;          // shared row stride, elements
+  static constexpr int KT = BKV / 8;        // n8 key tiles of S
+  static constexpr int KS = BKV / 16;       // k16 steps of P v
+  static constexpr int DK = (HD + 15) / 16; // k16 steps of q k^T
+  static constexpr int DN = HD / 8;         // n8 tiles of O
+  // n8 tiles of O summed at once in P v (their tile sums in registers)
+  static constexpr int NCH = DN < 4 ? DN : 4;
+  static constexpr int KV_ELTS = 2 * BKV * S;  // one stage: K, then V
+  // q's fragments: held in registers, or (QS) staged in shared memory and
+  // read by ldmatrix each tile, which frees the registers a warp's O
+  // needs above head_dim 64
+  static constexpr bool QS = HD > 64;
+  static constexpr int smem_bytes =
+      2 * (STAGES * KV_ELTS + (QS ? BM * S : 0));
+};
+
+// 2^x, to about 2^-22 relative (ex2.approx; results below 2^-126 flush to
+// 0, far below a softmax weight that moves a bf16 output)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The bf16 arm on bf16 mma.sync m16n8k16: q's A fragments loaded once
+// into registers, K's and V's B fragments by ldmatrix (V transposed) from
+// a STAGES-deep cp.async ring, S = q k^T in one exact bf16 pass, P v as
+// two bf16 passes on P's two parts (split_bf16x2).  Skeleton, masking,
+// online softmax and store as flash_attn_kernel's.
+template <int HD>
+__global__ void __launch_bounds__(CfgBf16<HD>::THREADS, CfgBf16<HD>::MINB)
+    flash_attn_bf16_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out,
+                           Strides sq, Strides sk, Strides sv, Strides so,
+                           int KV, int G, int Sq, int Skv, int causal,
+                           int window, float scale) {
+  using CF = CfgBf16<HD>;
+  constexpr int MT = CF::MT, BM = CF::BM, BKV = CF::BKV, S = CF::S;
+  constexpr int KT = CF::KT, KS = CF::KS, DK = CF::DK, DN = CF::DN;
+  constexpr int NCH = CF::NCH, STAGES = CF::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_bf[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_bf);  // STAGES x (K, V)
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int nrows = Sq * G;
+  // longest first: the first blocks take the last rows
+  const int R0 = (gridDim.y - 1 - blockIdx.y) * BM;
+
+  // keys the block's rows can see
+  const int qmin = R0 / G, qmax = min((R0 + BM - 1) / G, Sq - 1);
+  const int blk_lo = window ? max(0, qmin - window + 1) : 0;
+  const int blk_hi = causal ? min(Skv - 1, qmax) : Skv - 1;
+  const int t_first = (blk_lo / BKV) * BKV;
+  const int ntiles = blk_hi < t_first ? 0 : (blk_hi - t_first) / BKV + 1;
+
+  // this warp's rows; row tile i holds this lane's rows ra = wr0 + 16 i +
+  // g and rb = ra + 8, at query positions pa[i], pb[i]
+  const int wr0 = R0 + CF::WROWS * warp;
+  const bool idle = wr0 >= nrows;
+  const int wq_lo = wr0 / G, wq_hi = min((wr0 + CF::WROWS - 1) / G, Sq - 1);
+  int pa[MT], pb[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    pa[i] = (wr0 + 16 * i + g) / G;
+    pb[i] = (wr0 + 16 * i + g + 8) / G;
+  }
+
+  const bf16* kb = k + b * sk.b + kvh * sk.h;
+  const bf16* vb = v + b * sv.b + kvh * sv.h;
+  const bool kvec = sk.s % 8 == 0 && sk.b % 8 == 0 && sk.h % 8 == 0 &&
+                    aligned16(k);
+  const bool vvec = sv.s % 8 == 0 && sv.b % 8 == 0 && sv.h % 8 == 0 &&
+                    aligned16(v);
+  auto load_kv = [&](int it) {
+    const int t0 = t_first + it * BKV;
+    bf16* st = ring + (it % STAGES) * CF::KV_ELTS;
+    load_rows<BKV, HD, S, CF::THREADS>(st, kb + t0 * sk.s, sk.s, Skv - t0,
+                                       kvec);
+    load_rows<BKV, HD, S, CF::THREADS>(st + BKV * S, vb + t0 * sv.s, sv.s,
+                                       Skv - t0, vvec);
+  };
+  auto qrow = [&](int r) -> const bf16* {
+    if (r >= nrows) return nullptr;
+    return q + b * sq.b + static_cast<long long>(r / G) * sq.s +
+           static_cast<long long>(kvh * G + r % G) * sq.h;
+  };
+  bf16* Qs = ring + STAGES * CF::KV_ELTS;  // [BM][S], QS only
+  if constexpr (CF::QS) {  // the block's q rows, with the first K/V tile
+    const bool qvec = sq.s % 8 == 0 && sq.b % 8 == 0 && sq.h % 8 == 0 &&
+                      aligned16(q);
+    constexpr int CPR = HD / 8;
+    for (int i = threadIdx.x; i < BM * CPR; i += CF::THREADS) {
+      const int r = i / CPR, c = (i % CPR) * 8;
+      const bf16* src = qrow(R0 + r);
+      if (qvec) {
+        cp_async16_bf16(Qs + r * S + c, src ? src + c : q, src ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          Qs[r * S + c + e] = src ? src[c + e] : __float2bfloat16_rn(0.f);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < ntiles) load_kv(i);
+    cp_async_commit();
+  }
+
+  // q's A fragments: rows ra, rb of each row tile; columns 16 kk + 2 qd
+  // (+ 1) and + 8
+  uint32_t qa[CF::QS ? 1 : MT][CF::QS ? 1 : DK][4];
+  if constexpr (!CF::QS) {
+    const bool pairs = sq.s % 2 == 0 && sq.b % 2 == 0 && sq.h % 2 == 0 &&
+                       reinterpret_cast<uintptr_t>(q) % 4 == 0;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const bf16 *qra = qrow(wr0 + 16 * i + g),
+                 *qrb = qrow(wr0 + 16 * i + g + 8);
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        const int d = 16 * kk + 2 * qd;
+        qa[i][kk][0] = q_pair(qra, d, HD, pairs);
+        qa[i][kk][1] = q_pair(qrb, d, HD, pairs);
+        qa[i][kk][2] = q_pair(qra, d + 8, HD, pairs);
+        qa[i][kk][3] = q_pair(qrb, d + 8, HD, pairs);
+      }
+    }
+  }
+
+  const float c2 = scale * LOG2E;  // scores in the exp2 domain
+  float m[MT][2], l[MT][2];        // running max and sum of rows ra, rb
+  float o[MT][DN][4] = {};
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    m[i][0] = m[i][1] = NEG_INF, l[i][0] = l[i][1] = 0.0f;
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile it landed for all; tile it - 1 is read by all
+    if (it + STAGES - 1 < ntiles) load_kv(it + STAGES - 1);
+    cp_async_commit();
+    const int t0 = t_first + it * BKV;
+    if (idle || (causal && t0 > wq_hi) ||
+        (window && t0 + BKV - 1 <= wq_lo - window))
+      continue;  // none of the warp's rows sees a key of this tile
+    const bool mask = (causal && t0 + BKV - 1 > wq_lo) ||
+                      (window && wq_hi - t0 >= window) || t0 + BKV > Skv;
+    const bf16* Ks = ring + (it % STAGES) * CF::KV_ELTS;
+    const bf16* Vs = Ks + BKV * S;
+
+    // S = q k^T: keys along n (K's rows), head_dim along k; each K
+    // fragment feeds every row tile
+    float s[MT][KT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      uint32_t qf[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if constexpr (CF::QS) {
+          ldmatrix_x4_bf16(qf[i], Qs + (CF::WROWS * warp + 16 * i +
+                                        (lane & 15)) * S +
+                                      16 * kk + (lane >> 4) * 8);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qf[i][e] = qa[i][kk][e];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KT; j += 2) {
+        uint32_t x[4];
+        ldmatrix_x4_bf16(x, Ks + (8 * j + (lane & 7) + (lane >> 4) * 8) * S +
+                                16 * kk + ((lane >> 3) & 1) * 8);
+        if (HD % 16 != 0 && kk == DK - 1) x[1] = x[3] = 0u;  // past hd
+        const uint32_t b0[2] = {x[0], x[1]}, b1[2] = {x[2], x[3]};
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_bf16(s[i][j], qf[i], b0);
+          mma_bf16(s[i][j + 1], qf[i], b1);
+        }
+      }
+    }
+
+    // per row tile: scale, mask, row max over the quad, P in f32 and its
+    // two bf16 parts as the A fragments of P v (n8 tiles 2 kt and 2 kt + 1
+    // of S, rows g, g + 8 and keys 2 qd, 2 qd + 1 of each, are the k16
+    // step kt in the mma's own order)
+    uint32_t ph[MT][KS][4], pl[MT][KS][4];
+    float corr[MT][2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[i][j][e] * c2;
+          if (mask) {
+            const int key = t0 + 8 * j + 2 * qd + (e & 1);
+            const int p = e < 2 ? pa[i] : pb[i];
+            const bool ok = key < Skv && (!causal || key <= p) &&
+                            (!window || p - key < window);
+            x = ok ? x : NEG_INF;
+          }
+          s[i][j][e] = x;
+          if (e < 2)
+            mx_a = fmaxf(mx_a, x);
+          else
+            mx_b = fmaxf(mx_b, x);
+        }
+#pragma unroll
+      for (int o2 = 1; o2 < 4; o2 <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
+      }
+      const float mn_a = fmaxf(m[i][0], mx_a), mn_b = fmaxf(m[i][1], mx_b);
+      corr[i][0] = exp2_approx(m[i][0] - mn_a);
+      corr[i][1] = exp2_approx(m[i][1] - mn_b);
+      m[i][0] = mn_a, m[i][1] = mn_b;
+      float la = l[i][0] * corr[i][0], lb = l[i][1] * corr[i][1];
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        const float p0 = exp2_approx(s[i][j][0] - mn_a);
+        const float p1 = exp2_approx(s[i][j][1] - mn_a);
+        const float p2 = exp2_approx(s[i][j][2] - mn_b);
+        const float p3 = exp2_approx(s[i][j][3] - mn_b);
+        la += p0 + p1;
+        lb += p2 + p3;
+        const int kt = j >> 1, h = (j & 1) * 2;
+        split_bf16x2(p0, p1, ph[i][kt][h], pl[i][kt][h]);
+        split_bf16x2(p2, p3, ph[i][kt][h + 1], pl[i][kt][h + 1]);
+      }
+      l[i][0] = la, l[i][1] = lb;  // this lane's share of the row sums
+    }
+
+    // O = corr O + P v, NCH n8 tiles of O at a time, each tile's sum on
+    // the tensor core from zero, then added in f32; each V fragment feeds
+    // every row tile
+#pragma unroll
+    for (int n0 = 0; n0 < DN; n0 += NCH) {
+      float t[MT][NCH][4] = {};
+#pragma unroll
+      for (int kt = 0; kt < KS; ++kt) {
+        uint32_t vf[NCH + 1][2];
+#pragma unroll
+        for (int n = 0; n < NCH; n += 2) {
+          uint32_t x[4];
+          ldmatrix_x4_trans_bf16(
+              x, Vs + (16 * kt + (lane & 7) + ((lane >> 3) & 1) * 8) * S +
+                     8 * (n0 + n) + (lane >> 4) * 8);
+          vf[n][0] = x[0], vf[n][1] = x[1];
+          vf[n + 1][0] = x[2], vf[n + 1][1] = x[3];
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int n = 0; n < NCH; ++n) mma_bf16(t[i][n], ph[i][kt], vf[n]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int n = 0; n < NCH; ++n) mma_bf16(t[i][n], pl[i][kt], vf[n]);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int n = 0; n < NCH; ++n) {
+          float* oo = o[i][n0 + n];
+          oo[0] = oo[0] * corr[i][0] + t[i][n][0];
+          oo[1] = oo[1] * corr[i][0] + t[i][n][1];
+          oo[2] = oo[2] * corr[i][1] + t[i][n][2];
+          oo[3] = oo[3] * corr[i][1] + t[i][n][3];
+        }
+    }
+  }
+  cp_async_wait<0>();
+  if (idle) return;
+  const bool pairs = so.b % 2 == 0 && so.s % 2 == 0 && so.h % 2 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    float la = l[i][0], lb = l[i][1];
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      la += __shfl_xor_sync(0xffffffffu, la, o2);
+      lb += __shfl_xor_sync(0xffffffffu, lb, o2);
+    }
+    const float inv_a = 1.0f / fmaxf(la, 1e-30f);
+    const float inv_b = 1.0f / fmaxf(lb, 1e-30f);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = wr0 + 16 * i + g + 8 * hf;
+      if (r >= nrows) continue;
+      const float inv = hf ? inv_b : inv_a;
+      bf16* orow = out + b * so.b + static_cast<long long>(r / G) * so.s +
+                   static_cast<long long>(kvh * G + r % G) * so.h + 2 * qd;
+#pragma unroll
+      for (int n = 0; n < DN; ++n) {
+        const float x0 = o[i][n][2 * hf] * inv,
+                    x1 = o[i][n][2 * hf + 1] * inv;
+        if (pairs) {
+          store2(orow + 8 * n, x0, x1);
+        } else {
+          orow[8 * n] = __float2bfloat16_rn(x0);
+          orow[8 * n + 1] = __float2bfloat16_rn(x1);
+        }
+      }
+    }
+  }
+}
+
+// the bf16 arm's kernel
+template <int HD>
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+           Strides sq, Strides sk, Strides sv, Strides so, int B, int KV,
+           int G, int Sq, int Skv, int causal, int window, float scale,
+           cudaStream_t s) {
+  using CF = CfgBf16<HD>;
   // above 48 KB a block's dynamic shared memory needs this opt-in
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_attn_kernel<HD, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attn_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      CF::smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles = (static_cast<long long>(Sq) * G + CF::BM - 1) /
+                          CF::BM;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(B * KV, static_cast<unsigned>(tiles));
+  flash_attn_bf16_kernel<HD><<<grid, CF::THREADS, CF::smem_bytes, s>>>(
+      q, k, v, out, sq, sk, sv, so, KV, G, Sq, Skv, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch(const float* q, const float* k, const float* v, float* out,
+           Strides sq, Strides sk, Strides sv, Strides so, int B, int KV,
+           int G, int Sq, int Skv, int causal, int window, float scale,
+           cudaStream_t s) {
+  const int smem = Cfg<HD>::smem_bytes;
+  // above 48 KB a block's dynamic shared memory needs this opt-in
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long tiles = (static_cast<long long>(Sq) * G + BM - 1) / BM;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(B * KV, static_cast<unsigned>(tiles));
-  flash_attn_kernel<HD, E><<<grid, THREADS, smem, s>>>(
+  flash_attn_kernel<HD><<<grid, THREADS, smem, s>>>(
       q, k, v, out, sq, sk, sv, so, KV, G, Sq, Skv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }

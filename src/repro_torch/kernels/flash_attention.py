@@ -7,9 +7,11 @@ public layout: q ``[B, Sq, H, hd]``, k and v ``[B, Skv, KV, hd]`` ->
 start at 0; a key is visible when ``qpos >= kpos`` (causal) and ``qpos -
 kpos < window`` (window > 0).  The TPU's ``bq``/``bkv`` block sizes were its
 tiling and are gone: any ``Sq`` and ``Skv`` work.  q, k and v are all
-float32 or all bfloat16: as in the Pallas body, the bf16 arm
-(``flash_attn_fwd_bf16``, counted as ``flash_attention/bf16``) widens them
-at the load, computes in float32 (P too) and rounds the output once.
+float32 or all bfloat16: the bf16 arm (``flash_attn_fwd_bf16``, counted
+as ``flash_attention/bf16``) computes what the Pallas body computes on
+bf16 operands (float32 scores and softmax, P in float32, the output
+rounded once) on bf16 tensor-core passes: q k^T exact in one, P v in two
+on P's two bf16 parts, which together lie within 2^-17 P of P.
 
 There is no backward, as the reference has none: with autograd recording,
 inputs that require a gradient are refused.

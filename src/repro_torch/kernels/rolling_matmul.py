@@ -30,7 +30,12 @@ The operands are float32, or all bfloat16: the bf16 arm (the Pallas
 kernels on bf16 operands: float32 accumulation, the output rounded once
 to the operands' dtype) launches ``rolling_mm_fwd_bf16`` /
 ``rolling_mm_dx_bf16`` and counts under the launch's name with ``/bf16``
-appended.  Mixed dtypes are refused.
+appended.  Its entry point runs one of two bodies, from the data's
+alignment: ``wgmma`` fed by TMA where the tensor map takes the operands
+(16-byte rows and bases, every offset a multiple of 8 elements), else
+``mma.sync`` fed by copies that take any alignment; each launch also
+counts under ``"<name>/bf16 <body>"`` in ``_build.BODIES``.  Mixed dtypes
+are refused.
 """
 from __future__ import annotations
 
@@ -91,6 +96,15 @@ def _check(x, ws, offsets, win, x_name="x"):
     return C, x.shape[1], K, N, w0.stride(1), w0.stride(0)
 
 
+def _bf16_args(dtype, offsets):
+    """The bf16 arm's extra argument: whether every client's offset is a
+    multiple of 8 elements (16 bytes), which its wgmma body's TMA copies
+    need of a window's first column."""
+    if dtype != torch.bfloat16:
+        return ()
+    return (int(all(o % 8 == 0 for o in offsets.host)),)
+
+
 def rolling_mm_fwd(x, ws, offsets: Offsets, win, name=None):
     """``ys[t] = x @ ws[t][:, :, window]`` per client; ``x [C, M, K]``,
     each ``ws[t] [C, K, N]``; returns a tuple of T ``[C, M, win]``.  A
@@ -108,7 +122,8 @@ def rolling_mm_fwd(x, ws, offsets: Offsets, win, name=None):
     _build.launch("rolling_mm_fwd", name or f"rolling_mm_fwd<{T}>",
                   x.dtype, T, x.data_ptr(), wp[0], wp[1], yp[0], yp[1],
                   offsets.dev.data_ptr(), C, M, K, N, win, w_bs, ldw,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+                  torch.cuda.current_stream(x.device).cuda_stream,
+                  *_bf16_args(x.dtype, offsets))
     return ys
 
 
@@ -134,17 +149,21 @@ def rolling_mm_dx(dys, ws, offsets: Offsets, win, name=None):
     _build.launch("rolling_mm_dx", name or f"rolling_mm_dx<{T}>",
                   dy0.dtype, T, dp[0], dp[1], wp[0], wp[1], dx.data_ptr(),
                   offsets.dev.data_ptr(), C, M, K, N, win, w_bs, ldw,
-                  torch.cuda.current_stream(dy0.device).cuda_stream)
+                  torch.cuda.current_stream(dy0.device).cuda_stream,
+                  *_bf16_args(dy0.dtype, offsets))
     return dx
 
 
-def block_tile(kind, T, C, M, K, win):
+def block_tile(kind, T, C, M, K, win, dtype=torch.float32):
     """The ``(rows, columns)`` output tile of each block that the
     ``kind`` ("fwd" or "dx") kernel takes for these sizes on the current
     card: the kernel picks it per launch, the largest whose grid covers
-    every SM, else the narrowest."""
-    code = _build.library().rolling_mm_tile(int(kind == "dx"), T, C, M, K,
-                                             win)
+    every SM, else the narrowest.  The f32 arm and the bf16 arm's
+    mma.sync body pick from 128 x 128, 128 x 64, 64 x 64 and 64 x 32; the
+    bf16 arm's wgmma body (``dtype`` bfloat16; the launches whose operands
+    TMA takes) from 128 x 128, 64 x 128, 64 x 64 and, in dx, 64 x 32."""
+    code = _build.library().rolling_mm_tile(
+        int(kind == "dx"), T, C, M, K, win, int(dtype == torch.bfloat16))
     return code >> 16, code & 0xFFFF
 
 

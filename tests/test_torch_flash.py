@@ -164,6 +164,92 @@ def test_cpu_flash_is_not_a_kernel_launch():
     assert dict(_build.LAUNCHES) == before
 
 
+# -- the bf16 arm's arithmetic, emulated on the CPU ---------------------------
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and a thread per core in each of them oversubscribes the
+    machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _bf16_ulp(b):
+    """One bf16 ulp of each element of ``b`` (0 where b is 0)."""
+    mant, exp = torch.frexp(b)
+    return torch.where(mant == 0, torch.zeros_like(b),
+                       torch.ldexp(torch.ones_like(b), exp - 8))
+
+
+def _two_part_flash(q, k, v, causal, window, bkv=64):
+    """The bf16 arm's arithmetic (``csrc/flash_attn.cu``
+    ``flash_attn_bf16_kernel``) in plain torch: the online softmax over
+    ``bkv``-key tiles in f32 (q k^T of bf16 operands is exact in f32), P
+    split into ``hi = bf16(P)`` and ``lo = bf16(P - hi)``, ``P v`` as the
+    products of the two bf16 parts with bf16 v summed in f32, each tile's
+    sum added to the rescaled output in f32, the output rounded once.
+    Returns the output and every tile's (P, hi, lo)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    c = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, Sq, KV, G, hd)
+    kf, vf = k.float(), v.float()
+    i = torch.arange(Sq)[:, None]
+    m = torch.full((B, KV, Sq, G), -1e30)
+    l = torch.zeros((B, KV, Sq, G))
+    o = torch.zeros((B, KV, Sq, G, hd))
+    parts = []
+    for t0 in range(0, Skv, bkv):
+        j = torch.arange(t0, min(t0 + bkv, Skv))[None, :]
+        s = torch.einsum("bqkgd,bjkd->bkqgj", qf, kf[:, t0:t0 + bkv]) * c
+        ok = (j <= i) if causal else torch.ones_like(j == i)
+        if window:
+            ok = ok & (i - j < window)
+        s = torch.where(ok[None, None, :, None, :], s, torch.tensor(-1e30))
+        mn = torch.maximum(m, s.amax(-1))
+        corr, p = torch.exp(m - mn), torch.exp(s - mn[..., None])
+        hi = p.to(torch.bfloat16)
+        lo = (p - hi.float()).to(torch.bfloat16)
+        parts.append((p, hi, lo))
+        vt = vf[:, t0:t0 + bkv]
+        pv = (torch.einsum("bkqgj,bjkd->bkqgd", hi.float(), vt)
+              + torch.einsum("bkqgj,bjkd->bkqgd", lo.float(), vt))
+        o = o * corr[..., None] + pv
+        l, m = l * corr + p.sum(-1), mn
+    out = (o / l.clamp_min(1e-30)[..., None]).permute(0, 2, 1, 3, 4)
+    return out.reshape(B, Sq, H, hd).to(torch.bfloat16), parts
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (1, 200, 8, 2, 64, 0),        # GQA, G = 4, causal
+    (1, 150, 10, 2, 128, 0),      # head_dim 128, G = 5
+    (2, 180, 25, 5, 64, 64),      # Hymba's 25 on 5 heads under a window
+    (1, 130, 4, 4, 32, 0),        # G = 1
+])
+def test_two_part_p_keeps_f32_p_accuracy(one_torch_thread, B, S, H, KV, hd,
+                                         window):
+    """The bf16 arm's ``P v`` rests on this arithmetic: P in [0, 1] split
+    into two bf16 parts misses P by at most 2^-17 P, and ``P v`` from the
+    two parts with bf16 v, summed in f32, stays within one bf16 ulp plus
+    1e-4 of the largest output (the arm's card tolerance) of the plain
+    version, which keeps P in f32."""
+    q, k, v = (torch.from_numpy(2 * a).to(torch.bfloat16)
+               for a in _qkv(B, S, H, KV, hd, seed=hd + H))
+    got, parts = _two_part_flash(q, k, v, True, window)
+    for p, hi, lo in parts:
+        gap = (p.double() - hi.double() - lo.double()).abs()
+        assert (gap <= 2.0 ** -17 * p.double()).all(), gap.max()
+    want = flash_attention_ref(q, k, v, causal=True, window=window)
+    a, b = got.float(), want.float()
+    assert ((a - b).abs() <= _bf16_ulp(b) + 1e-4 * b.abs().max()).all(), \
+        (a - b).abs().max()
+
+
 # -- on the card: the CUDA kernel against its plain version -------------------
 
 

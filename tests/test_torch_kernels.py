@@ -480,6 +480,29 @@ def test_gpu_block_tiles_follow_the_grid_rule(cuda):
 
 
 @pytest.mark.gpu
+def test_gpu_bf16_wgmma_tiles_follow_the_grid_rule(cuda):
+    """The bf16 arm's wgmma body takes the largest of 128 x 128, 64 x 128
+    and 64 x 64 (and, in dx, 64 x 32) whose grid covers every SM, else the
+    narrowest; on a 132-SM H100 the main path's shapes and the bf16
+    eval's reach all four."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    seen = set()
+    for c, m, k, n, win, _ in GPU_SHAPES:
+        for T in (1, 2):
+            for kind, cols, z in (("fwd", win, c * T), ("dx", k, c)):
+                tiles = ((128, 128), (64, 128), (64, 64)) + (
+                    ((64, 32),) if kind == "dx" else ())
+                want = next((bm, bn) for bm, bn in tiles
+                            if -(-cols // bn) * -(-m // bm) * z >= sms
+                            or (bm, bn) == tiles[-1])
+                assert block_tile(kind, T, c, m, k, win,
+                                  dtype=torch.bfloat16) == want
+                seen.add(want)
+    if sms == 132:
+        assert seen == {(128, 128), (64, 128), (64, 64), (64, 32)}
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("T", [1, 2])
 @pytest.mark.parametrize("shape", [GPU_SHAPES[1], GPU_SHAPES[2],
                                    GPU_SHAPES[3]])
@@ -801,15 +824,26 @@ def _within_one_ulp(a, b):
     assert ((a - b).abs() <= slack).all(), (a - b).abs().max()
 
 
-# (C, M, K, N, win, offsets): the main path's q shape; per-client and odd
-# offsets (no 16-byte row: the element-by-element copy); Hymba's dt (ldw
-# 50, win 25); a contraction and a window that are not multiples of 16
+# (C, M, K, N, win, offsets, the forward's and dx's body): the main path's
+# q shape (an aligned window); per-client offsets that are multiples of 8
+# elements; the k/v projections' narrow window (128 of 256); a window and
+# contraction below one 64-wide stage; a window of 333 (dy's rows are not
+# 16-byte vectors: the forward on wgmma, dx on mma.sync); the copy body:
+# odd offsets at aligned row strides (TMA needs a box's first element on
+# a 16-byte vector), Mamba2's dt (12 of 24), Hymba's dt (ldw 50, win 25),
+# odd strides
 GPU_BF16_SHAPES = [
-    (4, 512, 2048, 2048, 1024, [1024] * 4),
-    (3, 24, 40, 96, 32, [5, 37, 64]),
-    (4, 512, 1600, 50, 25, [25, 0, 25, 13]),
-    (2, 70, 100, 130, 50, [0, 33]),
-    (1, 300, 1000, 777, 333, [17]),
+    (4, 512, 2048, 2048, 1024, [1024] * 4, "wgmma", "wgmma"),
+    (4, 512, 2048, 256, 128, [0, 64, 128, 8], "wgmma", "wgmma"),
+    (4, 512, 2048, 256, 128, [128] * 4, "wgmma", "wgmma"),
+    (3, 24, 40, 96, 32, [8, 32, 64], "wgmma", "wgmma"),
+    (2, 200, 1000, 776, 333, [0, 440], "wgmma", "mma.sync"),
+    (3, 24, 40, 96, 32, [5, 37, 64], "mma.sync", "mma.sync"),
+    (4, 512, 2048, 256, 128, [0, 37, 128, 5], "mma.sync", "mma.sync"),
+    (4, 256, 768, 24, 12, [12] * 4, "mma.sync", "mma.sync"),
+    (4, 512, 1600, 50, 25, [25, 0, 25, 13], "mma.sync", "mma.sync"),
+    (2, 70, 100, 130, 50, [0, 33], "mma.sync", "mma.sync"),
+    (1, 300, 1000, 777, 333, [17], "mma.sync", "mma.sync"),
 ]
 
 
@@ -817,7 +851,10 @@ GPU_BF16_SHAPES = [
 @pytest.mark.parametrize("T", [1, 2])
 @pytest.mark.parametrize("shape", GPU_BF16_SHAPES)
 def test_gpu_bf16_rolling_kernels_within_one_ulp(cuda, T, shape):
-    c, m, k, n, win, offs = shape
+    """Both bodies of rows 1-8's bf16 arm within one ulp of the plain
+    versions, each launch counted under its name and its body, and two
+    launches bit-equal."""
+    c, m, k, n, win, offs, fwd_body, dx_body = shape
     g = torch.Generator(cuda).manual_seed(30 + T)
     bf = torch.bfloat16
     x = torch.randn((c, m, k), device=cuda, generator=g).to(bf)
@@ -827,17 +864,56 @@ def test_gpu_bf16_rolling_kernels_within_one_ulp(cuda, T, shape):
            for _ in range(T)]
     o = make_offsets(offs, cuda)
     names = [f"rolling_mm_fwd<{T}>/bf16", f"rolling_mm_dx<{T}>/bf16"]
-    before = [_build.LAUNCHES[nm] for nm in names]
+    bodies = [f"{names[0]} {fwd_body}", f"{names[1]} {dx_body}"]
+    before = ([_build.LAUNCHES[nm] for nm in names] +
+              [_build.BODIES[nm] for nm in bodies])
     ys = rolling_mm_fwd(x, ws, o, win)
     dx = rolling_mm_dx(dys, ws, o, win)
     torch.cuda.synchronize()
-    assert [_build.LAUNCHES[nm] for nm in names] == [b + 1 for b in before]
+    assert [_build.LAUNCHES[nm] for nm in names] == [b + 1 for b in before[:2]]
+    assert [_build.BODIES[nm] for nm in bodies] == [b + 1 for b in before[2:]]
     for y, yr in zip(ys, rolling_matmul_batched_ref(x, ws, offs, win)):
         _within_one_ulp(y, yr)
     _within_one_ulp(dx, rolling_matmul_batched_dx_ref(dys, ws, offs, win))
     again = [*rolling_mm_fwd(x, ws, o, win), rolling_mm_dx(dys, ws, o, win)]
     for a, b in zip([*ys, dx], again):                  # deterministic
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("win", [128, 120, 40])
+def test_gpu_bf16_products_read_nothing_past_the_window(cuda, win):
+    """W holds inf in every column outside each client's window: the
+    forward and dx stay finite and within one ulp of the plain versions
+    on the window alone.  dx's contraction runs along the window, so its
+    wgmma body zeroes what TMA brings in past the window's end (a ragged
+    last stage at win 120 and 40; none at 128) rather than rely on dy's
+    zero fill (0 x inf is NaN)."""
+    bf = torch.bfloat16
+    c, m, k, n, T = 3, 200, 512, 384, 2
+    offs = [0, 64, n - win]
+    g = torch.Generator(cuda).manual_seed(win)
+    x = torch.randn((c, m, k), device=cuda, generator=g).to(bf)
+    ws = [torch.randn((c, k, n), device=cuda, generator=g).to(bf)
+          for _ in range(T)]
+    dys = [torch.randn((c, m, win), device=cuda, generator=g).to(bf)
+           for _ in range(T)]
+    for w in ws:
+        for ci, oc in enumerate(offs):
+            w[ci, :, :oc] = float("inf")
+            w[ci, :, oc + win:] = float("inf")
+    o = make_offsets(offs, cuda)
+    _build.reset_launches()
+    ys = rolling_mm_fwd(x, ws, o, win)
+    dx = rolling_mm_dx(dys, ws, o, win)
+    torch.cuda.synchronize()
+    assert dict(_build.BODIES) == {"rolling_mm_fwd<2>/bf16 wgmma": 1,
+                                   "rolling_mm_dx<2>/bf16 wgmma": 1}
+    for y, yr in zip(ys, rolling_matmul_batched_ref(x, ws, offs, win)):
+        assert torch.isfinite(y.float()).all()
+        _within_one_ulp(y, yr)
+    assert torch.isfinite(dx.float()).all()
+    _within_one_ulp(dx, rolling_matmul_batched_dx_ref(dys, ws, offs, win))
 
 
 @pytest.mark.gpu
@@ -1008,11 +1084,19 @@ SSD_BF16 = [(2, 3, 100, 24, 64, 128, 5, 7, False),
             (1, 2, 128, 50, 64, 16, None, 0, False),
             (2, 2, 64, 16, 32, 16, 3, 5, True),
             (1, 2, 256, 4, 128, 128, None, 0, True)]
-# row 13 at bf16: (B, Sq, Skv, H, KV, hd, window, odd strides)
+# row 13 at bf16: (B, Sq, Skv, H, KV, hd, window, odd strides): every
+# head_dim the kernel takes (8 and 16 below one k16 step's 16 and at it),
+# G = 1, 3, 4, 5, causal and windowed, Sq < Skv and Sq > Skv, odd strides
 FLASH_BF16 = [(2, 200, 200, 8, 8, 64, 0, False),
               (1, 300, 300, 25, 5, 64, 64, False),
               (2, 130, 190, 6, 2, 128, 0, True),
-              (1, 97, 97, 4, 2, 96, 32, True)]
+              (1, 97, 97, 4, 2, 96, 32, True),
+              (2, 150, 150, 4, 1, 8, 0, False),
+              (1, 260, 200, 16, 4, 16, 0, True),
+              (2, 333, 333, 5, 1, 32, 100, False),
+              (1, 520, 520, 20, 4, 128, 256, False),
+              (1, 100, 260, 10, 2, 64, 0, True),
+              (2, 257, 257, 4, 4, 128, 0, False)]
 
 
 @pytest.mark.gpu
@@ -1020,10 +1104,11 @@ def test_gpu_rows_12_13_bf16_arms(cuda):
     """The bf16 arms of rows 12 and 13 against their plain versions on the
     same bf16 inputs: ragged chunks and lengths, odd head offsets,
     Hymba's 50 SSM heads and 25 on 5 query heads under a window, and views
-    at odd strides (the element-by-element copies).  y and the output
-    within one ulp plus GPU_RTOL of the largest magnitude, the f32 states
-    within GPU_RTOL; counted under ``/bf16``; a mixed-dtype call
-    raises."""
+    at odd strides (the element-by-element copies); row 13 at every
+    head_dim it takes, with Sq != Skv, and a second launch bit-equal.  y
+    and the output within one ulp plus GPU_RTOL of the largest magnitude,
+    the f32 states within GPU_RTOL; counted under ``/bf16``; a
+    mixed-dtype call raises."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import (flash_attention_ref,
                                          ssd_chunk_intra_ref)
@@ -1067,6 +1152,8 @@ def test_gpu_rows_12_13_bf16_arms(cuda):
         assert out.dtype == bf
         _within_ulp_and(out, flash_attention_ref(q, k, v, window=window),
                         GPU_RTOL)
+        again = flash_attention(q, k, v, window=window)   # deterministic
+        assert torch.equal(out.view(torch.int16), again.view(torch.int16))
     with pytest.raises(TypeError, match="one dtype"):
         flash_attention(q, k.float(), v)
     with pytest.raises(TypeError, match="one dtype"):
