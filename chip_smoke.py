@@ -16,9 +16,9 @@ Phases, each of which fails the run when it fails:
 1. Build the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
    print nvcc's ``-Xptxas -v`` report and the card; per source the spill
    stores and the mma.sync (HMMA) and wgmma (HGMMA) instructions, and for
-   each kernel of the bf16 arms' own bodies (rows 1-8's wgmma kernels, row
-   13's bf16 kernel) its registers, spill stores, HGMMA, bf16 HMMA.16816
-   and TF32 HMMA.1684 (row 13's must have none).
+   each kernel of the bf16 arms' own bodies (rows 1-8's wgmma kernels, rows
+   12 and 13's bf16 kernels) its registers, spill stores, HGMMA, bf16
+   HMMA.16816 and TF32 HMMA (rows 12 and 13's must have none).
 2. Hold every kernel of the paths against its plain PyTorch version on the
    card, at the shapes the full-width TinyLlama-1.1B rounds and evaluation
    and the Mamba2-130M prefill give it (plus unaligned offsets, ragged
@@ -496,16 +496,19 @@ def phase_build(_build):
         print(f"[build] {src}: {n} kernels, {spill} bytes of spill stores, "
               f"HMMA (mma.sync) per kernel {min(hmma)}..{max(hmma)}, HGMMA "
               f"(wgmma) per kernel {min(hgmma)}..{max(hgmma)}")
-    # the bf16 arms' own bodies: rows 1-8's wgmma kernels, row 13's kernel
-    # (bf16 m16n8k16, HMMA.16816, and no TF32 m16n8k8, HMMA.1684)
+    # the bf16 arms' own bodies: rows 1-8's wgmma kernels, rows 12 and 13's
+    # kernels (bf16 m16n8k16, HMMA.16816, and no TF32 mma: every TF32 HMMA
+    # carries .TF32, as 3xTF32's m16n8k8 is HMMA.1688.F32.TF32 on sm_90a)
     for fn, r in per_fn.items():
-        if "wgmma_kernel" in fn or "flash_attn_bf16_kernel" in fn:
+        bf16_mma = ("flash_attn_bf16_kernel" in fn
+                    or "ssd_bf16_kernel" in fn)
+        if "wgmma_kernel" in fn or bf16_mma:
             print(f"[build] {r['src']} {demangle(fn)}: {r['regs']} registers, "
                   f"{r['spill']} bytes of spill stores, HGMMA {r['hgmma']}, "
-                  f"HMMA.16816 {r['hmma16816']}, HMMA.1684 {r['hmma1684']}")
-            if "flash_attn_bf16_kernel" in fn:
-                check(r["hmma16816"] > 0 and r["hmma1684"] == 0,
-                      f"row 13's bf16 kernel {fn} runs TF32 mma: {r}")
+                  f"HMMA.16816 {r['hmma16816']}, TF32 HMMA {r['hmma_tf32']}")
+            if bf16_mma:
+                check(r["hmma16816"] > 0 and r["hmma_tf32"] == 0,
+                      f"bf16 kernel {fn} runs TF32 mma: {r}")
             else:
                 check(r["hgmma"] > 0, f"{fn} has no wgmma: {r}")
 
@@ -527,7 +530,7 @@ def kernel_report(_build, path, log):
     them (bytes), and the HMMA (mma.sync) and HGMMA (wgmma) instructions
     cuobjdump finds in each; and per kernel its source, registers, spill
     stores and tensor-core instructions (HGMMA, bf16 HMMA.16816, TF32
-    HMMA.1684)."""
+    HMMA)."""
     src, fn, per_fn = None, None, {}
     for line in log.splitlines():
         if line.startswith("== nvcc "):
@@ -537,7 +540,7 @@ def kernel_report(_build, path, log):
         elif "spill stores" in line and fn:
             per_fn[fn] = dict(src=src, spill=int(
                 line.split(" bytes spill stores")[0].rsplit(" ", 1)[-1]),
-                regs=0, hmma=0, hgmma=0, hmma16816=0, hmma1684=0)
+                regs=0, hmma=0, hgmma=0, hmma16816=0, hmma_tf32=0)
         elif "Used" in line and "registers" in line and fn in per_fn:
             per_fn[fn]["regs"] = int(line.split("Used ")[1].split()[0])
             fn = None
@@ -556,7 +559,7 @@ def kernel_report(_build, path, log):
             elif "HMMA" in line:
                 r["hmma"] += 1
                 r["hmma16816"] += "HMMA.16816" in line
-                r["hmma1684"] += "HMMA.1684" in line
+                r["hmma_tf32"] += ".TF32" in line
     per_src = {}
     for fn, r in per_fn.items():
         n, total, counts, wg = per_src.get(r["src"], (0, 0, [], []))
@@ -1875,12 +1878,28 @@ def phase_eval_ssm(dev, model, params, _build):
 
 
 def phase_profile_serve_ssm(model, params, prompts, prefill_s):
-    """One Mamba2 prefill under torch.profiler: device time by kernel group,
-    the inter-chunk loop's device and host time (its profiler range), and
-    the device time's share of an unprofiled prefill."""
+    """One Mamba2 prefill under torch.profiler (``profile_prefill``), then
+    one decode step."""
+    if not profile_prefill("profile serve ssm", model, params, prompts,
+                           prefill_s):
+        return
+    with torch.no_grad():
+        logits, cache = model.prefill(params, prompts[:, :256], max_len=257)
+    tok = torch.argmax(logits, -1)
+    profile_decode_step("serve ssm", lambda: model.decode_step(
+        params, tok, cache, 256))
+
+
+def profile_prefill(tag, model, params, prompts, prefill_s):
+    """One prefill under torch.profiler: device time by kernel group, the
+    inter-chunk loop's device and host time (its profiler range), the
+    device time's share of an unprofiled prefill, the ten longest kernels.
+    Returns ``device_kernels``' list (empty where the trace holds no
+    device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.ssd_chunk import RECURRENCE
+    SB, SS = prompts.shape
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1892,32 +1911,28 @@ def phase_profile_serve_ssm(model, params, prompts, prefill_s):
     # the range shows up on the device too, as an annotation: not a kernel
     kern, groups = device_kernels(prof, skip=(RECURRENCE,))
     if not kern:
-        print("[profile serve ssm] the trace holds no device time: not "
+        print(f"[{tag}] the trace holds no device time: not "
               "measured")
-        return
+        return []
     total = sum(t for _, t, _ in kern)
-    print(f"[profile serve ssm] one prefill {SB}x{SS}: device kernels "
+    print(f"[{tag}] one prefill {SB}x{SS}: device kernels "
           f"{total:.1f} ms in {sum(n for _, _, n in kern)} launches = "
           f"{100 * total / (1e3 * prefill_s):.1f}% of an unprofiled prefill "
           f"({1e3 * prefill_s:.1f} ms); profiled wall {wall_ms:.1f} ms")
     for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[profile serve ssm] {g:26s} {t:9.2f} ms "
+        print(f"[{tag}] {g:26s} {t:9.2f} ms "
               f"{100 * t / total:5.1f}%")
     for e in prof.key_averages():
         if e.key == RECURRENCE and e.device_type == DeviceType.CPU:
             dev_ms = e.device_time_total / 1e3
-            print(f"[profile serve ssm] inter-chunk loop ({RECURRENCE}, "
+            print(f"[{tag}] inter-chunk loop ({RECURRENCE}, "
                   f"{e.count} ranges): its kernels {dev_ms:.2f} ms on the "
                   f"device = {100 * dev_ms / total:.1f}%; "
                   f"{e.cpu_time_total / 1e3:.2f} ms on the host, waits on "
                   "the full launch queue included")
     for name, t, n in sorted(kern, key=lambda r: -r[1])[:10]:
-        print(f"[profile serve ssm]   {t:9.2f} ms x{n:<5d} {name[:100]}")
-    with torch.no_grad():
-        logits, cache = model.prefill(params, prompts[:, :256], max_len=257)
-    tok = torch.argmax(logits, -1)
-    profile_decode_step("serve ssm", lambda: model.decode_step(
-        params, tok, cache, 256))
+        print(f"[{tag}]   {t:9.2f} ms x{n:<5d} {name[:100]}")
+    return kern
 
 
 def profile_decode_step(tag, fn):
@@ -4405,12 +4420,16 @@ def ssd_bf16_rows(dev, g):
     """Row 12's bf16 arm (``ssd_chunk_intra/bf16``): x, dt, B and C bf16, A
     float32, against the plain version on the same inputs at SSD_BF16's
     cases, y within one bf16 ulp plus MM_RTOL of its largest magnitude
-    (``bf16_err``), the float32 states within MM_RTOL; a second launch
-    bit-equal; timed at the Mamba2 and Hymba prefill layers beside the
-    plain version (no library call computes the block) and the bound: the
-    bytes at bf16 (f32 A and states), and C B^T at the dense bf16 rate (two
-    bf16 operands, exact in one pass) plus M x and the state (an f32
-    operand) at the 3xTF32 rate."""
+    (``bf16_err``), the float32 states within MM_RTOL, a second launch
+    bit-equal at each; timed at the Mamba2 and Hymba prefill layers
+    (``cuda_ms`` and the profiler's ``device_ms``) beside the plain version
+    (no library call computes the block) and the bound of this design's
+    work: the bytes at bf16 (f32 A and states), C B^T in one bf16 pass and
+    M x and the state in two (their f32 weights' two parts), all at the
+    dense bf16 rate.  A line of its own prints the bytes the design moves
+    once and the bound of the widened design before it (M x and the state
+    at the 3xTF32 rate); neither goes into the kernels line.  The profiler
+    gives no DRAM bytes: the kernel's HBM traffic is not measured."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_chunk import ssd_chunk_intra
     row, subs = None, []
@@ -4428,34 +4447,46 @@ def ssd_bf16_rows(dev, g):
         ey, es = bf16_err(y, yr, MM_RTOL), err(s, sr)
         check(s.dtype == torch.float32 and ey[2] <= 0 and es[1] <= MM_RTOL,
               f"ssd_chunk_intra/bf16 {tag}: y {ey}, states {es}")
+        del yr, sr
+        y2, s2 = kern()
+        check(bits_equal(y, y2) and bits_equal(s, s2),
+              f"ssd_chunk_intra/bf16 {tag}: two launches differ")
+        del y, s, y2, s2
         print(f"[kernels bf16] ssd {tag:36s} x {[Bt, nc, Q, nh, hd]} N {N} "
               f"heads [{hs.start}, {hs.stop}): y max abs err {ey[0]:.3g} "
-              f"(rel {ey[1]:.3g}), states rel {es[1]:.3g}")
+              f"(rel {ey[1]:.3g}), states rel {es[1]:.3g}, a second launch "
+              f"bit-equal")
         if len(subs) < 2 and not odd and off is None:
-            del yr, sr
-            y2, s2 = kern()
-            check(bits_equal(y, y2) and bits_equal(s, s2),
-                  f"ssd_chunk_intra/bf16 {tag}: two launches differ")
-            del y, s, y2, s2
             pairs = Q * (Q + 1) // 2
             f_bf16 = Bt * nc * 2 * pairs * N
             f_rest = Bt * nc * nh * (2 * pairs * hd + 2 * Q * hd * N)
             nbytes = (2 * (2 * Bt * nc * Q * nh * hd + Bt * nc * Q * nh
                            + 2 * Bt * nc * Q * N)
                       + 4 * (nh + Bt * nc * nh * hd * N))
-            # C B^T at the bf16 rate, in 3xTF32-rate operations
-            b_ms, b_by = bound(
+            # this design: C B^T in one bf16 pass, M x and the state in
+            # two; the widened design's: C B^T at the bf16 rate, the rest in
+            # 3xTF32
+            b_ms, b_by = bound(f_bf16 + 2 * f_rest, nbytes, PEAK_BF16_FLOPS)
+            old_ms, _ = bound(
                 f_rest + f_bf16 * PEAK_3XTF32_FLOPS / PEAK_BF16_FLOPS,
                 nbytes, PEAK_3XTF32_FLOPS)
             k_ms = cuda_ms(kern)
+            d_ms = device_ms(kern)
+            print(f"[kernels bf16] ssd {tag}: {nbytes / 1e9:.3f} GB moved "
+                  f"once by the design (x and y, the f32 states, B, C, "
+                  f"dt); HBM bytes not measured (no DRAM counters in the "
+                  f"profiler); {nbytes / 1e9 / d_ms:.3f} TB/s at its "
+                  f"device time; the widened design's 3xTF32 bound "
+                  f"{old_ms:.4f} ms")
             subs.append(dict(
                 tag=tag, shape={"x": [Bt, nc, Q, nh, hd], "B": [Bt, nc, Q, N]},
                 max_abs_err=max(ey[0], es[0]), max_rel_err=max(ey[1], es[1]),
                 tolerance=BF16_TOL_1213, ms=k_ms, kernel_ms=k_ms,
+                device_ms=d_ms,
                 plain_ms=cuda_ms(plain, iters=3, warmup=1), library_ms=None,
                 library_calls=0, bound_ms=b_ms, bound_by=b_by,
-                bound_rate="C B^T at 989 TFLOP/s (bf16), M x and the state "
-                           "at 495/3 (3xTF32); bytes at bf16, f32 states"))
+                bound_rate="C B^T in one bf16 pass, M x and the state in "
+                           "two, at 989 TFLOP/s; bytes at bf16, f32 states"))
         del x, dt, A, B, C
     row = dict(name="ssd_chunk_intra/bf16", route="cuda",
                source=SRC + "ssd_chunk.cu", replaces=TPU + "ssd_chunk.py:58",
@@ -5026,7 +5057,7 @@ def _bf16_eval(tag, model, params, tokens, _build, want, flash=False):
 def _bf16_generate(tag, model, params, prompts, gen, _build, want):
     """``serve.generate`` at bf16 after a short warm-up, counted (launches
     ``want``, bf16 arms only) and timed: prefill seconds, ms a token, peak;
-    bf16 logits, finite.  Returns the launches."""
+    bf16 logits, finite.  Returns the launches and the prefill seconds."""
     from repro_torch.launch.serve import generate
     generate(model, params, prompts[:, :256], 2)            # a warm-up
     torch.cuda.synchronize()
@@ -5046,7 +5077,7 @@ def _bf16_generate(tag, model, params, prompts, gen, _build, want):
           f"from the bf16 caches, batch {B}); peak {peak / 2**30:.2f} GiB; "
           f"kernel launches {launches}; first row "
           f"{out['tokens'][0, :12].tolist()}")
-    return launches
+    return launches, out["prefill_s"]
 
 
 def _check_bf16_caches(tag, model, params, prompts):
@@ -5064,7 +5095,9 @@ def phase_bf16_ssm_eval_serve(dev, _build):
     eval]``, its loss on 4 x 2048 held-out tokens through row 12's bf16 arm
     (24 launches); ``[bf16 ssm serve]``, 8 prompts of 32768 tokens
     prefilled through it and BF16_SSM_G greedy steps from the bf16 caches
-    (h float32).  Returns both paths' launches."""
+    (h float32); ``[profile bf16 ssm serve]``, one prefill profiled: its
+    device time by kernel group and row 12's device time, share and
+    launches.  Returns both paths' launches."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.launch.specs import sample_prompts
@@ -5081,8 +5114,20 @@ def phase_bf16_ssm_eval_serve(dev, _build):
     prompts = torch.as_tensor(sample_prompts(cfg, SB, SS, seed=0)[0],
                               dtype=torch.long).to(dev)
     _check_bf16_caches("bf16 ssm serve", model, params, prompts)
-    s_launches = _bf16_generate("bf16 ssm serve", model, params, prompts,
-                                BF16_SSM_G, _build, want)
+    s_launches, prefill_s = _bf16_generate("bf16 ssm serve", model, params,
+                                           prompts, BF16_SSM_G, _build, want)
+    kern = profile_prefill("profile bf16 ssm serve", model, params, prompts,
+                           prefill_s)
+    ssd = [(t, n) for name, t, n in kern if "ssd_bf16_kernel" in name]
+    if kern:
+        total = sum(t for _, t, _ in kern)
+        ms, n = sum(t for t, _ in ssd), sum(n for _, n in ssd)
+        check(n == cfg.n_layers, f"[profile bf16 ssm serve] row 12's kernel "
+              f"ran {n} times in a prefill, expected {cfg.n_layers}")
+        print(f"[profile bf16 ssm serve] row 12's bf16 kernel: {ms:.2f} ms "
+              f"of the prefill's {total:.1f} ms of device time "
+              f"({100 * ms / total:.1f}%), {n} launches a prefill, "
+              f"{ms / n:.4f} ms a launch")
     del model, params, prompts, tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -5119,9 +5164,9 @@ def phase_bf16_hybrid_eval_serve(dev, _build):
     prompts = torch.as_tensor(sample_prompts(cfg, HB, HS, seed=0)[0],
                               dtype=torch.long).to(dev)
     _check_bf16_caches("bf16 hybrid serve", model, params, prompts)
-    s_launches = _bf16_generate("bf16 hybrid serve", model, params, prompts,
-                                BF16_HYB_G, _build,
-                                {"ssd_chunk_intra/bf16": L})
+    s_launches, _ = _bf16_generate("bf16 hybrid serve", model, params,
+                                   prompts, BF16_HYB_G, _build,
+                                   {"ssd_chunk_intra/bf16": L})
     del model, params, prompts, tokens
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,17 +1,21 @@
 // bf16 building blocks for Hopper's tensor cores: the bf16 arms of the
-// windowed products' mma.sync body (rolling_mm.cu) and of flash attention
-// (flash_attn.cu), and the widening helpers of the SSD chunk block's bf16
-// arm (ssd_chunk.cu; the last section), whose overloads flash attention's
-// f32 arm shares.  Beside tf32x3.cuh, whose copy and pipeline helpers they
-// share.
+// windowed products' mma.sync body (rolling_mm.cu), of flash attention
+// (flash_attn.cu) and of the SSD chunk block (ssd_chunk.cu), and the
+// overloads that let one kernel template copy and store either element type
+// (the last section; flash attention's and the SSD block's f32 arms share
+// them).  Beside tf32x3.cuh, whose copy and pipeline helpers they share.
 //
 // A bf16 operand is exact in one tensor-core pass: mma.sync m16n8k16 with
 // bf16 A and B and f32 accumulators multiplies exactly and sums in f32, so
 // no split is needed; 2*M*N*K operations run at the card's dense bf16 rate
-// (989 TFLOP/s at best on an H100).  The kernels keep tf32x3.cuh's rule for
-// the running sum: each stage's products are summed on the tensor core from
-// zero, then added to the register accumulator with an f32 add, rounded to
-// nearest; the result is rounded once to bf16 at the store.
+// (989 TFLOP/s at best on an H100).  An f32 operand (a softmax weight, a
+// decay-weighted SSD term) goes in as two bf16 passes on its two parts
+// (split_bf16x2), within 2^-17 of it.  The products and flash attention
+// keep tf32x3.cuh's rule for the running sum: each stage's products are
+// summed on the tensor core from zero, then added to the register
+// accumulator with an f32 add, rounded to nearest (the SSD block's
+// contractions, at most 32 mma, are summed on the tensor core directly:
+// ssd_chunk.cu); the result is rounded once to bf16 at the store.
 //
 // Copies into shared memory are 16 bytes (8 bf16) where the source rows
 // allow it (row stride and first column multiples of 8 elements).
@@ -103,6 +107,17 @@ __device__ __forceinline__ void ldmatrix_x4_trans_bf16(uint32_t (&v)[4],
       : "r"(smem_u32(p)));
 }
 
+// Two 8 x 8 bf16 matrices, each transposed (lanes 0-15 give the row
+// addresses, as for x4): lane 4 g + q receives elements (2q, g) and
+// (2q + 1, g) of each.
+__device__ __forceinline__ void ldmatrix_x2_trans_bf16(uint32_t (&v)[2],
+                                                       const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(v[0]), "=r"(v[1])
+      : "r"(smem_u32(p)));
+}
+
 // d += a b: a 16 x 16 (row), b 16 x 8 (col), d 16 x 8 f32, per the m16n8k16
 // bf16 fragment layouts (lane = 4 g + q; each register two bf16 along k:
 // a = (g, 2q..), (g + 8, 2q..), (g, 2q + 8..), (g + 8, 2q + 8..);
@@ -117,30 +132,31 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// -- widening at fragment build (ssd_chunk.cu) --------------------------------
+// split_bf16x2(a, b): hi = the bf16 pair (a, b) rounded to nearest, lo =
+// the bf16 pair of what is left (a - hi, b - hi exactly in f32), each a
+// register of two bf16, a in the low half: hi + lo lies within 2^-17 of
+// each value (a bf16 rounds to 2^-9 of itself, twice).
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The two bf16 of a register (the low half first) as floats.
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// -- either element type ----------------------------------------------------
 //
-// Its bf16 arm keeps bf16 tiles in shared memory (half the f32 arm's
-// bytes) and widens each element to f32 exactly as a fragment is built, so
-// the 3xTF32 mainloops run unchanged: a widened bf16 has no bits below
-// TF32's, so its small part is 0.  Each overload pair below does one thing
-// for either element type; the f32 one is the f32 arm's own code.  A bf16
-// row of shared memory is HD + 8 elements (f32: HD + 4): its fragment reads
-// then hit distinct 4-byte words across a warp, or the same word (a
-// broadcast), and rows stay 16-byte aligned.
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-template <class E>
-__device__ __forceinline__ E from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+// Overloads that the f32 and bf16 kernels of the SSD block and flash
+// attention share (copies and output stores), and the f32 fragment loads
+// of their f32 arms.  A bf16 row of shared memory is HD + 8 elements:
+// ldmatrix's eight row addresses then fall in distinct 16-byte bank
+// groups, and rows stay 16-byte aligned.
 
 // p[0], p[1] = a, b (p two elements aligned); bf16 rounds each once.
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -148,10 +164,6 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ uint32_t wide_bits(bf16 v) {
-  return __float_as_uint(__bfloat162float(v));
 }
 
 // The m16n8k8 A fragment of the 16 x 8 tile at s (row stride ld, the
@@ -162,16 +174,6 @@ __device__ __forceinline__ void frag_a(uint32_t (&v)[4], const float* s,
   const int lane = threadIdx.x & 31;
   ldmatrix_x4(v, s + (lane & 15) * ld + (lane >> 4) * 4);
 }
-__device__ __forceinline__ void frag_a(uint32_t (&v)[4], const bf16* s,
-                                       int ld) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = s + (lane >> 2) * ld + (lane & 3);
-  v[0] = wide_bits(p[0]);
-  v[1] = wide_bits(p[8 * ld]);
-  v[2] = wide_bits(p[4]);
-  v[3] = wide_bits(p[8 * ld + 4]);
-}
-
 // The m16n8k8 B fragments of two n8 tiles at s (16 rows along n, row
 // stride ld, the contraction along the row), as f32 bits: lane 4 g + q
 // gets (n g, k q) and (n g, k q + 4) of tile 0 (rows 0-7) in v[0], v[1],
@@ -181,20 +183,6 @@ __device__ __forceinline__ void frag_b2(uint32_t (&v)[4], const float* s,
   const int lane = threadIdx.x & 31;
   ldmatrix_x4(v, s + ((lane & 7) + (lane >> 4) * 8) * ld +
                      ((lane >> 3) & 1) * 4);
-}
-__device__ __forceinline__ void frag_b2(uint32_t (&v)[4], const bf16* s,
-                                        int ld) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = s + (lane >> 2) * ld + (lane & 3);
-  v[0] = wide_bits(p[0]);
-  v[1] = wide_bits(p[4]);
-  v[2] = wide_bits(p[8 * ld]);
-  v[3] = wide_bits(p[8 * ld + 4]);
-}
-
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           int bytes) {
-  cp_async16_bf16(dst, src, bytes);
 }
 
 // A ROWS x COLS tile (COLS contiguous, row stride ld, the first element at

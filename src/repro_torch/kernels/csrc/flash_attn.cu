@@ -347,18 +347,6 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 // -- the bf16 arm -------------------------------------------------------------
 
-// split_bf16x2(a, b): hi = the bf16 pair (a, b) rounded to nearest, lo =
-// the bf16 pair of what is left (a - hi, b - hi exactly in f32), each a
-// register of two bf16, a in the low half
-__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
-                                             uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 // Two bf16 of a row of q (columns d, d + 1) as one register, zero past hd
 // or for a missing row.
 __device__ __forceinline__ uint32_t q_pair(const bf16* row, int d, int hd,

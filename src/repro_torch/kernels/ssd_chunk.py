@@ -12,10 +12,14 @@ On a CUDA tensor :func:`ssd_chunk_intra` launches ``ssd_chunk_intra_fwd``
 version, ``kernels.ref.ssd_chunk_intra_ref``, a transcription of the Pallas
 body.  The TPU's head block (``nh_block``) and its rule that a window's
 offset be a multiple of it were its tiling: any ``head_offset`` works.
-x, dt, B and C are all float32 or all bfloat16 (A is float32): as in the
-Pallas body, the bf16 arm (``ssd_chunk_intra_fwd_bf16``, counted as
-``ssd_chunk_intra/bf16``) widens them at the load, computes in float32,
-rounds y once to bf16 and keeps the states float32.  There is no
+x, dt, B and C are all float32 or all bfloat16 (A is float32); the bf16
+arm (``ssd_chunk_intra_fwd_bf16``, counted as ``ssd_chunk_intra/bf16``)
+computes what the Pallas body computes at bf16 (its inputs widened, y
+rounded once to bf16, the states float32) in one kernel on bf16 tensor-core
+passes: ``C B^T`` exactly in one, ``M x`` and the state in two, on the two
+bf16 parts ``hi = bf16(v)``, ``lo = bf16(v - hi)`` of the float32 weighted
+operand (M, and x times the state's key weights), within 2^-17 of it; it
+reads each head's x once for y and the state alike.  There is no
 backward, as the reference kernel has none: with autograd recording,
 inputs that require a gradient are refused, and the message points to
 ``models.ssm.ssd_chunked``, the differentiable transcription the

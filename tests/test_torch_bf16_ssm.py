@@ -235,6 +235,65 @@ def test_plain_flash_bf16_matches_pallas_body(case):
     _within_ulp(got, want, 1e-6)
 
 
+def _two_part_ssd(x, dt, A, B, C):
+    """Row 12's bf16 kernel's arithmetic (``csrc/ssd_chunk.cu``
+    ``ssd_bf16_kernel``) in plain torch: ``C B^T`` of the bf16 operands
+    summed in float32 (exact products), ``M = C B^T * decay * dt`` and the
+    state's weighted operand ``x * w`` (``w_t = exp(L_last - L_t) dt_t``) in
+    float32, each split into ``hi = bf16(v)`` and ``lo = bf16(v - hi)``,
+    their products with bf16 x (and B) summed in float32, y rounded once.
+    Returns ``(y, states)`` and the ``(v, hi, lo)`` of M and of ``x w``."""
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
+    Q = x.shape[2]
+    L = torch.cumsum(dtf * A, dim=2)                        # [Bt,nc,Q,nh]
+    CB = torch.einsum("bcqn,bctn->bcqt", Cf, Bf)
+    diff = L[:, :, :, None, :] - L[:, :, None, :, :]       # [.., q, t, nh]
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    decay = torch.where(causal[:, :, None], torch.exp(diff), 0.0)
+    M = CB[..., None] * decay * dtf[:, :, None, :, :]      # [.., q, t, nh]
+
+    def split(v):
+        hi = v.to(torch.bfloat16)
+        return hi, (v - hi.float()).to(torch.bfloat16)
+
+    mh, ml = split(M)
+    y = (torch.einsum("bcqth,bcthp->bcqhp", mh.float(), xf)
+         + torch.einsum("bcqth,bcthp->bcqhp", ml.float(), xf))
+    w = torch.exp(L[:, :, -1:, :] - L) * dtf                # [Bt,nc,Q,nh]
+    xw = xf * w[..., None]
+    xh, xl = split(xw)
+    states = (torch.einsum("bcthp,bctn->bchpn", xh.float(), Bf)
+              + torch.einsum("bcthp,bctn->bchpn", xl.float(), Bf))
+    return (y.to(torch.bfloat16), states), [(M, mh, ml), (xw, xh, xl)]
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 256, 3, 64, 128),
+                                   (1, 2, 128, 4, 64, 16),
+                                   (2, 1, 100, 2, 32, 16)],
+                         ids=["mamba2_reduced", "hymba_n16", "ragged_q100"])
+def test_two_part_ssd_keeps_the_pallas_body_accuracy(shape):
+    """Row 12's bf16 kernel rests on this arithmetic: M and the state's
+    weighted operand ``x w`` split into two bf16 parts miss their float32
+    values by at most 2^-17 of them (plus 2^-126, where a decay factor is
+    subnormal), and y and the states formed from the
+    parts with bf16 x and B, summed in float32, stay within the kernel's
+    card tolerance of the reference's Pallas body at bf16 (interpret mode):
+    y within one bf16 ulp plus 1e-4 of its largest magnitude, the float32
+    states within 1e-4 of theirs.  At Mamba2's chunk, head_dim and d_state
+    (fewer heads and chunks), at Hymba's d_state of 16, and at a ragged
+    chunk of 100."""
+    Bt, nc, Q, nh, hd, N = shape
+    jargs, targs = _intra_inputs(Q + N, Bt=Bt, nc=nc, Q=Q, nh=nh, hd=hd, N=N)
+    (got_y, got_s), parts = _two_part_ssd(*targs)
+    for v, hi, lo in parts:   # (decay factors below 2^-126 are subnormal)
+        gap = (v.double() - hi.double() - lo.double()).abs()
+        assert (gap <= 2.0 ** -17 * v.double().abs() + 2.0 ** -126).all()
+    want_y, want_s = ref_intra(*jargs, interpret=True)
+    _within_ulp(got_y, want_y, 1e-4)
+    want_s = _f32(want_s)
+    assert np.abs(_f32(got_s) - want_s).max() <= 1e-4 * np.abs(want_s).max()
+
+
 def test_rows_12_13_refuse_mixed_dtypes():
     """Both take their operands all float32 or all bf16 (row 12's A always
     float32); nothing widens a mixed call."""

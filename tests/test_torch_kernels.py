@@ -1079,11 +1079,20 @@ def _within_ulp_and(a, b, rel):
     assert ((a - b).abs() <= slack).all(), (a - b).abs().max()
 
 
-# row 12 at bf16: (Bt, nc, Q, nh, hd, N, head_offset, head_win, odd strides)
+# row 12 at bf16: (Bt, nc, Q, nh, hd, N, head_offset, head_win, odd
+# strides): d_state 16 (the kernel's 16-column state) at Q 128 and 100, a
+# single chunk (Bt nc = 1: heads in groups of one), head_dim 16 and 128
 SSD_BF16 = [(2, 3, 100, 24, 64, 128, 5, 7, False),
             (1, 2, 128, 50, 64, 16, None, 0, False),
+            (2, 3, 100, 8, 64, 16, None, 0, False),
+            (1, 1, 256, 24, 64, 128, 3, 9, False),
+            (2, 2, 130, 6, 16, 32, 1, 4, False),
+            (1, 1, 200, 3, 128, 64, None, 0, False),
             (2, 2, 64, 16, 32, 16, 3, 5, True),
             (1, 2, 256, 4, 128, 128, None, 0, True)]
+# row 12 at bf16 on views whose rows past a ragged chunk hold NaN: (Bt, nc,
+# Q, nh, hd, N)
+SSD_BF16_NAN_PAD = [(2, 2, 100, 6, 64, 128), (1, 2, 100, 10, 64, 16)]
 # row 13 at bf16: (B, Sq, Skv, H, KV, hd, window, odd strides): every
 # head_dim the kernel takes (8 and 16 below one k16 step's 16 and at it),
 # G = 1, 3, 4, 5, causal and windowed, Sq < Skv and Sq > Skv, odd strides
@@ -1104,11 +1113,15 @@ def test_gpu_rows_12_13_bf16_arms(cuda):
     """The bf16 arms of rows 12 and 13 against their plain versions on the
     same bf16 inputs: ragged chunks and lengths, odd head offsets,
     Hymba's 50 SSM heads and 25 on 5 query heads under a window, and views
-    at odd strides (the element-by-element copies); row 13 at every
-    head_dim it takes, with Sq != Skv, and a second launch bit-equal.  y
-    and the output within one ulp plus GPU_RTOL of the largest magnitude,
-    the f32 states within GPU_RTOL; counted under ``/bf16``; a
-    mixed-dtype call raises."""
+    at odd strides (the element-by-element copies); row 12 also at
+    d_state 16 (Q 128 and 100), on a single chunk, at head_dim 16 and 128,
+    and on views whose rows past a ragged chunk hold NaN, which must reach
+    neither y nor the states; row 13 at every head_dim it takes, with Sq
+    != Skv.  A second launch of each is bit-equal.  y and the output within
+    one ulp plus GPU_RTOL of the largest magnitude, the f32 states within
+    GPU_RTOL (row 12 sums each head's contraction, at most 16 k16 steps of
+    two passes, on the tensor core: these cases at Q 256 show it within
+    them); counted under ``/bf16``; a mixed-dtype call raises."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import (flash_attention_ref,
                                          ssd_chunk_intra_ref)
@@ -1135,6 +1148,28 @@ def test_gpu_rows_12_13_bf16_arms(cuda):
         assert _build.LAUNCHES["ssd_chunk_intra/bf16"] == n + 1
         yr, sr = ssd_chunk_intra_ref(x[..., hs, :], dt[..., hs], A[hs], B, C)
         assert y.dtype == bf and st.dtype == torch.float32
+        _within_ulp_and(y, yr, GPU_RTOL)
+        _gpu_close(st, sr)
+        y2, st2 = ssd_chunk_intra(x, dt, A, B, C, head_offset=off,
+                                  head_win=win)              # deterministic
+        assert torch.equal(y.view(torch.int16), y2.view(torch.int16))
+        assert torch.equal(st, st2)
+    for Bt, nc, Q, nh, hd, N in SSD_BF16_NAN_PAD:
+        def padded(shape):   # rows Q .. Q + 7 of the chunk axis hold NaN
+            buf = torch.full((*shape[:2], Q + 8, *shape[3:]), float("nan"),
+                             dtype=bf, device=cuda)
+            view = buf[:, :, :Q]
+            view.copy_(0.5 * torch.randn(shape, device=cuda, generator=g))
+            return view
+        x, B, C = (padded(sh) for sh in ((Bt, nc, Q, nh, hd), (Bt, nc, Q, N),
+                                         (Bt, nc, Q, N)))
+        dt = padded((Bt, nc, Q, nh))
+        dt.copy_(F.softplus(dt.float()))
+        A = -torch.exp(0.3 * torch.randn((nh,), device=cuda, generator=g))
+        y, st = ssd_chunk_intra(x, dt, A, B, C)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+        yr, sr = ssd_chunk_intra_ref(x, dt, A, B, C)
         _within_ulp_and(y, yr, GPU_RTOL)
         _gpu_close(st, sr)
     for Bsz, Sq, Skv, H, KV, hd, window, odd in FLASH_BF16:

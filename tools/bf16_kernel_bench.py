@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the bf16 arms of the windowed products (TPU rows 1-8) and of flash
-attention (row 13) on one card, in one or more source trees, interleaved.
+"""Time the bf16 arms of the windowed products (TPU rows 1-8), of the SSD
+chunk block (row 12) and of flash attention (row 13) on one card, in one or
+more source trees, interleaved.
 
     python3 tools/bf16_kernel_bench.py [--trees DIR ...] [--reps N]
-        [--only products|flash] [--out FILE]
+        [--only products|ssd|flash|f32] [--out FILE]
 
 Each tree (default: this checkout) runs in a process of its own, with its
 ``src`` first on the path and its kernels built into its own
@@ -20,11 +21,15 @@ output, 1e-4 for flash; <= 0 passes).  The shapes are those
 ``chip_smoke.py`` times: rows 5-8 at TinyLlama's window round (q and the
 gate/up pair, the k/v projections), the SSM and hybrid rounds' narrow
 windows, rows 1-4 at its sub-model eval and backward; row 13 at its eval,
-head_dim 128 and Hymba's window; each product also with the host's
-microseconds a call.  ``--only f32`` runs the f32 arms of rows 1-8 and 13
-at the timed shapes instead and prints a digest of their outputs, so that
-two trees' f32 kernels can be held to the same bits and times.  The card's
-name and power limit lead the output.
+head_dim 128 and Hymba's window; row 12 at a Mamba2-130M prefill layer
+(x [8, 128, 256, 24, 64], d_state 128) and at Hymba-1.5B's (x [4, 16,
+128, 50, 64], d_state 16), its y held to one bf16 ulp plus 1e-4 of the
+largest output and its f32 states to 1e-4 (the excess is the larger);
+each product also with the host's microseconds a call.  ``--only f32``
+runs the f32 arms of rows 1-8, 12 and 13 at the timed shapes instead and
+prints a digest of their outputs, so that two trees' f32 kernels can be
+held to the same bits and times.  The card's name and power limit lead the
+output.
 """
 from __future__ import annotations
 
@@ -57,6 +62,11 @@ PRODUCTS = [
     ("row 2", "fwd", 2, 1, 8192, 2048, 5632, 2816, 2816),
     ("row 3", "dx", 1, 1, 512, 2048, 2048, 1024, 1024),
     ("row 4", "dx", 2, 1, 512, 2048, 5632, 2816, 2816),
+]
+# (tag, Bt, nc, Q, nh, hd, N): a Mamba2 and a Hymba prefill layer
+SSD = [
+    ("row 12 mamba2", 8, 128, 256, 24, 64, 128),
+    ("row 12 hymba", 4, 16, 128, 50, 64, 16),
 ]
 # (tag, B, S, H, KV, hd, window)
 FLASH = [
@@ -131,6 +141,7 @@ def run_tree(tree, only):
     from repro_torch.kernels.rolling_matmul import (make_offsets,
                                                     rolling_mm_dx,
                                                     rolling_mm_fwd)
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_intra
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev, bf = torch.device("cuda"), torch.bfloat16
@@ -166,6 +177,20 @@ def run_tree(tree, only):
                          device_ms=device_ms(torch, kern),
                          host_us=host_us(torch, kern)))
         del x, ws, dys, got, want
+    for tag, Bt, nc, Q, nh, hd, N in SSD if only in (None, "ssd") else []:
+        x, dt, A, B, C = ssd_inputs(torch, dev, g, Bt, nc, Q, nh, hd, N)
+        x, dt, B, C = (t.to(bf) for t in (x, dt, B, C))
+
+        def kern():
+            return ssd_chunk_intra(x, dt, A, B, C)
+        (y, st), (yr, sr) = kern(), ref.ssd_chunk_intra_ref(x, dt, A, B, C)
+        e = max(excess(torch, y, yr, 1e-4),
+                float((st - sr).abs().max() - 1e-4 * sr.abs().max()))
+        del y, st, yr, sr
+        rows.append(dict(tag=tag, x=[Bt, nc, Q, nh, hd], N=N, excess=e,
+                         ms=cuda_ms(torch, kern),
+                         device_ms=device_ms(torch, kern)))
+        del x, dt, A, B, C
     for tag, B, S, H, KV, hd, window in (
             FLASH if only in (None, "flash") else []):
         q = torch.randn((B, S, H, hd), device=dev, generator=g).to(bf)
@@ -199,6 +224,15 @@ def run_tree(tree, only):
                          ms=cuda_ms(torch, kern), excess=0.0,
                          device_ms=device_ms(torch, kern)))
         del x, ws, dys
+    for tag, Bt, nc, Q, nh, hd, N in SSD if only == "f32" else []:
+        x, dt, A, B, C = ssd_inputs(torch, dev, g, Bt, nc, Q, nh, hd, N)
+
+        def kern():
+            return ssd_chunk_intra(x, dt, A, B, C)
+        rows.append(dict(tag=tag + " f32", sha=digest(kern()),
+                         ms=cuda_ms(torch, kern), excess=0.0,
+                         device_ms=device_ms(torch, kern)))
+        del x, dt, A, B, C
     for tag, B, S, H, KV, hd, window in (FLASH[:2] if only == "f32"
                                          else []):
         q, k, v = (torch.randn((B, S, n, hd), device=dev, generator=g)
@@ -211,6 +245,17 @@ def run_tree(tree, only):
                          device_ms=device_ms(torch, kern)))
         del q, k, v
     return dict(tree=str(tree), rows=rows)
+
+
+def ssd_inputs(torch, dev, g, Bt, nc, Q, nh, hd, N):
+    """x, dt, A, B, C as the model makes them (``chip_smoke.ssd_inputs``):
+    dt a softplus, A negative."""
+    F = torch.nn.functional
+    return (0.5 * torch.randn((Bt, nc, Q, nh, hd), device=dev, generator=g),
+            F.softplus(torch.randn((Bt, nc, Q, nh), device=dev, generator=g)),
+            -torch.exp(0.3 * torch.randn((nh,), device=dev, generator=g)),
+            0.5 * torch.randn((Bt, nc, Q, N), device=dev, generator=g),
+            0.5 * torch.randn((Bt, nc, Q, N), device=dev, generator=g))
 
 
 def digest(outs):
@@ -227,7 +272,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trees", nargs="+", default=[str(ROOT)])
     ap.add_argument("--reps", type=int, default=1)
-    ap.add_argument("--only", choices=("products", "flash", "f32"))
+    ap.add_argument("--only", choices=("products", "ssd", "flash", "f32"))
     ap.add_argument("--out", help="also append the JSON lines to this file")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()

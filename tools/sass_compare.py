@@ -1,17 +1,29 @@
 #!/usr/bin/env python3
-"""Compare the machine code of the kernels in two builds of the port's
+r"""Compare the machine code of the kernels in two builds of the port's
 kernel library.
 
-    python3 tools/sass_compare.py OLD.so NEW.so [--match rolling_mm]
+    python3 tools/sass_compare.py OLD.so NEW.so [--match REGEX]
+        [--old-sub PATTERN REPL]
 
 Dumps each library's SASS with ``cuobjdump -sass`` (from the CUDA toolkit
 beside ``nvcc``) and compares it kernel by kernel, after stripping what
 differs between two builds of the same code: the hash nvcc gives each
-file's anonymous namespace (part of every kernel's mangled name) and the
-instruction encodings in comments.  Prints ``same`` or ``DIFF`` and the
-instruction count for each kernel whose name contains ``--match``, and
-exits 1 if any differs or is missing from NEW.  Use it to show that
-moving code between files left a kernel's instructions as they were.
+file's anonymous namespace (part of every kernel's mangled name), the
+instruction addresses in comments and the column padding, which follows the
+widest instruction in the library.  Prints ``same`` or ``DIFF`` and the
+instruction count for each kernel whose name ``--match`` (a regular
+expression) finds, and exits 1 if any differs or is missing from NEW.
+``--old-sub`` rewrites OLD's names first (``re.sub``), for a kernel whose
+mangled name changed with its signature: the SSD block's f32 kernels lost
+their element-type template parameter (always float), so
+
+    --match 'ssd_(y|state)_kernel.*ArgsIfE' \
+    --old-sub 'ILi(\d+)EfEEvNS_4ArgsIT0_EE' 'ILi\1EEEvNS_4ArgsIfEE'
+
+holds each new f32 instance to the old one of the same head_dim (the
+match applies to the rewritten names).  Use it
+to show that moving code between files left a kernel's instructions as
+they were.
 """
 import argparse
 import re
@@ -22,6 +34,8 @@ from pathlib import Path
 
 ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
 ENCODING = re.compile(r"/\*[0-9a-f]{4,}\*/")
+# cuobjdump pads each listing's columns to its widest instruction
+SPACES = re.compile(r"\s+")
 
 
 def cuobjdump():
@@ -41,7 +55,8 @@ def kernels(path):
             name = ANON.sub("ANON", line.split("Function :")[1].strip())
             found[name] = []
         elif name is not None and line.strip():
-            found[name].append(ENCODING.sub("", line).strip())
+            line = SPACES.sub(" ", ENCODING.sub("", line))
+            found[name].append(line.strip())
     return found
 
 
@@ -50,14 +65,20 @@ def main():
     ap.add_argument("old")
     ap.add_argument("new")
     ap.add_argument("--match", default="",
-                    help="compare only kernels whose name contains this")
+                    help="compare only kernels whose name this regular "
+                         "expression finds")
+    ap.add_argument("--old-sub", nargs=2, metavar=("PATTERN", "REPL"),
+                    help="rewrite OLD's kernel names with re.sub first")
     args = ap.parse_args()
     old, new = kernels(args.old), kernels(args.new)
+    if args.old_sub:
+        old = {re.sub(*args.old_sub, n): v for n, v in old.items()}
     differ = 0
-    for name in sorted(n for n in old if args.match in n):
+    for name in sorted(n for n in old if re.search(args.match, n)):
         same = old[name] == new.get(name)
         differ += not same
-        print(f"{'same' if same else 'DIFF'} {len(old[name]):6d} {name}")
+        print(f"{'same' if same else 'DIFF' if name in new else 'MISSING'} "
+              f"{len(old[name]):6d} {name}")
     return 1 if differ else 0
 
 
