@@ -161,6 +161,17 @@ def library() -> ctypes.CDLL:
 ARMS = {"torch.float32": ("", ""), "torch.bfloat16": ("_bf16", "/bf16")}
 
 
+def make_current(device: torch.device):
+    """Make ``device`` the calling thread's current card.  The autograd
+    engine runs a backward on a worker thread of its own, and until a
+    PyTorch CUDA call there sets a device, no context is current in it: a
+    launch of the kernels' library (its own CUDA runtime) made first in
+    such a thread fails with ``cudaErrorInvalidValue`` (seen on an H100:
+    rows 6 and 8's bf16 dx as a backward's first CUDA work)."""
+    import torch
+    torch.cuda.set_device(device)
+
+
 def launch(entry: str, name: str, dtype, *args):
     """Call the ``dtype`` arm of ``entry`` with ``args`` and count the
     launch under ``name`` (``name/bf16`` for a bf16 one), and, for an arm

@@ -114,6 +114,7 @@ def rolling_mm_fwd(x, ws, offsets: Offsets, win, name=None):
         raise ValueError(f"x has {x.shape[2]} columns, weights {K} rows")
     if x.device.type == "cpu":
         return ref.rolling_matmul_batched_ref(x, ws, offsets.host, win)
+    _build.make_current(x.device)
     T = len(ws)
     ys = tuple(torch.empty((C, M, win), dtype=x.dtype, device=x.device)
                for _ in range(T))
@@ -142,6 +143,7 @@ def rolling_mm_dx(dys, ws, offsets: Offsets, win, name=None):
                          f"{[tuple(d.shape) for d in dys]}")
     if dy0.device.type == "cpu":
         return ref.rolling_matmul_batched_dx_ref(dys, ws, offsets.host, win)
+    _build.make_current(dy0.device)
     T = len(ws)
     dx = torch.empty((C, M, K), dtype=dy0.dtype, device=dy0.device)
     wp = [w.data_ptr() for w in ws] + [0] * (2 - T)

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (ParamBuilder, apply_rope, bmm,
-                                       head_proj, rms_norm)
+                                       einsum, head_proj, rms_norm)
 
 NEG_INF = -1e30
 
@@ -251,9 +251,10 @@ def mla_params(b: ParamBuilder, prefix, cfg):
 
 
 def _lin(x, w):
-    """``x [C, *lead, K] @ w [C, K, N]`` -> ``[C, *lead, N]``."""
+    """``x [C, *lead, K] @ w [C, K, N]`` -> ``[C, *lead, N]`` (float32
+    sums, one rounding: ``layers.bmm``)."""
     C, K = x.shape[0], x.shape[-1]
-    y = torch.bmm(x.reshape(C, -1, K), w)
+    y = bmm(x.reshape(C, -1, K), w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -300,8 +301,8 @@ def _mla_attend(p, x, cfg, positions, hspec):
         # the contraction runs over the active heads only
         wo = hspec.take(wo)
     Hw = wo.shape[1]
-    out = torch.bmm(out.reshape(C, B * S, Hw * m.v_head_dim),
-                    wo.reshape(C, Hw * m.v_head_dim, D))
+    out = bmm(out.reshape(C, B * S, Hw * m.v_head_dim),
+              wo.reshape(C, Hw * m.v_head_dim, D))
     return out.reshape(C, B, S, D), c, kr
 
 
@@ -332,7 +333,9 @@ def mla_decode(p, x, cfg, cache, pos, valid_override=None, rope_pos=None):
     query (``q_c [B, H, r]``), which attends over the compressed cache
     (keys ``[c, kr]`` and values ``c``, one kv head shared by every head);
     then ``W_uv`` and ``wo``.  The token's ``c`` and ``kr`` are written at
-    slot ``pos``.  ``valid_override [B, S]`` and ``rope_pos [B]`` as in
+    slot ``pos``, in the caches' dtype (bf16 for bf16 params).  The three
+    products sum in float32 and round once (``layers.einsum``).
+    ``valid_override [B, S]`` and ``rope_pos [B]`` as in
     :func:`gqa_decode`.  Returns ``(out [C, B, 1, D], new cache)``; the
     cache passed in is not changed."""
     m = cfg.mla
@@ -345,7 +348,7 @@ def mla_decode(p, x, cfg, cache, pos, valid_override=None, rope_pos=None):
     cc, krc = cache["c"].clone(), cache["kr"].clone()
     cc[:, :, pos] = c_t[:, :, 0]
     krc[:, :, pos] = kr_t[:, :, 0]
-    q_c = torch.einsum("cbhe,crhe->cbhr", q_nope[:, :, 0], p["w_uk"])
+    q_c = einsum("cbhe,crhe->cbhr", q_nope[:, :, 0], p["w_uk"])
     q_cat = torch.cat([q_c, q_rope[:, :, 0]], -1)       # [C, B, H, r + rd]
     k_cat = torch.cat([cc, krc], -1)                    # [C, B, S, r + rd]
     S, H, r = cc.shape[2], q_cat.shape[2], cc.shape[-1]
@@ -356,6 +359,6 @@ def mla_decode(p, x, cfg, cache, pos, valid_override=None, rope_pos=None):
                            k_cat.reshape(C * B, S, 1, -1),
                            cc.reshape(C * B, S, 1, r), valid.repeat(C, 1),
                            softmax_scale=scale).reshape(C, B, H, r)
-    out = torch.einsum("cbhr,crhe->cbhe", ctx.to(x.dtype), p["w_uv"])
-    out = torch.einsum("cbhe,ched->cbd", out, p["wo"])
+    out = einsum("cbhr,crhe->cbhe", ctx.to(x.dtype), p["w_uv"])
+    out = einsum("cbhe,ched->cbd", out, p["wo"])
     return out[:, :, None], {"c": cc, "kr": krc}

@@ -6,7 +6,9 @@ of every axis but the last, ``heads``/``kv_heads`` left out), ``rms_norm``
 (``rms_norm_plain`` without the client dimension), ``apply_rope``,
 ``sinusoidal_positions``, ``act_fn`` (``gelu`` is the tanh form, the
 default of ``jax.nn.gelu``), ``mlp_apply``, ``mlp_apply_rolling``,
-``head_proj`` and ``softmax_xent``.
+``head_proj`` and ``softmax_xent``; ``bmm`` and ``einsum`` are the
+products of the reference's bf16 models that no kernel takes (float32
+sums, one rounding; ``wide`` is their operands' widening on the CPU).
 
 Params are a flat ``{path: tensor}`` dict with a parallel ``{path: axis
 tags}`` dict; paths are the reference's ``tree_paths`` with the stacked
@@ -236,7 +238,7 @@ def _rows(x):
     return x.reshape(x.shape[0], -1, x.shape[-1])
 
 
-def _wide(t):
+def wide(t):
     """``t`` as an operand of a float32-accumulated product: a bfloat16
     tensor on the CPU widened to float32, anything else itself."""
     if t.dtype == torch.bfloat16 and t.device.type == "cpu":
@@ -254,14 +256,22 @@ def bmm(a, b, dtype=None):
     products' plain versions (``kernels.ref``) multiply widened operands:
     the fused and the extract client phases then agree to the bit."""
     check_f32_sums(a)
-    return torch.bmm(_wide(a), _wide(b)).to(dtype or a.dtype)
+    return torch.bmm(wide(a), wide(b)).to(dtype or a.dtype)
+
+
+def einsum(eq, a, b, dtype=None):
+    """``torch.einsum(eq, a, b)`` in ``dtype`` (default a's), summed in
+    float32 and rounded once, as :func:`bmm`: a bf16 contraction of the
+    reference's (``jnp.einsum`` at bf16) that is no windowed product."""
+    check_f32_sums(a)
+    return torch.einsum(eq, wide(a), wide(b)).to(dtype or a.dtype)
 
 
 def mlp_apply(p, x, act="silu"):
     # one widened x for the gate/up pair: at bf16 on the CPU its grads sum
     # in float32 and round once, as the pair's dx kernel (the fused
     # phase's) sums them
-    x2 = _wide(_rows(x))
+    x2 = wide(_rows(x))
     g = act_fn(act)(bmm(x2, p["w_gate"], x.dtype))
     out = bmm(g * bmm(x2, p["w_up"], x.dtype), p["w_down"])
     return out.reshape(x.shape)

@@ -25,9 +25,22 @@ client's token count.  Two points differ from the reference on purpose:
   Here each slot gathers the one token the sort put there, and a dropped
   choice fills no slot, as the reference's docstring describes.
 - **Combine is deterministic.**  Each token's k contributions are
-  gathered as ``[T, k, D]`` and summed over k in order, where the
-  reference scatter-adds them in XLA's order; no slot is read twice, so
-  no gradient accumulates through atomics either.
+  gathered as ``[T, k, D]`` and summed at the activations' dtype in order
+  of ascending expert, the order in which the reference's scatter-add
+  (``.at[st].add``) meets them: its updates come sorted by expert, and
+  XLA:CPU adds a bf16 scatter's updates one by one in bf16, in their order
+  (at top-2 both orders give the same bits; at DeepSeek-V3's top-8 they
+  do not).  No slot is read twice, so no gradient accumulates through
+  atomics either.
+
+The top k of the router's scores are taken by a stable descending sort,
+so that tied scores go to the lower expert index, as ``jax.lax.top_k``
+breaks ties (``torch.topk`` does not, on either device).  At bf16 every
+product sums in float32 and rounds once (``layers.bmm`` and
+``layers.einsum``; the windowed products' kernels and plain versions do
+so too), with the reference's roundings: the router's logits rounded to
+bf16 before the float32 softmax or sigmoid, the routing weights cast to
+the activations' dtype, the ``dense`` path's gate in that dtype.
 
 An ``experts`` window slices the router's columns to each client's
 active experts.  With a ``moe_d_ff`` window the experts' products read
@@ -50,9 +63,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import check_f32_sums
 from repro_torch.kernels.rolling_matmul import rolling_matmul_batched
-from repro_torch.models.layers import (ParamBuilder, act_fn, mlp_apply,
-                                       mlp_apply_rolling)
+from repro_torch.models.layers import (ParamBuilder, act_fn, bmm, einsum,
+                                       mlp_apply, mlp_apply_rolling, wide)
 
 
 def moe_params(b: ParamBuilder, prefix, cfg):
@@ -73,18 +87,29 @@ def moe_params(b: ParamBuilder, prefix, cfg):
         b.dense(f"{prefix}/shared/w_down", (Fs, D), ("moe_d_ff", "d_model"))
 
 
+def top_k(scores, k):
+    """The ``k`` largest ``scores`` along the last axis, largest first, and
+    their indices, as ``jax.lax.top_k`` gives them: tied scores go to the
+    lower index first (a stable descending sort; ``torch.topk`` breaks
+    ties otherwise, and on the card otherwise again)."""
+    w, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return w[..., :k], idx[..., :k]
+
+
 def _route(router, x, cfg):
     """router ``[C, D, E]``, x ``[C, T, D]`` -> (weights ``[C, T, k]``,
     idx ``[C, T, k]``, aux ``[C]``)."""
     mo = cfg.moe
     E = router.shape[-1]               # may be a sub-model window of experts
     k = min(mo.top_k, E)
-    logits = torch.bmm(x, router).float()                 # [C, T, E]
+    # the logits rounded to x's dtype, then widened: the reference's
+    # ``(x @ router).astype(float32)``
+    logits = bmm(x, router).float()                       # [C, T, E]
     if mo.router == "sigmoid":
-        w, idx = torch.topk(torch.sigmoid(logits), k, dim=-1, sorted=True)
+        w, idx = top_k(torch.sigmoid(logits), k)
         w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
     else:
-        w, idx = torch.topk(logits, k, dim=-1, sorted=True)
+        w, idx = top_k(logits, k)
         w = torch.softmax(w, dim=-1)
     # Switch load-balance loss: E * sum_e f_e * p_e, per client
     probs = torch.softmax(logits, dim=-1)
@@ -124,23 +149,34 @@ def _dispatch(idx, E, cap):
 
 def _expert_ffn(wg, wu, wd, x, act):
     """Per-expert gated MLPs: x ``[C, E, cap, D]`` against ``wg``/``wu``
-    ``[C, E, D, F]`` and ``wd [C, E, F, D]``, as batched products."""
-    g = act_fn(act)(torch.matmul(x, wg))
-    return torch.matmul(g * torch.matmul(x, wu), wd)
+    ``[C, E, D, F]`` and ``wd [C, E, F, D]``, as batched products (one
+    widened x for the gate/up pair, as ``layers.mlp_apply``: its gradient
+    sums in float32 and rounds once, as the pair's dx kernel sums it)."""
+    C, E = x.shape[:2]
+
+    def rows(t):
+        return t.reshape(C * E, *t.shape[2:])
+    x2 = wide(rows(x))
+    g = act_fn(act)(bmm(x2, rows(wg), x.dtype))
+    y = bmm(g * bmm(x2, rows(wu), x.dtype), rows(wd))
+    return y.view(C, E, *y.shape[1:])
 
 
 class _ExpertDown(torch.autograd.Function):
     """``y[c] = h[c] @ wd[c, e_c : e_c + G, f_c : f_c + win]``, one ``bmm``
     a client on a view of the full stack ``wd [C, E, F, D]``; the backward
     writes ``dW`` into a full-shaped zero gradient.  ``apply(h [C, G, M,
-    win], eoffs, foffs, wd)`` with host offsets ``[C]``."""
+    win], eoffs, foffs, wd)`` with host offsets ``[C]``.  At bf16 each
+    product sums in float32 and rounds once, on the CPU bit for bit as the
+    extract client phase's products on its compact copies: ``dW`` into the
+    window as ``kernels.rolling_matmul._window_grad`` writes it."""
 
     @staticmethod
     def forward(ctx, h, eoffs, foffs, wd):
         G, win = h.shape[1], h.shape[-1]
         ctx.save_for_backward(h, wd)
         ctx.eoffs, ctx.foffs = eoffs, foffs
-        return torch.stack([torch.bmm(h[c], wd[c, eo:eo + G, fo:fo + win])
+        return torch.stack([bmm(h[c], wd[c, eo:eo + G, fo:fo + win])
                             for c, (eo, fo) in enumerate(zip(eoffs, foffs))])
 
     @staticmethod
@@ -149,11 +185,18 @@ class _ExpertDown(torch.autograd.Function):
         G, win = h.shape[1], h.shape[-1]
         views = [wd[c, eo:eo + G, fo:fo + win]
                  for c, (eo, fo) in enumerate(zip(ctx.eoffs, ctx.foffs))]
-        dh = torch.stack([torch.bmm(dy[c], v.mT) for c, v in
+        # the widened view's transpose: autograd of the extract phase's
+        # bmm multiplies by its widened compact copy's
+        dh = torch.stack([bmm(dy[c], wide(v).mT, dy.dtype) for c, v in
                           enumerate(views)])
+        check_f32_sums(h)
         dw = torch.zeros_like(wd)
         for c, (eo, fo) in enumerate(zip(ctx.eoffs, ctx.foffs)):
-            dw[c, eo:eo + G, fo:fo + win].baddbmm_(h[c].mT, dy[c])
+            win_dw = dw[c, eo:eo + G, fo:fo + win]
+            if dw.device.type == "cpu" and dw.dtype != torch.float32:
+                win_dw.copy_(torch.bmm(h[c].mT.float(), dy[c].float()))
+            else:
+                win_dw.baddbmm_(h[c].mT, dy[c])
         return dh, None, None, dw
 
 
@@ -203,12 +246,13 @@ def moe_apply(p, x, cfg, path="dropping", window=None):
         if fspec is not None:     # dense path: slice the window (test oracle)
             wg, wu = fspec.take(wg, dim=3), fspec.take(wu, dim=3)
             wd = fspec.take(wd, dim=2)
-        g = act(torch.einsum("ctd,cedf->ctef", xt, wg))
-        u = torch.einsum("ctd,cedf->ctef", xt, wu)
-        y_all = torch.einsum("ctef,cefd->cted", g * u, wd)     # [C, T, E, D]
+        x2 = wide(xt)      # one widened x for the gate/up pair
+        g = act(einsum("ctd,cedf->ctef", x2, wg, xt.dtype))
+        u = einsum("ctd,cedf->ctef", x2, wu, xt.dtype)
+        y_all = einsum("ctef,cefd->cted", g * u, wd)          # [C, T, E, D]
         gate = torch.zeros((C, T, E), dtype=xt.dtype,
                            device=xt.device).scatter(2, idx, w)
-        out = torch.einsum("cted,cte->ctd", y_all, gate)
+        out = einsum("cted,cte->ctd", y_all, gate)
     elif path == "dropping":
         cap = min(max(int(T * k / E * mo.capacity_factor), 1), T)
         src, pick = _dispatch(idx, E, cap)
@@ -221,6 +265,10 @@ def moe_apply(p, x, cfg, path="dropping", window=None):
         else:
             y = _expert_ffn(wg, wu, wd, xin, cfg.act)
         ypad = torch.cat([y.reshape(C, E * cap, D), y.new_zeros(C, 1, D)], 1)
+        # each token's choices in order of ascending expert (the
+        # reference's scatter-add order)
+        order = torch.argsort(idx, dim=-1)
+        pick, w = pick.gather(-1, order), w.gather(-1, order)
         contrib = ypad[lanes[..., None], pick] * w[..., None]  # [C, T, k, D]
         out = contrib[:, :, 0]
         for j in range(1, k):

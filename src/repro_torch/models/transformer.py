@@ -66,7 +66,7 @@ from repro_torch.models.layers import (AxisWindow, ParamBuilder, WindowMap,
                                        bmm, gelu, mlp_apply,
                                        mlp_apply_rolling, mlp_params,
                                        rms_norm, sinusoidal_positions,
-                                       softmax_xent)
+                                       softmax_xent, wide)
 from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.models.ssm import n_heads, ssm_decode, ssm_params, ssm_train
 
@@ -279,24 +279,8 @@ KV_CACHE = ("k", "v")
 MLA_CACHE = ("c", "kr")
 
 
-#: the parameter dtypes a model takes
+#: the parameter dtypes a model takes (every family takes both)
 PARAM_DTYPES = (torch.float32, torch.bfloat16)
-
-
-#: the families bf16 params run
-BF16_FAMILIES = ("dense", "ssm", "hybrid")
-
-
-def _check_bf16_family(cfg: ModelConfig):
-    """bf16 params run the dense GQA family (with ``qk_norm``), the SSM
-    family and the hybrid block; the MoE, MLA, codebook and vision paths at
-    bf16 wait for ROADMAP.md A11 part 3."""
-    if cfg.family not in BF16_FAMILIES or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: bfloat16 params run the families {BF16_FAMILIES} "
-            f"without MLA; family {cfg.family!r}"
-            f"{' with MLA' if cfg.mla else ''} at bf16 is ROADMAP.md A11 "
-            "(part 3)")
 
 
 @dataclass
@@ -316,8 +300,6 @@ class Model:
         if self.param_dtype not in PARAM_DTYPES:
             raise ValueError(f"param_dtype must be one of {PARAM_DTYPES}; "
                              f"got {self.param_dtype!r}")
-        if self.param_dtype != torch.float32:
-            _check_bf16_family(self.cfg)
 
     def init(self, seed=0, device="cuda") -> Dict[str, torch.Tensor]:
         """Random server params of ``param_dtype``, drawn from ``seed`` on
@@ -395,9 +377,13 @@ class Model:
 
     def _embed(self, params, tokens, patches=None, pos=None):
         """tokens ``[C, B, S]`` (``[C, B, S, CB]``: the codebooks' rows
-        summed) -> ``[C, B, S, D]``, each client's rows; sinusoidal
-        positions added at ``0..S-1`` (at ``pos`` for a decode step); the
-        projected ``patches [C, B, P, vision_d]`` prepended."""
+        summed, in the embedding's dtype) -> ``[C, B, S, D]``, each
+        client's rows; sinusoidal positions added at ``0..S-1`` (at ``pos``
+        for a decode step), rounded once to that dtype; the projected
+        ``patches [C, B, P, vision_d]`` prepended.  The projector follows
+        jnp's promotion of the reference's float32 patches: ``w1`` and
+        ``w2`` widened, the products and the gelu in float32, one rounding
+        to the embedding's dtype."""
         cfg = self.cfg
         C = tokens.shape[0]
         emb = params["embed"]                     # [C, (CB,) V, D]
@@ -418,9 +404,10 @@ class Model:
                   torch.full((S,), int(pos), device=tokens.device))
             h = h + sinusoidal_positions(at, D).to(h.dtype)
         if patches is not None:
-            w1, w2 = params["vision_proj/w1"], params["vision_proj/w2"]
+            w1, w2 = (params[f"vision_proj/{w}"].float() for w in ("w1",
+                                                                   "w2"))
             vp = torch.bmm(gelu(torch.bmm(
-                patches.reshape(C, -1, patches.shape[-1]), w1)), w2)
+                patches.reshape(C, -1, patches.shape[-1]).float(), w1)), w2)
             h = torch.cat([vp.reshape(C, patches.shape[1], -1, D)
                            .to(h.dtype), h], dim=2)
         return h
@@ -428,12 +415,17 @@ class Model:
     def _head(self, params, h):
         """``h [C, B, S, D]`` -> logits ``[C, B, S, V]`` (the tied head
         multiplies by the embedding's transpose; codebooks give ``[C, B,
-        S, CB, V]``, a head each)."""
+        S, CB, V]``, a head each: one ``bmm`` over a ``[C * CB]`` batch, on
+        one widened h, so that h's gradient sums over the codebooks in
+        float32 and rounds once, as the reference's one ``einsum``)."""
         C, B, S, D = h.shape
         if self.cfg.n_codebooks:
-            logits = torch.matmul(h.reshape(C, 1, B * S, D), params["head"])
-            return logits.permute(0, 2, 1, 3).reshape(
-                C, B, S, self.cfg.n_codebooks, -1)
+            CB = self.cfg.n_codebooks
+            hw = wide(h).reshape(C, 1, B * S, D).expand(C, CB, B * S, D)
+            head = params["head"]
+            logits = bmm(hw.reshape(C * CB, B * S, D),
+                         head.reshape(C * CB, D, head.shape[-1]), h.dtype)
+            return logits.view(C, CB, B, S, -1).permute(0, 2, 3, 1, 4)
         w = (params["embed"].transpose(1, 2) if self.cfg.tie_embeddings
              else params["head"])
         return bmm(h.reshape(C, B * S, D), w).reshape(C, B, S, -1)

@@ -87,7 +87,8 @@ from repro.models.attention import \
 from repro_torch import api, convert  # noqa: E402
 from repro_torch.checkpoint import checkpoint  # noqa: E402
 from repro_torch.configs.base import (SubmodelConfig,  # noqa: E402
-                                      get_reduced_config)
+                                      get_config, get_reduced_config,
+                                      list_archs)
 from repro_torch.core.trainer import _to_device  # noqa: E402
 from repro_torch.data.synthetic import lm_batches  # noqa: E402
 from repro_torch.kernels.masked_update import (fillin_agg_,  # noqa: E402
@@ -96,6 +97,7 @@ from repro_torch.kernels.rolling_matmul import (make_offsets,  # noqa: E402
                                                 rolling_matmul,
                                                 rolling_mm_dx, rolling_mm_fwd)
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.transformer import build_params  # noqa: E402
 from repro_torch.models.attention import (blockwise_attention,  # noqa: E402
                                           decode_attention)
 
@@ -458,11 +460,25 @@ def test_prefill_and_decode_match_reference_at_bf16(ref_model, port_model,
         _close_to_max(got, want, "decode from init_cache")
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x22b", "deepseek_v3_671b",
-                                  "musicgen_large", "phi_3_vision_4_2b"])
-def test_bf16_families_left_refused_name_their_item(arch):
-    with pytest.raises(NotImplementedError, match="A11 \\(part 3\\)"):
-        build_model(get_reduced_config(arch), param_dtype=BF)
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_arch_builds_at_bf16(arch):
+    """Every architecture of the zoo takes bf16 params: the reduced
+    model's params drawn in bf16, shaped as its ``abstract_params``, as
+    many elements as the reference's bf16 ``abstract_params``, every one
+    of which is bf16; the full config's params on the ``meta`` device
+    bf16 too."""
+    model = build_model(get_reduced_config(arch), param_dtype=BF)
+    params = model.init(0, device="cpu")
+    assert {v.dtype for v in params.values()} == {BF}
+    assert {k: v.shape for k, v in params.items()} == \
+        model.abstract_params()
+    want = jax.tree_util.tree_leaves(ref_build(
+        ref_reduced(arch), param_dtype=jnp.bfloat16).abstract_params())
+    assert {str(a.dtype) for a in want} == {"bfloat16"}
+    assert sum(math.prod(a.shape) for a in want) == \
+        sum(v.numel() for v in params.values())
+    full, _ = build_params(get_config(arch), 0, "meta", BF)
+    assert {v.dtype for v in full.values()} == {BF}
 
 
 def test_param_dtype_takes_float32_or_bfloat16():
