@@ -118,6 +118,22 @@ Phases, each of which fails the run when it fails:
    fleet (M = N, 2 rounds, within 1e-5 of the sync hetero rounds); the
    training CLI with ``--async-buffer 2 --fleet 8 --straggler-frac 0.25``
    as a subprocess.
+4p. The mesh round (``api.fed_round(mesh=)``), after the fleet path.  (a)
+   A world of one NCCL rank in this process, full-width TinyLlama-1.1B in
+   the window path's configuration: 3 single-process rounds, 3 gather
+   rounds (params and client losses bit-equal to them) and 3 psum rounds
+   (round 1's client losses bit-equal, its params within 1e-5): seconds a
+   round, peak, rows 5-8 and 10's launches.  (b) Two gloo ranks on the one
+   card (NCCL takes one rank a device: ``tools/mesh_probe.py``) at 4 of 22
+   layers: 2 gather rounds, a psum round and a staggered gather round,
+   each held within 1e-4 of the largest magnitude of rank 0's
+   single-process rounds (bit-equality printed), every rank's launches and
+   peak, then context-parallel decode (each rank half the cache's
+   positions; prefill 256, 16 teacher-forced steps) within 1e-4 of the
+   single-process logits.  (c) ``[mesh cli]`` (in the stagger path's CLI
+   step): ``launch.train --mesh 1 --mesh-agg psum``, 2 rounds.  Rows 5-8
+   and 10 carry ``launches_by_path`` ``mesh``, ``mesh_psum``,
+   ``mesh_gloo_rank0`` and ``mesh_gloo_rank1``.
 4b. The mask path: the same configuration with ``scheme="bernoulli"``
    (Algorithm 1, mask mode chosen by ``api.fed_round`` itself) through
    ``api.Trainer(rng=0)``, 3 rounds, counted, checked and profiled the
@@ -137,7 +153,7 @@ Phases, each of which fails the run when it fails:
    held-out tokens; one prefill under ``torch.profiler``.  Then
    full-width TinyLlama-1.1B prefills 4 x 1536 tokens and decodes 128
    greedy tokens; teacher-forced decode of the last 512 of 2048 prompt
-   tokens against one prefill of all 2048.
+   tokens against one prefill of all 2048, at 4 of its 22 layers.
 4e. The paper's protocol (§5) on full-width pre-act ResNet18: 100 clients
    with 2 labels each, 10 a round, the HeteroFL capacity mix, K = 2 x 32
    images, SyntheticCIFAR 50 000 + 10 000; 5 rounds each of ``rolling``,
@@ -162,7 +178,7 @@ Phases, each of which fails the run when it fails:
    ``[hybrid eval]``: its loss on 4 x 2048 tokens with and without
    ``REPRO_USE_FLASH`` (rows 12 and 13); ``[hybrid serve]``: a 4 x 2048
    prefill and 64 greedy steps, and prefill 1536 + 512 teacher-forced decode
-   steps against one prefill of 2048.
+   steps against one prefill of 2048, at 4 of its 32 layers.
 4k. The dense and MoE model zoo and the continuous batcher, after the
    hybrid block, each at its published widths from random weights (seed
    0), f32.  ``[deepseek round]``: DeepSeek-7B cut to 4 of 30 layers, 4
@@ -1632,11 +1648,10 @@ def phase_eval(dev, trainer, _build):
 def phase_profile_eval(tag, fn):
     """One more run of an eval part under torch.profiler: device time by
     kernel group (the flash kernel's share) and the profiled wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=profiled()) as prof:
         fn()
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
@@ -1740,6 +1755,18 @@ SB, SS, SG = 8, 32768, 32    # Mamba2 serving: batch, prompt, greedy steps
 # TinyLlama serving: 4 prompts of 1536, 128 greedy steps; the
 # teacher-forced check decodes the last 512 of 2048 prompt tokens
 DB, DS, DG, DT = 4, 1536, 128, 512
+# The dense and hybrid teacher-forced checks (512 eager decode steps, each
+# host-bound) run at 4 layers of the widths they check (cut: depth), the
+# timed serving at the phase's own depth: at 22 and 16 layers the two
+# checks took 25 s and 45 s of a script that must end in 1200 s
+TF_LAYERS = 4
+
+
+def tf_model(cfg, dev):
+    """``cfg`` at TF_LAYERS layers, built and initialised from seed 0."""
+    from repro_torch.models import build_model
+    model = build_model(dataclasses.replace(cfg, n_layers=TF_LAYERS))
+    return model, model.init(seed=0, device=dev)
 
 
 def timed(fn, n):
@@ -1917,7 +1944,6 @@ def profile_prefill(tag, model, params, prompts, prefill_s):
     device time's share of an unprofiled prefill, the ten longest kernels.
     Returns ``device_kernels``' list (empty where the trace holds no
     device time)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.ssd_chunk import RECURRENCE
     SB, SS = prompts.shape
@@ -1930,7 +1956,8 @@ def profile_prefill(tag, model, params, prompts, prefill_s):
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     # the range shows up on the device too, as an annotation: not a kernel
-    kern, groups = device_kernels(prof, skip=(RECURRENCE,))
+    trace = Trace(prof)
+    kern, groups = trace.device(skip=(RECURRENCE,))
     if not kern:
         print(f"[{tag}] the trace holds no device time: not "
               "measured")
@@ -1943,14 +1970,14 @@ def profile_prefill(tag, model, params, prompts, prefill_s):
     for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[{tag}] {g:26s} {t:9.2f} ms "
               f"{100 * t / total:5.1f}%")
-    for e in prof.key_averages():
-        if e.key == RECURRENCE and e.device_type == DeviceType.CPU:
-            dev_ms = e.device_time_total / 1e3
-            print(f"[{tag}] inter-chunk loop ({RECURRENCE}, "
-                  f"{e.count} ranges): its kernels {dev_ms:.2f} ms on the "
-                  f"device = {100 * dev_ms / total:.1f}%; "
-                  f"{e.cpu_time_total / 1e3:.2f} ms on the host, waits on "
-                  "the full launch queue included")
+    if trace.calls(RECURRENCE):
+        dev_ms = sum(kernel_groups(o for r in trace.roots(
+            lambda n, _: n == RECURRENCE) for o in trace.tree(r)).values())
+        print(f"[{tag}] inter-chunk loop ({RECURRENCE}, "
+              f"{trace.calls(RECURRENCE)} ranges): its kernels {dev_ms:.2f} "
+              f"ms on the device = {100 * dev_ms / total:.1f}%; "
+              f"{trace.host_ms(RECURRENCE):.2f} ms on the host, waits on "
+              "the full launch queue included")
     for name, t, n in sorted(kern, key=lambda r: -r[1])[:10]:
         print(f"[{tag}]   {t:9.2f} ms x{n:<5d} {name[:100]}")
     return kern
@@ -1960,11 +1987,10 @@ def profile_decode_step(tag, fn):
     """One decode step: its unprofiled wall time (mean of 3 after a
     warm-up) against the device time and launches of one more step under
     torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
     fn()
     secs, _ = timed(fn, 3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=profiled()) as prof:
         fn()
         torch.cuda.synchronize()
     kern, groups = device_kernels(prof)
@@ -1984,9 +2010,9 @@ def profile_decode_step(tag, fn):
 def phase_serve_dense(dev, _build):
     """Full-width TinyLlama-1.1B serving: 4 prompts of 1536 tokens, 128
     greedy steps.  A short warm-up, two timed prefills, then the
-    generation timed with the peak from a reset; then prefill 1536 of 2048
-    prompt tokens + the other 512 teacher-forced against one prefill of
-    all 2048 (its context)."""
+    generation timed with the peak from a reset; then, at TF_LAYERS of the
+    22 layers, prefill 1536 of 2048 prompt tokens + the other 512
+    teacher-forced against one prefill of all 2048 (its context)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.launch.specs import sample_prompts
@@ -2018,6 +2044,8 @@ def phase_serve_dense(dev, _build):
     print(f"[serve dense] decode: {1e3 * out['decode_s'] / DG:.3f} ms/token "
           f"({DG} greedy steps, batch {DB}); peak memory allocated "
           f"{peak / 2**30:.2f} GiB; kernel launches {launches}")
+    del model, params
+    model, params = tf_model(cfg, dev)
     with torch.no_grad():
         want, _ = model.prefill(params, seq)
     got, _ = teacher_forced(model, params, seq, DS)
@@ -2025,8 +2053,9 @@ def phase_serve_dense(dev, _build):
     check(bool(torch.isfinite(want).all()) and e[1] <= MM_RTOL,
           f"dense prefill {DS} + {DT} decode steps vs prefill {DS + DT}: {e}")
     print(f"[serve dense] prefill {DS} + {DT} teacher-forced decode steps vs "
-          f"prefill {DS + DT}: logits max abs diff {e[0]:.3g} (rel "
-          f"{e[1]:.3g}, tolerance {MM_RTOL})")
+          f"prefill {DS + DT} at {TF_LAYERS} of {cfg.n_layers} layers (cut: "
+          f"depth): logits max abs diff {e[0]:.3g} (rel {e[1]:.3g}, "
+          f"tolerance {MM_RTOL})")
 
 
 # -- phase 3, the extract round and the paper's protocol ----------------------
@@ -2467,12 +2496,8 @@ def phase_stagger_path(dev, _build):
           f"{[o[('d_ff', cfg.d_ff)] for o in offsets]}")
     trainer = api.Trainer(fed, params)
     launches, round_s = run_rounds("stagger", trainer, data, _build)
-    leaves, n = len(params), len(data)
-    want = {"rolling_mm_fwd<1>": 3 * cfg.n_layers * 2 * n,
-            "rolling_mm_dx<1>": 3 * cfg.n_layers * 2 * n,
-            "rolling_mm_fwd<2>": cfg.n_layers * 2 * n,
-            "rolling_mm_dx<2>": cfg.n_layers * 2 * n,
-            "sgd_inplace": 2 * leaves * n}
+    n = len(data)
+    want = _window_launches(cfg, len(params), n)
     got = {k: launches.get(k, 0) for k in want}
     check(got == want, f"stagger path launches {got}, expected {want}")
     check(trainer.opt_state["t"] == n, "server Adam's step count")
@@ -2488,27 +2513,37 @@ def phase_stagger_path(dev, _build):
     return launches
 
 
+#: the mesh round through the CLI: a world of one NCCL rank, psum
+MESH_CLI = [*CLI, "--mesh", "1", "--mesh-agg", "psum", "--rounds", "2"]
+
+
 def phase_train_cli():
     """``python -m repro_torch.launch.train`` with the stagger path's
-    configuration, as a subprocess on the card: its JSON losses finite."""
+    configuration, as a subprocess on the card, then the same with the
+    mesh round (``MESH_CLI``: ``--mesh 1 --mesh-agg psum``, 2 rounds):
+    their JSON losses finite."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                           *CLI], capture_output=True, text=True, env=env,
-                          cwd=str(ROOT), timeout=600)
-    secs = time.perf_counter() - t0
-    check(proc.returncode == 0, f"the training CLI failed "
-          f"({proc.returncode}): {proc.stderr[-2000:]}")
-    lines = proc.stdout.strip().splitlines()
-    out = json.loads(lines[-1])
-    check(set(out) == {"first_loss", "last_loss"} and
-          all(math.isfinite(v) for v in out.values()),
-          f"the training CLI printed {out}")
-    for line in lines:
-        print(f"[train cli] {line}")
-    print(f"[train cli] python -m repro_torch.launch.train {' '.join(CLI)}: "
-          f"{secs:.1f} s in all (process start, kernel load, init, 3 "
-          f"rounds); finite losses")
+    for tag, argv, what in (("train cli", CLI, "3 rounds"),
+                            ("mesh cli", MESH_CLI, "a world of one NCCL "
+                             "rank, 2 psum rounds")):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m",
+                               "repro_torch.launch.train", *argv],
+                              capture_output=True, text=True, env=env,
+                              cwd=str(ROOT), timeout=600)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the training CLI failed "
+              f"({proc.returncode}): {proc.stderr[-2000:]}")
+        lines = proc.stdout.strip().splitlines()
+        out = json.loads(lines[-1])
+        check(set(out) == {"first_loss", "last_loss"} and
+              all(math.isfinite(v) for v in out.values()),
+              f"the training CLI printed {out}")
+        for line in lines:
+            print(f"[{tag}] {line}")
+        print(f"[{tag}] python -m repro_torch.launch.train {' '.join(argv)}"
+              f": {secs:.1f} s in all (process start, kernel load, init, "
+              f"{what}); finite losses")
 
 
 MASK_OPT_LAYERS = 11      # client momentum at 11 of 22 layers: see PERF.md
@@ -2817,6 +2852,260 @@ def phase_fleet_path(dev, _build):
     return launches
 
 
+# -- the mesh round (A12): the clients split over torch.distributed ranks ------
+
+MESH_LAYERS = 4           # (b): TinyLlama-1.1B's widths at 4 of 22 layers
+MESH_TF = (256, 16)       # (b): prefill, then teacher-forced decode steps
+MESH_ROWS = ("rolling_mm_fwd<1>", "rolling_mm_dx<1>", "rolling_mm_fwd<2>",
+             "rolling_mm_dx<2>", "sgd_inplace")
+
+
+def _copy(params):
+    return {k: v.clone() for k, v in params.items()}
+
+
+def _bits(params):
+    """A fingerprint of params that a changed bit moves: each leaf's f32
+    bit patterns summed as integers."""
+    return [int(v.detach().contiguous().view(torch.int32)
+                .sum(dtype=torch.int64)) for v in params.values()]
+
+
+def _rel_err(got, want):
+    """The largest ``|got - want|`` over params (dicts) or tensors, over
+    the largest ``|want|``, and whether they are equal bit for bit."""
+    if isinstance(want, dict):
+        d = max((got[k] - want[k]).abs().max().item() for k in want)
+        top = max(want[k].abs().max().item() for k in want)
+        same = all(torch.equal(got[k], want[k]) for k in want)
+    else:
+        d = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        same = torch.equal(got, want)
+    return d / max(top, 1e-30), same
+
+
+def _window_launches(cfg, leaves, n):
+    """Rows 5-8 and 10's launches over n fused rounds of the window
+    configuration (K = 2, q/k/v and the gate/up pair windowed), whatever
+    the clients (one launch takes them all)."""
+    return {"rolling_mm_fwd<1>": 3 * cfg.n_layers * 2 * n,
+            "rolling_mm_dx<1>": 3 * cfg.n_layers * 2 * n,
+            "rolling_mm_fwd<2>": cfg.n_layers * 2 * n,
+            "rolling_mm_dx<2>": cfg.n_layers * 2 * n,
+            "sgd_inplace": 2 * leaves * n}
+
+
+def phase_mesh(dev, _build):
+    """The mesh round (``api.fed_round(mesh=)``) on the card.  (a) A world
+    of one NCCL rank in this process, full-width TinyLlama-1.1B in the
+    window path's configuration from the same params, batches and offsets:
+    3 single-process rounds, 3 gather rounds (params and client losses
+    bit-equal to them) and 3 psum rounds (the first round's losses
+    bit-equal, its params within 1e-5); seconds a round (rounds 2-3), peak
+    and rows 5-8 and 10's launches of each arm.  (b) Two local gloo ranks
+    on the one card (``launch.mesh.spawn``: NCCL takes one rank a device),
+    at MESH_LAYERS layers: ``_mesh_card_rank``.  Returns the launches of
+    (a)'s gather and psum arms and of (b)'s ranks."""
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.launch.mesh import host_mesh, init_world, spawn
+    cfg, model, data = full_width(dev)
+    p0 = model.init(seed=0, device=dev)
+    scfg = scfg_for("rolling")
+    gib = sum(v.numel() * v.element_size() for v in p0.values()) / 2**30
+
+    trainer = api.Trainer(api.fed_round(model, scfg, device=dev), _copy(p0))
+    first = {}
+
+    def keep_first(i):
+        if i == 0:
+            first.update(params=_copy(trainer.params),
+                         losses=trainer.history[0]["client_loss"].clone())
+    none_launches, none_s = run_rounds("mesh none", trainer, data, _build,
+                                       after=keep_first)
+    none = dict(params=trainer.params,
+                losses=[h["client_loss"] for h in trainer.history])
+    del trainer
+    end = init_world("cuda")
+    check(end is not None and dist.get_backend() == "nccl" and
+          dist.get_world_size() == 1, "a world of one NCCL rank")
+    launches = {}
+    try:
+        mesh = host_mesh("1")
+        for agg in ("gather", "psum"):
+            fed = api.fed_round(model, scfg, mesh=mesh, mesh_agg=agg,
+                                device=dev)
+            trainer = api.Trainer(fed, _copy(p0))
+            errs = {}
+
+            def after(i):
+                if i == 0 and agg == "psum":
+                    errs["losses"] = _rel_err(
+                        trainer.history[0]["client_loss"], first["losses"])
+                    errs["params"] = _max_diff(trainer.params,
+                                               first["params"])
+            launches[agg], round_s = run_rounds(f"mesh {agg}", trainer, data,
+                                                _build, after=after)
+            print(f"[mesh {agg}] NCCL world of 1, full width, 22 layers: "
+                  f"{round_s:.3f} s a round after the first (single-"
+                  f"process {none_s:.3f}); peak includes {3 * gib:.2f} GiB "
+                  "of the phase's own copies (start, round 1, round 3 of "
+                  "the single-process arm)")
+            got = {k: launches[agg].get(k, 0) for k in MESH_ROWS}
+            want = {k: none_launches.get(k, 0) for k in MESH_ROWS}
+            check(got == want and all(got.values()),
+                  f"mesh {agg} launches {got}, single-process {want}")
+            if agg == "gather":
+                err, same = _rel_err(trainer.params, none["params"])
+                lsame = all(torch.equal(h["client_loss"], w) for h, w in
+                            zip(trainer.history, none["losses"]))
+                print(f"[mesh gather] vs single-process, 3 rounds: params "
+                      f"bit-equal {same}, client losses bit-equal {lsame}")
+                check(same and lsame, "the gather round is not the "
+                      f"single-process round bit for bit (params {err})")
+            else:
+                (lerr, lsame), perr = errs["losses"], errs["params"]
+                print(f"[mesh psum] round 1 vs single-process: client "
+                      f"losses bit-equal {lsame}; params max |d| {perr:.3e}"
+                      " (limit 1e-05)")
+                check(lsame and perr <= 1e-5,
+                      f"the psum round: losses {lerr}, params {perr}")
+            del trainer, fed
+    finally:
+        end()
+    del p0, first, none
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks on the one card
+    t0 = time.perf_counter()
+    res = spawn(_mesh_card_rank, 2, [{k: np.asarray(v) for k, v in b.items()}
+                                     for b in data])
+    print(f"[mesh gloo] 2 ranks on one card (gloo), {MESH_LAYERS} of 22 "
+          f"layers, {res['n_params']:,} params: {time.perf_counter() - t0:.1f}"
+          " s in all (processes, kernel load, init, rounds, decode)")
+    for tag, arm in res["arms"].items():
+        print(f"[mesh gloo {tag}] seconds a round {arm['secs']}; peak a rank "
+              f"{[round(p / 2**30, 2) for p in arm['peaks']]} GiB; vs the "
+              f"single-process round: max |d| / max |want| params "
+              f"{arm['err'][0]:.3e}, client losses {arm['lerr'][0]:.3e} "
+              f"(limit 1e-4); bit-equal params {arm['err'][1]}, losses "
+              f"{arm['lerr'][1]}; every rank the same params "
+              f"{arm['same']}; launches by rank {arm['launches']}")
+        check(arm["err"][0] <= 1e-4 and arm["lerr"][0] <= 1e-4 and
+              arm["same"], f"mesh gloo {tag}: {arm['err']} {arm['lerr']}")
+        for r, got in enumerate(arm["launches"]):
+            got = {k: got.get(k, 0) for k in MESH_ROWS}
+            check(got == arm["want"], f"mesh gloo {tag} rank {r} launches "
+                  f"{got}, expected {arm['want']}")
+    d = res["decode"]
+    print(f"[mesh gloo decode] context-parallel (cache positions split over "
+          f"the 2 ranks), prefill {MESH_TF[0]} + {MESH_TF[1]} teacher-forced"
+          f" steps: max |d| / max |logit| {d['err'][0]:.3e} (limit 1e-4), "
+          f"bit-equal {d['err'][1]}; {d['ms']:.2f} ms a step "
+          f"(single-process {d['plain_ms']:.2f})")
+    check(d["err"][0] <= 1e-4, f"mesh gloo decode {d['err']}")
+    return (launches["gather"], launches["psum"],
+            *(dict(x) for x in res["arms"]["gather"]["launches"]))
+
+
+def _mesh_card_rank(batches):
+    """One of phase_mesh (b)'s two gloo ranks on the card: full-width
+    TinyLlama-1.1B at MESH_LAYERS layers from seed 0, the gather round (2
+    rounds), the psum round (1) and a staggered gather round (1) on the
+    window path's batches, timed a round, each rank's peak and launches,
+    whether every rank ends with the same params; rank 0 then runs the same
+    rounds without a mesh and holds the mesh rounds to them (params and
+    client losses within 1e-4 of the largest magnitude; bit-equality
+    reported); then context-parallel decode (each rank its half of the
+    cache's positions) against rank 0's single-process decode.  Rank 0's
+    summary is the result."""
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.launch.specs import cache_shard, sample_prompts
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    cfg = dataclasses.replace(get_config("tinyllama_1_1b"),
+                              n_layers=MESH_LAYERS)
+    model = build_model(cfg)
+    p0 = model.init(seed=0, device=dev)
+    mesh = host_mesh("2")
+    arms = {"gather": (scfg_for("rolling"), "gather", 2),
+            "psum": (scfg_for("rolling"), "psum", 1),
+            "stagger gather": (stagger_scfg(), "gather", 1)}
+    out, kept = {"n_params": sum(v.numel() for v in p0.values()),
+                 "arms": {}}, {}
+    for tag, (scfg, agg, n) in arms.items():
+        fed = api.fed_round(model, scfg, mesh=mesh, mesh_agg=agg, device=dev)
+        trainer = api.Trainer(fed, _copy(p0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        secs = []
+        for b in batches[:n]:
+            t0 = time.perf_counter()
+            trainer.run(iter([b]), 1)
+            torch.cuda.synchronize()
+            secs.append(round(time.perf_counter() - t0, 4))
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (_bits(trainer.params),
+                                       torch.cuda.max_memory_allocated(),
+                                       dict(_build.LAUNCHES)))
+        kept[tag] = trainer
+        out["arms"][tag] = dict(
+            secs=secs, peaks=[e[1] for e in every],
+            launches=[e[2] for e in every],
+            same=all(e[0] == every[0][0] for e in every),
+            want=_window_launches(cfg, len(p0), n))
+    if rank == 0:
+        for tag, (scfg, _, n) in arms.items():
+            single = api.Trainer(api.fed_round(model, scfg, device=dev),
+                                 _copy(p0))
+            single.run(iter(batches[:n]), n)
+            got = kept[tag]
+            out["arms"][tag]["err"] = _rel_err(got.params, single.params)
+            out["arms"][tag]["lerr"] = _rel_err(
+                torch.stack([h["client_loss"] for h in got.history]),
+                torch.stack([h["client_loss"] for h in single.history]))
+            del single
+    dist.barrier()
+    del kept
+    split, steps = MESH_TF
+    tokens = torch.as_tensor(sample_prompts(cfg, 2, split + steps, seed=0)[0],
+                             dtype=torch.long, device=dev)
+
+    def decode(on_mesh):
+        with torch.no_grad():
+            _, caches = model.prefill(p0, tokens[:, :split],
+                                      max_len=split + steps)
+            if on_mesh:
+                caches = cache_shard(caches, mesh)
+            torch.cuda.synchronize()
+            t0, logits = time.perf_counter(), []
+            for pos in range(split, split + steps):
+                lg, caches = model.decode_step(
+                    p0, tokens[:, pos], caches, pos,
+                    mesh=mesh if on_mesh else None, cp=on_mesh)
+                logits.append(lg)
+            torch.cuda.synchronize()
+        return torch.stack(logits), (time.perf_counter() - t0) * 1e3 / steps
+
+    cp, ms = decode(True)
+    if rank == 0:
+        plain, plain_ms = decode(False)
+        out["decode"] = dict(err=_rel_err(cp, plain), ms=ms,
+                             plain_ms=plain_ms)
+    return out
+
+
 # -- this slice: SSM training (Mamba2) and the hybrid block (Hymba) ------------
 
 SSM_SEQ, HYB_SEQ = 1024, 256      # tokens a sequence; 2 sequences a step
@@ -3050,9 +3339,10 @@ def phase_hybrid_serve(dev, _build):
     times; rows 12 and 13), the two within EVAL_RTOL, one profiled flash
     eval.  ``[hybrid serve]``: 4 prompts of 2048 tokens prefilled and 64
     greedy steps through ``serve.generate`` (launches, peak, prefill s,
-    ms/token), then prefill 1536 + 512 teacher-forced decode steps against
-    one prefill of 2048 (the last logits within MM_RTOL).  Returns the
-    launches of the eval (with flash) and of the generation."""
+    ms/token), then, at TF_LAYERS layers, prefill 1536 + 512
+    teacher-forced decode steps against one prefill of 2048 (the last
+    logits within MM_RTOL).  Returns the launches of the eval (with flash)
+    and of the generation."""
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.launch.serve import generate
     from repro_torch.launch.specs import sample_prompts
@@ -3112,6 +3402,8 @@ def phase_hybrid_serve(dev, _build):
           f" ms/token ({HG} greedy steps, batch {HB}); peak memory allocated "
           f"{peak / 2**30:.2f} GiB; kernel launches {launches}; first row "
           f"{gen['tokens'][0, :12].tolist()}")
+    del model, params
+    model, params = tf_model(cfg, dev)
     with torch.no_grad():
         want, _ = model.prefill(params, prompts)
     got, _ = teacher_forced(model, params, prompts, HSPLIT)
@@ -3121,8 +3413,8 @@ def phase_hybrid_serve(dev, _build):
           f"prefill {HS}: {e}")
     print(f"[hybrid serve] prefill {HSPLIT} + {HS - HSPLIT} teacher-forced "
           f"decode steps (the ring of {cfg.sliding_window} wraps) vs prefill "
-          f"{HS}: logits max abs diff {e[0]:.3g} (rel {e[1]:.3g}, tolerance "
-          f"{MM_RTOL})")
+          f"{HS} at {TF_LAYERS} of 32 layers (cut: depth): logits max abs "
+          f"diff {e[0]:.3g} (rel {e[1]:.3g}, tolerance {MM_RTOL})")
     del model, params, prompts
     gc.collect()
     torch.cuda.empty_cache()
@@ -4069,17 +4361,23 @@ def phase_paper_path(dev, _build):
     all schemes' rounds."""
     from repro_torch.configs.resnet18_cifar import CAPACITY_BETAS, CONFIG
     from repro_torch.core.paper_protocol import PaperExperiment
+    from repro_torch.data.federated import FederatedDataset
     leaves, n_test = 56, 10_000
     total = {}
+    t0 = time.perf_counter()
+    exp = PaperExperiment(n_clients=100, participate=10,
+                          partition="label", labels_per_client=2,
+                          capacities=CAPACITY_BETAS, k_steps=2, mb=32,
+                          n_train=50_000, n_test=n_test, rcfg=CONFIG,
+                          device=dev)
+    setup_s = time.perf_counter() - t0
+    # the data and the split are made once; every scheme draws its clients
+    # and batches afresh from the seed, as a new experiment would
+    parts = exp.fed_data.parts
+    orig = exp._round_batches
     for scheme in PAPER_SCHEMES:
-        t0 = time.perf_counter()
-        exp = PaperExperiment(n_clients=100, participate=10,
-                              partition="label", labels_per_client=2,
-                              capacities=CAPACITY_BETAS, k_steps=2, mb=32,
-                              n_train=50_000, n_test=n_test, rcfg=CONFIG,
-                              device=dev)
-        setup_s = time.perf_counter() - t0
-        stamps, orig = [], exp._round_batches
+        exp.fed_data = FederatedDataset(exp.data.train, parts, seed=exp.seed)
+        stamps = []
 
         def stamped(scheme, uniform_cap, orig=orig, stamps=stamps):
             for item in orig(scheme, uniform_cap):
@@ -4114,7 +4412,7 @@ def phase_paper_path(dev, _build):
         print(f"[paper] {scheme}: seconds per round {secs} (rounds 0-3); "
               f"after the first {float(np.mean(secs[1:])):.4f} s; run "
               f"{run_s:.2f} s with the {n_test}-image eval and the gap; data "
-              f"and clients {setup_s:.2f} s")
+              f"and clients {setup_s:.2f} s (made once for every scheme)")
         print(f"[paper] {scheme}: train loss {fin['train_loss']:.5f}, test "
               f"loss {fin['test_loss']:.5f}, test acc {fin['test_acc']:.4f}, "
               f"gap loss {gap['loss_gap']:+.5f} acc {gap['acc_gap']:+.4f}; "
@@ -4129,8 +4427,10 @@ def phase_paper_path(dev, _build):
             phase_profile("paper", trainer, next(items),
                           float(np.mean(secs[1:])))
             del trainer, items
-        del exp, r
+        del r
         gc.collect()
+    del exp
+    gc.collect()
     torch.cuda.empty_cache()
     return total
 
@@ -5613,19 +5913,144 @@ def phase_bf16_family_eval(dev, _build, key, arch):
     return flash[1]
 
 
+class Trace:
+    """What the script reads of a ``torch.profiler`` profile, taken from
+    its raw kineto events with the rules of torch's own event list: each
+    device kernel with its ms, and each synchronous host op with its
+    thread, interval, autograd sequence number and the kernels linked to
+    it by correlation id.  Torch's list (``key_averages()``, ``events()``)
+    makes a Python object and a tree for every host op first, which took
+    8-30 s of host time for each full-width round's profile (PERF.md
+    section 6); this reads the same fields at a small fraction of that
+    (``tools/trace_probe.py`` holds the two against each other)."""
+
+    #: host ops torch's list leaves out (``profiler_util._filter_name``)
+    SKIP = frozenset(("[memory]", "[OutOfMemory]",
+                      "profiler::_record_function_enter",
+                      "profiler::_record_function_enter_new",
+                      "profiler::_record_function_exit", "aten::is_leaf",
+                      "aten::output_nr", "aten::_version"))
+
+    def __init__(self, prof):
+        from torch.autograd import DeviceType
+        self._device, self._host = [], []
+        for e in prof.profiler.kineto_results.events():
+            kind = e.device_type()
+            if kind == DeviceType.CUDA:
+                self._device.append(e)
+            elif kind == DeviceType.CPU:
+                self._host.append(e)
+        self._device = [e for e in self._device if self._kept(e)]
+        # (name, ms) of every device kernel
+        self.kernels = [(e.name(), (e.end_ns() - e.start_ns()) / 1e6)
+                        for e in self._device]
+        self._ops = None
+
+    def _kept(self, e):
+        return e.name() not in self.SKIP and not getattr(
+            e, "is_hidden_event", lambda: False)()
+
+    def _index(self):
+        """The host ops by thread, built on first use: a profile read only
+        for its kernels (``device``) never pays for them."""
+        if self._ops is not None:
+            return
+        linked = {}                # correlation id -> [(name, ms)]
+        for e, k in zip(self._device, self.kernels):
+            if e.linked_correlation_id() > 0:
+                linked.setdefault(e.linked_correlation_id(), []).append(k)
+        self._calls = {}           # host op name -> count, async ones too
+        self._ops = {}             # thread -> ops by (start, -end)
+        for e in self._host:
+            if not self._kept(e):
+                continue
+            name = e.name()
+            self._calls[name] = self._calls.get(name, 0) + 1
+            if e.is_async() or e.start_thread_id() != e.end_thread_id():
+                continue
+            # kernels hang on the host op whose own correlation id they
+            # name, where that op links to nothing itself
+            kern = (linked.get(e.correlation_id(), [])
+                    if e.linked_correlation_id() == 0 else [])
+            self._ops.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), -e.end_ns(), name, e.sequence_nr(), kern))
+        for ops in self._ops.values():
+            ops.sort(key=lambda o: (o[0], o[1]))
+
+    def calls(self, name):
+        """How many host ops are named ``name``."""
+        self._index()
+        return self._calls.get(name, 0)
+
+    def device(self, skip=()):
+        """``(name, device ms, count)`` of every kernel name, leaving out
+        those in ``skip`` (a profiler range shows up on the device too, as
+        an annotation), and their device ms summed by group."""
+        ms, n = {}, {}
+        for name, t in self.kernels:
+            if name not in skip:
+                ms[name] = ms.get(name, 0.0) + t
+                n[name] = n.get(name, 0) + 1
+        kern = [(name, t, n[name]) for name, t in ms.items() if t > 0]
+        groups = {}
+        for name, t, _ in kern:
+            g = _kernel_group(name)
+            groups[g] = groups.get(g, 0.0) + t
+        return kern, groups
+
+    def roots(self, test):
+        """The synchronous host ops whose ``(name, sequence number)``
+        passes ``test``, each as ``(thread, index)``."""
+        self._index()
+        return [(t, i) for t, ops in self._ops.items()
+                for i, o in enumerate(ops) if test(o[2], o[3])]
+
+    def tree(self, root):
+        """The host op ``root`` and every op inside its interval on its
+        thread: its children, theirs and so on."""
+        t, i = root
+        ops = self._ops[t]
+        end = -ops[i][1]
+        yield ops[i]
+        for j in range(i + 1, len(ops)):
+            if ops[j][0] >= end:
+                break
+            if -ops[j][1] <= end:
+                yield ops[j]
+
+    def host_ms(self, name):
+        """The host ms of the synchronous ops named ``name``, summed."""
+        self._index()
+        return sum(-o[1] - o[0] for ops in self._ops.values()
+                   for o in ops if o[2] == name) / 1e6
+
+
+def kernel_groups(ops):
+    """The device ms of the kernels linked to the host ops ``ops``, by
+    kernel group."""
+    out = {}
+    for o in ops:
+        for name, t in o[4]:
+            g = _kernel_group(name)
+            out[g] = out.get(g, 0.0) + t
+    return out
+
+
+def profiled(ranges=()):
+    """The profiler's activities: the device's kernels, and the host's ops
+    only where a profiler range is read (``Trace.tree``).  Recording every
+    host op slowed a host-bound round several times over (the hetero
+    round's profiled wall reached 20.9 s against 1.67 s unprofiled on one
+    host, PERF.md section 6), and the device's kernels do not need them."""
+    from torch.profiler import ProfilerActivity
+    return ([ProfilerActivity.CPU] if ranges else []) + [
+        ProfilerActivity.CUDA]
+
+
 def device_kernels(prof, skip=()):
     """``(name, device ms, count)`` of every kernel in a profile, leaving
     out the names in ``skip``, and their device ms summed by group."""
-    from torch.autograd import DeviceType
-    kern = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in skip
-            and e.self_device_time_total > 0]
-    groups = {}
-    for name, t, _ in kern:
-        g = _kernel_group(name)
-        groups[g] = groups.get(g, 0.0) + t
-    return kern, groups
+    return Trace(prof).device(skip)
 
 
 def _kernel_group(name):
@@ -5650,34 +6075,20 @@ def _kernel_group(name):
     return "other"
 
 
-def range_kernels(prof, name):
+def range_kernels(trace, name):
     """The device kernels of the profiler range ``name``, in ms by kernel
     group: ``{"forward": those launched inside it, "backward": those of the
     autograd nodes its forward ops recorded}`` (a node's
     ``evaluate_function`` event carries the sequence number of the forward
     op that made it), and the range's count of calls."""
-    from torch.autograd import DeviceType
-    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-
-    def tree(e):
-        yield e
-        for c in e.cpu_children:
-            yield from tree(c)
-
-    def groups(events):
-        out = {}
-        for e in events:
-            for k in e.kernels:
-                g = _kernel_group(k.name)
-                out[g] = out.get(g, 0.0) + k.duration / 1e3
-        return out
-    calls = [e for e in events if e.name == name]
-    fwd = [d for e in calls for d in tree(e)]
-    seqs = {d.sequence_nr for d in fwd if d.sequence_nr >= 0}
-    bwd = [d for e in events
-           if e.name.startswith("autograd::engine::evaluate_function")
-           and e.sequence_nr in seqs for d in tree(e)]
-    return len(calls), {"forward": groups(fwd), "backward": groups(bwd)}
+    fwd = [o for r in trace.roots(lambda n, _: n == name)
+           for o in trace.tree(r)]
+    seqs = {o[3] for o in fwd if o[3] >= 0}
+    bwd = [o for r in trace.roots(
+        lambda n, q: n.startswith("autograd::engine::evaluate_function")
+        and q in seqs) for o in trace.tree(r)]
+    return trace.calls(name), {"forward": kernel_groups(fwd),
+                                      "backward": kernel_groups(bwd)}
 
 
 def phase_profile(tag, trainer, batch, round_s, ranges=()):
@@ -5689,18 +6100,18 @@ def phase_profile(tag, trainer, batch, round_s, ranges=()):
     backward, by kernel group (``range_kernels``); the client
     steps' update group beside its byte bound for the round, from the
     leaves' sizes."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from repro_torch import api
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=profiled(ranges)) as prof:
         trainer.run(iter([batch]), 1)
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     # a range shows up on the device too, as an annotation: not a kernel
-    kern, groups = device_kernels(prof, skip=ranges)
+    trace = Trace(prof)
+    kern, groups = trace.device(skip=ranges)
     if not kern:
         print(f"[profile {tag}] the trace holds no device time: not "
               "measured")
@@ -5714,7 +6125,7 @@ def phase_profile(tag, trainer, batch, round_s, ranges=()):
     for name, t, n in sorted(kern, key=lambda r: -r[1])[:12]:
         print(f"[profile {tag}]   {t:9.2f} ms x{n:<5d} {name[:100]}")
     for name in ranges:
-        calls, parts = range_kernels(prof, name)
+        calls, parts = range_kernels(trace, name)
         fb = {g: parts["forward"].get(g, 0.0) + parts["backward"].get(g, 0.0)
               for g in {**parts["forward"], **parts["backward"]}}
         ms = {k: sum(v.values()) for k, v in parts.items()}
@@ -5860,6 +6271,8 @@ def main(argv=()):
     st_launches = phase(phase_stagger_path, dev, _build, skip={})
     h_launches = phase(phase_hetero_path, dev, _build, skip={})
     fl_launches = phase(phase_fleet_path, dev, _build, skip={})
+    mg_launches, mp_launches, mr0_launches, mr1_launches = phase(
+        phase_mesh, dev, _build, skip=({}, {}, {}, {}))
     m_launches, trainer, batch, round_s = phase(
         phase_mask_path, dev, _build, skip=({}, None, None, None))
     phase(phase_profile, "mask", trainer, batch, round_s, needs=(trainer,))
@@ -5952,6 +6365,12 @@ def main(argv=()):
                         "fleet": fl_launches} for name in (
         "rolling_mm_fwd<1>", "rolling_mm_dx<1>", "rolling_mm_fwd<2>",
         "rolling_mm_dx<2>")})
+    # the mesh round (rows 5-8, 10): (a)'s NCCL world of one, gather and
+    # psum; (b)'s two gloo ranks on the card, each rank's gather launches
+    for name in MESH_ROWS:
+        more[name].update(mesh=mg_launches, mesh_psum=mp_launches,
+                          mesh_gloo_rank0=mr0_launches,
+                          mesh_gloo_rank1=mr1_launches)
     # the SSM and hybrid rounds (rows 5-8, 10; the extract rounds row 10
     # alone), the hybrid eval (rows 12, 13) and serving (row 12)
     for name in ("rolling_mm_fwd<1>", "rolling_mm_dx<1>"):

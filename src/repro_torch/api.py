@@ -4,7 +4,8 @@ Ports ``MODES``, ``resolve_mode``, ``_resolve_server_opt``, ``fed_round``
 (window mode with one shared window, per-client windows or none, through
 the fused or the extract client phase, heterogeneous capacities, and mask
 mode; client and server optimizers, the bf16 uplink), ``Trainer``,
-``checkpoint_callback`` and ``AsyncTrainer`` of ``repro/api.py``, with its
+``checkpoint_callback`` and ``AsyncTrainer`` of ``repro/api.py`` (the mesh
+round too: ``mesh=``, ``spmd_axis=``, ``mesh_agg=``), with its
 re-exports of ``output_model``, ``run_rounds``, the optimizers and the
 fleet (the same ``__all__``)::
 
@@ -36,6 +37,13 @@ fleet (the same ``__all__``)::
                         uplink_compression="bf16")
     params, history = api.Trainer(fed, params).run(batches, 3)
 
+    # the mesh round: each torch.distributed rank trains its block of the
+    # clients (torchrun --nproc-per-node 4, NCCL; or launch.mesh.spawn on
+    # the CPU), the changes gathered back in client order
+    from repro_torch.launch.mesh import host_mesh, init_world
+    init_world("cuda")          # torchrun's world, or a world of one
+    fed = api.fed_round(model, scfg, mesh=host_mesh("4"))
+
     # heterogeneous capacities: one homogeneous bucket round per width
     fed = api.fed_round(model, scfg, capacities=[1.0, 0.5, 0.5, 0.25])
 
@@ -53,8 +61,6 @@ fleet (the same ``__all__``)::
 
 Everything runs on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch versions.
-Arguments the port does not cover yet raise ``NotImplementedError`` naming
-their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -64,7 +70,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 
 from repro_torch.configs.base import SubmodelConfig
-from repro_torch.core.fedavg import (CapacityBucket, MaskFedAvg,
+from repro_torch.core.fedavg import (MESH_AGGS, CapacityBucket, MaskFedAvg,
                                      WindowFedAvg, build_mask_fed,
                                      build_window_fed, output_model,
                                      run_rounds)
@@ -77,6 +83,7 @@ from repro_torch.fleet import (SERVER_LR_SCHEDULES, STALENESS_POLICIES,
 from repro_torch.optim.client import (CLIENT_OPTS, ClientOpt,
                                       client_momentum, client_proximal,
                                       client_sgd, resolve_client_opt)
+from repro_torch.sharding.spmd import axis_size, resolve_client_axis
 
 __all__ = ["fed_round", "Trainer", "checkpoint_callback", "output_model",
            "run_rounds", "WindowFedAvg",
@@ -101,11 +108,6 @@ def resolve_mode(mode: str, scheme: str) -> str:
             "scheme 'bernoulli' (unstructured Algorithm-1 masks) has no "
             "compact window form; use mode='mask' or 'auto'")
     return mode
-
-
-def _not_ported(what, item):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
-                              f"A, {item})")
 
 
 def _model_parts(model) -> Tuple[Any, Any, Any]:
@@ -178,9 +180,19 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
         :class:`ServerOpt`, a registry name (``sgd``/``momentum`` at
         ``lr=scfg.server_lr``, ``adam`` at its defaults) or None (the
         paper's plain average).
-      spmd_axis, mesh, mesh_agg: the mesh round's arguments; only their
-        defaults (None, None, ``"gather"``) are taken: anything else raises
-        ``NotImplementedError`` (ROADMAP.md queue A, the mesh round).
+      spmd_axis, mesh, mesh_agg: the mesh round (window mode).  ``mesh``
+        (a ``DeviceMesh`` over the initialised ``torch.distributed`` world,
+        ``launch.mesh.host_mesh``) splits the clients over the mesh axis
+        ``spmd_axis`` (None: ``clients``, else ``data``, else the leading
+        axis), which must divide ``clients_per_round``; every rank runs
+        the round on the same params, batch and offsets and trains its own
+        contiguous block of clients.  ``mesh_agg``: ``"gather"`` (the
+        clients' changes gathered in client order, then the single-process
+        aggregation: the ``mesh=None`` round bit for bit) or ``"psum"``
+        (each rank's float32 sum of its clients' scattered changes, added
+        over the ranks: model-sized traffic, the same values
+        reassociated).  ``spmd_axis`` without a mesh is taken and does
+        nothing (the reference pins its client vmap with it).
       capacities: per-client ``[C]`` capacity fractions in ``(0, 1]``.
         Mask mode draws each client's dense mask at its own fraction
         (default ``scfg.capacity`` for every client).  Window mode derives
@@ -207,37 +219,39 @@ def fed_round(model, scfg: SubmodelConfig, *, mode: str = "auto",
     resolved = resolve_mode(mode, scfg.scheme)
     client_opt = resolve_client_opt(client_opt)
     server_opt = _resolve_server_opt(server_opt, scfg)
-    if mesh_agg != "gather":
-        _not_ported(f"mesh_agg={mesh_agg!r} (the mesh round's aggregation)",
-                    "mesh round")
-    if mesh is not None and resolved != "window":
-        raise ValueError("mesh execution applies to window mode only "
-                         "(mask mode is the dense-mask oracle)")
+    if mesh_agg not in MESH_AGGS:
+        raise ValueError(f"unknown mesh_agg {mesh_agg!r}; expected one of "
+                         f"{MESH_AGGS}")
+    if mesh is not None:
+        if resolved != "window":
+            raise ValueError("mesh execution applies to window mode only "
+                             "(mask mode is the dense-mask oracle)")
+        spmd_axis = resolve_client_axis(mesh, spmd_axis)
+        n_shards = axis_size(mesh, spmd_axis)
+        if scfg.clients_per_round % n_shards:
+            raise ValueError(
+                f"clients_per_round={scfg.clients_per_round} must be "
+                f"divisible by the {spmd_axis!r} mesh-axis size {n_shards} "
+                f"(each shard runs an equal slice of the client vmap)")
     if resolved == "mask":
-        for name, value in (("spmd_axis", spmd_axis),
-                            ("uplink_compression", uplink_compression)):
-            if value is not None:
-                raise ValueError(f"{name} applies to window mode only "
-                                 "(mask mode is the dense-mask oracle)")
+        if spmd_axis is not None:
+            raise ValueError("spmd_axis applies to window mode only")
         if fused_forward in (True, "on"):
             raise ValueError("fused_forward applies to window mode only "
                              "(mask mode is the dense-mask oracle)")
+        if uplink_compression is not None:
+            raise ValueError("uplink_compression applies to window mode "
+                             "only (mask mode is the dense-mask oracle)")
         if capacities is None:
             capacities = np.full(scfg.clients_per_round, scfg.capacity,
                                  np.float32)
         return build_mask_fed(loss_fn, scfg, abstract, axes, capacities, dev,
                               client_opt=client_opt, server_opt=server_opt)
-    if capacities is not None and mesh is not None:
-        raise ValueError(
-            "capacities= (heterogeneous windows) and mesh= are mutually "
-            "exclusive: bucket batch slices break the static per-shard "
-            "client count; drive heterogeneous fleets through "
-            "AsyncTrainer/FleetSimulator instead")
-    if mesh is not None or spmd_axis is not None:
-        _not_ported("the mesh round", "mesh round")
     return build_window_fed(loss_fn, scfg, abstract, axes, dev,
                             client_opt=client_opt, server_opt=server_opt,
                             windowed_loss_fn=_windowed_loss(loss_fn),
                             fused_forward=fused_forward,
                             capacities=capacities,
-                            uplink_compression=uplink_compression)
+                            uplink_compression=uplink_compression,
+                            spmd_axis=spmd_axis, mesh=mesh,
+                            mesh_agg=mesh_agg)

@@ -10,7 +10,9 @@ stacked on a leading axis, ``repro_torch.convert.to_reference``).  Keys are
 ``/``-joined, a sequence's items ``#i``; ``<path>.json`` holds the caller's
 metadata plus ``dtypes`` per key.  bfloat16 entries are stored as their
 ``uint16`` bits, which npz can hold, and read back through the same bits
-(no ``ml_dtypes`` needed).
+(no ``ml_dtypes`` needed).  Under an initialised ``torch.distributed``
+world (a mesh round's ranks, which hold the same params) rank 0 alone
+writes, and every rank waits at a barrier until the files are there.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import convert
 from repro_torch.device import resolve_device
@@ -115,10 +118,26 @@ def _port(tree, device):
     return out
 
 
+def is_writer() -> bool:
+    """Whether this process writes files and log lines: rank 0 of an
+    initialised ``torch.distributed`` world, or a process outside one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(path: str, tree, metadata: dict | None = None):
     """Write ``tree`` (the port's flat params, or any tree holding them) to
     ``path`` (npz) and ``path + ".json"`` in the reference's layout,
-    atomically."""
+    atomically.  In a ``torch.distributed`` world every rank calls it:
+    rank 0 writes, then all meet at a barrier."""
+    try:
+        if is_writer():
+            _write(path, tree, metadata)
+    finally:
+        if dist.is_initialized():
+            dist.barrier()
+
+
+def _write(path: str, tree, metadata: dict | None):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     flat = _flatten(_nested(tree))
     dtypes = {k: str(t.dtype).removeprefix("torch.") for k, t in flat.items()}

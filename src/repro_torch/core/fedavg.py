@@ -12,11 +12,11 @@ Ports, from ``repro/core/fedavg.py``: ``resolve_shared_window``,
 the heterogeneous-capacity buckets (``CapacityBucket``, ``capacities``,
 ``_resolve_hetero``, ``_hetero_offsets``, ``_local_delta_sum``,
 ``_hetero_delta_sum``, ``_round_hetero`` and ``_hetero_phase_for``, the
-cohort phase of the asynchronous fleet), ``_scatter_update``,
-``dense_client_masks``, ``MaskFedAvg`` (with ``round_with_server_opt``),
-``_build_mask_fed``, ``output_model`` and ``run_rounds``.  The mesh round
-is not ported (ROADMAP.md queue A, item 12; ``api.fed_round`` refuses
-it).
+cohort phase of the asynchronous fleet), the mesh round (``MESH_AGGS``,
+``_client_phase_sharded``, ``_round_mesh``, ``_mean_delta_full_mesh``),
+``_scatter_update``, ``dense_client_masks``, ``MaskFedAvg`` (with
+``round_with_server_opt``), ``_build_mask_fed``, ``output_model`` and
+``run_rounds``.
 
 Clients are an explicit leading dimension ``[C, ...]`` of every leaf (the
 reference vmaps them).  Window mode has two client phases, as the
@@ -36,6 +36,16 @@ added in bucket order before the one division by C.  In mask mode each
 client's copy starts as ``w * m_c`` under a dense mask, its steps are
 masked, and the server takes the fill-in average.  A server optimizer takes the full-shaped float32 mean change
 instead, built one leaf at a time.  Batch leaves are ``[K, C, ...]``.
+
+The mesh round splits the C clients over the ranks of a mesh axis
+(``torch.distributed``, one process a rank): every rank takes the round's
+whole batch and offsets, runs the ordinary fused or extract client phase on
+its own contiguous block of C / S clients, and gathers the losses.  Under
+``mesh_agg="gather"`` it gathers the clients' changes in client order and
+replays the single-process aggregation, so the round is the ``mesh=None``
+round bit for bit; under ``"psum"`` each rank sums its clients' scattered
+changes and the ranks add their sums (the same values, reassociated).
+Every rank ends the round with the same params.
 """
 from __future__ import annotations
 
@@ -54,6 +64,9 @@ from repro_torch.core.server_opt import ServerOpt
 from repro_torch.core.trainer import Trainer, _to_device
 from repro_torch.models.layers import AxisWindow, WindowMap
 from repro_torch.optim.client import ClientOpt, resolve_client_opt
+from repro_torch.sharding import spmd
+
+MESH_AGGS = ("gather", "psum")
 
 _SHARED_WINDOW_SCHEMES = ("rolling", "static", "importance")
 
@@ -132,6 +145,16 @@ class WindowFedAvg:
     # bfloat16 and is widened to float32 before the mean (the fused arms
     # only, as in the reference); None: the exact float32 uplink
     uplink_compression: Optional[str] = None
+    # The mesh round: ``mesh`` (a DeviceMesh over the initialised world;
+    # None = one process) splits the clients over its axis ``spmd_axis``
+    # (resolved by api.fed_round; without a mesh it pins nothing here, where
+    # no vmap runs), and ``mesh_agg`` crosses ranks: "gather" (the changes
+    # gathered in client order, then the single-process aggregation, bit for
+    # bit) or "psum" (each rank's float32 sum of its clients' scattered
+    # changes, added over the ranks: the same values, reassociated)
+    spmd_axis: Any = None
+    mesh: Any = None
+    mesh_agg: str = "gather"
 
     def __post_init__(self):
         self.hetero = None
@@ -160,6 +183,12 @@ class WindowFedAvg:
             raise ValueError(
                 "window-mode capacities are per-client window fractions "
                 f"in (0, 1]; got {np.asarray(self.capacities)}")
+        if self.mesh is not None:
+            raise ValueError(
+                "capacities= (heterogeneous windows) and mesh= are "
+                "mutually exclusive: bucket batch slices break the static "
+                "per-shard client count; drive heterogeneous fleets "
+                "through AsyncTrainer/FleetSimulator instead")
         if c.scheme == "full":
             raise ValueError(
                 "capacities have no effect under scheme='full' (every "
@@ -582,6 +611,72 @@ class WindowFedAvg:
             del d
         return out
 
+    # -- the mesh round: the clients split over a mesh axis -------------------
+
+    def _client_phase_sharded(self, params, batch, offsets):
+        """The client phase of this rank's block of clients: the ``b``-th
+        contiguous C / S of the round's batch (dim 1) and offsets, ``b``
+        the rank's coordinate on the client axis (ranks along the other
+        axes compute the same clients), through the ordinary fused or
+        extract phase.  The losses are gathered to ``[K, C]``.  Crossing
+        ranks, ``"gather"`` returns every client's change in client order
+        (``{path: [C, ...]}``, the single-process phase's values), leaf by
+        leaf; ``"psum"`` returns the float32 sum over all C clients of
+        their scattered changes (``_local_delta_sum`` on each rank, added
+        over the axis)."""
+        mesh, axis = self.mesh, self.spmd_axis
+        n = self.scfg.clients_per_round // spmd.axis_size(mesh, axis)
+        lo = spmd.axis_index(mesh, axis) * n
+        fused = self.use_fused and bool(offsets)
+        local_batch = {k: v[:, lo:lo + n] for k, v in batch.items()}
+        local_off = {k: v[lo:lo + n] for k, v in offsets.items()}
+        phase = self._client_phase_fused if fused else self._client_phase
+        delta, losses = phase(params, local_batch, local_off)
+        losses = spmd.all_gather(mesh, axis, losses.t()).t().contiguous()
+        with torch.no_grad():
+            if self.mesh_agg == "psum":
+                out = self._local_delta_sum(delta, local_off, fused)
+                for v in out.values():
+                    spmd.all_reduce_sum(mesh, axis, v)
+                return out, losses
+            return {path: spmd.all_gather(mesh, axis, delta.pop(path))
+                    for path in list(delta)}, losses
+
+    def _round_mesh(self, params, batch, offsets):
+        """One round with the clients split over ``self.mesh``: ``psum``
+        takes ``w + server_lr * sum / C`` (the per-client arm's update);
+        ``gather`` the unchanged single-process aggregation."""
+        c = self.scfg
+        out, losses = self._client_phase_sharded(params, batch, offsets)
+        with torch.no_grad():
+            if self.mesh_agg == "psum":
+                for path, w in params.items():
+                    d = out.pop(path)
+                    w.copy_((w.float() + c.server_lr * d / c.clients_per_round)
+                            .to(w.dtype))
+                    del d
+            elif self.use_fused and offsets:
+                self._apply_mean_delta_fused(params, out, offsets)
+            else:
+                self._apply_mean_delta(params, out, offsets)
+            del out
+            sm.project_l2(params, c.proj_radius)
+        return params, {"loss": losses.mean(), "client_loss": losses}
+
+    def _mean_delta_full_mesh(self, params, batch, offsets):
+        """The sharded client phase and the full-shaped float32 mean change
+        (the server optimizer's pseudo-gradient)."""
+        out, losses = self._client_phase_sharded(params, batch, offsets)
+        with torch.no_grad():
+            if self.mesh_agg == "psum":
+                dbar = {k: out.pop(k) / self.scfg.clients_per_round
+                        for k in list(out)}
+            elif self.use_fused and offsets:
+                dbar = self._mean_delta_full_fused(out)
+            else:
+                dbar = self._mean_delta_full(params, out, offsets)
+        return dbar, losses
+
     def round(self, params, batch, round_idx, generator=None, offsets=None):
         """One communication round; updates ``params`` in place and returns
         ``(params, {"loss": mean, "client_loss": [K, C]})``.  ``offsets``
@@ -594,6 +689,8 @@ class WindowFedAvg:
             return self._round_hetero(params, batch, round_idx, offsets)
         if offsets is None:
             offsets = self._client_offsets(round_idx, params)
+        if self.mesh is not None:
+            return self._round_mesh(params, batch, offsets)
         if self.use_fused and offsets:
             delta, losses = self._client_phase_fused(params, batch, offsets)
             with torch.no_grad():
@@ -629,16 +726,20 @@ class WindowFedAvg:
         else:
             if offsets is None:
                 offsets = self._client_offsets(round_idx, params)
-            if self.use_fused and offsets:
+            if self.mesh is not None:
+                dbar, losses = self._mean_delta_full_mesh(params, batch,
+                                                          offsets)
+            elif self.use_fused and offsets:
                 delta, losses = self._client_phase_fused(params, batch,
                                                          offsets)
                 with torch.no_grad():
                     dbar = self._mean_delta_full_fused(delta)
+                del delta
             else:
                 delta, losses = self._client_phase(params, batch, offsets)
                 with torch.no_grad():
                     dbar = self._mean_delta_full(params, delta, offsets)
-            del delta
+                del delta
         with torch.no_grad():
             params, opt_state = server_opt.update(params, dbar, opt_state)
             del dbar
@@ -658,7 +759,8 @@ def _scatter_update(params, dbar, axes, off0, sizes, server_lr):
 def build_window_fed(loss_fn, scfg, abstract, axes, device, client_opt=None,
                      server_opt=None, windowed_loss_fn=None,
                      fused_forward="auto", capacities=None,
-                     uplink_compression=None) -> WindowFedAvg:
+                     uplink_compression=None, spmd_axis=None, mesh=None,
+                     mesh_agg="gather") -> WindowFedAvg:
     scheme = make_scheme(scfg, collect_axis_dims(abstract, axes))
     return WindowFedAvg(loss_fn=loss_fn, scfg=scfg, abstract=abstract,
                         axes=axes, scheme=scheme, device=device,
@@ -666,7 +768,8 @@ def build_window_fed(loss_fn, scfg, abstract, axes, device, client_opt=None,
                         windowed_loss_fn=windowed_loss_fn,
                         fused_forward=fused_forward,
                         capacities=capacities,
-                        uplink_compression=uplink_compression)
+                        uplink_compression=uplink_compression,
+                        spmd_axis=spmd_axis, mesh=mesh, mesh_agg=mesh_agg)
 
 
 # ---------------------------------------------------------------------------

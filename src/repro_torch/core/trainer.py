@@ -8,6 +8,8 @@ torch leaves ``[K, C, ...]``) or a ``(batch, round_kwargs)`` pair whose
 kwargs go to the round, e.g. ``{"offsets": ...}`` to inject window
 offsets, ``{"masks": ...}`` to inject masks or ``{"capacities": [...]}``
 for a mask round's participants (the paper's protocol passes them so).
+A mesh round's ranks each run the same Trainer on the same batches; rank 0
+alone logs and writes checkpoints (``checkpoint.save``).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.checkpoint import save
+from repro_torch.checkpoint.checkpoint import is_writer, save
 
 
 @dataclass
@@ -50,7 +52,9 @@ class Trainer:
     record as floats.  Then each callback runs as ``cb(round_idx, params,
     record)``, and every ``log_every`` rounds (and on the last)
     ``log_fn`` gets ``round   r loss x.xxxx`` plus the record's other
-    scalars.  ``start_round`` resumes a restored schedule mid-way.
+    scalars (on rank 0 alone, under an initialised ``torch.distributed``
+    world: a mesh round's ranks run the same trainer, and their records
+    are equal).  ``start_round`` resumes a restored schedule mid-way.
     """
 
     fed: Any
@@ -115,7 +119,8 @@ class Trainer:
             self.history.append(rec)
             for cb in self.callbacks:
                 cb(r, self.params, rec)
-            if self.log_every and (r % self.log_every == 0 or r == last):
+            if self.log_every and (r % self.log_every == 0 or
+                                   r == last) and is_writer():
                 extras = " ".join(f"{k} {float(v):.4f}"
                                   for k, v in rec.items()
                                   if k not in ("round", "loss")

@@ -119,6 +119,10 @@ class AsyncTrainer:
                     "one with repro_torch.api.fed_round(model, scfg); mask "
                     "mode has no per-client window deltas to buffer); got "
                     f"{type(fed).__name__}")
+        if getattr(fed, "mesh", None) is not None:
+            raise ValueError(
+                "AsyncTrainer owns the client axis (dispatch cohorts are "
+                "dynamic); build the round with mesh=None")
         wrong = [k for k, v in self.params.items() if v.device != fed.device]
         if wrong:
             raise ValueError(f"params {wrong[:3]} are not on the round's "

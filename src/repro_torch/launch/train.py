@@ -4,9 +4,12 @@
         --reduced --rounds 3 --scheme rolling --capacity 0.5 --device cpu \\
         [--stagger --client-opt momentum --server-opt adam \\
          --uplink-compression bf16] [--async-buffer 2 --fleet 8 \\
-         --straggler-frac 0.25]
+         --straggler-frac 0.25] [--mesh 2 --mesh-agg psum --devices 2]
+    # the mesh round on four cards, a rank each (NCCL)
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch tinyllama_1_1b --mesh 4
 
-Ports the single-device flags of ``repro/launch/train.py``: it builds the
+Ports the flags of ``repro/launch/train.py``: it builds the
 model (random weights from ``--seed``), the round (``api.fed_round``) and
 ``api.Trainer`` (or, with ``--async-buffer M``, ``api.AsyncTrainer`` over
 a ``FleetSimulator`` of ``--fleet`` clients with the latency flags),
@@ -21,11 +24,16 @@ reference's final JSON,
 ``virtual_time``, ``rounds_per_vsec`` and ``mean_staleness``).  MoE
 layers take the ``dense`` path on reduced configs and ``dropping`` on
 full ones, as in the reference.  Runs on
-the card unless ``--device cpu`` is given.  The mesh flags raise
-``NotImplementedError`` naming their ROADMAP.md item; the reference's
-``--kernel-backend``, ``--kernel-block``, ``--layer-unroll`` and
-``--devices`` have no counterpart (the port has no backend knob, its
-kernels pick their tiles, and it runs eagerly on one device).
+the card unless ``--device cpu`` is given.  ``--mesh DATA[xMODEL]``
+splits the clients over the ``data`` axis of a mesh of
+``torch.distributed`` ranks (``--mesh-agg`` crosses them): under
+``torchrun`` the ranks are its processes, a card each; without it a world
+of one rank; with ``--devices N`` (on the CPU) the CLI starts N local
+gloo ranks itself (``launch.mesh.spawn``).  Every rank trains, rank 0
+alone prints the round lines and the record.  The reference's
+``--kernel-backend``, ``--kernel-block`` and ``--layer-unroll`` have no
+counterpart (the port has no backend knob, its kernels pick their tiles,
+and it runs eagerly).
 """
 from __future__ import annotations
 
@@ -33,18 +41,17 @@ import argparse
 import json
 import time
 
+import torch
+
 from repro_torch import api
+from repro_torch.checkpoint.checkpoint import is_writer
 from repro_torch.checkpoint.checkpoint import save as ckpt_save
 from repro_torch.configs.base import (SubmodelConfig, get_config,
                                       get_reduced_config)
 from repro_torch.data.synthetic import lm_batches
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import build_model
-
-# flags of the reference's CLI that need parts not ported yet, with their
-# ROADMAP.md queue-A item: (flag, default, item)
-_UNPORTED = (("mesh", None, "mesh round"),
-             ("mesh_agg", "gather", "mesh round"))
 
 
 def parser():
@@ -94,10 +101,18 @@ def parser():
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
-    # the mesh round: not ported, raises when set
-    ap.add_argument("--mesh", default=None, metavar="DATA[xMODEL]")
+    ap.add_argument("--mesh", default=None, metavar="DATA[xMODEL]",
+                    help="split the clients over the data axis of a "
+                         "(data, model) mesh of torch.distributed ranks, "
+                         "e.g. '4' or '4x2'; --clients must be divisible "
+                         "by DATA")
     ap.add_argument("--mesh-agg", default="gather",
-                    choices=["gather", "psum"])
+                    choices=["gather", "psum"],
+                    help="crossing ranks: gather is the single-process "
+                         "round bit for bit; psum adds model-sized sums")
+    ap.add_argument("--devices", type=int, default=None, metavar="N",
+                    help="start N local gloo ranks on the CPU for --mesh "
+                         "(on cards run under torchrun --nproc-per-node N)")
     ap.add_argument("--async-buffer", type=int, default=0, metavar="M",
                     help="run the async FedBuff server (api.AsyncTrainer), "
                          "aggregating every M client reports; 0 = the "
@@ -125,14 +140,39 @@ def parser():
 
 
 def main(argv=None):
-    """Run the CLI on ``argv``; returns the final record it prints."""
+    """Run the CLI on ``argv``; returns the final record it prints (rank
+    0's, with ``--devices``)."""
     args = parser().parse_args(argv)
-    for flag, default, item in _UNPORTED:
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md "
-                f"queue A, {item})")
-    device = resolve_device(args.device)
+    if args.async_buffer and args.mesh:
+        raise SystemExit("--async-buffer owns the client axis; drop --mesh")
+    if args.devices:
+        if torch.device(args.device).type != "cpu":
+            raise SystemExit("--devices N starts CPU ranks; on cards run "
+                             "torchrun --nproc-per-node N -m "
+                             "repro_torch.launch.train ... --mesh N")
+        if not args.mesh:
+            raise SystemExit("--devices N starts the ranks of a --mesh; "
+                             "add --mesh")
+        return mesh_lib.spawn(_train, args.devices, args,
+                              threads=max(1, torch.get_num_threads()
+                                          // args.devices))
+    return _train(args)
+
+
+def _train(args):
+    """The training run of one process (one rank of a mesh)."""
+    resolve_device(args.device)      # raises without a card
+    end_world = mesh_lib.init_world(args.device) if args.mesh else None
+    try:
+        # after init_world, which puts a torchrun rank on cuda:LOCAL_RANK
+        return _run(args, resolve_device(args.device))
+    finally:
+        if end_world is not None:
+            end_world()
+
+
+def _run(args, device):
+    mesh = mesh_lib.host_mesh(args.mesh) if args.mesh else None
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
     model = build_model(cfg, moe_path="dense" if args.reduced
@@ -151,14 +191,14 @@ def main(argv=None):
                         server_opt=args.server_opt,
                         fused_forward=args.fused_forward,
                         uplink_compression=args.uplink_compression,
-                        device=device)
+                        mesh=mesh, mesh_agg=args.mesh_agg, device=device)
     vision = (cfg.vision_patches, cfg.vision_d) if cfg.vision_stub else None
     it = lm_batches(cfg.vocab, (args.local_steps, args.clients, args.mb),
                     args.seq, seed=args.seed, codebooks=cfg.n_codebooks,
                     vision=vision)
     t0 = time.time()
 
-    def log(s):
+    def log(s):       # the trainers log on rank 0 alone
         print(f"{s} ({(time.time() - t0) / (trainer.round_idx or 1):.2f}"
               "s/round)", flush=True)
 
@@ -183,7 +223,8 @@ def main(argv=None):
         ckpt_save(args.ckpt, params,
                   {"arch": args.arch, "rounds": args.rounds,
                    "scheme": args.scheme, "history": losses})
-        print("checkpoint ->", args.ckpt)
+        if is_writer():
+            print("checkpoint ->", args.ckpt)
     out = {"first_loss": losses[0], "last_loss": losses[-1]}
     if args.async_buffer:
         vt = history[-1]["virtual_time"]
@@ -192,7 +233,8 @@ def main(argv=None):
                    mean_staleness=round(
                        sum(h["staleness"] for h in history) / len(history),
                        3))
-    print(json.dumps(out))
+    if is_writer():
+        print(json.dumps(out), flush=True)
     return out
 
 

@@ -1,8 +1,8 @@
 """Attention: GQA and MLA, each in training, prefill and decode.
 
 Ports ``attn_params`` (with the ``qk_norm`` leaves), ``_qkv``,
-``blockwise_attention``, ``gqa_train``, ``gqa_prefill``, ``gqa_decode``
-(without context parallelism), ``decode_attention``, and the MLA module
+``blockwise_attention``, ``gqa_train``, ``gqa_prefill``, ``gqa_decode``,
+``decode_attention``, ``cp_decode_attention``, and the MLA module
 (``mla_params``, ``_mla_q``, ``_mla_ckv``, ``mla_train``, ``mla_prefill``,
 ``mla_decode``) of ``repro/models/attention.py``.  MLA trains and
 prefills on the decompressed path (per-head keys and values through
@@ -15,6 +15,8 @@ attention runs the flash kernel instead (forward only; see
 :func:`gqa_train`); prefill runs blockwise attention, as the reference's
 does.  Activations and weights carry the leading client dimension ``[C,
 ...]`` (one model is C = 1); a KV cache is ``[C, B, Sc, KV, hd]``.
+Context-parallel decode splits the cache's positions over a mesh axis of
+``torch.distributed`` ranks, each rank holding its contiguous block.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (ParamBuilder, apply_rope, bmm,
                                        einsum, head_proj, rms_norm)
+from repro_torch.sharding import spmd
 
 NEG_INF = -1e30
 
@@ -189,23 +192,72 @@ def decode_attention(q, k, v, valid, softmax_scale=None):
     return out.reshape(B, H, -1)
 
 
-def gqa_decode(p, x, cfg, cache, pos, valid_override=None, rope_pos=None):
+def cp_decode_attention(mesh, q, k, v, valid, axis="data",
+                        softmax_scale=None):
+    """Context-parallel exact decode attention: q ``[B, H, hd]`` on every
+    rank of mesh axis ``axis``; k, v ``[B, Sl, KV, hd]`` and valid ``[B,
+    Sl]`` this rank's contiguous block of the cache's positions.  Local
+    scores summed in float32, then one all-reduce MAX and two all-reduce
+    SUMs over the axis (linear in the local positions).  Returns ``[B, H,
+    hd]`` float32 on every rank.  Every rank computes every head (the
+    reference splits heads over ``model``; the results are equal)."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    scale = softmax_scale or 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = spmd.all_reduce_max(mesh, axis, s.amax(-1))
+    p = torch.exp(s - m[..., None])
+    l = spmd.all_reduce_sum(mesh, axis, p.sum(-1))
+    o = spmd.all_reduce_sum(mesh, axis, torch.einsum(
+        "bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float()))
+    return (o / torch.clamp_min(l, 1e-30)[..., None]).reshape(B, H, -1)
+
+
+def _cp_block(mesh, cp, S_local):
+    """``(first position, global length)`` of this rank's block of a
+    cache split over the ``data`` axis (``cp`` and a mesh), else ``(0,
+    S_local)``."""
+    if not (cp and mesh is not None):
+        return 0, S_local
+    return (spmd.axis_index(mesh, "data") * S_local,
+            spmd.axis_size(mesh, "data") * S_local)
+
+
+def _attend(q, k, v, valid, mesh, cp, softmax_scale=None):
+    """Decode attention over ``[N, S, KV, hd]`` caches: context-parallel
+    (the local block) with ``cp`` and a mesh, else plain."""
+    if cp and mesh is not None:
+        return cp_decode_attention(mesh, q, k, v, valid,
+                                   softmax_scale=softmax_scale)
+    return decode_attention(q, k, v, valid, softmax_scale=softmax_scale)
+
+
+def gqa_decode(p, x, cfg, cache, pos, mesh=None, cp=False,
+               valid_override=None, rope_pos=None):
     """x ``[C, B, 1, D]``; cache ``{k, v: [C, B, Sc, KV, hd]}``; ``pos`` the
     host integer position of the token (cache write slot ``pos % Sc`` and
     causal horizon).  ``valid_override [B, Sc]`` bool: per-slot cache
     validity; ``rope_pos [B]``: per-row positions (continuous batching).
-    Returns ``(out [C, B, 1, D], new cache)``; the cache passed in is not
-    changed."""
+    With ``cp`` and ``mesh`` the cache is this rank's contiguous block of
+    the ``Sc`` slots, split over the mesh's ``data`` axis: the rank that
+    holds slot ``pos % Sc`` writes the token's k and v, validity
+    (``valid_override`` too, given for all ``Sc`` slots) is cut to the
+    block, and attention is :func:`cp_decode_attention`.  Returns ``(out
+    [C, B, 1, D], new cache)``; the cache passed in is not changed."""
     C, B = x.shape[:2]
     pos = int(pos)
     positions = (rope_pos[:, None] if rope_pos is not None else
                  torch.full((B, 1), pos, device=x.device))
     q, k, v = _qkv(p, x, cfg, positions)               # [C, B, 1, ., hd]
-    Sc = cache["k"].shape[2]
-    slot = pos % Sc
+    Sl = cache["k"].shape[2]
+    lo, Sc = _cp_block(mesh, cp, Sl)
+    slot = pos % Sc - lo
     kc, vc = cache["k"].clone(), cache["v"].clone()
-    kc[:, :, slot] = k[:, :, 0]
-    vc[:, :, slot] = v[:, :, 0]
+    if 0 <= slot < Sl:
+        kc[:, :, slot] = k[:, :, 0]
+        vc[:, :, slot] = v[:, :, 0]
     idx = torch.arange(Sc, device=x.device)
     if valid_override is not None:
         valid = valid_override
@@ -214,11 +266,12 @@ def gqa_decode(p, x, cfg, cache, pos, valid_override=None, rope_pos=None):
         valid = ((idx <= pos) | (pos + 1 >= Sc)).expand(B, Sc)
     else:
         valid = (idx <= pos).expand(B, Sc)
+    valid = valid[:, lo:lo + Sl]
     H, hd = q.shape[-2], q.shape[-1]
-    out = decode_attention(q.reshape(C * B, H, hd),
-                           kc.reshape(C * B, Sc, *kc.shape[3:]),
-                           vc.reshape(C * B, Sc, *vc.shape[3:]),
-                           valid.repeat(C, 1))
+    out = _attend(q.reshape(C * B, H, hd),
+                  kc.reshape(C * B, Sl, *kc.shape[3:]),
+                  vc.reshape(C * B, Sl, *vc.shape[3:]),
+                  valid.repeat(C, 1), mesh, cp)
     wo = p["wo"]
     out = bmm(out.reshape(C, B, H * hd).to(x.dtype),
               wo.reshape(C, H * hd, wo.shape[-1]))
@@ -328,7 +381,8 @@ def mla_prefill(p, x, cfg, positions):
     return out, {"c": c, "kr": kr}
 
 
-def mla_decode(p, x, cfg, cache, pos, valid_override=None, rope_pos=None):
+def mla_decode(p, x, cfg, cache, pos, mesh=None, cp=False,
+               valid_override=None, rope_pos=None):
     """The absorbed path on ``x [C, B, 1, D]``: ``W_uk`` is folded into the
     query (``q_c [B, H, r]``), which attends over the compressed cache
     (keys ``[c, kr]`` and values ``c``, one kv head shared by every head);
@@ -336,8 +390,9 @@ def mla_decode(p, x, cfg, cache, pos, valid_override=None, rope_pos=None):
     slot ``pos``, in the caches' dtype (bf16 for bf16 params).  The three
     products sum in float32 and round once (``layers.einsum``).
     ``valid_override [B, S]`` and ``rope_pos [B]`` as in
-    :func:`gqa_decode`.  Returns ``(out [C, B, 1, D], new cache)``; the
-    cache passed in is not changed."""
+    :func:`gqa_decode`, and ``mesh`` and ``cp`` too (the rank that holds
+    position ``pos`` writes ``c`` and ``kr``).  Returns ``(out [C, B, 1,
+    D], new cache)``; the cache passed in is not changed."""
     m = cfg.mla
     C, B = x.shape[:2]
     pos = int(pos)
@@ -346,19 +401,23 @@ def mla_decode(p, x, cfg, cache, pos, valid_override=None, rope_pos=None):
     q_nope, q_rope = _mla_q(p, x, cfg, positions)       # [C, B, 1, H, .]
     c_t, kr_t = _mla_ckv(p, x, cfg, positions)          # [C, B, 1, .]
     cc, krc = cache["c"].clone(), cache["kr"].clone()
-    cc[:, :, pos] = c_t[:, :, 0]
-    krc[:, :, pos] = kr_t[:, :, 0]
+    Sl = cc.shape[2]
+    lo, S = _cp_block(mesh, cp, Sl)
+    if not (cp and mesh is not None) or lo <= pos < lo + Sl:
+        cc[:, :, pos - lo] = c_t[:, :, 0]
+        krc[:, :, pos - lo] = kr_t[:, :, 0]
     q_c = einsum("cbhe,crhe->cbhr", q_nope[:, :, 0], p["w_uk"])
     q_cat = torch.cat([q_c, q_rope[:, :, 0]], -1)       # [C, B, H, r + rd]
-    k_cat = torch.cat([cc, krc], -1)                    # [C, B, S, r + rd]
-    S, H, r = cc.shape[2], q_cat.shape[2], cc.shape[-1]
+    k_cat = torch.cat([cc, krc], -1)                    # [C, B, Sl, r + rd]
+    H, r = q_cat.shape[2], cc.shape[-1]
     valid = (valid_override if valid_override is not None else
              (torch.arange(S, device=x.device) <= pos).expand(B, S))
     scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
-    ctx = decode_attention(q_cat.reshape(C * B, H, -1),
-                           k_cat.reshape(C * B, S, 1, -1),
-                           cc.reshape(C * B, S, 1, r), valid.repeat(C, 1),
-                           softmax_scale=scale).reshape(C, B, H, r)
+    ctx = _attend(q_cat.reshape(C * B, H, -1),
+                  k_cat.reshape(C * B, Sl, 1, -1),
+                  cc.reshape(C * B, Sl, 1, r),
+                  valid[:, lo:lo + Sl].repeat(C, 1), mesh, cp,
+                  softmax_scale=scale).reshape(C, B, H, r)
     out = einsum("cbhr,crhe->cbhe", ctx.to(x.dtype), p["w_uv"])
     out = einsum("cbhe,ched->cbd", out, p["wo"])
     return out[:, :, None], {"c": cc, "kr": krc}

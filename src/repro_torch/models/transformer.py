@@ -45,6 +45,9 @@ compressed ``dense_layers/0/c`` ``[B, S, r]`` and ``kr`` ``[B, S, rd]``,
 ``ssm_layers/3/h`` ``[B, nh, hd, N]``; a hybrid layer holds ``k``, ``v``,
 ``h`` and the conv tails), which ``repro_torch.convert`` carries to and
 from the reference's stacked ``{stack: {name: [L, B, ...]}}``.
+``decode_step(..., mesh=, cp=True)`` decodes context-parallel: each rank
+of the mesh's ``data`` axis holds its block of every attention cache's
+positions (``launch.specs.cache_shard``).
 
 :meth:`Model.init` makes one (server) model without the client dimension.
 """
@@ -203,7 +206,7 @@ def _ssm_block(p, x, cfg, mode, cache, pos, window, one):
 
 
 def _attn_any(p, x, cfg, positions, mode, cache, pos, valid, rope_pos,
-              window):
+              window, mesh=None, cp=False):
     """The layer's attention (MLA or GQA) in ``mode``; returns ``(out,
     cache)``, the cache empty in ``train`` mode."""
     if cfg.mla is not None:
@@ -219,7 +222,8 @@ def _attn_any(p, x, cfg, positions, mode, cache, pos, valid, rope_pos,
             return mla_train(p, x, cfg, positions, window=window), {}
         if mode == "prefill":
             return mla_prefill(p, x, cfg, positions)
-        return mla_decode(p, x, cfg, cache, pos, valid_override=valid,
+        return mla_decode(p, x, cfg, cache, pos, mesh, cp,
+                          valid_override=valid,
                           rope_pos=rope_pos)
     if mode == "train":
         return gqa_train(p, x, cfg, positions, window=window), {}
@@ -227,13 +231,13 @@ def _attn_any(p, x, cfg, positions, mode, cache, pos, valid, rope_pos,
         S = x.shape[2]
         clen = min(S, cfg.sliding_window) if cfg.sliding_window else S
         return gqa_prefill(p, x, cfg, positions, clen)
-    return gqa_decode(p, x, cfg, cache, pos, valid_override=valid,
+    return gqa_decode(p, x, cfg, cache, pos, mesh, cp, valid_override=valid,
                       rope_pos=rope_pos)
 
 
 def block_apply(p, h, cfg, positions, window=None, mode="train", cache=None,
                 pos=None, valid=None, rope_pos=None, one=False,
-                moe_path="dropping"):
+                moe_path="dropping", mesh=None, cp=False):
     """One layer on ``h [C, B, S, D]``; returns ``(h, aux [C] or None, new
     cache)``: ``aux`` is an MoE layer's load-balance loss per client (None
     for other layers), and the cache is empty in ``train`` mode.
@@ -243,14 +247,16 @@ def block_apply(p, h, cfg, positions, window=None, mode="train", cache=None,
     ``prefill`` or ``decode`` (one token against ``cache``, at position
     ``pos``); ``one`` marks one model's form (its SSM mixers run the SSD
     chunk kernel).  A layer with ``moe/*`` leaves runs the MoE, one with
-    ``mlp/*`` leaves (a dense layer, the MTP block) the gated MLP."""
+    ``mlp/*`` leaves (a dense layer, the MTP block) the gated MLP.
+    ``mesh`` and ``cp``: context-parallel decode of the attention (an SSM
+    mixer's state is not split)."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         out, c = _ssm_block(_sub(p, "ssm"), x, cfg, mode, cache, pos, window,
                             one)
         return h + out, None, c
     a, c = _attn_any(_sub(p, "attn"), x, cfg, positions, mode, cache, pos,
-                     valid, rope_pos, window)
+                     valid, rope_pos, window, mesh, cp)
     if cfg.hybrid:
         s, sc = _ssm_block(_sub(p, "ssm"), x, cfg, mode, cache, pos, window,
                            one)
@@ -431,7 +437,8 @@ class Model:
         return bmm(h.reshape(C, B * S, D), w).reshape(C, B, S, -1)
 
     def _run(self, params, h, positions, mode, window=None, caches=None,
-             pos=None, valid=None, rope_pos=None, one=False):
+             pos=None, valid=None, rope_pos=None, one=False, mesh=None,
+             cp=False):
         """Every layer in order; returns ``h``, the load-balance loss
         summed over the layers (``[C]``, zeros without MoE layers) and the
         new caches (flat, keyed ``{stack}/{i}/{name}``)."""
@@ -444,7 +451,8 @@ class Model:
         for pre in prefixes:
             h, aux, c = block_apply(layers[pre], h, self.cfg, positions,
                                     window, mode, layer_caches.get(pre), pos,
-                                    valid, rope_pos, one, self.moe_path)
+                                    valid, rope_pos, one, self.moe_path,
+                                    mesh, cp)
             if aux is not None:
                 aux_total = aux_total + aux
             new.update({f"{pre}/{k}": v for k, v in c.items()})
@@ -540,19 +548,24 @@ class Model:
             out[path] = x
         return out
 
-    def decode_step(self, params, tokens, caches, pos, valid=None,
-                    rope_pos=None):
+    def decode_step(self, params, tokens, caches, pos, mesh=None, cp=False,
+                    valid=None, rope_pos=None):
         """tokens ``[B]`` (``[B, CB]``) int; caches from :meth:`prefill` or
         :meth:`init_cache`; ``pos`` the host integer position of the token
         (a sinusoidal model's position too); ``valid [B, Sc]`` an optional
         per-slot cache mask and ``rope_pos [B]`` per-row positions
-        (continuous batching).  Returns ``(logits [B, (CB,) V], new
-        caches)``; the caches passed in are not changed."""
+        (continuous batching).  With ``cp`` and a ``mesh`` the attention
+        caches are this rank's block of positions on the mesh's ``data``
+        axis (``launch.specs.cache_shard``) and attention is
+        context-parallel; ``valid`` still covers every position.  Returns
+        ``(logits [B, (CB,) V], new caches)``; the caches passed in are not
+        changed."""
         p1, _ = self._one_model(params, None)
         h = self._embed(p1, tokens[None, :, None], pos=pos)
         c1 = {k: v[None] for k, v in caches.items()}
         h, _, new = self._run(p1, h, None, "decode", caches=c1, pos=pos,
-                              valid=valid, rope_pos=rope_pos)
+                              valid=valid, rope_pos=rope_pos, mesh=mesh,
+                              cp=cp)
         h = rms_norm(h, p1["final_norm"], self.cfg.norm_eps)
         return self._head(p1, h)[0, :, 0], {k: v[0] for k, v in new.items()}
 

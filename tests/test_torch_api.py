@@ -5,9 +5,9 @@ The two facades export the same names, and ``fed_round``, ``Trainer`` and
 of ROADMAP.md §C: the port has no ``kernel_backend=`` and no ``jit=`` (the
 device decides the arm; it runs eagerly), and its entry points take
 ``device=``.  ``output_model`` and ``run_rounds`` run through the facade,
-and ``fed_round`` takes the reference's default ``mesh_agg="gather"`` and
-refuses any other value, as it refuses ``mesh=``, naming the mesh round's
-ROADMAP item.
+and ``fed_round`` takes the reference's ``mesh_agg`` values (``gather``,
+``psum``) and refuses any other with its ``ValueError`` (the mesh round
+itself: ``tests/test_torch_mesh.py``).
 """
 import inspect
 
@@ -59,16 +59,20 @@ def tiny():
 
 
 def test_mesh_agg_default_builds_the_round_and_others_are_refused(tiny):
+    """``gather`` and ``psum`` build the round (without a mesh they cross
+    nothing: the plain round); an unknown aggregation is the reference's
+    ``ValueError``."""
     model, batch = tiny
-    fed = api.fed_round(model, SubmodelConfig(**SCFG), mesh_agg="gather",
-                        device="cpu")
-    params = model.init(0, device="cpu")
-    _, metrics = fed.round(params, batch, 0)
-    assert torch.isfinite(metrics["client_loss"]).all()
-    for agg in ("psum", "scatter"):
-        with pytest.raises(NotImplementedError, match="mesh round"):
-            api.fed_round(model, SubmodelConfig(**SCFG), mesh_agg=agg,
-                          device="cpu")
+    for agg in ("gather", "psum"):
+        fed = api.fed_round(model, SubmodelConfig(**SCFG), mesh_agg=agg,
+                            device="cpu")
+        assert fed.mesh_agg == agg and fed.mesh is None
+        params = model.init(0, device="cpu")
+        _, metrics = fed.round(params, batch, 0)
+        assert torch.isfinite(metrics["client_loss"]).all()
+    with pytest.raises(ValueError, match="unknown mesh_agg 'scatter'"):
+        api.fed_round(model, SubmodelConfig(**SCFG), mesh_agg="scatter",
+                      device="cpu")
 
 
 def test_output_model_and_run_rounds_run_through_the_facade(tiny):

@@ -176,15 +176,6 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         convert.from_reference({"w": np.zeros(2, np.float32)})
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(spmd_axis="clients")])
-def test_unported_options_raise_not_implemented(kw):
-    """The mesh round (A12) is still to be ported."""
-    model = build_model(get_reduced_config("tinyllama_1_1b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.fed_round(model, SubmodelConfig(**SCFG), device="cpu", **kw)
-
-
 def test_window_capacities_run_a_hetero_round():
     """Window-mode capacities build the width buckets and train: one round
     of reduced TinyLlama with a full-width, two half-width and a

@@ -8,10 +8,11 @@ uplink, both client phases, mask mode), the ``round N loss`` log lines,
 the checkpoint, one run equal to the same configuration driven through
 ``api`` directly, the async fleet's flags (``--async-buffer`` with the
 fleet, dropout and server-lr-schedule flags; the async record carries the
-reference CLI's keys), and the refusals of what is not ported (the mesh
-flags).  The ``gpu`` twin runs the CLI on the card and skips without
-one.  No JAX here: the card's machine runs the twin with
-``--noconftest``.
+reference CLI's keys), the mesh flags (``--mesh 2 --devices 2``: two
+local gloo ranks print the unmeshed run's losses bit for bit, once) and
+their refusals.  The ``gpu`` twins run the CLI, and the mesh round on a
+world of one NCCL rank, on the card and skip without one.  No JAX here:
+the card's machine runs the twins with ``--noconftest``.
 """
 import json
 import math
@@ -108,11 +109,35 @@ def test_cli_equals_the_same_round_through_api(capsys):
     assert trainer.losses == [out["first_loss"], out["last_loss"]]
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "4"], ["--mesh-agg", "psum"]],
-                         ids=["mesh", "mesh_agg"])
-def test_cli_refuses_what_is_not_ported(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(BASE + flags + ["--device", "cpu"])
+def _losses(text):
+    """The round lines' losses (their timings cut) and the final record."""
+    lines = text.strip().splitlines()
+    return [ln.split(" (")[0] for ln in lines if ln.startswith("round")], \
+        json.loads(lines[-1])
+
+
+def test_cli_mesh_run_prints_the_unmeshed_losses(capfd):
+    """``--mesh 2 --devices 2``: two local gloo ranks, a client block each,
+    the gather aggregation; rank 0 alone prints, the round lines and the
+    record of the run without a mesh, bit for bit."""
+    want = train.main(BASE + ["--device", "cpu"])
+    want_text = capfd.readouterr().out
+    got = train.main(BASE + ["--mesh", "2", "--devices", "2", "--device",
+                             "cpu"])
+    text = capfd.readouterr().out
+    _check(got, text)
+    assert got == want and _losses(text) == _losses(want_text)
+    assert len(_losses(text)[0]) == 2 and text.count("first_loss") == 1
+
+
+@pytest.mark.parametrize("flags,says", [
+    (["--mesh", "2", "--async-buffer", "2"], "--async-buffer owns"),
+    (["--mesh", "2", "--devices", "2", "--device", "cuda"], "torchrun"),
+    (["--devices", "2", "--device", "cpu"], "add --mesh")],
+    ids=["async_with_mesh", "devices_on_cards", "devices_without_mesh"])
+def test_cli_refuses_mesh_misuse(flags, says):
+    with pytest.raises(SystemExit, match=says):
+        train.main(BASE + flags)
 
 
 # the keys of the reference CLI's final record with --async-buffer
@@ -152,6 +177,42 @@ def test_cli_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(BASE)
+
+
+@pytest.mark.gpu
+def test_gpu_mesh_round_on_one_nccl_rank_is_bit_equal():
+    """The mesh round's gather arm on a world of one NCCL rank (reduced
+    TinyLlama, 2 rounds from the same params, batches and offsets) equals
+    the round without a mesh bit for bit, launching rows 5-8 and 10."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; none is present")
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import host_mesh, init_world
+    model = build_model(get_reduced_config("tinyllama_1_1b"))
+    scfg = SubmodelConfig(scheme="rolling", capacity=0.5, local_steps=2,
+                          clients_per_round=4, client_lr=0.1, stagger=True)
+    batches = list(zip(lm_batches(512, (2, 4, 2), 32, seed=0), range(2)))
+    end = init_world("cuda")
+    try:
+        runs = []
+        for mesh in (None, host_mesh("1")):
+            fed = api.fed_round(model, scfg, mesh=mesh)
+            trainer = api.Trainer(fed, model.init(0))
+            _build.reset_launches()
+            trainer.run((b for b, _ in batches), 2)
+            torch.cuda.synchronize()
+            runs.append((trainer.params, [h["client_loss"] for h in
+                                          trainer.history],
+                         dict(_build.LAUNCHES)))
+    finally:
+        if end is not None:
+            end()
+    (p0, l0, n0), (p1, l1, n1) = runs
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    for name in ("rolling_mm_fwd<1>", "rolling_mm_fwd<2>",
+                 "rolling_mm_dx<1>", "rolling_mm_dx<2>", "sgd_inplace"):
+        assert n1.get(name, 0) == n0.get(name, 0) > 0, name
 
 
 @pytest.mark.gpu
