@@ -299,6 +299,17 @@ Phases, each of which fails the run when it fails:
    vs prefill); ``[bf16 audio eval]`` / ``[bf16 vlm eval]``: flash vs
    blockwise and a BF16_FAM_G-step generate.
 
+4q. The planning path (``phase_plan``), after the Mamba2 round: the
+   window (``[main]``), bf16 window, Mamba2 and mask rounds' configurations
+   planned on ``meta`` in this process (``launch.specs.make_plan``,
+   ``launch.dryrun.count``), each planned peak beside the same run's
+   ``max_memory_allocated`` of that path (``[plan]``, ratio within
+   PLAN_RATIO); then ``analysis.round_profile.profile(..., measure=True)``
+   at the window path's shapes (``[plan profile]``: each fused and
+   extract phase's counted FLOPs, bytes and step bound beside its device
+   time, every share at most 1.05).  Every kernel row's bound comes from
+   its ``kernels/*.cost()`` (``analysis.roofline.bound_ms``).
+
 The bf16 bodies: rows 1-8's bf16 arm runs on wgmma fed by TMA where the
 tensor map takes its operands, else on its mma.sync body; ``[kernels
 bf16]`` prints each timed launch's body and tile, its device time alone
@@ -357,17 +368,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 CKPT_DIR = ROOT / "build" / "chip_smoke"     # git-ignored; removed after use
 
-# One H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores, HBM3.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-# The product kernels (rows 1-8) keep f32 accuracy with the 3xTF32 split:
-# three TF32 tensor-core passes (495 TFLOP/s dense, the same data sheet) for
-# each f32 product, so 2*M*N*K runs at 495 / 3 TFLOP/s at best.
-PEAK_TF32_FLOPS = 495e12
-PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
-# The bf16 arms of the products: one bf16 tensor-core pass, 989 TFLOP/s
-# dense (the same data sheet)
-PEAK_BF16_FLOPS = 989e12
+# The card's rates, and each kernel row's bound from its launch's declared
+# cost: ``repro_torch.analysis.roofline`` (PEAK_FLOPS, HBM_BW, bound_ms)
 BF16_TOL = "1 bf16 ulp + 1e-6 max|plain|"   # bf16_err
 BF16_TOL_1213 = "1 bf16 ulp + 1e-4 max|plain|"   # rows 12, 13
 # kernel vs plain version: f32 both, different summation order; bounded
@@ -466,12 +468,6 @@ def device_ms(fn, n=20):
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / 1e3 / n
-
-
-def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
 
 
 def err(a, b):
@@ -684,6 +680,8 @@ EXTRA = [
 
 
 def phase_kernels(dev):
+    from repro_torch.analysis.roofline import bound_ms
+    from repro_torch.kernels.masked_update import cost as update_cost
     from repro_torch.kernels import ref
     from repro_torch.kernels.masked_update import sgd_
     from repro_torch.kernels.rolling_matmul import (make_offsets,
@@ -780,7 +778,7 @@ def phase_kernels(dev):
         sgd_(a, gr[go:go + size], 0.1)
         check(bits_equal(a, b), f"sgd_inplace not bit-exact on views at w+"
               f"{wo}, g+{go}")
-    b_ms, b_by = bound(2 * n, 12 * n)
+    b_ms, b_by = bound_ms(*update_cost("sgd", n))
     k_ms = cuda_ms(lambda: sgd_(w, gr, 1e-6))
     rows.append(dict(
         name="sgd_inplace", route="cuda", source=SRC + "sgd.cu",
@@ -825,6 +823,7 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
     of the plain version plus ``slack`` of its largest output
     (``bf16_err``), its bound at the dense bf16 rate and half the bytes,
     the library call on the bf16 window views."""
+    from repro_torch.analysis.roofline import bound_ms
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.rolling_matmul import (block_tile, make_offsets,
                                                     rolling_mm_dx,
@@ -841,12 +840,10 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
             return bf16_err(a, b, slack)
         e = err(a, b)
         return (*e, e[1] - MM_RTOL)
-    esize = 2 if bf16 else 4
     per_client = isinstance(off, list)
     offs = off if per_client else [off] * c
     o = make_offsets(offs, dev)     # the device copy a model keeps
     views = [] if per_client else [w[:, :, off:off + win] for w in ws]
-    flops = 2 * c * T * m * K * win
     lead = [] if scalar_name else [c]
     if kind == "fwd":
         kern = lambda: rolling_mm_fwd(x, ws, o, win, name=scalar_name)  # noqa
@@ -860,7 +857,6 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
         out = kern()
         e = max((diff(a, b) for a, b in zip(out, plain())),
                 key=lambda t: t[2])
-        nbytes = esize * (c * m * K + T * c * K * win + T * c * m * win)
         shape = {"x": lead + [m, K], "W": [T] + lead + [K, N], "win": win}
     else:
         kern = lambda: rolling_mm_dx(dys, ws, o, win, name=scalar_name)  # noqa
@@ -880,7 +876,6 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
         before = dict(_build.BODIES)
         out = [kern()]
         e = diff(out[0], plain())
-        nbytes = esize * (T * c * m * win + T * c * K * win + c * m * K)
         shape = {"dy": [T] + lead + [m, win], "W": [T] + lead + [K, N],
                  "win": win}
     check(e[2] <= 0, f"{kind}<{T}> {dtype} at {shape}: {e}")
@@ -891,8 +886,8 @@ def product_timing(dev, g, kind, T, c, m, N, win, off, scalar_name=None,
     # the body the launch ran (the bf16 arm has two)
     body = [k.rsplit(" ", 1)[1] for k, n in _build.BODIES.items()
             if n > before.get(k, 0)]
-    b_ms, b_by = bound(flops, nbytes,
-                       PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS)
+    from repro_torch.kernels.rolling_matmul import cost
+    b_ms, b_by = bound_ms(*cost(kind, T, c, m, K, win, dtype))
     k_ms = cuda_ms(kern)
     if per_client:
         shape["offsets"] = offs
@@ -920,6 +915,8 @@ def mask_kernels(dev, g):
     and on a ragged misaligned slice; the fill-in on the ``w_gate`` server
     leaf [2048, 5632] for C in {3, 4} and server_lr in {1, 0.5}, and on a
     ragged misaligned leaf."""
+    from repro_torch.analysis.roofline import bound_ms
+    from repro_torch.kernels.masked_update import cost as update_cost
     from repro_torch.kernels import ref
     from repro_torch.kernels.masked_update import fillin_agg_, masked_sgd_
     rows = []
@@ -941,7 +938,7 @@ def mask_kernels(dev, g):
         masked_sgd_(a, m[go:go + size], gr[go:go + size], 0.1)
         check(bits_equal(a, b), f"masked_sgd_inplace not bit-exact on views "
               f"at w+{wo}, m and g+{go}")
-    b_ms, b_by = bound(3 * n, 16 * n)
+    b_ms, b_by = bound_ms(*update_cost("masked_sgd", n))
     k_ms = cuda_ms(lambda: masked_sgd_(w, m, gr, 1e-6))
     rows.append(dict(
         name="masked_sgd_inplace", route="cuda",
@@ -971,7 +968,7 @@ def mask_kernels(dev, g):
           "(aligned, ragged and misaligned; SGD steps in place on views with "
           "shared and mismatched misalignments; fill-in C in {3, 4}, "
           "server_lr in {1, 0.5})")
-    b_ms, b_by = bound((3 * C + 2) * ns, (8 + 8 * C) * ns)
+    b_ms, b_by = bound_ms(*update_cost("fillin", ns, clients=C))
     k_ms = cuda_ms(lambda: fillin_agg_(w, wc, mc, 1.0))
     rows.append(dict(
         name="fillin_agg_inplace", route="cuda",
@@ -992,14 +989,16 @@ def path_update_rows(dev, g, rows):
     ``w_gate`` [1, 2048, 5632]; rows 9 and 11 on ResNet18's largest leaf
     (stage 3's ``conv2``, [3, 3, 512, 512]) at the paper round's 10
     clients."""
+    from repro_torch.analysis.roofline import bound_ms
+    from repro_torch.kernels.masked_update import cost as update_cost
     from repro_torch.kernels import ref
     from repro_torch.kernels.masked_update import (fillin_agg_, masked_sgd_,
                                                    sgd_)
     by = {r["name"]: r for r in rows}
 
-    def sub(name, shape, ok, n_ops, n_bytes, kern, plain, lib):
+    def sub(name, shape, ok, cost, kern, plain, lib):
         check(ok, f"{name} not bit-exact at {shape}")
-        b_ms, b_by = bound(n_ops, n_bytes)
+        b_ms, b_by = bound_ms(*cost)
         by[name].setdefault("sub_rows", []).append(dict(
             shape=shape, max_abs_err=0.0, max_rel_err=0.0, tolerance=0.0,
             ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
@@ -1015,7 +1014,7 @@ def path_update_rows(dev, g, rows):
         sub("sgd_inplace", {"w": [c, D, width]},
             bits_equal(sgd_(w.clone(), gr, 0.1),
                        ref.sgd_ref(w.clone(), gr, 0.1)),
-            2 * n, 12 * n, lambda: sgd_(w, gr, 1e-6),
+            update_cost("sgd", n), lambda: sgd_(w, gr, 1e-6),
             lambda: ref.sgd_ref(w, gr, 1e-6), lambda: w.add_(gr, alpha=-1e-6))
     cp, leaf = 10, [3, 3, 512, 512]
     ns = math.prod(leaf)
@@ -1026,7 +1025,7 @@ def path_update_rows(dev, g, rows):
     sub("masked_sgd_inplace", {"w": [cp] + leaf},
         bits_equal(masked_sgd_(w.clone(), m, gr, 0.1),
                    ref.masked_sgd_ref(w.clone(), m, gr, 0.1)),
-        3 * n, 16 * n, lambda: masked_sgd_(w, m, gr, 1e-6),
+        update_cost("masked_sgd", n), lambda: masked_sgd_(w, m, gr, 1e-6),
         lambda: ref.masked_sgd_ref(w, m, gr, 1e-6),
         lambda: w.addcmul_(m, gr, value=-1e-6))
     ws = torch.randn(ns, device=dev, generator=g)
@@ -1034,7 +1033,7 @@ def path_update_rows(dev, g, rows):
     sub("fillin_agg_inplace", {"w": leaf, "w_c": [cp] + leaf},
         bits_equal(fillin_agg_(ws.clone(), wc, mc, 1.0),
                    ref.fillin_agg_ref(ws.clone(), wc, mc, 1.0 / cp)),
-        (3 * cp + 2) * ns, (8 + 8 * cp) * ns,
+        update_cost("fillin", ns, clients=cp),
         lambda: fillin_agg_(ws, wc, mc, 1.0),
         lambda: ref.fillin_agg_ref(ws, wc, mc, 1.0 / cp), None)
 
@@ -1140,12 +1139,6 @@ FLASH = [
 ]
 
 
-def visible_pairs(S, window):
-    """(query, key) pairs a causal (sliding-window) attention visits."""
-    n = np.arange(1, S + 1)
-    return int((np.minimum(n, window) if window else n).sum())
-
-
 def flash_kernels(dev, g):
     """TPU row 13: the flash kernel against its plain version (the Pallas
     body transcribed) at each case; timed at the eval shape and at head_dim
@@ -1191,6 +1184,7 @@ def flash_timing(dev, g, B, S, H, KV, hd, window=0):
     ``scaled_dot_product_attention`` (timed only; the port never calls it;
     a sliding window takes it a boolean mask) and beside its bound at the
     3xTF32 rate."""
+    from repro_torch.analysis.roofline import bound_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     q = torch.randn((B, S, H, hd), device=dev, generator=g)
@@ -1215,9 +1209,8 @@ def flash_timing(dev, g, B, S, H, KV, hd, window=0):
     else:
         lib = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
                            enable_gqa=True)
-    flops = 4 * B * H * hd * visible_pairs(S, window)
-    nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-    b_ms, b_by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
+    from repro_torch.kernels.flash_attention import cost
+    b_ms, b_by = bound_ms(*cost(B, S, S, H, KV, hd, True, window))
     k_ms = cuda_ms(kern)
     return dict(
         shape=shape, max_abs_err=e[0], max_rel_err=e[1], tolerance=MM_RTOL,
@@ -1253,18 +1246,6 @@ def ssd_inputs(dev, g, Bt, nc, Q, nh, hd, N):
             0.5 * torch.randn((Bt, nc, Q, N), device=dev, generator=g))
 
 
-def ssd_flops_bytes(Bt, nc, Q, nh, hd, N):
-    """What one call's data needs: C B^T once per chunk over the causal
-    pairs (ngroups = 1: it does not depend on the head), M x per head over
-    the same pairs, and the state per head, at 2 flops a multiply-add; each
-    input read once and each output written once."""
-    pairs = Q * (Q + 1) // 2
-    flops = Bt * nc * (2 * pairs * N + nh * (2 * pairs * hd + 2 * Q * hd * N))
-    nbytes = 4 * (2 * Bt * nc * Q * nh * hd + Bt * nc * Q * nh + nh
-                  + 2 * Bt * nc * Q * N + Bt * nc * nh * hd * N)
-    return flops, nbytes
-
-
 def ssd_kernels(dev, g):
     """TPU row 12: the SSD chunk kernel against its plain version (the
     Pallas body transcribed) at each case, y and states within MM_RTOL of
@@ -1272,6 +1253,7 @@ def ssd_kernels(dev, g):
     chunks; timed at one Mamba2 prefill layer beside its bound at the 3xTF32
     rate, a second launch there bit-equal to the first (no single PyTorch
     call computes the block, so there is no library time)."""
+    from repro_torch.analysis.roofline import bound_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_chunk import ssd_chunk_intra
     row = None
@@ -1292,8 +1274,8 @@ def ssd_kernels(dev, g):
               f"[{hs.start}, {hs.stop}): max abs err {e[0]:.3g} (rel "
               f"{e[1]:.3g})")
         if row is None:
-            flops, nbytes = ssd_flops_bytes(Bt, nc, Q, nh, hd, N)
-            b_ms, b_by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
+            from repro_torch.kernels.ssd_chunk import cost
+            b_ms, b_by = bound_ms(*cost(Bt, nc, Q, win or nh, hd, N))
             del yr, sr
             y2, s2 = kern()
             check(bits_equal(y, y2) and bits_equal(s, s2),
@@ -1479,6 +1461,11 @@ def record_bodies(tag, _build, add=False):
         print(f"[{tag}] launches by body {got}")
 
 
+#: each run_rounds path's peak memory allocated (bytes), by its tag: the
+#: readings phase_plan holds the plans against
+PEAKS = {}
+
+
 def run_rounds(tag, trainer, data, _build, clients=4, after=None):
     """``len(data)`` rounds, each timed to a synchronize, with the kernel
     launches counted from 0 and the peak memory from a reset; checks what
@@ -1499,6 +1486,7 @@ def run_rounds(tag, trainer, data, _build, clients=4, after=None):
     launches = dict(_build.LAUNCHES)
     record_bodies(tag, _build)
     peak = torch.cuda.max_memory_allocated()
+    PEAKS[tag] = peak
     losses = trainer.losses
     client = [h["client_loss"].cpu().tolist() for h in trainer.history]
     print(f"[{tag}] round losses {losses}")
@@ -1944,6 +1932,7 @@ def profile_prefill(tag, model, params, prompts, prefill_s):
     device time's share of an unprofiled prefill, the ten longest kernels.
     Returns ``device_kernels``' list (empty where the trace holds no
     device time)."""
+    from repro_torch.analysis.trace import Trace
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.ssd_chunk import RECURRENCE
     SB, SS = prompts.shape
@@ -4557,6 +4546,8 @@ def phase_kernels_bf16(dev):
     ragged, misaligned and in place on views), timed beside ``add_`` /
     ``addcmul_`` on bf16 and their byte bounds.  Each row is named
     ``<kernel>/bf16``, as its launches count."""
+    from repro_torch.analysis.roofline import bound_ms
+    from repro_torch.kernels.masked_update import cost as update_cost
     from repro_torch.kernels import ref
     from repro_torch.kernels.masked_update import (fillin_agg_, masked_sgd_,
                                                    sgd_)
@@ -4656,15 +4647,16 @@ def phase_kernels_bf16(dev):
             check(bits_equal(a, want), f"{kind}_inplace/bf16 not bit-exact "
                   f"at w+{wo}, m+{mo}, g+{go}, {size}")
     w, m, gr = w[:n], m[:n], gr[:n]
-    for name, row, tpu_fn, kern, pl, lib, n_ops, n_bytes in (
+    for name, row, tpu_fn, kern, pl, lib, n_cost in (
             ("sgd_inplace", 10, "masked_update.py:53",
              lambda: sgd_(w, gr, 1e-6), lambda: ref.sgd_ref(w, gr, 1e-6),
-             lambda: w.add_(gr, alpha=-1e-6), 2 * n, 6 * n),
+             lambda: w.add_(gr, alpha=-1e-6), update_cost("sgd", n, BF)),
             ("masked_sgd_inplace", 9, "masked_update.py:33",
              lambda: masked_sgd_(w, m, gr, 1e-6),
              lambda: ref.masked_sgd_ref(w, m, gr, 1e-6),
-             lambda: w.addcmul_(m, gr, value=-1e-6), 3 * n, 8 * n)):
-        b_ms, b_by = bound(n_ops, n_bytes)
+             lambda: w.addcmul_(m, gr, value=-1e-6),
+             update_cost("masked_sgd", n, BF))):
+        b_ms, b_by = bound_ms(*n_cost)
         k_ms = cuda_ms(kern)
         rows.append(dict(
             name=name + "/bf16", route="cuda",
@@ -4693,7 +4685,7 @@ def phase_kernels_bf16(dev):
           "mismatched misalignments; fill-in C in {3, 4}, server_lr in "
           "{1, 0.5}, client strides of 8k and 8k + 3 elements)")
     w = w[:ns]
-    b_ms, b_by = bound((3 * C + 2) * ns, (4 + 4 * C) * ns)
+    b_ms, b_by = bound_ms(*update_cost("fillin", ns, BF, clients=C))
     k_ms = cuda_ms(lambda: fillin_agg_(w, wc, mc, 1.0))
     rows.append(dict(
         name="fillin_agg_inplace/bf16", route="cuda",
@@ -4771,6 +4763,7 @@ def ssd_bf16_rows(dev, g):
     once and the bound of the widened design before it (M x and the state
     at the 3xTF32 rate); neither goes into the kernels line.  The profiler
     gives no DRAM bytes: the kernel's HBM traffic is not measured."""
+    from repro_torch.analysis.roofline import PEAK_FLOPS, bound_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_chunk import ssd_chunk_intra
     row, subs = None, []
@@ -4807,10 +4800,11 @@ def ssd_bf16_rows(dev, g):
             # this design: C B^T in one bf16 pass, M x and the state in
             # two; the widened design's: C B^T at the bf16 rate, the rest in
             # 3xTF32
-            b_ms, b_by = bound(f_bf16 + 2 * f_rest, nbytes, PEAK_BF16_FLOPS)
-            old_ms, _ = bound(
-                f_rest + f_bf16 * PEAK_3XTF32_FLOPS / PEAK_BF16_FLOPS,
-                nbytes, PEAK_3XTF32_FLOPS)
+            from repro_torch.kernels.ssd_chunk import cost
+            b_ms, b_by = bound_ms(*cost(Bt, nc, Q, nh, hd, N, BF))
+            old_ms, _ = bound_ms(
+                f_rest + f_bf16 * PEAK_FLOPS["tf32x3"]
+                / PEAK_FLOPS["bfloat16"], nbytes, "tf32x3")
             k_ms = cuda_ms(kern)
             d_ms = device_ms(kern)
             print(f"[kernels bf16] ssd {tag}: {nbytes / 1e9:.3f} GB moved "
@@ -4845,8 +4839,10 @@ def flash_bf16_timing(dev, g, B, S, H, KV, hd, window=0):
     two-part P) and the bound of this design's work: the bytes at bf16, q
     k^T and P V's two bf16 passes at the dense bf16 rate; beside it PR
     25's bound (P V in 3xTF32)."""
+    from repro_torch.analysis.roofline import PEAK_FLOPS, bound_ms
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (cost, flash_attention,
+                                                     visible_pairs)
     q = torch.randn((B, S, H, hd), device=dev, generator=g).to(BF)
     k = torch.randn((B, S, KV, hd), device=dev, generator=g).to(BF)
     v = torch.randn((B, S, KV, hd), device=dev, generator=g).to(BF)
@@ -4870,15 +4866,15 @@ def flash_bf16_timing(dev, g, B, S, H, KV, hd, window=0):
     else:
         lib = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
                            enable_gqa=True)
-    pairs = visible_pairs(S, window)
+    pairs = visible_pairs(S, S, True, window)
     f_qk = f_pv = 2 * B * H * hd * pairs
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
     # the work of this design: q k^T and P V as two bf16 passes (P's two
     # parts), all at the dense bf16 rate; the design before it kept P V
     # in 3xTF32
-    b_ms, b_by = bound(f_qk + 2 * f_pv, nbytes, PEAK_BF16_FLOPS)
-    old_ms, _ = bound(f_pv + f_qk * PEAK_3XTF32_FLOPS / PEAK_BF16_FLOPS,
-                      nbytes, PEAK_3XTF32_FLOPS)
+    b_ms, b_by = bound_ms(*cost(B, S, S, H, KV, hd, True, window, BF))
+    old_ms, _ = bound_ms(f_pv + f_qk * PEAK_FLOPS["tf32x3"]
+                         / PEAK_FLOPS["bfloat16"], nbytes, "tf32x3")
     k_ms = cuda_ms(kern)
     return dict(
         shape=shape, max_abs_err=e[0], max_rel_err=e[1],
@@ -5913,125 +5909,14 @@ def phase_bf16_family_eval(dev, _build, key, arch):
     return flash[1]
 
 
-class Trace:
-    """What the script reads of a ``torch.profiler`` profile, taken from
-    its raw kineto events with the rules of torch's own event list: each
-    device kernel with its ms, and each synchronous host op with its
-    thread, interval, autograd sequence number and the kernels linked to
-    it by correlation id.  Torch's list (``key_averages()``, ``events()``)
-    makes a Python object and a tree for every host op first, which took
-    8-30 s of host time for each full-width round's profile (PERF.md
-    section 6); this reads the same fields at a small fraction of that
-    (``tools/trace_probe.py`` holds the two against each other)."""
-
-    #: host ops torch's list leaves out (``profiler_util._filter_name``)
-    SKIP = frozenset(("[memory]", "[OutOfMemory]",
-                      "profiler::_record_function_enter",
-                      "profiler::_record_function_enter_new",
-                      "profiler::_record_function_exit", "aten::is_leaf",
-                      "aten::output_nr", "aten::_version"))
-
-    def __init__(self, prof):
-        from torch.autograd import DeviceType
-        self._device, self._host = [], []
-        for e in prof.profiler.kineto_results.events():
-            kind = e.device_type()
-            if kind == DeviceType.CUDA:
-                self._device.append(e)
-            elif kind == DeviceType.CPU:
-                self._host.append(e)
-        self._device = [e for e in self._device if self._kept(e)]
-        # (name, ms) of every device kernel
-        self.kernels = [(e.name(), (e.end_ns() - e.start_ns()) / 1e6)
-                        for e in self._device]
-        self._ops = None
-
-    def _kept(self, e):
-        return e.name() not in self.SKIP and not getattr(
-            e, "is_hidden_event", lambda: False)()
-
-    def _index(self):
-        """The host ops by thread, built on first use: a profile read only
-        for its kernels (``device``) never pays for them."""
-        if self._ops is not None:
-            return
-        linked = {}                # correlation id -> [(name, ms)]
-        for e, k in zip(self._device, self.kernels):
-            if e.linked_correlation_id() > 0:
-                linked.setdefault(e.linked_correlation_id(), []).append(k)
-        self._calls = {}           # host op name -> count, async ones too
-        self._ops = {}             # thread -> ops by (start, -end)
-        for e in self._host:
-            if not self._kept(e):
-                continue
-            name = e.name()
-            self._calls[name] = self._calls.get(name, 0) + 1
-            if e.is_async() or e.start_thread_id() != e.end_thread_id():
-                continue
-            # kernels hang on the host op whose own correlation id they
-            # name, where that op links to nothing itself
-            kern = (linked.get(e.correlation_id(), [])
-                    if e.linked_correlation_id() == 0 else [])
-            self._ops.setdefault(e.start_thread_id(), []).append(
-                (e.start_ns(), -e.end_ns(), name, e.sequence_nr(), kern))
-        for ops in self._ops.values():
-            ops.sort(key=lambda o: (o[0], o[1]))
-
-    def calls(self, name):
-        """How many host ops are named ``name``."""
-        self._index()
-        return self._calls.get(name, 0)
-
-    def device(self, skip=()):
-        """``(name, device ms, count)`` of every kernel name, leaving out
-        those in ``skip`` (a profiler range shows up on the device too, as
-        an annotation), and their device ms summed by group."""
-        ms, n = {}, {}
-        for name, t in self.kernels:
-            if name not in skip:
-                ms[name] = ms.get(name, 0.0) + t
-                n[name] = n.get(name, 0) + 1
-        kern = [(name, t, n[name]) for name, t in ms.items() if t > 0]
-        groups = {}
-        for name, t, _ in kern:
-            g = _kernel_group(name)
-            groups[g] = groups.get(g, 0.0) + t
-        return kern, groups
-
-    def roots(self, test):
-        """The synchronous host ops whose ``(name, sequence number)``
-        passes ``test``, each as ``(thread, index)``."""
-        self._index()
-        return [(t, i) for t, ops in self._ops.items()
-                for i, o in enumerate(ops) if test(o[2], o[3])]
-
-    def tree(self, root):
-        """The host op ``root`` and every op inside its interval on its
-        thread: its children, theirs and so on."""
-        t, i = root
-        ops = self._ops[t]
-        end = -ops[i][1]
-        yield ops[i]
-        for j in range(i + 1, len(ops)):
-            if ops[j][0] >= end:
-                break
-            if -ops[j][1] <= end:
-                yield ops[j]
-
-    def host_ms(self, name):
-        """The host ms of the synchronous ops named ``name``, summed."""
-        self._index()
-        return sum(-o[1] - o[0] for ops in self._ops.values()
-                   for o in ops if o[2] == name) / 1e6
-
-
 def kernel_groups(ops):
     """The device ms of the kernels linked to the host ops ``ops``, by
     kernel group."""
+    from repro_torch.analysis.trace import kernel_group
     out = {}
     for o in ops:
         for name, t in o[4]:
-            g = _kernel_group(name)
+            g = kernel_group(name)
             out[g] = out.get(g, 0.0) + t
     return out
 
@@ -6050,29 +5935,8 @@ def profiled(ranges=()):
 def device_kernels(prof, skip=()):
     """``(name, device ms, count)`` of every kernel in a profile, leaving
     out the names in ``skip``, and their device ms summed by group."""
+    from repro_torch.analysis.trace import Trace
     return Trace(prof).device(skip)
-
-
-def _kernel_group(name):
-    for key, group in (("flash_attn", "flash_attention (port)"),
-                       ("ssd_", "ssd_chunk_intra (port)"),
-                       ("rolling_mm_fwd", "rolling_mm_fwd (port)"),
-                       ("rolling_mm_dx", "rolling_mm_dx (port)"),
-                       ("masked_sgd", "masked_sgd_inplace (port)"),
-                       ("fillin_agg", "fillin_agg_inplace (port)"),
-                       ("sgd_inplace", "sgd_inplace (port)"),
-                       ("distribution", "random draws (masks)"),
-                       ("convolve", "cuDNN convolutions"),
-                       ("fprop", "cuDNN convolutions"),
-                       ("dgrad", "cuDNN convolutions"),
-                       ("wgrad", "cuDNN convolutions"),
-                       ("gemm", "cuBLAS gemm (bmm, addmm)"),
-                       ("elementwise", "elementwise"),
-                       ("reduce", "reductions"),
-                       ("Memcpy", "copies"), ("Memset", "fills")):
-        if key in name:
-            return group
-    return "other"
 
 
 def range_kernels(trace, name):
@@ -6100,6 +5964,8 @@ def phase_profile(tag, trainer, batch, round_s, ranges=()):
     backward, by kernel group (``range_kernels``); the client
     steps' update group beside its byte bound for the round, from the
     leaves' sizes."""
+    from repro_torch.analysis.roofline import HBM_BW
+    from repro_torch.analysis.trace import Trace
     from torch.profiler import profile
 
     from repro_torch import api
@@ -6155,13 +6021,78 @@ def phase_profile(tag, trainer, batch, round_s, ranges=()):
     else:
         n = sum(v.numel() for v in trainer.params.values())
     elts = scfg.local_steps * scfg.clients_per_round * n
-    b_ms = 1e3 * per_elt * elts / PEAK_BYTES
+    b_ms = 1e3 * per_elt * elts / HBM_BW
     check(groups.get(group, 0.0) > 0,
           f"[profile {tag}] no {group} time in the profile")
     t = groups[group]
     print(f"[profile {tag}] update group {group}: {t:.2f} ms against its "
           f"byte bound {b_ms:.2f} ms ({per_elt * elts / 1e9:.1f} GB at "
-          f"{PEAK_BYTES / 1e12:.2f} TB/s): {t / b_ms:.3f}x")
+          f"{HBM_BW / 1e12:.2f} TB/s): {t / b_ms:.3f}x")
+
+
+# phase_plan (a): each path's configuration planned on meta, by the tag
+# its run_rounds reading is kept under: (tag, arch, seq, scheme, dtype)
+PLANNED = [("main", "tinyllama_1_1b", 256, "rolling", torch.float32),
+           ("bf16 window", "tinyllama_1_1b", 256, "rolling", torch.bfloat16),
+           ("ssm round", "mamba2_130m", SSM_SEQ, "slice", torch.float32),
+           ("mask", "tinyllama_1_1b", 256, "bernoulli", torch.float32)]
+PLAN_RATIO = (0.90, 1.10)      # planned peak over the card's reading
+
+
+def phase_plan(dev, smi, peaks):
+    """The planning path against the card (after the paths whose peaks it
+    reads; it runs no round of theirs again).  (a) Each PLANNED path's
+    configuration, planned on meta in this process (``launch.specs.
+    make_plan``, ``launch.dryrun.count``): its planned peak beside the
+    same run's ``max_memory_allocated`` reading of that path (``peaks``,
+    from ``run_rounds``), their ratio within PLAN_RATIO.  (b) The round
+    profile at the main path's shapes on the card
+    (``analysis.round_profile.profile(..., measure=True)``): each phase's
+    counted FLOPs, bytes and roofline beside its device time, every share
+    (step_lb / device time) at most ``round_profile.SHARE_MAX`` (the
+    profile raises otherwise).  Every line carries the card's name and
+    power limit."""
+    from repro_torch.analysis import round_profile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, specs
+    lo, hi = PLAN_RATIO
+    for tag, arch, seq, scheme, dtype in PLANNED:
+        if tag not in peaks:
+            print(f"[plan] {tag}: its path did not run; not compared")
+            continue
+        scfg = (slice_scfg(client_lr=ROUND_LR) if scheme == "slice"
+                else scfg_for(scheme))
+        t0 = time.perf_counter()
+        plan = specs.make_plan(arch, ShapeConfig(tag, seq, 2 * C, "train"),
+                               world=1, cfg=zoo_config(arch), scfg=scfg,
+                               param_dtype=dtype)
+        c = dryrun.count(plan)
+        planned, read = c.peak_bytes, peaks[tag]
+        ratio = planned / read
+        print(f"[plan] {tag}: planned peak {planned / 2**30:.3f} GiB "
+              f"(arguments {c.argument_bytes / 2**30:.3f}), the card's "
+              f"max_memory_allocated {read / 2**30:.3f} GiB, ratio "
+              f"{ratio:.4f}; planned on meta in "
+              f"{time.perf_counter() - t0:.1f} s; {smi}")
+        check(lo <= ratio <= hi, f"[plan] {tag}: planned peak over the "
+              f"card's reading {ratio:.4f}, outside {PLAN_RATIO}")
+    from repro_torch.configs.base import get_config
+    prof = round_profile.profile("tinyllama_1_1b", device=dev, measure=True,
+                                 cfg=get_config("tinyllama_1_1b"),
+                                 scfg=scfg_for("rolling"), seq=256)
+    for arm in round_profile.ARMS:
+        for ph in round_profile.PHASES:
+            vals = {m: prof[f"{arm}_{ph}_{m}"] for m in (
+                *round_profile.PHASE_METRICS,
+                *round_profile.MEASURED_METRICS)}
+            print(f"[plan profile] {arm}_{ph} {json.dumps(vals)}; {smi}")
+    for ph in round_profile.PHASES:
+        print(f"[plan profile] {ph}_bytes_extract_over_fused "
+              f"{prof[f'{ph}_bytes_extract_over_fused']}; {smi}")
+    shares = {k: v for k, v in prof.items() if k.endswith("_share")}
+    check(all(v <= round_profile.SHARE_MAX for v in shares.values()),
+          f"[plan profile] shares over {round_profile.SHARE_MAX}: {shares}")
+    return prof
 
 
 def _timed_phase(name, fn):
@@ -6322,6 +6253,7 @@ def main(argv=()):
     sr_launches, sx_launches = phase(
         phase_slice_rounds, dev, _build, "ssm round", "mamba2_130m",
         SSM_SEQ, skip=({}, {}))
+    phase(phase_plan, dev, smi, dict(PEAKS))
     hr_launches, hx_launches = phase(
         phase_slice_rounds, dev, _build, "hybrid round", "hymba_1_5b",
         HYB_SEQ, HYB_LAYERS, skip=({}, {}))

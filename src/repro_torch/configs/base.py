@@ -1,9 +1,9 @@
 """Model and sub-model configuration, the port's own copy.
 
 Ports ``MoEConfig``, ``SSMConfig``, ``MLAConfig``, ``ModelConfig`` (with
-``n_params`` and ``n_active_params``), ``SubmodelConfig``, ``list_archs``,
-``_shrink``, ``get_config`` and ``get_reduced_config`` of
-``repro/configs/base.py``.  Field names and defaults are the reference's,
+``n_params`` and ``n_active_params``), ``ShapeConfig``, ``INPUT_SHAPES``,
+``SubmodelConfig``, ``RunConfig``, ``list_archs``, ``_shrink``,
+``get_config`` and ``get_reduced_config`` of ``repro/configs/base.py``.  Field names and defaults are the reference's,
 so one config means the same model in both packages, and the registry
 holds the reference's ten language-model architectures.
 """
@@ -135,6 +135,22 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
 class SubmodelConfig:
     """Configuration of distributed sub-model training (Alg. 1 / Alg. 2):
     which semantic ``axes`` are windowed, the per-axis ``capacity``, the
@@ -156,6 +172,23 @@ class SubmodelConfig:
     align: int = 1                 # round window sizes/offsets to multiples
     stagger: bool = False          # rolling: rotate window per client
     shared_window: Optional[bool] = None
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """One dry-run: an architecture, an input shape, the sub-model plan.
+    ``remat`` and ``fsdp`` have no effect in the port: it keeps every
+    activation for the backward (no rematerialisation), and a rank holds
+    whole params (the reference's sharding constraints are no-ops here,
+    ROADMAP.md A12); each dry-run record says so under ``notes``."""
+
+    arch: str
+    shape: str
+    submodel: SubmodelConfig = SubmodelConfig()
+    dtype: str = "bfloat16"
+    remat: bool = True
+    fsdp: bool = True              # no effect in the port (see above)
+    multi_pod: bool = False
 
 
 ARCHS = ["deepseek_v3_671b", "tinyllama_1_1b", "mamba2_130m",

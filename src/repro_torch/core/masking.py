@@ -60,10 +60,13 @@ def capacity_size(capacity: float, n: int, align: int) -> int:
 
 def seeded_generator(seed: int, *ks: int, device="cpu") -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded by the tuple ``(seed,
-    *ks)`` (an epoch; a round; a round and an axis)."""
+    *ks)`` (an epoch; a round; a round and an axis); None on ``meta``,
+    where a draw makes shapes only and takes no generator."""
     s = int(seed)
     for k in ks:
         s = (s * 1_000_003 + int(k)) % (1 << 63)
+    if torch.device(device).type == "meta":
+        return None        # a plan: meta draws take no generator
     return torch.Generator(device).manual_seed(s)
 
 
@@ -106,7 +109,13 @@ class WindowScheme:
             csum = torch.cat([m.new_zeros(1), torch.cumsum(m, 0)])
             grid = torch.as_tensor(self.grids[key], device=m.device)
             window_mass = (csum[w:] - csum[:-w])[grid]
-            if self.cfg.stagger:
+            if m.device.type == "meta":
+                # a plan: the mass is unknown, the windows' shapes are not;
+                # the grid's offsets in order stand in for the ranking
+                g = self.grids[key]
+                out[key] = [g[i % len(g) if self.cfg.stagger else 0]
+                            for i in range(n_clients)]
+            elif self.cfg.stagger:
                 order = torch.argsort(-window_mass, stable=True).tolist()
                 out[key] = [self.grids[key][order[i % len(order)]]
                             for i in range(n_clients)]

@@ -82,8 +82,10 @@ class Trainer:
             raise ValueError(f"params {wrong[:3]} are not on the round's "
                              f"device {dev}")
         self.round_idx = self.start_round
-        self.generator = torch.Generator(dev).manual_seed(
-            0 if self.rng is None else int(self.rng))
+        self.generator = None          # a plan on meta draws without one
+        if dev.type != "meta":
+            self.generator = torch.Generator(dev).manual_seed(
+                0 if self.rng is None else int(self.rng))
         if self.server_opt is not None:
             self.opt_state = self.server_opt.init(self.params)
 

@@ -14,7 +14,10 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises when it names CUDA and no
-    card is present (the port never carries on on the CPU by itself)."""
+    card is present (the port never carries on on the CPU by itself).
+    ``"meta"`` is taken when the caller names it: shapes and dtypes only,
+    the planning path's device (``launch/dryrun.py``), where each kernel
+    wrapper takes its ``meta`` arm and declares its cost."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -26,8 +29,9 @@ def resolve_device(device="cuda") -> torch.device:
             dev = torch.device("cuda", torch.cuda.current_device())
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
-    elif dev.type != "cpu":
-        raise ValueError(f"device must be 'cuda' or 'cpu'; got {device!r}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"device must be 'cuda', 'cpu' or 'meta'; got "
+                         f"{device!r}")
     return dev
 
 

@@ -27,6 +27,11 @@ whenever every query row sees at least one key.  Only a window with
 ``Sq >= Skv + window`` leaves a row without one (the Pallas body would give
 it the mean of V over its visited blocks, a value of its tiling), and such
 inputs are refused on both devices.
+
+On ``meta`` tensors (the planning path) the wrapper checks its operands as
+on the card, returns an empty output and reports its launch's :func:`cost`
+to the active counters (``repro_torch.accounting``); on the card it
+reports the same cost beside the launch, while a counter is active.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import math
 
 import torch
 
+from repro_torch import accounting
 from repro_torch.kernels import _build, ref
 
 #: head dims the CUDA kernel is built for (its tensor-core tiles and
@@ -41,6 +47,40 @@ from repro_torch.kernels import _build, ref
 HEAD_DIMS = (8, 16, 32, 64, 96, 128)
 #: the largest kv head group (G query heads share each K/V tile)
 MAX_GROUP = 128
+
+
+def visible_pairs(Sq, Skv, causal=True, window=0):
+    """The (query, key) pairs the mask lets through, query and key
+    positions both from 0: ``k <= q`` (causal) and ``q - k < window``
+    (window > 0).  In closed form: the pairs with ``q - k <= x`` number
+    ``upto(x)``, and the mask keeps ``0 <= q - k <= window - 1``."""
+    def upto(x):
+        # u = q - x over the query rows: a row sees all Skv keys where
+        # u <= 0, Skv - u where 0 < u < Skv, none beyond
+        a, b = -x, Sq - 1 - x
+        n = Skv * max(0, min(b, 0) - a + 1)
+        lo, hi = max(a, 1), min(b, Skv - 1)
+        if lo <= hi:
+            n += (hi - lo + 1) * (2 * Skv - lo - hi) // 2
+        return n
+    top = upto(window - 1) if window else Sq * Skv
+    return top - (upto(-1) if causal else 0)
+
+
+def cost(B, Sq, Skv, H, KV, hd, causal=True, window=0,
+         dtype=torch.float32):
+    """``(flops, hbm_bytes, rate_class)`` of one launch: q k^T and P v over
+    the visible pairs only (a causal mask halves the key blocks), 2 * hd
+    FLOPs a pair each, per query head.  f32: both products in 3xTF32
+    (``tf32x3``); bf16: q k^T in one bf16 pass and P v in two (P's two
+    bf16 parts), at the dense bf16 rate.  q and the output ``[B, Sq, H,
+    hd]``, k and v ``[B, Skv, KV, hd]``, each moved once."""
+    f = 2 * B * H * hd * visible_pairs(Sq, Skv, causal, window)
+    esize = dtype.itemsize
+    nbytes = esize * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd)
+    if dtype == torch.bfloat16:
+        return 3 * f, nbytes, "bfloat16"
+    return 2 * f, nbytes, "tf32x3"
 
 
 def _check(q, k, v, window):
@@ -87,7 +127,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, softmax_scale=None):
     if hd not in HEAD_DIMS or G > MAX_GROUP:
         raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS} and "
                          f"groups of at most {MAX_GROUP}; got {hd}, {G}")
+    if accounting.ACTIVE:
+        accounting.declare(
+            "flash_attention" + ("/bf16" if q.dtype == torch.bfloat16
+                                 else ""),
+            *cost(B, Sq, Skv, H, KV, hd, causal, window, q.dtype))
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        return out
     strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)]
     _build.launch(
         "flash_attn_fwd", "flash_attention", q.dtype, q.data_ptr(),

@@ -14,12 +14,43 @@ reference casts the mask, grad, client leaves and masks to it,
 ``kernels/ops.py:54-55, 69-70`` and ``dispatch.py:206``), the arithmetic
 in float32 and one rounding to bf16 at the store.  A bf16 launch counts
 under the kernel's name with ``/bf16`` appended.
+
+On ``meta`` tensors (the planning path) each wrapper checks its operands
+as on the card, returns its first argument and reports its launch's
+:func:`cost` to the active counters (``repro_torch.accounting``); on the
+card it reports the same cost beside the launch, while a counter is
+active.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import accounting
 from repro_torch.kernels import _build, ref
+
+#: the update kernels' names, by the ``kind`` of :func:`cost`
+KERNELS = {"sgd": "sgd_inplace", "masked_sgd": "masked_sgd_inplace",
+           "fillin": "fillin_agg_inplace"}
+
+
+def cost(kind, n, dtype=torch.float32, clients=1):
+    """``(flops, hbm_bytes, "float32")`` of one launch over ``n`` elements
+    of the leaf: ``sgd`` reads p and g and writes p (2 FLOPs an element);
+    ``masked_sgd`` also reads the mask (3); ``fillin`` reads the
+    ``clients`` changes and masks and reads and writes the server param
+    (3 C + 2).  The arithmetic is float32 in both arms; the bytes are the
+    operands' dtype."""
+    esize = dtype.itemsize
+    flops, moved = {"sgd": (2, 3), "masked_sgd": (3, 4),
+                    "fillin": (3 * clients + 2, 2 * clients + 2)}[kind]
+    return flops * n, esize * moved * n, "float32"
+
+
+def _declare(kind, w, clients=1):
+    if accounting.ACTIVE:
+        accounting.declare(
+            KERNELS[kind] + ("/bf16" if w.dtype == torch.bfloat16 else ""),
+            *cost(kind, w.numel(), w.dtype, clients), dot=False)
 
 
 def _check_contiguous(what, *ts):
@@ -34,7 +65,13 @@ def _check_contiguous(what, *ts):
 
 
 def _overlaps(a, b):
-    lo_a, lo_b = a.data_ptr(), b.data_ptr()
+    if a.device.type == "meta":        # no addresses: offsets in a storage
+        if a.untyped_storage()._cdata != b.untyped_storage()._cdata:
+            return False
+        lo_a = a.storage_offset() * a.element_size()
+        lo_b = b.storage_offset() * b.element_size()
+    else:
+        lo_a, lo_b = a.data_ptr(), b.data_ptr()
     return (lo_a < lo_b + b.numel() * b.element_size()
             and lo_b < lo_a + a.numel() * a.element_size())
 
@@ -55,6 +92,9 @@ def sgd_(w: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
                          "memory with the grad")
     if w.device.type == "cpu":
         return ref.sgd_ref(w, g, lr)
+    _declare("sgd", w)
+    if w.device.type == "meta":
+        return w
     _build.launch("sgd_inplace", "sgd_inplace", w.dtype, w.data_ptr(),
                   g.data_ptr(), float(lr), w.numel(), _stream(w))
     return w
@@ -73,6 +113,9 @@ def masked_sgd_(w: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
                          "not share memory with the mask or the grad")
     if w.device.type == "cpu":
         return ref.masked_sgd_ref(w, m, g, lr)
+    _declare("masked_sgd", w)
+    if w.device.type == "meta":
+        return w
     _build.launch("masked_sgd_inplace", "masked_sgd_inplace", w.dtype,
                   w.data_ptr(), m.data_ptr(), g.data_ptr(), float(lr),
                   w.numel(), _stream(w))
@@ -101,6 +144,9 @@ def fillin_agg_(w: torch.Tensor, w_clients: torch.Tensor,
     scale = float(server_lr) / C
     if w.device.type == "cpu":
         return ref.fillin_agg_ref(w, w_clients, m_clients, scale)
+    _declare("fillin", w, C)
+    if w.device.type == "meta":
+        return w
     _build.launch("fillin_agg_inplace", "fillin_agg_inplace", w.dtype,
                   w.data_ptr(), w_clients.data_ptr(),
                   m_clients.data_ptr(), scale, w.numel(), C, w.numel(),

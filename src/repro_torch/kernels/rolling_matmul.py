@@ -36,6 +36,13 @@ alignment: ``wgmma`` fed by TMA where the tensor map takes the operands
 ``mma.sync`` fed by copies that take any alignment; each launch also
 counts under ``"<name>/bf16 <body>"`` in ``_build.BODIES``.  Mixed dtypes
 are refused.
+
+On a ``meta`` tensor (the planning path) each wrapper checks its operands
+as on the card, returns empty outputs of the kernel's shape and dtype and
+reports its launch's :func:`cost` to the active counters
+(``repro_torch.accounting``); it launches nothing and counts no launch.
+On the card it reports the same cost beside the launch, while a counter
+is active.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from repro_torch import accounting
 from repro_torch.device import check_f32_sums
 from repro_torch.kernels import _build, ref
 
@@ -54,6 +62,29 @@ class Offsets(NamedTuple):
 
     host: Tuple[int, ...]
     dev: torch.Tensor
+
+
+def cost(kind, T, C, M, K, win, dtype=torch.float32):
+    """``(flops, hbm_bytes, rate_class)`` of one ``kind`` ("fwd" or "dx")
+    launch over T weights: ``2 * C * M * K * win`` a weight, at the 3xTF32
+    rate (f32) or the dense bf16 rate (bf16); x or dx ``[C, M, K]``, the T
+    weight windows ``[C, K, win]`` and the T ys or dys ``[C, M, win]``,
+    each moved once (the same count in both directions)."""
+    esize = dtype.itemsize
+    flops = 2 * C * M * K * win * T
+    nbytes = esize * (C * M * K + T * C * K * win + T * C * M * win)
+    return flops, nbytes, ("bfloat16" if dtype == torch.bfloat16
+                           else "tf32x3")
+
+
+def _declare(kind, name, T, C, M, K, win, dtype):
+    """The launch's cost, under its launch-count name (``/bf16`` for the
+    bf16 arm, as ``_build.launch`` counts it), where a counter is
+    active."""
+    if not accounting.ACTIVE:
+        return
+    accounting.declare(name + ("/bf16" if dtype == torch.bfloat16 else ""),
+                  *cost(kind, T, C, M, K, win, dtype))
 
 
 def make_offsets(host: Sequence[int], device) -> Offsets:
@@ -114,16 +145,21 @@ def rolling_mm_fwd(x, ws, offsets: Offsets, win, name=None):
         raise ValueError(f"x has {x.shape[2]} columns, weights {K} rows")
     if x.device.type == "cpu":
         return ref.rolling_matmul_batched_ref(x, ws, offsets.host, win)
-    _build.make_current(x.device)
     T = len(ws)
+    name = name or f"rolling_mm_fwd<{T}>"
+    meta = x.device.type == "meta"
+    if not meta:
+        _build.make_current(x.device)
+    _declare("fwd", name, T, C, M, K, win, x.dtype)
     ys = tuple(torch.empty((C, M, win), dtype=x.dtype, device=x.device)
                for _ in range(T))
+    if meta:
+        return ys
     wp = [w.data_ptr() for w in ws] + [0] * (2 - T)
     yp = [y.data_ptr() for y in ys] + [0] * (2 - T)
-    _build.launch("rolling_mm_fwd", name or f"rolling_mm_fwd<{T}>",
-                  x.dtype, T, x.data_ptr(), wp[0], wp[1], yp[0], yp[1],
-                  offsets.dev.data_ptr(), C, M, K, N, win, w_bs, ldw,
-                  torch.cuda.current_stream(x.device).cuda_stream,
+    _build.launch("rolling_mm_fwd", name, x.dtype, T, x.data_ptr(), wp[0],
+                  wp[1], yp[0], yp[1], offsets.dev.data_ptr(), C, M, K, N,
+                  win, w_bs, ldw, torch.cuda.current_stream(x.device).cuda_stream,
                   *_bf16_args(x.dtype, offsets))
     return ys
 
@@ -143,15 +179,20 @@ def rolling_mm_dx(dys, ws, offsets: Offsets, win, name=None):
                          f"{[tuple(d.shape) for d in dys]}")
     if dy0.device.type == "cpu":
         return ref.rolling_matmul_batched_dx_ref(dys, ws, offsets.host, win)
-    _build.make_current(dy0.device)
     T = len(ws)
+    name = name or f"rolling_mm_dx<{T}>"
+    meta = dy0.device.type == "meta"
+    if not meta:
+        _build.make_current(dy0.device)
+    _declare("dx", name, T, C, M, K, win, dy0.dtype)
     dx = torch.empty((C, M, K), dtype=dy0.dtype, device=dy0.device)
+    if meta:
+        return dx
     wp = [w.data_ptr() for w in ws] + [0] * (2 - T)
     dp = [d.data_ptr() for d in dys] + [0] * (2 - T)
-    _build.launch("rolling_mm_dx", name or f"rolling_mm_dx<{T}>",
-                  dy0.dtype, T, dp[0], dp[1], wp[0], wp[1], dx.data_ptr(),
-                  offsets.dev.data_ptr(), C, M, K, N, win, w_bs, ldw,
-                  torch.cuda.current_stream(dy0.device).cuda_stream,
+    _build.launch("rolling_mm_dx", name, dy0.dtype, T, dp[0], dp[1], wp[0],
+                  wp[1], dx.data_ptr(), offsets.dev.data_ptr(), C, M, K, N,
+                  win, w_bs, ldw, torch.cuda.current_stream(dy0.device).cuda_stream,
                   *_bf16_args(dy0.dtype, offsets))
     return dx
 

@@ -29,11 +29,18 @@ beta 1).
 :func:`ssd_chunk_scan` is the kernel plus the inter-chunk recurrence in
 plain torch (a loop over chunks, as the reference's ``lax.scan``), with the
 contract of ``repro.models.ssm.ssd_chunked``.
+
+On ``meta`` tensors (the planning path) :func:`ssd_chunk_intra` checks its
+operands as on the card, returns empty outputs and reports its launch's
+:func:`cost` to the active counters (``repro_torch.accounting``); on the
+card it reports the same cost beside the launch, while a counter is
+active.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import accounting
 from repro_torch.kernels import _build, ref
 
 #: head dims the CUDA kernel is built for (its tiles are compile-time)
@@ -42,6 +49,28 @@ HEAD_DIMS = (16, 32, 64, 128)
 MAX_Q, MAX_N = 256, 128
 #: the profiler range around the inter-chunk loop (its launches and time)
 RECURRENCE = "ssd_chunk_scan.recurrence"
+
+
+def cost(Bt, nc, Q, nh, hd, N, dtype=torch.float32):
+    """``(flops, hbm_bytes, rate_class)`` of one launch over ``nh`` heads
+    (the head window): per (batch, chunk) ``C B^T`` over the chunk's
+    causal pairs once (it does not depend on the head), and per head ``M
+    x`` over the same pairs and the chunk-exit state, 2 FLOPs a
+    multiply-add.  f32: all in 3xTF32 (``tf32x3``); bf16: ``C B^T`` in one
+    bf16 pass and ``M x`` and the state in two (their f32 weights' two
+    bf16 parts), at the dense bf16 rate.  x and y ``[Bt, nc, Q, nh, hd]``,
+    dt, B and C in the operands' dtype, A and the states float32, each
+    moved once."""
+    pairs = Q * (Q + 1) // 2
+    f_cb = Bt * nc * 2 * pairs * N
+    f_rest = Bt * nc * nh * (2 * pairs * hd + 2 * Q * hd * N)
+    esize = dtype.itemsize
+    nbytes = (esize * (2 * Bt * nc * Q * nh * hd + Bt * nc * Q * nh
+                       + 2 * Bt * nc * Q * N)
+              + 4 * (nh + Bt * nc * nh * hd * N))
+    if dtype == torch.bfloat16:
+        return f_cb + 2 * f_rest, nbytes, "bfloat16"
+    return f_cb + f_rest, nbytes, "tf32x3"
 
 
 def _check(x, dt, A, B, C, head_offset, head_win):
@@ -97,9 +126,16 @@ def ssd_chunk_intra(x, dt, A, B, C, *, head_offset=None, head_win=0):
         raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
                          f"chunks of at most {MAX_Q} and d_state of at most "
                          f"{MAX_N}; got {hd}, {Q}, {N}")
+    if accounting.ACTIVE:
+        accounting.declare(
+            "ssd_chunk_intra" + ("/bf16" if x.dtype == torch.bfloat16
+                                 else ""),
+            *cost(Bt, nc, Q, win, hd, N, x.dtype))
     y = torch.empty((Bt, nc, Q, win, hd), dtype=x.dtype, device=x.device)
     states = torch.empty((Bt, nc, win, hd, N), dtype=torch.float32,
                          device=x.device)
+    if x.device.type == "meta":
+        return y, states
     strides = ([x.stride(i) for i in range(4)] + list(dt.stride())
                + [B.stride(i) for i in range(3)]
                + [C.stride(i) for i in range(3)])

@@ -131,8 +131,11 @@ def _dispatch(idx, E, cap):
     order = torch.argsort(flat_e, dim=1, stable=True)
     se = torch.gather(flat_e, 1, order)
     lanes = torch.arange(C, device=dev)[:, None] * E
-    counts = torch.bincount((se + lanes).reshape(-1),
-                            minlength=C * E).view(C, E)
+    if dev.type == "meta":     # a plan: bincount has no meta kernel
+        counts = torch.zeros((C, E), dtype=torch.long, device=dev)
+    else:
+        counts = torch.bincount((se + lanes).reshape(-1),
+                                minlength=C * E).view(C, E)
     starts = torch.cumsum(counts, 1) - counts
     rank = torch.arange(n, device=dev) - torch.gather(starts, 1, se)
     keep = rank < cap

@@ -8,6 +8,13 @@ two collectives here, :func:`all_gather` (a ``[n, ...]`` tensor into
 ``[n * S, ...]`` in rank order along the axis) and :func:`all_reduce_sum`,
 both on the axis's process groups.
 
+Each collective reports the bytes one rank moves by the ring model
+(``accounting.ring_bytes``) to the active counters
+(``repro_torch.accounting``).
+On ``meta`` tensors (a dry-run plan, no process group) it returns the
+collective's output shape and reports the same bytes; the mesh is then any
+object with ``axis_names`` and ``shape`` (``launch.dryrun``'s plan mesh).
+
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (named axes,
 ``launch/mesh.py`` makes them), or for the pure functions any object with
 ``axis_names`` and a ``shape`` mapping each name to its size, as a JAX
@@ -20,6 +27,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch import accounting
 
 
 def axis_names(mesh) -> Tuple[str, ...]:
@@ -85,30 +94,45 @@ def axis_index(mesh, name) -> int:
     return idx
 
 
+def _report(kind, t, out_numel, group):
+    if accounting.ACTIVE:
+        nb = t.element_size()
+        accounting.collective(kind, accounting.ring_bytes(
+            kind, t.numel() * nb, out_numel * nb, group))
+
+
 def all_gather(mesh, name, t: torch.Tensor) -> torch.Tensor:
     """Every rank's ``t`` (``[n, ...]``, the same shape on each) along axis
     ``name``, concatenated on dim 0 in the order of the ranks' coordinates
     (``[n * S, ...]``): pure data movement.  A tuple axis gathers over its
     last axis first, so the result is ordered first axis major."""
+    shape = mesh_shape(mesh)
     for a in reversed(_flat(name)):
-        group = mesh.get_group(a)
-        n = dist.get_world_size(group)
+        n = shape[a]
         out = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype,
                           device=t.device)
-        dist.all_gather(list(out.chunk(n)), t.contiguous(), group=group)
+        _report("all-gather", t, out.numel(), n)
+        if t.device.type != "meta":
+            dist.all_gather(list(out.chunk(n)), t.contiguous(),
+                            group=mesh.get_group(a))
         t = out
     return t
 
 
 def all_reduce_sum(mesh, name, t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over axis ``name``, in place; returns ``t``."""
+    return _all_reduce(mesh, name, t, dist.ReduceOp.SUM)
+
+
+def _all_reduce(mesh, name, t, op):
+    shape = mesh_shape(mesh)
     for a in reversed(_flat(name)):
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.get_group(a))
+        _report("all-reduce", t, t.numel(), shape[a])
+        if t.device.type != "meta":
+            dist.all_reduce(t, op=op, group=mesh.get_group(a))
     return t
 
 
 def all_reduce_max(mesh, name, t: torch.Tensor) -> torch.Tensor:
     """``t``'s elementwise maximum over axis ``name``, in place."""
-    for a in reversed(_flat(name)):
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
-    return t
+    return _all_reduce(mesh, name, t, dist.ReduceOp.MAX)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""``chip_smoke.Trace`` against torch's own profiler event list on one
-profile: six linear layers, half of them inside a ``record_function``
+"""``analysis.trace.Trace`` (the reader ``chip_smoke.py`` uses) against
+torch's own profiler event list on one profile: six linear layers, half of them inside a ``record_function``
 range, forward and backward, 40 times.  Compares every kernel name's count
 and device ms (``key_averages()``), the range's forward and backward
 kernels by group (``events()`` and its ``cpu_children`` trees, as
@@ -20,8 +20,11 @@ from pathlib import Path
 
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke  # noqa: E402
+from repro_torch.analysis.trace import Trace, kernel_group  # noqa: E402
 
 RANGE = "blk"
 
@@ -44,7 +47,7 @@ def by_event_list(prof, name):
         out = {}
         for e in events:
             for k in e.kernels:
-                g = chip_smoke._kernel_group(k.name)
+                g = kernel_group(k.name)
                 out[g] = out.get(g, 0.0) + k.duration / 1e3
         return out
     calls = [e for e in events if e.name == name]
@@ -61,8 +64,8 @@ def by_event_list(prof, name):
 
 
 def by_trace(prof, name):
-    """The same readings through ``chip_smoke.Trace``."""
-    trace = chip_smoke.Trace(prof)
+    """The same readings through ``Trace``."""
+    trace = Trace(prof)
     kern, _ = trace.device(skip=(name,))
     calls, parts = chip_smoke.range_kernels(trace, name)
     fwd = [o for r in trace.roots(lambda n, _: n == name)
