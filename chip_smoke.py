@@ -352,6 +352,7 @@ result.
 """
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -1319,7 +1320,7 @@ def phase_small_agreement(dev):
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     cfg = get_reduced_config("tinyllama_1_1b")
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     scfg = scfg_for("rolling")
     p_cpu = model.init(0, device="cpu")
     p_gpu = {k: v.to(dev, copy=True) for k, v in p_cpu.items()}
@@ -1378,7 +1379,7 @@ def phase_small_agreement_mask(dev):
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     cfg = get_reduced_config("tinyllama_1_1b")
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     cpu = torch.device("cpu")
     batch = next(lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0))
     for scheme, caps in (("bernoulli", [0.5] * 4), ("rolling", HETERO)):
@@ -1417,7 +1418,7 @@ def phase_small_agreement_ssm(dev):
     from repro_torch.launch.specs import sample_prompts
     from repro_torch.models import build_model
     cfg = get_reduced_config("mamba2_130m")
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     p_cpu = model.init(0, device="cpu")
     p_gpu = {k: v.to(dev, copy=True) for k, v in p_cpu.items()}
     prompts = torch.as_tensor(sample_prompts(cfg, 2, 64, seed=0)[0],
@@ -1514,7 +1515,7 @@ def full_width(dev, param_dtype=torch.float32):
     from repro_torch.models import build_model
     cfg = get_config("tinyllama_1_1b")
     batches = lm_batches(cfg.vocab, (2, 4, 2), seq=256)
-    return cfg, build_model(cfg, param_dtype=param_dtype), [
+    return cfg, build_model(cfg, param_dtype=param_dtype, remat=False), [
         next(batches) for _ in range(3)]
 
 
@@ -1546,7 +1547,7 @@ def phase_eval(dev, trainer, _build):
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     cfg = get_config("tinyllama_1_1b")
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     params, fed = trainer.params, trainer.fed
     tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (EB,), ES, seed=999))
                              ["tokens"], dtype=torch.long).to(dev)
@@ -1666,7 +1667,7 @@ def phase_trainer_eval(trainer, data):
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     cfg = get_config("tinyllama_1_1b")
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     dev = trainer.fed.device
     batch = {"tokens": torch.as_tensor(
         next(lm_batches(cfg.vocab, (EB,), ES, seed=999))["tokens"],
@@ -1753,7 +1754,8 @@ TF_LAYERS = 4
 def tf_model(cfg, dev):
     """``cfg`` at TF_LAYERS layers, built and initialised from seed 0."""
     from repro_torch.models import build_model
-    model = build_model(dataclasses.replace(cfg, n_layers=TF_LAYERS))
+    model = build_model(dataclasses.replace(cfg, n_layers=TF_LAYERS),
+                        remat=False)
     return model, model.init(seed=0, device=dev)
 
 
@@ -1800,7 +1802,7 @@ def phase_serve_ssm(dev, _build):
     from repro_torch.launch.specs import sample_prompts
     from repro_torch.models import build_model
     cfg = get_config("mamba2_130m")
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     params = model.init(seed=0, device=dev)
     t0 = time.perf_counter()
     prompts = torch.as_tensor(sample_prompts(cfg, SB, SS, seed=0)[0],
@@ -2007,7 +2009,7 @@ def phase_serve_dense(dev, _build):
     from repro_torch.launch.specs import sample_prompts
     from repro_torch.models import build_model
     cfg = get_config("tinyllama_1_1b")
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     params = model.init(seed=0, device=dev)
     seq = torch.as_tensor(sample_prompts(cfg, DB, DS + DT, seed=0)[0],
                           dtype=torch.long).to(dev)
@@ -2060,7 +2062,7 @@ def phase_small_agreement_extract(dev):
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     cfg = get_reduced_config("tinyllama_1_1b")
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     batch = next(lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0))
     for scheme, ff in (("rolling", "off"), ("full", "auto")):
         p_cpu = model.init(0, device="cpu")
@@ -2361,7 +2363,7 @@ def phase_small_agreement_opt(dev):
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     cfg = get_reduced_config("tinyllama_1_1b")
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     batch = next(lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0))
     p0 = model.init(0, device="cpu")
     stag, roll = dict(stagger=True), {}
@@ -2535,17 +2537,20 @@ def phase_train_cli():
               f"{what}); finite losses")
 
 
-MASK_OPT_LAYERS = 11      # client momentum at 11 of 22 layers: see PERF.md
+#: client momentum with server Adam at 11 of 22 layers: its whole-depth
+#: plan does not fit one card even with remat (PERF.md)
+MASK_OPT_LAYERS = 11
 
 
 def phase_mask_opt_path(dev, _build):
     """The mask round with the optimizers: (a) full width, server Adam on
     the masked mean delta (``round_with_server_opt``), client SGD, 3
-    rounds; client momentum does not fit beside it at full width, so (b)
-    client momentum on the plain round (the masked steps, then the
-    fill-in) and (c) client momentum with server Adam run at
-    ``MASK_OPT_LAYERS`` layers, 2 rounds each.  Returns the launches of
-    all three."""
+    rounds; (b) client momentum on the plain round (the masked steps, then
+    the fill-in) at all 22 layers with remat on (``Model.remat``: without
+    it the round does not fit), 2 rounds; (c) client momentum with server
+    Adam, whose Adam state does not fit beside (b)'s round even with
+    remat, at ``MASK_OPT_LAYERS`` layers, remat off, 2 rounds.  Returns
+    the launches of all three."""
     import collections
 
     from repro_torch import api
@@ -2553,13 +2558,11 @@ def phase_mask_opt_path(dev, _build):
     cfg, model, data = full_width(dev)
     total = collections.Counter()
     parts = [("mask opt", model, dict(server_opt="adam"), data),
-             (f"mask opt {MASK_OPT_LAYERS}L momentum",
-              build_model(dataclasses.replace(cfg,
-                                              n_layers=MASK_OPT_LAYERS)),
+             ("mask opt momentum", build_model(cfg, remat=True),
               dict(client_opt="momentum"), data[:2]),
              (f"mask opt {MASK_OPT_LAYERS}L momentum+adam",
-              build_model(dataclasses.replace(cfg,
-                                              n_layers=MASK_OPT_LAYERS)),
+              build_model(dataclasses.replace(cfg, n_layers=MASK_OPT_LAYERS),
+                          remat=False),
               dict(client_opt="momentum", server_opt="adam"), data[:2])]
     for tag, m, kw, part in parts:
         params = m.init(seed=0, device=dev)
@@ -2567,7 +2570,7 @@ def phase_mask_opt_path(dev, _build):
         check(isinstance(fed, api.MaskFedAvg), f"{tag}: not the mask round")
         trainer = api.Trainer(fed, params, rng=0)
         print(f"[{tag}] {m.cfg.n_layers} layers, {len(params)} leaves, "
-              f"{kw}")
+              f"remat {m.remat}, {kw}")
         launches, _ = run_rounds(tag, trainer, part, _build)
         leaves, n = len(params), len(part)
         want = {"masked_sgd_inplace": 2 * leaves * n,
@@ -2581,7 +2584,162 @@ def phase_mask_opt_path(dev, _build):
     return dict(total)
 
 
-# -- this slice: heterogeneous capacities and the asynchronous fleet -----------
+# -- rematerialisation (Model.remat) --------------------------------------------
+
+#: (b): one rank's share of TinyLlama-1.1B's ``train_4k`` round
+#: (``make_plan(..., "train_4k", world=16)``: one client of 16, K = 2 steps
+#: of 16 x 4096 tokens), planned and run with remat on
+TRAIN_4K_SEQ, TRAIN_4K_SEQS = 4096, 16
+REMAT_PEAK_RATIO = (0.97, 1.01)   # (b): planned peak over the card's reading
+REMAT_GAP = 1e-6                  # (a): remat on vs off, of the largest change
+
+
+def train_4k_scfg():
+    """``train_4k``'s production sub-model plan (``submodel_config``:
+    rolling 0.5, ``align=128``, K = 2) for one client: a rank's share."""
+    from repro_torch.launch import specs
+    return dataclasses.replace(specs.submodel_config("tinyllama_1_1b", False),
+                               clients_per_round=1)
+
+
+def _remat_launches(cfg, leaves, n, remat):
+    """The window round's rows 5-8 and 10 over n rounds; under remat the
+    backward recomputes each layer's forward, so rows 5 and 7 launch
+    twice."""
+    want = _window_launches(cfg, leaves, n)
+    if remat:
+        for name in ("rolling_mm_fwd<1>", "rolling_mm_fwd<2>"):
+            want[name] *= 2
+    return want
+
+
+def phase_remat(dev, _build, smi):
+    """``Model.remat`` on the card.  (a) The main path's window round at
+    full width with remat off, then on: 2 rounds each from the same params
+    (seed 0), batches and injected offsets; losses and params bit for bit
+    (or, printed, within REMAT_GAP of the largest param change), rows 5
+    and 7 launched twice a layer and step under remat, rows 6, 8 and 10 as
+    without; each arm's peak and round time; the no-W_sub pin on the remat
+    model.  (b) TinyLlama-1.1B at ``train_4k``: one rank's share of the
+    production round (``train_4k_scfg``), remat on, real params from seed
+    0 and ``lm_batches`` data, one round: a finite loss, its peak under 77
+    GiB and within REMAT_PEAK_RATIO of its plan on meta (``plan_count``),
+    its time beside the counted FLOPs, ``model_flops`` and the card's
+    peak rates.  Returns the launches of (a)'s remat arm and of (b)."""
+    from repro_torch import api
+    from repro_torch.analysis.roofline import (PEAK_FLOPS, Roofline,
+                                               model_flops)
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models import build_model
+    cfg, _, data = full_width(dev)
+    data = data[:2]
+    arms, out = {}, {}
+    for remat in (False, True):
+        model = build_model(cfg, remat=remat)
+        params = model.init(seed=0, device=dev)
+        if not remat:
+            p0 = {k: v.to("cpu", copy=True) for k, v in params.items()}
+        fed = api.fed_round(model, scfg_for("rolling"), device=dev)
+        offsets = [fed.scheme.offsets(r, C) for r in range(len(data))]
+        trainer = api.Trainer(fed, params)
+        tag = f"remat {'on' if remat else 'off'}"
+        launches, round_s = run_rounds(tag, trainer, [
+            (b, {"offsets": o}) for b, o in zip(data, offsets)], _build)
+        want = _remat_launches(cfg, len(params), len(data), remat)
+        got = {k: launches.get(k, 0) for k in want}
+        check(got == want, f"[{tag}] launches {got}, expected {want}")
+        print(f"[{tag}] rows 5-8, 10 launches a round "
+              f"{ {k: v // len(data) for k, v in got.items()} } "
+              f"({cfg.n_layers} layers, K = 2); {smi}")
+        arms[remat] = dict(losses=trainer.losses, offsets=offsets,
+                           params={k: v.to("cpu", copy=True)
+                                   for k, v in trainer.params.items()},
+                           peak=PEAKS[tag], round_s=round_s)
+        if remat:
+            out["a"] = launches
+            phase_wsub_pin(dev, model, trainer.params, data[0], offsets[0],
+                           tag="wsub remat")
+        del trainer, params, fed
+        gc.collect()
+        torch.cuda.empty_cache()
+    off, on = arms[False], arms[True]
+    check(off["offsets"] == on["offsets"], "the arms drew other offsets")
+    same = off["losses"] == on["losses"] and all(
+        torch.equal(on["params"][k], v) for k, v in off["params"].items())
+    gap = max((on["params"][k] - v).abs().max().item()
+              for k, v in off["params"].items())
+    moved = max((v - p0[k]).abs().max().item()
+                for k, v in off["params"].items())
+    dl = max(abs(a - b) for a, b in zip(off["losses"], on["losses"]))
+    print(f"[remat] (a) remat on vs off after {len(data)} rounds: "
+          f"{'bit for bit' if same else 'NOT bit for bit'}; max |d loss| "
+          f"{dl:.3g}, max |d param| {gap:.3g}, largest param change "
+          f"{moved:.3g}; peak {off['peak'] / 2**30:.3f} -> "
+          f"{on['peak'] / 2**30:.3f} GiB, seconds per round "
+          f"{off['round_s']:.3f} -> {on['round_s']:.3f}; {smi}")
+    check(same or (gap <= REMAT_GAP * moved and dl <= REMAT_GAP),
+          f"[remat] remat on vs off: loss gap {dl}, param gap {gap} over "
+          f"the largest change {moved} (allowed {REMAT_GAP})")
+    del arms, off, on, p0
+
+    tag = "train_4k"
+    plan, counted, plan_s = plan_count(tag)
+    planned = counted.peak_bytes
+    room = (dryrun.CARD_GIB - dryrun.RESERVE_GIB) * 2 ** 30
+    check(planned <= room, f"[{tag}] planned peak "
+          f"{planned / 2**30:.2f} GiB does not fit one card")
+    shape = INPUT_SHAPES["train_4k"]
+    ranks = specs.submodel_config("tinyllama_1_1b", False).clients_per_round
+    check((TRAIN_4K_SEQ, TRAIN_4K_SEQS) == (
+        shape.seq_len, shape.global_batch // ranks), f"[{tag}] not one "
+        f"rank's share of {shape}: {TRAIN_4K_SEQS} x {TRAIN_4K_SEQ}")
+    scfg = plan.scfg
+    K, _, mb, S = plan.abstract_args[1]["tokens"].shape
+    model = build_model(cfg, remat=True)
+    trainer = api.Trainer(api.fed_round(model, scfg, device=dev),
+                          model.init(seed=0, device=dev))
+    batch = next(lm_batches(cfg.vocab, (K, 1, mb), S, seed=0))
+    windows = {f"{k[0]}/{k[1]}": w
+               for k, w in trainer.fed.scheme.sizes.items()}
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, f32, remat on; one "
+          f"client, K = {K} steps of {mb} x {S} tokens; windows {windows}")
+    launches, round_s = run_rounds(tag, trainer, [batch], _build, clients=1)
+    out["b"] = launches
+    read = PEAKS[tag]
+    want = _remat_launches(cfg, len(trainer.params), 1, True)
+    want = {k: n for k, n in want.items()
+            if k.endswith("<2>") or k == "sgd_inplace"}
+    got = {k: launches.get(k, 0) for k in want}
+    check(got == want, f"[{tag}] launches {got}, expected {want} (d_ff "
+          f"windowed; heads unwindowed at align 128)")
+    ratio = planned / read
+    lo, hi = REMAT_PEAK_RATIO
+    print(f"[{tag}] peak {read / 2**30:.3f} GiB, planned "
+          f"{planned / 2**30:.3f} GiB (planned on meta in {plan_s:.1f} s), "
+          f"ratio {ratio:.4f}; {smi}")
+    check(read <= room and lo <= ratio <= hi,
+          f"[{tag}] peak {read / 2**30:.3f} GiB against the plan's "
+          f"{planned / 2**30:.3f}: ratio {ratio:.4f} outside "
+          f"{REMAT_PEAK_RATIO}")
+    mflops = model_flops(cfg, model.abstract_params(), K * mb * S)
+    rl = Roofline(dict(counted.flops_by_class), counted.bytes, 0.0, chips=1,
+                  model_flops=mflops)
+    by_class = {k: f"{v:.4e}" for k, v in rl.flops_by_class.items()}
+    print(f"[{tag}] one round {round_s:.3f} s: counted FLOPs "
+          f"{rl.flops_per_dev:.4e} ({by_class}), model_flops {mflops:.4e} (useful ratio {rl.useful_ratio:.4f}); "
+          f"the counted FLOPs at the card's peak rates take "
+          f"{rl.t_compute:.3f} s, {rl.t_compute / round_s:.4f} of the "
+          f"round; model_flops at the f32 rate "
+          f"({PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s) "
+          f"{mflops / PEAK_FLOPS['float32'] / round_s:.4f} of it; {smi}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out["a"], out["b"]
+
+
 
 AGREE_CAPS = (1.0, 0.5, 0.5, 0.25)
 FLEET_CLI = ["--arch", "tinyllama_1_1b", "--async-buffer", "2", "--fleet",
@@ -2605,7 +2763,7 @@ def phase_small_agreement_hetero(dev):
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     cfg = get_reduced_config("tinyllama_1_1b")
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     batch = next(lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0))
     p0 = model.init(0, device="cpu")
     for tag, kw in (("hetero, fused buckets", {}),
@@ -3024,7 +3182,7 @@ def _mesh_card_rank(batches):
     rank = dist.get_rank()
     cfg = dataclasses.replace(get_config("tinyllama_1_1b"),
                               n_layers=MESH_LAYERS)
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     p0 = model.init(seed=0, device=dev)
     mesh = host_mesh("2")
     arms = {"gather": (scfg_for("rolling"), "gather", 2),
@@ -3144,7 +3302,7 @@ def phase_small_agreement_slice(dev):
             ("fused", window, {}, {}, 3),
             ("extract", window, {}, dict(fused_forward="off"), 1)])}
     for tag, (arch, runs) in cases.items():
-        model = build_model(get_reduced_config(arch))
+        model = build_model(get_reduced_config(arch), remat=False)
         it = lm_batches(model.cfg.vocab, (2, 4, 2), 64, seed=0)
         data = [next(it) for _ in range(3)]
         p0 = model.init(0, device="cpu")
@@ -3203,7 +3361,7 @@ def phase_slice_rounds(dev, _build, tag, arch, seq, layers=None):
     from repro_torch.models import build_model
     from repro_torch.models.ssm import SSD_CHUNKED
     cfg = zoo_config(arch, layers)
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     it = lm_batches(cfg.vocab, (2, 4, 2), seq=seq)
     data = [next(it) for _ in range(3)]
     scfg = slice_scfg(client_lr=ROUND_LR)
@@ -3337,7 +3495,7 @@ def phase_hybrid_serve(dev, _build):
     from repro_torch.launch.specs import sample_prompts
     from repro_torch.models import build_model
     cfg = zoo_config("hymba_1_5b", HYB_LAYERS)
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     params = model.init(seed=0, device=dev)
     tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (HB,), HS,
                                              seed=999))["tokens"],
@@ -3475,7 +3633,7 @@ def phase_zoo_round(dev, _build, tag, arch, layers, clients, n_fused,
     from repro_torch.models import build_model
     cfg = zoo_config(arch, layers, **(over or {}))
     full = zoo_config(arch)
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     vision = (cfg.vision_patches, cfg.vision_d) if cfg.vision_stub else None
     it = lm_batches(cfg.vocab, (2, clients, 2), seq=ZOO_SEQ,
                     codebooks=cfg.n_codebooks, vision=vision)
@@ -3600,7 +3758,7 @@ def phase_zoo_eval(dev, _build):
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     cfg = zoo_config("deepseek_7b")
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     params = model.init(seed=0, device=dev)
     tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (EB,), ES,
                                              seed=999))["tokens"],
@@ -3700,7 +3858,7 @@ def phase_zoo_eval(dev, _build):
     torch.cuda.empty_cache()
 
     cfg = zoo_config("mixtral_8x22b", MOE_EVAL_LAYERS)
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     params = model.init(seed=0, device=dev)
     tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (MOE_EB,), MOE_ES,
                                              seed=999))["tokens"],
@@ -3901,7 +4059,7 @@ def phase_serve_continuous(dev, _build):
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     cfg = zoo_config("qwen3_14b")
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
@@ -3953,10 +4111,10 @@ def phase_serve_continuous(dev, _build):
     torch.cuda.empty_cache()
 
     cfg = zoo_config("mixtral_8x22b", MOE_EVAL_LAYERS)
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     params = model.init(seed=0, device=dev)
     serve_continuous(tag, model, params, _build)
-    dense = build_model(cfg, moe_path="dense")
+    dense = build_model(cfg, moe_path="dense", remat=False)
     reqs, rec, _ = serve_continuous(tag, dense, params, _build, record=True)
     check_single_requests(tag, dense, params, reqs, rec)
     del model, dense, params, rec
@@ -3988,7 +4146,7 @@ def phase_small_agreement_zoo(dev):
     from repro_torch.models import build_model
     for arch in ("deepseek_7b", "qwen3_14b", "mixtral_8x22b",
                  "deepseek_v3_671b", "musicgen_large", "phi_3_vision_4_2b"):
-        model = build_model(get_reduced_config(arch))
+        model = build_model(get_reduced_config(arch), remat=False)
         cfg = model.cfg
         vision = ((cfg.vision_patches, cfg.vision_d) if cfg.vision_stub
                   else None)
@@ -4151,7 +4309,7 @@ def phase_mla_eval_serve(dev, _build):
     from repro_torch.models import build_model
     tag = "mla eval"
     cfg = zoo_config("deepseek_v3_671b", **MLA_EVAL)
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
@@ -4254,7 +4412,7 @@ def phase_mla_eval_serve(dev, _build):
     prompts = torch.as_tensor(sample_prompts(cfg, MLA_SB, MLA_SS, seed=0)[0],
                               dtype=torch.long).to(dev)
     serve_generate(tag, model, params, prompts, MLA_SG, _build)
-    roomy_model = build_model(roomy(cfg))
+    roomy_model = build_model(roomy(cfg), remat=False)
     check_teacher_forced(tag, roomy_model, params, prompts, MLA_SS - MLA_TF)
     _, _, launches = serve_continuous(tag, roomy_model, params, _build,
                                       n=MLA_REQS, prompts=MLA_PROMPTS)
@@ -4290,7 +4448,7 @@ def phase_family_eval_serve(dev, _build, key, arch):
     from repro_torch.models import build_model
     tag = f"{key} eval"
     cfg = zoo_config(arch)
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     params = model.init(seed=0, device=dev)
     n = sum(v.numel() for v in params.values())
     P = cfg.vision_patches if cfg.vision_stub else 0
@@ -4934,7 +5092,7 @@ def phase_small_agreement_bf16(dev):
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     cfg = get_reduced_config("tinyllama_1_1b")
-    model = build_model(cfg, param_dtype=BF)
+    model = build_model(cfg, param_dtype=BF, remat=False)
     p0 = model.init(0, device="cpu")
     it = lm_batches(cfg.vocab, (2, 4, 2), 64, seed=0)
     batches = [next(it) for _ in range(2)]
@@ -5160,7 +5318,7 @@ def phase_bf16_serve(dev, _build):
     from repro_torch.launch.specs import sample_prompts
     from repro_torch.models import build_model
     cfg = get_config("tinyllama_1_1b")
-    model = build_model(cfg, param_dtype=BF)
+    model = build_model(cfg, param_dtype=BF, remat=False)
     params = model.init(seed=0, device=dev)
     B, S, G = BF16_SERVE_B, BF16_SERVE_S, BF16_SERVE_G
     prompts = torch.as_tensor(sample_prompts(cfg, B, S, seed=0)[0],
@@ -5223,7 +5381,8 @@ def phase_small_agreement_bf16_ssm(dev):
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     for arch, lr in BF16_AGREE_LR.items():
-        model = build_model(get_reduced_config(arch), param_dtype=BF)
+        model = build_model(get_reduced_config(arch), param_dtype=BF,
+                            remat=False)
         p0 = model.init(0, device="cpu")
         it = lm_batches(model.cfg.vocab, (2, 4, 2), 64, seed=0)
         data = [next(it) for _ in range(2)]
@@ -5284,7 +5443,7 @@ def phase_bf16_slice_rounds(dev, _build, tag, arch, seq, layers=None,
     from repro_torch.models.ssm import SSD_CHUNKED
     lr = BF16_SLICE_LR if lr is None else lr
     cfg = zoo_config(arch, layers)
-    model = build_model(cfg, param_dtype=BF)
+    model = build_model(cfg, param_dtype=BF, remat=False)
     it = lm_batches(cfg.vocab, (2, 4, 2), seq=seq)
     data = [next(it) for _ in range(3)]
     scfg = slice_scfg(client_lr=lr)
@@ -5344,7 +5503,7 @@ def phase_bf16_ssm_mask(dev, _build):
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import build_model
     cfg = zoo_config("mamba2_130m")
-    model = build_model(cfg, param_dtype=BF)
+    model = build_model(cfg, param_dtype=BF, remat=False)
     it = lm_batches(cfg.vocab, (2, 4, 2), seq=SSM_SEQ)
     data = [next(it) for _ in range(2)]
     params = model.init(seed=0, device=dev)
@@ -5447,7 +5606,7 @@ def phase_bf16_ssm_eval_serve(dev, _build):
     from repro_torch.launch.specs import sample_prompts
     from repro_torch.models import build_model
     cfg = get_config("mamba2_130m")
-    model = build_model(cfg, param_dtype=BF)
+    model = build_model(cfg, param_dtype=BF, remat=False)
     params = model.init(seed=0, device=dev)
     want = {"ssd_chunk_intra/bf16": cfg.n_layers}
     tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (EB,), ES,
@@ -5490,7 +5649,7 @@ def phase_bf16_hybrid_eval_serve(dev, _build):
     from repro_torch.launch.specs import sample_prompts
     from repro_torch.models import build_model
     cfg = zoo_config("hymba_1_5b", HYB_LAYERS)
-    model = build_model(cfg, param_dtype=BF)
+    model = build_model(cfg, param_dtype=BF, remat=False)
     params = model.init(seed=0, device=dev)
     tokens = torch.as_tensor(next(lm_batches(cfg.vocab, (HB,), HS,
                                              seed=999))["tokens"],
@@ -5582,7 +5741,8 @@ def phase_small_agreement_bf16_zoo(dev, _build):
     tag = "agree bf16 zoo"
     for arch in ("mixtral_8x22b", "deepseek_v3_671b", "musicgen_large",
                  "phi_3_vision_4_2b"):
-        model = build_model(roomy(get_reduced_config(arch)), param_dtype=BF)
+        model = build_model(roomy(get_reduced_config(arch)), param_dtype=BF,
+                            remat=False)
         cfg = model.cfg
         vision = ((cfg.vision_patches, cfg.vision_d) if cfg.vision_stub
                   else None)
@@ -5611,7 +5771,7 @@ def phase_small_agreement_bf16_zoo(dev, _build):
         print(f"[{tag}] reduced {arch}, 2 fused rounds card vs CPU (client "
               f"lr {BF16_ZOO_AGREE_LR}): {said}")
     model = build_model(roomy(get_reduced_config("deepseek_v3_671b")),
-                        param_dtype=BF)
+                        param_dtype=BF, remat=False)
     params = model.init(0, device=dev)
     reqs = request_queue(model.cfg, (5, 9, 7, 12, 3), max_new=4)
     rec = _Recorder(model)
@@ -5651,7 +5811,7 @@ def phase_bf16_zoo_round(dev, _build, tag, arch, layers, clients, n_fused,
     from repro_torch.models import build_model
     cfg = zoo_config(arch, layers, **over)
     full = zoo_config(arch)
-    model = build_model(cfg, param_dtype=BF)
+    model = build_model(cfg, param_dtype=BF, remat=False)
     vision = (cfg.vision_patches, cfg.vision_d) if cfg.vision_stub else None
     it = lm_batches(cfg.vocab, (2, clients, 2), seq=ZOO_SEQ,
                     codebooks=cfg.n_codebooks, vision=vision)
@@ -5736,7 +5896,7 @@ def phase_bf16_mla_eval_serve(dev, _build):
     from repro_torch.models import build_model
     tag = "bf16 mla eval"
     cfg = zoo_config("deepseek_v3_671b", **BF16_MLA_EVAL)
-    model = build_model(cfg, param_dtype=BF)
+    model = build_model(cfg, param_dtype=BF, remat=False)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
@@ -5822,7 +5982,8 @@ def phase_bf16_mla_eval_serve(dev, _build):
     del cache
     s_launches, _ = _bf16_generate(tag, model, params, prompts, MLA_SG,
                                    _build, {})
-    full_bf16_teacher_forced(tag, build_model(roomy(cfg), param_dtype=BF),
+    full_bf16_teacher_forced(tag, build_model(roomy(cfg), param_dtype=BF,
+                                              remat=False),
                              params, prompts, MLA_SS - MLA_TF)
     del model, params, batch, prompts
     gc.collect()
@@ -5870,7 +6031,7 @@ def phase_bf16_family_eval(dev, _build, key, arch):
     from repro_torch.models import build_model
     tag = f"bf16 {key} eval"
     cfg = zoo_config(arch)
-    model = build_model(cfg, param_dtype=BF)
+    model = build_model(cfg, param_dtype=BF, remat=False)
     params = model.init(seed=0, device=dev)
     n = sum(v.numel() for v in params.values())
     P = cfg.vision_patches if cfg.vision_stub else 0
@@ -6031,12 +6192,42 @@ def phase_profile(tag, trainer, batch, round_s, ranges=()):
 
 
 # phase_plan (a): each path's configuration planned on meta, by the tag
-# its run_rounds reading is kept under: (tag, arch, seq, scheme, dtype)
-PLANNED = [("main", "tinyllama_1_1b", 256, "rolling", torch.float32),
-           ("bf16 window", "tinyllama_1_1b", 256, "rolling", torch.bfloat16),
-           ("ssm round", "mamba2_130m", SSM_SEQ, "slice", torch.float32),
-           ("mask", "tinyllama_1_1b", 256, "bernoulli", torch.float32)]
+# its run_rounds reading is kept under: (tag, arch, tokens a sequence,
+# sequences a step, scheme, dtype, remat, make_plan keywords)
+PLANNED = [("main", "tinyllama_1_1b", 256, 2 * C, "rolling", torch.float32,
+            False, {}),
+           ("bf16 window", "tinyllama_1_1b", 256, 2 * C, "rolling",
+            torch.bfloat16, False, {}),
+           ("ssm round", "mamba2_130m", SSM_SEQ, 2 * C, "slice",
+            torch.float32, False, {}),
+           ("mask", "tinyllama_1_1b", 256, 2 * C, "bernoulli", torch.float32,
+            False, {}),
+           ("mask opt momentum", "tinyllama_1_1b", 256, 2 * C, "bernoulli",
+            torch.float32, True, {"client_opt": "momentum"}),
+           ("remat on", "tinyllama_1_1b", 256, 2 * C, "rolling",
+            torch.float32, True, {}),
+           ("train_4k", "tinyllama_1_1b", TRAIN_4K_SEQ, TRAIN_4K_SEQS,
+            "train_4k", torch.float32, True, {})]
 PLAN_RATIO = (0.90, 1.10)      # planned peak over the card's reading
+
+
+@functools.lru_cache(maxsize=None)
+def plan_count(tag):
+    """PLANNED path ``tag`` planned on meta (``launch.specs.make_plan``,
+    ``launch.dryrun.count``) at one rank: ``(plan, counter, seconds)``,
+    planned once a run."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, specs
+    _, arch, seq, seqs, scheme, dtype, remat, kw = next(
+        p for p in PLANNED if p[0] == tag)
+    scfg = (slice_scfg(client_lr=ROUND_LR) if scheme == "slice"
+            else train_4k_scfg() if scheme == "train_4k"
+            else scfg_for(scheme))
+    t0 = time.perf_counter()
+    plan = specs.make_plan(arch, ShapeConfig(tag, seq, seqs, "train"),
+                           world=1, cfg=zoo_config(arch), scfg=scfg,
+                           param_dtype=dtype, remat=remat, **kw)
+    return plan, dryrun.count(plan), time.perf_counter() - t0
 
 
 def phase_plan(dev, smi, peaks):
@@ -6053,27 +6244,19 @@ def phase_plan(dev, smi, peaks):
     profile raises otherwise).  Every line carries the card's name and
     power limit."""
     from repro_torch.analysis import round_profile
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch import dryrun, specs
     lo, hi = PLAN_RATIO
-    for tag, arch, seq, scheme, dtype in PLANNED:
+    for tag, *_ in PLANNED:
         if tag not in peaks:
             print(f"[plan] {tag}: its path did not run; not compared")
             continue
-        scfg = (slice_scfg(client_lr=ROUND_LR) if scheme == "slice"
-                else scfg_for(scheme))
-        t0 = time.perf_counter()
-        plan = specs.make_plan(arch, ShapeConfig(tag, seq, 2 * C, "train"),
-                               world=1, cfg=zoo_config(arch), scfg=scfg,
-                               param_dtype=dtype)
-        c = dryrun.count(plan)
+        plan, c, secs = plan_count(tag)
         planned, read = c.peak_bytes, peaks[tag]
         ratio = planned / read
-        print(f"[plan] {tag}: planned peak {planned / 2**30:.3f} GiB "
-              f"(arguments {c.argument_bytes / 2**30:.3f}), the card's "
+        print(f"[plan] {tag}: remat {plan.model.remat}, planned peak "
+              f"{planned / 2**30:.3f} GiB (arguments "
+              f"{c.argument_bytes / 2**30:.3f}), the card's "
               f"max_memory_allocated {read / 2**30:.3f} GiB, ratio "
-              f"{ratio:.4f}; planned on meta in "
-              f"{time.perf_counter() - t0:.1f} s; {smi}")
+              f"{ratio:.4f}; planned on meta in {secs:.1f} s; {smi}")
         check(lo <= ratio <= hi, f"[plan] {tag}: planned peak over the "
               f"card's reading {ratio:.4f}, outside {PLAN_RATIO}")
     from repro_torch.configs.base import get_config
@@ -6212,6 +6395,8 @@ def main(argv=()):
     gc.collect()
     torch.cuda.empty_cache()
     mo_launches = phase(phase_mask_opt_path, dev, _build, skip={})
+    ra_launches, rb_launches = phase(phase_remat, dev, _build, smi,
+                                     skip=({}, {}))
     bw_launches, be_launches, bx_launches = phase(
         phase_bf16_window, dev, _build, skip=({}, {}, {}))
     bm_launches = phase(phase_bf16_mask, dev, _build, skip={})
@@ -6303,6 +6488,12 @@ def main(argv=()):
         more[name].update(mesh=mg_launches, mesh_psum=mp_launches,
                           mesh_gloo_rank0=mr0_launches,
                           mesh_gloo_rank1=mr1_launches)
+    # remat (rows 5-8, 10): (a)'s window round with remat on; (b)'s
+    # train_4k round windows d_ff alone (rows 7, 8 and 10)
+    for name in MESH_ROWS:
+        more[name]["remat"] = ra_launches
+    for name in ("rolling_mm_fwd<2>", "rolling_mm_dx<2>", "sgd_inplace"):
+        more[name]["train_4k"] = rb_launches
     # the SSM and hybrid rounds (rows 5-8, 10; the extract rounds row 10
     # alone), the hybrid eval (rows 12, 13) and serving (row 12)
     for name in ("rolling_mm_fwd<1>", "rolling_mm_dx<1>"):

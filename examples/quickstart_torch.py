@@ -24,7 +24,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_reduced_config("tinyllama_1_1b")
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     params = model.init(0, device=args.device)
 
     scfg = SubmodelConfig(scheme="rolling", capacity=0.5, local_steps=2,

@@ -10,7 +10,7 @@ and rendered as a three-term roofline at the H100's rates
 (``analysis.roofline``)::
 
     PYTHONPATH=src python -m repro_torch.analysis.round_profile \
-        [--arch tinyllama_1_1b] [--out experiments/bench_results.json]
+        [--arch tinyllama_1_1b] [--out experiments/bench_results_torch.json]
 
 On ``meta`` (the default) nothing runs: the counterpart of the
 reference's compile-only profile.  On ``cuda`` each phase runs once on
@@ -90,7 +90,7 @@ def profile(arch="tinyllama_1_1b", chips=1, seq=64, device="meta",
     scfg = scfg or SubmodelConfig(scheme="rolling", capacity=0.5,
                                   local_steps=2, clients_per_round=4,
                                   client_lr=0.05)
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)   # the reference profile's
     params = model.init(seed=0, device=dev)
     K, C = scfg.local_steps, scfg.clients_per_round
     if dev.type == "meta":
@@ -182,7 +182,10 @@ def main(argv=None):
     ap.add_argument("--arch", default="tinyllama_1_1b")
     ap.add_argument("--chips", type=int, default=1)
     ap.add_argument("--seq", type=int, default=64)
-    ap.add_argument("--out", default="experiments/bench_results.json")
+    from repro_torch.launch.experiment import RESULTS_PATH
+    ap.add_argument("--out", default=RESULTS_PATH,
+                    help="the JSON file whose round_profile entry this "
+                         "replaces (default: the port's own artifact)")
     args = ap.parse_args(argv)
     results = profile(arch=args.arch, chips=args.chips, seq=args.seq)
     for k, v in sorted(results.items()):

@@ -177,10 +177,11 @@ class SubmodelConfig:
 @dataclass(frozen=True)
 class RunConfig:
     """One dry-run: an architecture, an input shape, the sub-model plan.
-    ``remat`` and ``fsdp`` have no effect in the port: it keeps every
-    activation for the backward (no rematerialisation), and a rank holds
-    whole params (the reference's sharding constraints are no-ops here,
-    ROADMAP.md A12); each dry-run record says so under ``notes``."""
+    ``remat`` builds the model with ``Model.remat`` (each layer recomputed
+    in the backward; ``launch.specs.run_plan``).  ``fsdp`` has no effect
+    in the port: a rank holds whole params (the reference's sharding
+    constraints are no-ops here, ROADMAP.md A12); each dry-run record says
+    so under ``notes``."""
 
     arch: str
     shape: str

@@ -11,7 +11,11 @@ Where the reference lowers and compiles each step on a host mesh of 256
 rank's share of the step eagerly on ``meta`` tensors (nothing is
 allocated, no kernel launches) under ``analysis.cost.Counter``, which
 counts each aten op's FLOPs and bytes, the kernels' declared costs, the
-collectives' ring-model bytes and the peak of live storage.  Without
+collectives' ring-model bytes and the peak of live storage.  Train plans
+rematerialise each layer (``make_plan``'s ``remat=True``, the
+reference's), so their FLOPs hold the recomputed forwards while
+``model_flops`` does not (``useful_ratio`` falls by their share), and
+each record carries ``remat``.  Without
 ``--arch``/``--shape`` it sweeps ``list_archs()`` x ``INPUT_SHAPES``, one
 JSON a pair under ``--out``; it exits 1 with the failures listed.
 ``python -m repro_torch.analysis.report`` renders the tables.
@@ -30,16 +34,14 @@ import torch
 from repro_torch.analysis.cost import Counter
 from repro_torch.analysis.roofline import Roofline, model_flops
 from repro_torch.configs.base import INPUT_SHAPES, list_archs
-from repro_torch.launch.specs import make_plan
+from repro_torch.launch.specs import RUN_DTYPES, make_plan
 
 GIB = 2 ** 30
 #: one H100's 80 GiB, less what the plan cannot see: the CUDA context,
 #: cuBLAS's workspaces and the caching allocator's rounding (the card
 #: reports 79.6 GiB of its nominal 80)
 CARD_GIB, RESERVE_GIB = 80.0, 3.0
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-NOTES = ("remat and fsdp have no effect in the port: it keeps every "
-         "activation for the backward, and a rank holds whole params",
+NOTES = ("fsdp has no effect in the port: a rank holds whole params",
          "planned in the dtype it runs (param_dtype): no f32-to-bf16 byte "
          "scaling",
          "eager PyTorch: each aten op reads its inputs and writes its "
@@ -49,7 +51,9 @@ NOTES = ("remat and fsdp have no effect in the port: it keeps every "
 def step_fn(plan):
     """The step one rank runs for ``plan``, called on
     ``plan.abstract_args``: a train plan steps a fed round with the round's
-    offsets handed in (mask schemes draw their masks on meta), a prefill
+    offsets handed in (mask schemes draw their masks on meta; with a
+    server optimizer, ``round_with_server_opt`` on the state in the
+    arguments), a prefill
     plan prefills to ``seq_len``, a decode plan takes one decode step on
     caches from ``init_cache`` (context-parallel on ``long_500k``)."""
     model, shape = plan.model, plan.shape
@@ -57,13 +61,16 @@ def step_fn(plan):
         from repro_torch import api
         fed = api.fed_round(model, plan.scfg, mesh=plan.mesh,
                             mesh_agg=plan.mesh_agg, device="meta",
-                            client_opt=plan.client_opt)
+                            client_opt=plan.client_opt,
+                            server_opt=plan.server_opt)
 
-        def train_step(params, batch):
-            if not hasattr(fed, "_client_offsets"):     # mask mode
-                return fed.round(params, batch, 0)
-            offsets = fed._client_offsets(0, params)
-            return fed.round(params, batch, 0, offsets=offsets)
+        def train_step(params, *args):
+            kw = ({} if not hasattr(fed, "_client_offsets")     # mask mode
+                  else {"offsets": fed._client_offsets(0, params)})
+            if plan.server_opt is None:
+                return fed.round(params, *args, 0, **kw)
+            state, batch = args
+            return fed.round_with_server_opt(params, state, batch, 0, **kw)
 
         return train_step
     if plan.kind == "prefill":
@@ -119,6 +126,7 @@ def run_one(arch, shape_name, world=None, multi_pod=False, verbose=True,
            "multi_pod": multi_pod, "kind": plan.kind,
            "param_dtype": str(param_dtype).replace("torch.", ""),
            "capacity": plan.scfg.capacity, "scheme": plan.scfg.scheme,
+           "remat": plan.model.remat,
            "clients_per_rank": plan.scfg.clients_per_round // plan.world}
     res.update(rl.row())
     res["collectives"] = dict(c.coll_by_kind)
@@ -178,7 +186,7 @@ def main(argv=None):
                 try:
                     res = run_one(arch, shape, world=args.world,
                                   multi_pod=args.multi_pod,
-                                  param_dtype=DTYPES[dt],
+                                  param_dtype=RUN_DTYPES[dt],
                                   capacity=args.capacity,
                                   scheme=args.scheme)
                     with open(os.path.join(args.out, tag + ".json"),

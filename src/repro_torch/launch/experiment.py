@@ -10,7 +10,9 @@ Ports ``SCHEMES``, ``PARTITIONS``, ``emit``, ``write_results``,
 ``--device`` (default ``cuda``).  One command reproduces the paper's two
 headline claims end to end and merges its records into the ``--out`` JSON
 file (``paper_protocol`` section, the keys of :func:`metric_names`, which
-``docs/experiments.md`` documents):
+``docs/experiments.md`` documents; by default the port's own artifact,
+:data:`RESULTS_PATH`: the reference's ``experiments/bench_results.json``
+belongs to ``benchmarks/run.py``):
 
 * **convergence**: ``scheme in {shuffled, random, static} x partition in
   {iid, dirichlet, label} x capacity mix`` through the paper's §5.1
@@ -40,6 +42,10 @@ import torch
 SCHEMES = ("shuffled", "random", "static")
 PARTITIONS = ("iid", "dirichlet")      # sweep default; "label" also valid
 SECTION = "paper_protocol"
+#: the port's results artifact, beside the reference's
+#: ``experiments/bench_results.json``, which this CLI never writes unless
+#: ``--out`` names it
+RESULTS_PATH = "experiments/bench_results_torch.json"
 
 # paper name used by PaperExperiment (its SCHEME_MAP then resolves the
 # SubmodelConfig scheme: random -> unstructured Bernoulli masks)
@@ -274,7 +280,7 @@ def main(argv=None):
     ap.add_argument("--stability-pairs", type=int, default=1,
                     help="neighboring-dataset pairs per scheme")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default="experiments/bench_results.json")
+    ap.add_argument("--out", default=RESULTS_PATH)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the rounds run (cuda raises without a "
                          "card)")

@@ -116,7 +116,7 @@ def main(argv=None):
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
     model = build_model(cfg, moe_path="dense" if args.reduced
-                        else "dropping")
+                        else "dropping", remat=False)
     params = model.init(args.seed, device=device)
     if args.engine == "continuous":
         return _serve_continuous(model, params, args)

@@ -2,11 +2,12 @@
 
 Ports ``DryrunPlan``, ``TRAIN_CAPACITY``, ``K_LOCAL``, ``data_axes``,
 ``submodel_config``, ``batch_spec``, ``serve_batch`` and ``make_plan``
-(the dry-run contract), and ``sample_prompts`` and ``request_queue`` of
-``repro/launch/specs.py`` (the latter on the port's
-``data.synthetic.BigramLM``, so one seed gives the same prompts in both
-packages), and, for context-parallel decode, :func:`cache_shard`, the
-counterpart of its ``cache_shardings`` under ``cp``.
+(the dry-run contract, with the reference's ``remat=True``), and
+``sample_prompts`` and ``request_queue`` of ``repro/launch/specs.py``
+(the latter on the port's ``data.synthetic.BigramLM``, so one seed gives
+the same prompts in both packages), and, for context-parallel decode,
+:func:`cache_shard`, the counterpart of its ``cache_shardings`` under
+``cp``.  :func:`run_plan` plans one ``RunConfig``.
 
 A plan is built on ``meta``: params from ``Model.init(device="meta")``,
 batches and caches as meta tensors of the reference's layouts and dtypes.
@@ -26,8 +27,9 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (INPUT_SHAPES, ModelConfig, ShapeConfig,
-                                      SubmodelConfig, get_config)
+from repro_torch.configs.base import (INPUT_SHAPES, ModelConfig, RunConfig,
+                                      ShapeConfig, SubmodelConfig,
+                                      get_config)
 from repro_torch.data.synthetic import BigramLM
 from repro_torch.sharding import spmd
 
@@ -111,6 +113,7 @@ class DryrunPlan:
     param_dtype: torch.dtype
     mesh_agg: str = "gather"
     client_opt: Any = None         # the round's client optimizer
+    server_opt: Any = None         # its server optimizer (state in args)
 
 
 # per-arch client capacity for the production fed round (memory-driven)
@@ -213,17 +216,22 @@ def make_plan(arch: str, shape, *, world: Optional[int] = None,
               scheme: str = "rolling", k_local: Optional[int] = None,
               param_dtype=torch.float32, cfg: Optional[ModelConfig] = None,
               scfg: Optional[SubmodelConfig] = None,
-              mesh_agg: str = "gather", client_opt=None) -> DryrunPlan:
+              mesh_agg: str = "gather", client_opt=None, server_opt=None,
+              remat: bool = True) -> DryrunPlan:
     """One rank's share of ``arch`` at input ``shape`` (a name of
     ``INPUT_SHAPES`` or a ``ShapeConfig``) on meta.  ``world`` defaults to
     one client a rank (``submodel_config``'s 16, or 32 with
     ``multi_pod``); ``cfg`` and ``scfg`` replace the architecture's config
     and the production sub-model plan (e.g. a depth cut, the chip smoke's
-    round); ``client_opt`` is ``api.fed_round``'s."""
+    round); ``client_opt`` and ``server_opt`` are ``api.fed_round``'s (a
+    train plan with a server optimizer takes its state as an argument, as
+    a ``Trainer`` holds it from the first round on); ``remat`` the model's
+    (``Model.remat``: a train plan recomputes each layer's forward in the
+    backward), on by default as in the reference."""
     cfg = cfg or get_config(arch)
     shape = INPUT_SHAPES[shape] if isinstance(shape, str) else shape
     from repro_torch.models import build_model
-    model = build_model(cfg, param_dtype=param_dtype)
+    model = build_model(cfg, param_dtype=param_dtype, remat=remat)
     world = int(world or submodel_config(arch, multi_pod).clients_per_round)
     scfg = scfg or submodel_config(arch, multi_pod)
     if capacity is not None:
@@ -240,6 +248,10 @@ def make_plan(arch: str, shape, *, world: Optional[int] = None,
             raise ValueError(f"{scfg.clients_per_round} clients do not split "
                              f"over {world} ranks")
         args = (params, batch_spec(cfg, shape, scfg, multi_pod))
+        if server_opt is not None:
+            from repro_torch import api
+            opt = api._resolve_server_opt(server_opt, scfg)
+            args = (params, opt.init(params), args[1])
         kind = "train"
     elif shape.kind == "prefill" or not cp:
         share = max(shape.global_batch // world, 1)
@@ -262,4 +274,18 @@ def make_plan(arch: str, shape, *, world: Optional[int] = None,
                       scfg=scfg, multi_pod=multi_pod, world=world, mesh=mesh,
                       kind=kind, cp=cp and mesh is not None,
                       abstract_args=args, param_dtype=param_dtype,
-                      mesh_agg=mesh_agg, client_opt=client_opt)
+                      mesh_agg=mesh_agg, client_opt=client_opt,
+                      server_opt=server_opt)
+
+
+#: ``RunConfig.dtype`` -> the params' torch dtype
+RUN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def run_plan(run: RunConfig, **kw) -> DryrunPlan:
+    """:func:`make_plan` of one :class:`RunConfig`: its architecture,
+    shape, sub-model plan, params' dtype, ``remat`` and ``multi_pod``
+    (``fsdp`` has no effect in the port); ``kw`` go to ``make_plan``."""
+    return make_plan(run.arch, run.shape, multi_pod=run.multi_pod,
+                     scfg=run.submodel, param_dtype=RUN_DTYPES[run.dtype],
+                     remat=run.remat, **kw)

@@ -23,7 +23,9 @@ reference's final JSON,
 ``{"first_loss": ..., "last_loss": ...}`` (the async run adds
 ``virtual_time``, ``rounds_per_vsec`` and ``mean_staleness``).  MoE
 layers take the ``dense`` path on reduced configs and ``dropping`` on
-full ones, as in the reference.  Runs on
+full ones, and full-size models rematerialise each layer in training
+(``Model.remat``) where reduced ones keep every activation, as in the
+reference.  Runs on
 the card unless ``--device cpu`` is given.  ``--mesh DATA[xMODEL]``
 splits the clients over the ``data`` axis of a mesh of
 ``torch.distributed`` ranks (``--mesh-agg`` crosses them): under
@@ -175,8 +177,10 @@ def _run(args, device):
     mesh = mesh_lib.host_mesh(args.mesh) if args.mesh else None
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
+    # rematerialise at full size, keep every activation reduced (the
+    # reference's choice)
     model = build_model(cfg, moe_path="dense" if args.reduced
-                        else "dropping")
+                        else "dropping", remat=not args.reduced)
     params = model.init(args.seed, device=device)
     axes_kw = {"axes": tuple(args.axes)} if args.axes else {}
     scfg = SubmodelConfig(scheme=args.scheme, capacity=args.capacity,

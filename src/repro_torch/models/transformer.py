@@ -11,7 +11,14 @@ the MTP term), ``Model.prefill``, ``Model._pad_caches``,
 each stacked layer axis (``_layer_kind``: ``layers``, ``dense_layers``
 then ``moe_layers`` when an MoE model leads with dense layers,
 ``moe_layers``, or ``ssm_layers``) under ``remat``; here the layers are
-separate leaves and a plain Python loop runs them.  An MoE layer's
+separate leaves and a plain Python loop runs them.  ``Model.remat``
+(default True, as the reference's) rematerialises at the reference's
+granularity, one layer: in training with grad enabled each layer runs
+under non-reentrant ``torch.utils.checkpoint``, which keeps the layer's
+input and recomputes the rest of its forward inside the backward.  The
+embedding, the final norm, the head and the MTP block lie outside, as
+outside the reference's scan; under ``torch.no_grad()`` (evaluation,
+prefill, decode) nothing changes.  An MoE layer's
 load-balance loss is summed over the layers into the loss, as the
 reference's scan carries it; ``Model.moe_path`` picks the MoE path
 (``dropping`` or ``dense``, ``models/moe.py``).  The hybrid block
@@ -59,6 +66,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -293,6 +301,9 @@ PARAM_DTYPES = (torch.float32, torch.bfloat16)
 class Model:
     cfg: ModelConfig
     moe_path: str = "dropping"     # MoE layers: "dropping" or "dense"
+    # rematerialise each layer in training (the reference's jax.checkpoint
+    # of the scanned layer): its activations are recomputed in the backward
+    remat: bool = True
     # float32 or bfloat16: the dtype ``init`` draws the params in.
     # Activations follow the embedding's dtype, as in the reference; the
     # products sum in float32 and round once, the loss is taken in float32
@@ -441,7 +452,13 @@ class Model:
              cp=False):
         """Every layer in order; returns ``h``, the load-balance loss
         summed over the layers (``[C]``, zeros without MoE layers) and the
-        new caches (flat, keyed ``{stack}/{i}/{name}``)."""
+        new caches (flat, keyed ``{stack}/{i}/{name}``).  In training with
+        grad enabled and ``remat``, each layer runs under non-reentrant
+        checkpointing (the rounds take their gradients with
+        ``torch.autograd.grad``, which the reentrant form refuses); the
+        layers draw no random numbers, so no RNG state is kept for the
+        recompute."""
+        remat = self.remat and mode == "train" and torch.is_grad_enabled()
         prefixes = self._prefixes()
         layers = _by_layer(params, prefixes)
         layer_caches = (_by_layer(caches, prefixes) if caches is not None
@@ -449,10 +466,15 @@ class Model:
         aux_total = torch.zeros(h.shape[0], device=h.device)
         new = {}
         for pre in prefixes:
-            h, aux, c = block_apply(layers[pre], h, self.cfg, positions,
-                                    window, mode, layer_caches.get(pre), pos,
-                                    valid, rope_pos, one, self.moe_path,
-                                    mesh, cp)
+            args = (layers[pre], h, self.cfg, positions, window, mode,
+                    layer_caches.get(pre), pos, valid, rope_pos, one,
+                    self.moe_path, mesh, cp)
+            if remat:
+                h, aux, c = checkpoint(block_apply, *args,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+            else:
+                h, aux, c = block_apply(*args)
             if aux is not None:
                 aux_total = aux_total + aux
             new.update({f"{pre}/{k}": v for k, v in c.items()})
@@ -602,5 +624,7 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, moe_path: str = "dropping",
-                param_dtype: torch.dtype = torch.float32) -> Model:
-    return Model(cfg, moe_path=moe_path, param_dtype=param_dtype)
+                param_dtype: torch.dtype = torch.float32,
+                remat: bool = True) -> Model:
+    return Model(cfg, moe_path=moe_path, remat=remat,
+                 param_dtype=param_dtype)

@@ -299,7 +299,8 @@ def _reduced():
 
 def _port_client_phase(arm, device="meta"):
     cfg, scfg = _reduced()
-    model = build_model(cfg)
+    # without remat, as the reference profile's model (and round_profile's)
+    model = build_model(cfg, remat=False)
     params = model.init(seed=0, device=device)
     fed = api.fed_round(model, scfg, device=device,
                         fused_forward="on" if arm == "fused" else "off")

@@ -186,5 +186,6 @@ def test_dry_run_records_the_reference_keys(tmp_path):
               "temp_size_in_bytes", "per_device_hbm_gb", "fits", "notes"):
         assert k in res, k
     assert res["tokens"] == 128 and res["world"] == 16
-    assert any("remat and fsdp" in n for n in res["notes"])
+    assert any("fsdp has no effect" in n for n in res["notes"])
+    assert not any("remat" in n for n in res["notes"]) and res["remat"]
     assert np.isfinite(res["step_lb_s"]) and res["fits"]
